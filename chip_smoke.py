@@ -7,9 +7,14 @@ It builds the CUDA kernels from ``cpu_vision_tpu_torch/csrc/``, then:
 1. drives the main paths through the public entry points, each with the
    kernels' launch counts set to 0 just before it and read just after:
    ``ops.canny`` on the synthetic 1080p scene at batch 8 (the headline
-   benchmark's workload), ``ops.kernels.fused_blur_sobel`` on one 512x512
-   image and ``ops.kernels.harris_response_fused`` on 2 MP images at
-   batch 32, and checks their outputs against the op-by-op paths;
+   benchmark's workload), and the same with ``canny_stage1``'s in-tile
+   hysteresis; ``ops.kernels.fused_blur_sobel`` on one 512x512 image;
+   ``ops.kernels.harris_response_fused`` on 2 MP images at batch 32;
+   ``ops.cnn_forward`` at batch 256 on 28x28x1 and 224x224x3 images with
+   channels (32, 64) and 128 hidden units; and the 4-level Laplacian
+   pyramid, antialiased bilinear resize, rotation and fused Gaussian blur
+   of 64 RGB 640x480 images; and checks their outputs against the
+   op-by-op paths and stock PyTorch operators;
 2. holds every kernel against its plain PyTorch twin on the card at those
    shapes and times both with CUDA events;
 3. prints one JSON line of per-kernel results, then, last,
@@ -26,18 +31,26 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 outside the
 # tensor cores.  A card below its 700 W limit runs slower than this bound.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-# Kernel vs twin: class maps must be equal; f32 maps must agree within
-# F32_ATOL + F32_RTOL * |twin| (both run the same f32 operations in the
-# same order without FMA, so the expected difference is 0).
+# Kernel vs twin: class maps must be equal; f32 stencil maps must agree
+# within F32_ATOL + F32_RTOL * |twin| (both run the same f32 operations in
+# the same order without FMA, so the expected difference is 0).  The fused
+# convolution sums over input channels in another order than its twin's
+# matrix products, with FMAs: CONV_ATOL + CONV_RTOL * |twin|.  Logits of the
+# CNN's three conv routes: LOGIT_TOL + LOGIT_TOL * |reference|.
 F32_ATOL, F32_RTOL = 1e-5, 1e-6
+CONV_ATOL, CONV_RTOL = 1e-5, 1e-5
+LOGIT_TOL = 1e-4
 STENCIL = "cpu_vision_tpu_torch/csrc/stencil.cu"
+CONV_BLOCK = "cpu_vision_tpu_torch/csrc/conv_block.cu"
 PALLAS = "cpu_vision_tpu/ops/pallas/stencil.py"
+PALLAS_CONV = "cpu_vision_tpu/ops/pallas/conv_block.py"
 
 
 def scene(h: int, w: int, batch: int) -> np.ndarray:
@@ -79,12 +92,14 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def max_err_f32(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
+def max_err_f32(out: torch.Tensor, ref: torch.Tensor, what: str, atol: float = F32_ATOL,
+                rtol: float = F32_RTOL) -> float:
     require(out.shape == ref.shape and out.dtype == ref.dtype, f"{what}: shape/dtype differ")
     require(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
-    err = (out - ref).abs()
-    require(bool((err <= F32_ATOL + F32_RTOL * ref.abs()).all()), f"{what}: max |err| {float(err.max())}")
-    return float(err.max())
+    err = (out - ref).abs_()
+    worst = float(err.max())
+    require(bool((err <= ref.abs().mul_(rtol).add_(atol)).all()), f"{what}: max |err| {worst}")
+    return worst
 
 
 def exact(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
@@ -99,7 +114,7 @@ def tie_confined(out: torch.Tensor, ref: torch.Tensor) -> float:
     one on an image with tied magnitudes: under 2% of pixels differ, each
     next to a reference edge; returns the mismatch fraction."""
     mismatch = out != ref
-    ref_dil = torch.nn.functional.max_pool2d(ref[None].float(), 3, 1, 1)[0] > 0
+    ref_dil = F.max_pool2d(ref[None].float(), 3, 1, 1)[0] > 0
     require(bool((mismatch <= ref_dil).all()), "canny mismatch away from reference edges")
     frac = float(mismatch.float().mean())
     require(frac < 0.02, f"canny tie mismatch fraction {frac}")
@@ -112,7 +127,7 @@ def main() -> int:
         return 1
     from cpu_vision_tpu_torch import ops
     from cpu_vision_tpu_torch.ops import kernels
-    from cpu_vision_tpu_torch.ops.kernels import _build, stencil
+    from cpu_vision_tpu_torch.ops.kernels import _build, conv_block, stencil
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -166,6 +181,31 @@ def main() -> int:
     canny_ms = time_ms(lambda: ops.canny(x, 0.1, 0.2), iters=20)
     print(f"canny 1080p b8: {canny_ms:.4f} ms/batch, {b * h * w / canny_ms / 1e6:.3f} GPix/s ({card})")
 
+    # -------------------- main path 1b: Canny with the in-tile hysteresis, 1080p b8
+    def passes_to_fixpoint(cls_map):
+        kernels.reset_launch_counts()
+        fixed = kernels.hysteresis_fixpoint(cls_map)
+        return fixed, kernels.launch_counts()["hysteresis_sweeps"]
+
+    kernels.reset_launch_counts()
+    cls_tile = kernels.canny_stage1(maps, 0.1, 0.2, in_tile_hysteresis=True)
+    fixed_tile = kernels.hysteresis_fixpoint(cls_tile)
+    torch.cuda.synchronize()
+    tile_counts = kernels.launch_counts()
+    print(f"canny with in-tile hysteresis main path launches: {tile_counts}")
+    require(tile_counts["canny_stage1_in_tile"] >= 1 and tile_counts["canny_stage1"] == 0,
+            "the option did not go through the in-tile kernel")
+    fixed_base, base_passes = passes_to_fixpoint(kernels.canny_stage1(maps, 0.1, 0.2))
+    exact(fixed_tile, fixed_base, "in-tile hysteresis: global fixpoint on the scene")
+    noise8 = torch.from_numpy(rng.random((b, h, w), dtype=np.float32)).to(dev)
+    noise_tile, noise_tile_passes = passes_to_fixpoint(kernels.canny_stage1(noise8, 0.3, 0.6, in_tile_hysteresis=True))
+    noise_base, noise_base_passes = passes_to_fixpoint(kernels.canny_stage1(noise8, 0.3, 0.6))
+    exact(noise_tile, noise_base, "in-tile hysteresis: global fixpoint on noise")
+    tile_passes = {"scene": (tile_counts["hysteresis_sweeps"], base_passes), "noise": (noise_tile_passes, noise_base_passes)}
+    print("global hysteresis passes with / without the in-tile option: "
+          + ", ".join(f"{k} {v[0]} / {v[1]}" for k, v in tile_passes.items()))
+    del noise_tile, noise_base, fixed_tile, fixed_base
+
     # ------------------------------------ main path 2: blur + Sobel, 512x512
     img512 = rng.random((512, 512), dtype=np.float32)
     kernels.reset_launch_counts()
@@ -194,16 +234,84 @@ def main() -> int:
     print(f"harris 64x96 vs op-by-op: max |err| {err_small:.3e}")
     require(err_small <= 1e-5, "harris vs op-by-op")
 
+    del resp
+
+    # -------------------- main path 4: the small CNN at full width, batch 256
+    require(not torch.backends.cuda.matmul.allow_tf32, "float32 matrix products must not run in TF32")
+    cnn = {}
+    for hw, cin in ((28, 1), (224, 3)):
+        params = ops.cnn_init(torch.Generator().manual_seed(0), (hw, hw), cin, (32, 64), 128, 10)
+        images = rng.random((256, hw, hw, cin), dtype=np.float32)
+        kernels.reset_launch_counts()
+        logits = ops.cnn_forward(params, images)  # numpy in: runs on the card
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        print(f"cnn {hw}x{hw}x{cin} main path launches: {counts}")
+        require(counts["fused_conv3x3_relu_pool"] == 2, "cnn_forward did not launch the fused stage twice")
+        require(logits.device.type == "cuda" and logits.shape == (256, 10) and logits.dtype == torch.float32,
+                "cnn logits shape/dtype/device")
+        xc = torch.from_numpy(images).to(dev)
+        errs = {backend: max_err_f32(logits, ops.cnn_forward(params, xc, backend=backend), f"cnn {hw} vs {backend}",
+                                     LOGIT_TOL, LOGIT_TOL) for backend in ("plain", "stock")}
+        ms = time_ms(lambda: ops.cnn_forward(params, xc), 20)
+        stock_ms = time_ms(lambda: ops.cnn_forward(params, xc, backend="stock"), 20)
+        print(f"cnn {hw}x{hw}x{cin} b256: {ms:.4f} ms/batch, {256 / ms * 1e3:.1f} img/s; stock route "
+              f"{stock_ms:.4f} ms/batch, {256 / stock_ms * 1e3:.1f} img/s; logits max |err| vs plain "
+              f"{errs['plain']:.3e}, vs stock {errs['stock']:.3e} ({card})")
+        cnn[hw] = (params, xc, counts["fused_conv3x3_relu_pool"])
+    del logits, images
+
+    # ----------- main path 5: pyramid + resize + rotate + blur, 64 RGB 640x480
+    batch3 = rng.random((64, 480, 640, 3), dtype=np.float32)
+    kernels.reset_launch_counts()
+    levels = ops.laplacian_pyramid(batch3, 4)  # numpy in: runs on the card
+    small = ops.resize(levels[0], (240, 320), "bilinear", True)
+    rec = ops.reconstruct_from_laplacian(levels)
+    x3 = torch.from_numpy(batch3).to(dev)
+    rot = ops.rotate(x3, 30.0, "bilinear", fill=0)
+    blurred = kernels.fused_gaussian_blur(x3, 5, 1.5)
+    torch.cuda.synchronize()
+    p5_counts = kernels.launch_counts()
+    print(f"pyramid/resize/rotate/blur main path launches: {p5_counts}")
+    require(p5_counts["fused_gaussian_blur"] >= 1, "fused_gaussian_blur did not launch")
+    require([tuple(lv.shape[1:3]) for lv in levels] == [(480, 640), (240, 320), (120, 160), (60, 80)]
+            and all(lv.device.type == "cuda" and bool(torch.isfinite(lv).all()) for lv in levels), "pyramid levels")
+    rec_err = float((rec - x3).abs().max())
+    require(rec.shape == x3.shape and rec_err <= 1e-5, f"Laplacian reconstruction: max |err| {rec_err}")
+    nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
+    nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
+    small_ref = nhwc(F.interpolate(nchw(levels[0]), (240, 320), mode="bilinear", antialias=True))
+    small_err = float((small - small_ref).abs().max())
+    require(small.shape == (64, 240, 320, 3) and small_err <= 1e-4, f"resize vs F.interpolate: max |err| {small_err}")
+    grid = ops.affine_grid(ops.get_rotation_matrix(-30.0), 640, 480, 640, 480).expand(4, -1, -1, -1)
+    masked = torch.cat([x3[:4], torch.ones_like(x3[:4, :, :, :1])], dim=-1)  # fill=0 goes through a warped mask
+    rot_ref = nhwc(F.grid_sample(nchw(masked), grid, mode="bilinear", padding_mode="zeros", align_corners=False))
+    rot_ref = rot_ref[..., :3] * rot_ref[..., 3:]
+    rot_err = float((rot[:4] - rot_ref).abs().max())
+    require(rot.shape == x3.shape and bool(torch.isfinite(rot).all()) and rot_err <= 1e-4,
+            f"rotate vs F.grid_sample: max |err| {rot_err}")
+    blur_err = float((blurred - ops.gaussian_blur(x3, 5, 1.5)).abs().max())
+    require(blurred.shape == x3.shape and blur_err <= 1e-5, f"fused blur vs ops.gaussian_blur: max |err| {blur_err}")
+    print(f"config 3: reconstruction max |err| {rec_err:.3e}, resize vs F.interpolate {small_err:.3e}, "
+          f"rotate vs F.grid_sample {rot_err:.3e}, fused blur vs op-by-op {blur_err:.3e}")
+    del levels, small, small_ref, rec, rot, rot_ref, masked, blurred, grid
+    pyr_ms = time_ms(lambda: ops.resize(ops.laplacian_pyramid(x3, 4)[0], (240, 320), "bilinear", True), 5)
+    rot_ms = time_ms(lambda: ops.rotate(x3, 30.0, "bilinear", fill=0), 5)
+    print(f"config 3, 64x480x640x3: pyramid + resize {pyr_ms:.4f} ms/batch, {64 / pyr_ms * 1e3:.1f} img/s; "
+          f"rotate {rot_ms:.4f} ms/batch ({card})")
+
     # ------------------------------------ each kernel against its plain twin
     rows = []
 
-    def row(name, line, launches, err, ms, plain_ms, nbytes, nops):
+    def row(name, replaces, launches, err, ms, plain_ms, nbytes, nops, library_ms=None, source=STENCIL, **extra):
         b_ms, b_by = bound(nbytes, nops)
-        r = {"name": name, "route": "cuda", "source": STENCIL, "replaces": f"{PALLAS}:{line}",
+        r = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-        print(f"{name}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) "
-              f"library_ms null, max_abs_err {err}, main-path launches {launches}")
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms, **extra}
+        lib = "null" if library_ms is None else f"{library_ms:.4f}"
+        print(f"{name}{' ' + str(extra['shape']) if 'shape' in extra else ''}: kernel_ms {ms:.4f} "
+              f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms {lib}, max_abs_err {err}, "
+              f"main-path launches {launches}")
         return r
 
     px = b * h * w
@@ -213,24 +321,36 @@ def main() -> int:
     sobel_ops = 18 + 4          # gx, gy (4 mul + 5 add each), mag (2 mul, add, sqrt)
     cls = kernels.canny_stage1(maps, 0.1, 0.2)
     err = exact(cls, stencil.canny_stage1_plain(maps, t14, 0.1, 0.2), "canny_stage1")
-    rows.append(row("canny_stage1", 446, canny_counts["canny_stage1"], err,
+    rows.append(row("canny_stage1", f"{PALLAS}:446", canny_counts["canny_stage1"], err,
                     time_ms(lambda: kernels.canny_stage1(maps, 0.1, 0.2), 50),
                     time_ms(lambda: stencil.canny_stage1_plain(maps, t14, 0.1, 0.2), 5),
                     px * (4 + 1), px * (blur_ops + sobel_ops + 15)))
+
+    # the in-tile rounds depend on the data and add integer work only: bytes bound it either way
+    err = exact(cls_tile, stencil.canny_stage1_plain(maps, t14, 0.1, 0.2, in_tile=stencil.IN_TILE),
+                "canny_stage1 with in-tile hysteresis")
+    rows.append(row("canny_stage1_in_tile", f"{PALLAS}:499", tile_counts["canny_stage1_in_tile"], err,
+                    time_ms(lambda: kernels.canny_stage1(maps, 0.1, 0.2, in_tile_hysteresis=True), 50),
+                    time_ms(lambda: stencil.canny_stage1_plain(maps, t14, 0.1, 0.2, in_tile=stencil.IN_TILE), 3),
+                    px * (4 + 1), px * (blur_ops + sobel_ops + 15 + 8),
+                    global_passes_with_without=tile_passes))
+    exact(kernels.canny_stage1(noise8, 0.3, 0.6, in_tile_hysteresis=True),
+          stencil.canny_stage1_plain(noise8, t14, 0.3, 0.6, in_tile=stencil.IN_TILE), "in-tile hysteresis on noise")
+    del cls_tile, noise8
 
     sweeps = stencil.SWEEPS_PER_PASS
     buf = torch.empty_like(cls)
     swept = kernels.hysteresis_sweeps(cls, sweeps)
     err = exact(swept, stencil.hysteresis_sweeps_plain(cls, sweeps), f"hysteresis_sweeps x{sweeps}")
     exact(kernels.hysteresis_fixpoint(cls) == 2, ops.hysteresis(cls == 2, cls >= 1), "hysteresis fixpoint")
-    rows.append(row("hysteresis_sweeps", 404, canny_counts["hysteresis_sweeps"], err,
+    rows.append(row("hysteresis_sweeps", f"{PALLAS}:404", canny_counts["hysteresis_sweeps"], err,
                     time_ms(lambda: kernels.hysteresis_sweeps(cls, sweeps, out=buf), 50),
                     time_ms(lambda: stencil.hysteresis_sweeps_plain(cls, sweeps), 5),
                     px * 2, px * sweeps * 8))
 
     m512 = x512[None]  # (N, H, W) for the twin; the wrapper takes the HW image
     err = max_err_f32(kernels.fused_blur_sobel(x512), stencil.fused_blur_sobel_plain(m512, t15)[0], "blur_sobel 512")
-    rows.append(row("fused_blur_sobel", 377, bs_counts["fused_blur_sobel"], err,
+    rows.append(row("fused_blur_sobel", f"{PALLAS}:377", bs_counts["fused_blur_sobel"], err,
                     time_ms(lambda: kernels.fused_blur_sobel(x512), 200),
                     time_ms(lambda: stencil.fused_blur_sobel_plain(m512, t15), 20),
                     512 * 512 * 8, 512 * 512 * (blur_ops + sobel_ops)))
@@ -245,10 +365,52 @@ def main() -> int:
     hp = hb * h * w
     err = max_err_f32(kernels.harris_response_fused(m32[..., None]), stencil.harris_response_fused_plain(m32, t10, 0.04)[..., None],
                       "harris")
-    rows.append(row("harris_response_fused", 591, hr_counts["harris_response_fused"], err,
+    rows.append(row("harris_response_fused", f"{PALLAS}:591", hr_counts["harris_response_fused"], err,
                     time_ms(lambda: kernels.harris_response_fused(m32[..., None]), 20),
                     time_ms(lambda: stencil.harris_response_fused_plain(m32, t10, 0.04), 3),
                     hp * 8, hp * (sobel_ops - 4 + 3 + 3 * blur_ops + 7)))
+
+    del m32
+
+    # library_ms of the blur and of the conv stage are composites of stock calls
+    # (shifted-slice sums; conv2d + relu + max_pool2d in full f32), not one kernel
+    def blur_at(img, launches, what):
+        m, restore = stencil._as_nhw(img)  # (N*C, H, W) maps for the twin
+        err = max_err_f32(kernels.fused_gaussian_blur(img), restore(stencil.fused_gaussian_blur_plain(m, t15)), what)
+        return row("fused_gaussian_blur", f"{PALLAS}:357", launches, err,
+                   time_ms(lambda: kernels.fused_gaussian_blur(img), 20),
+                   time_ms(lambda: stencil.fused_gaussian_blur_plain(m, t15), 3),
+                   img.numel() * 8, img.numel() * blur_ops,
+                   library_ms=time_ms(lambda: ops.gaussian_blur(img, 5, 1.5), 3), shape=list(img.shape))
+
+    blur_row = blur_at(x3, p5_counts["fused_gaussian_blur"], "gaussian_blur 64x480x640x3")
+    blur_row["other_shapes"] = [blur_at(x, 0, "gaussian_blur 1080p b8")]
+    rows.append(blur_row)
+    del x3
+
+    conv_rows = []
+    for hw in (28, 224):
+        params, xc, launches = cnn[hw]
+        for i in (0, 1):
+            wgt, bias = params[f"conv{i}"]["w"], params[f"conv{i}"]["b"]
+            out = kernels.fused_conv3x3_relu_pool(xc, wgt, bias)
+            err = max_err_f32(out, conv_block.fused_conv3x3_relu_pool_plain(xc, wgt, bias),
+                              f"conv{i} at {hw}", CONV_ATOL, CONV_RTOL)
+            max_err_f32(out, kernels.conv3x3_relu_pool(xc, wgt, bias, "stock"), f"conv{i} at {hw} vs stock",
+                        CONV_ATOL, CONV_RTOL)
+            conv_px = xc.shape[0] * xc.shape[1] * xc.shape[2]
+            conv_rows.append(row(
+                "fused_conv3x3_relu_pool", f"{PALLAS_CONV}:36", launches // 2, err,
+                time_ms(lambda: kernels.fused_conv3x3_relu_pool(xc, wgt, bias), 10),
+                time_ms(lambda: conv_block.fused_conv3x3_relu_pool_plain(xc, wgt, bias), 3),
+                4 * (xc.numel() + wgt.numel() + bias.numel() + out.numel()),
+                conv_px * 2 * 9 * wgt.shape[2] * wgt.shape[3] + 3 * out.numel(),
+                library_ms=time_ms(lambda: kernels.conv3x3_relu_pool(xc, wgt, bias, "stock"), 10),
+                source=CONV_BLOCK, shape=[list(xc.shape), wgt.shape[3]]))
+            xc = out
+    # one entry for the kernel: its heaviest main-path shape, the other three beside it
+    conv_row = dict(conv_rows[-1], launches=cnn[28][2] + cnn[224][2], other_shapes=conv_rows[:-1])
+    rows.append(conv_row)
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

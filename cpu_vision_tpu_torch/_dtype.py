@@ -12,8 +12,9 @@ reference's ``_cast_squeeze_in/_cast_squeeze_out`` protocol bit for bit
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Callable
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
@@ -28,6 +29,7 @@ __all__ = [
     "cast_back",
     "float_kernel",
     "to_dtype",
+    "full_float32",
 ]
 
 # Number of value bits for the integer image dtypes we support.
@@ -145,3 +147,17 @@ def to_dtype(image, dtype, scale: bool = True) -> torch.Tensor:
     if bits_src > bits_dst:
         return (image >> (bits_src - bits_dst)).to(dst)
     return image.to(dst) << (bits_dst - bits_src)
+
+
+@contextlib.contextmanager
+def full_float32() -> Iterator[None]:
+    """Float32 matrix products and convolutions inside run in full float32
+    on the card, whatever the caller's TF32 settings (PyTorch's default lets
+    cuDNN convolutions round to TF32, about three decimal digits)."""
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32

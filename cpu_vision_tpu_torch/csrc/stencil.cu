@@ -1,10 +1,12 @@
 // Halo-tiled fused stencil kernels for Hopper (sm_90a), bound with ctypes.
 //
 // Replaces the Pallas TPU kernels of cpu_vision_tpu/ops/pallas/stencil.py:
-//   cvt_canny_stage1      <- canny_stage1          (stencil.py:446)
+//   cvt_canny_stage1      <- canny_stage1          (stencil.py:446), with its
+//                            in_tile_hysteresis option (stencil.py:499-538)
 //   cvt_hysteresis_sweeps <- hysteresis_sweeps     (stencil.py:404)
 //   cvt_blur_sobel        <- fused_blur_sobel      (stencil.py:377)
 //   cvt_harris            <- harris_response_fused (stencil.py:591)
+//   cvt_gaussian_blur     <- fused_gaussian_blur   (stencil.py:357)
 // and the halo row-band engine they share (_halo_stencil_call, stencil.py:66,
 // and _halo_stencil_call_rowfused, stencil.py:171).
 //
@@ -17,7 +19,7 @@
 // magnitude, structure tensor) never reach device memory: one read of the
 // input and one write of the output per call.
 //
-// Bound.  All four read f32 (or the u8 class map) once and write once, and
+// Bound.  All of them read f32 (or the u8 class map) once and write once, and
 // do a few tens of f32 operations per pixel, well under the H100's
 // 67 TFLOP/s f32 rate against 3.35 TB/s, so device memory bounds them.  The
 // halo windows overlap, so neighbouring blocks re-read up to ~1.6x the tile
@@ -128,6 +130,18 @@ struct CannyDims {
   }
 };
 
+//
+// IN_TILE (the in_tile_hysteresis option): before the tile is written, strong
+// grows through 8-connected weak to a fixpoint inside the block's own
+// TILE_H x TILE_W output tile, confined to real image pixels.  The class map
+// then depends on the tiling; the fixpoint of the global hysteresis that
+// follows does not.  The tile's classes sit in shared memory (in the input
+// window's space, free after the blur) inside a ring of zeros; every thread
+// promotes its weak pixels that touch a strong one, in place, until a whole
+// round changes nothing.  A round may or may not see a neighbour's promotion
+// of the same round: promotions only ever turn 1 into 2, so every order
+// reaches the same fixpoint.
+template <bool IN_TILE>
 __global__ void __launch_bounds__(THREADS)
 canny_stage1_kernel(const float* __restrict__ in, uint8_t* __restrict__ out, int h, int w,
                     Taps taps, int K, float low, float high) {
@@ -158,6 +172,12 @@ canny_stage1_kernel(const float* __restrict__ in, uint8_t* __restrict__ out, int
     s_gy[i] = gy;
     s_mag[i] = sqrtf(gx * gx + gy * gy);
   }
+  // s_in is dead since the blur along W: its space holds the class tile,
+  // zero outside the image and in the ring around the tile
+  constexpr int CLS_W = TILE_W + 2;
+  uint8_t* s_cls = reinterpret_cast<uint8_t*>(s_in);
+  if (IN_TILE)
+    for (int i = threadIdx.x; i < (TILE_H + 2) * CLS_W; i += blockDim.x) s_cls[i] = 0;
   __syncthreads();
   for (int i = threadIdx.x; i < TILE_H * TILE_W; i += blockDim.x) {
     const int r = i / TILE_W, c = i - r * TILE_W;
@@ -175,7 +195,35 @@ canny_stage1_kernel(const float* __restrict__ in, uint8_t* __restrict__ out, int
     const float nb1 = s_mag[ci + dy * d.g_w + dx];
     const float nb2 = s_mag[ci - dy * d.g_w - dx];
     const float sup = (m0 >= nb1 && m0 > nb2) ? m0 : 0.0f;
-    out[blockIdx.z * plane + (size_t)y * w + x] = sup >= high ? 2 : (sup >= low ? 1 : 0);
+    const uint8_t cls = sup >= high ? 2 : (sup >= low ? 1 : 0);
+    if (IN_TILE) {
+      s_cls[(1 + r) * CLS_W + 1 + c] = cls;
+    } else {
+      out[blockIdx.z * plane + (size_t)y * w + x] = cls;
+    }
+  }
+  if (!IN_TILE) return;
+  int changed;
+  do {
+    __syncthreads();
+    changed = 0;
+    for (int i = threadIdx.x; i < TILE_H * TILE_W; i += blockDim.x) {
+      volatile uint8_t* p = s_cls + (1 + i / TILE_W) * CLS_W + 1 + i % TILE_W;
+      if (*p != 1) continue;
+      bool grow = false;
+      for (int dr = -1; dr <= 1; ++dr)
+        for (int dc = -1; dc <= 1; ++dc) grow |= p[dr * CLS_W + dc] == 2;
+      if (grow) {
+        *p = 2;
+        changed = 1;
+      }
+    }
+  } while (__syncthreads_or(changed));
+  for (int i = threadIdx.x; i < TILE_H * TILE_W; i += blockDim.x) {
+    const int r = i / TILE_W, c = i - r * TILE_W;
+    const int y = y0 + r, x = x0 + c;
+    if (y >= h || x >= w) continue;
+    out[blockIdx.z * plane + (size_t)y * w + x] = s_cls[(1 + r) * CLS_W + 1 + c];
   }
 }
 
@@ -319,6 +367,42 @@ harris_kernel(const float* __restrict__ in, float* __restrict__ out, int h, int 
   }
 }
 
+// ------------------------------------------------------ fused_gaussian_blur
+// Separable K-tap blur, taps along W then along H; halo = K/2.
+struct BlurDims {
+  int halo, in_h, in_w;
+  __host__ __device__ explicit BlurDims(int K)
+      : halo(K / 2), in_h(TILE_H + 2 * halo), in_w(TILE_W + 2 * halo) {}
+  __host__ __device__ int floats() const { return in_h * in_w + in_h * TILE_W; }
+};
+
+__global__ void __launch_bounds__(THREADS)
+gaussian_blur_kernel(const float* __restrict__ in, float* __restrict__ out, int h, int w,
+                     Taps taps, int K) {
+  extern __shared__ float smem[];
+  __shared__ float s_k[MAX_TAPS];
+  const BlurDims d(K);
+  float* s_in = smem;
+  float* s_hb = s_in + d.in_h * d.in_w;
+
+  const int y0 = blockIdx.y * TILE_H, x0 = blockIdx.x * TILE_W;
+  const size_t plane = (size_t)h * w;
+  load_taps(taps, s_k);
+  load_window(in + blockIdx.z * plane, h, w, y0 - d.halo, x0 - d.halo, s_in, d.in_h, d.in_w);
+  __syncthreads();
+  blur_along_w(s_in, d.in_w, s_hb, d.in_h, TILE_W, s_k, K);
+  __syncthreads();
+  for (int i = threadIdx.x; i < TILE_H * TILE_W; i += blockDim.x) {
+    const int r = i / TILE_W, c = i - r * TILE_W;
+    const int y = y0 + r, x = x0 + c;
+    if (y >= h || x >= w) continue;
+    const float* q = s_hb + r * TILE_W + c;
+    float acc = q[0] * s_k[0];
+    for (int t = 1; t < K; ++t) acc = acc + q[t * TILE_W] * s_k[t];
+    out[blockIdx.z * plane + (size_t)y * w + x] = acc;
+  }
+}
+
 // ------------------------------------------------------------ host helpers
 Taps make_taps(const float* taps, int K) {
   Taps t = {};
@@ -345,13 +429,25 @@ bool bad_shape(int n, int h, int w) { return n < 1 || n > 65535 || h < 1 || w < 
 extern "C" {
 
 int cvt_canny_stage1(const float* in, uint8_t* out, int n, int h, int w, const float* taps,
-                     int ksize, float low, float high, void* stream) {
+                     int ksize, float low, float high, int in_tile, void* stream) {
   if (bad_shape(n, h, w) || ksize < 1 || ksize > MAX_TAPS) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * CannyDims(ksize).floats();
-  cudaError_t err = prepare(canny_stage1_kernel, smem);
+  auto kernel = in_tile ? canny_stage1_kernel<true> : canny_stage1_kernel<false>;
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  canny_stage1_kernel<<<grid_for(n, h, w, TILE_H, TILE_W), THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid_for(n, h, w, TILE_H, TILE_W), THREADS, smem, (cudaStream_t)stream>>>(
       in, out, h, w, make_taps(taps, ksize), ksize, low, high);
+  return (int)cudaGetLastError();
+}
+
+int cvt_gaussian_blur(const float* in, float* out, int n, int h, int w, const float* taps, int ksize,
+                      void* stream) {
+  if (bad_shape(n, h, w) || ksize < 1 || ksize > MAX_TAPS) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * BlurDims(ksize).floats();
+  cudaError_t err = prepare(gaussian_blur_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  gaussian_blur_kernel<<<grid_for(n, h, w, TILE_H, TILE_W), THREADS, smem, (cudaStream_t)stream>>>(
+      in, out, h, w, make_taps(taps, ksize), ksize);
   return (int)cudaGetLastError();
 }
 

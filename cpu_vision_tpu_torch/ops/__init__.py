@@ -1,7 +1,25 @@
 """Image ops (PyTorch): op-by-op implementations, and the fused CUDA
 kernels in ``ops.kernels``."""
 
-from .color import grayscale_to_rgb, rgb_to_grayscale  # noqa: F401
+from .cnn import cnn_forward, cnn_init, cnn_params_from_numpy  # noqa: F401
+from .color import (  # noqa: F401
+    adjust_brightness,
+    adjust_contrast,
+    adjust_gamma,
+    adjust_hue,
+    adjust_saturation,
+    autocontrast,
+    blend,
+    equalize,
+    grayscale_to_rgb,
+    hsv_to_rgb,
+    invert,
+    normalize,
+    posterize,
+    rgb_to_grayscale,
+    rgb_to_hsv,
+    solarize,
+)
 from .edges import canny, canny_nms, harris, harris_response, hysteresis  # noqa: F401
 from .filters import (  # noqa: F401
     adjust_sharpness,
@@ -19,5 +37,25 @@ from .filters import (  # noqa: F401
     sobel_kernels,
     spatial_gradient,
     unsharp_mask,
+)
+from .pyramid import (  # noqa: F401
+    gaussian_pyramid,
+    laplacian_pyramid,
+    pyr_down,
+    pyr_up,
+    reconstruct_from_laplacian,
+)
+from .resize import rescale, resize, resize_weight_matrix  # noqa: F401
+from .warp import (  # noqa: F401
+    affine,
+    affine_grid,
+    elastic,
+    get_inverse_affine_matrix,
+    get_rotation_matrix,
+    grid_sample,
+    perspective,
+    perspective_grid,
+    rotate,
+    warp_affine,
 )
 from . import kernels  # noqa: F401

@@ -65,22 +65,34 @@ def _as_pair(v) -> Tuple[int, int]:
     return (v, v)
 
 
+def linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
+    """``num`` float32 samples from ``start`` to ``stop`` by ``jnp.linspace``'s
+    formula, each operation rounded on its own (``start·(1-t) + stop·t`` with
+    ``t = i/(num-1)``, the end point appended), which is not always numpy's
+    value: -0.99999988 for the third of 7 samples from -3 to 3.  Equal to
+    ``jnp.linspace`` run op by op; XLA's compiled version fuses some of the
+    products into the sums and can differ in the last bit."""
+    start, stop = np.float32(start), np.float32(stop)
+    div = num - 1
+    if div < 1:
+        return np.full((num,), start, np.float32)
+    t = np.arange(div, dtype=np.float32) / np.float32(div)
+    return np.append(start * (np.float32(1) - t) + stop * t, stop).astype(np.float32)
+
+
 def get_gaussian_kernel1d(kernel_size: int, sigma: float, dtype=torch.float32, device=None) -> torch.Tensor:
     """Normalised 1-D Gaussian taps at integer offsets (reference
     ``_get_gaussian_kernel1d``, ``_functional_tensor.py:727-734``).
 
     Built on the host in float32 the way the JAX package builds them: the
-    offsets as ``jnp.linspace`` computes them (``start·(1-t) + stop·t``,
-    which is not always numpy's value: -0.99999988 for the third tap of 7),
-    then exp, a sequential sum and the division.  Bitwise equal to the JAX
+    offsets as ``jnp.linspace`` computes them (``linspace_f32``), then exp, a
+    sequential sum and the division.  Bitwise equal to the JAX
     package's taps for (5, 1.4), (5, 1.5), (7, 2.0) and (5, 1.0); for some
     other sizes and sigmas the two exponentials differ in the last bit.
     Cast to ``dtype`` on ``device`` (default: the first CUDA card).
     """
-    half = np.float32((kernel_size - 1) * 0.5)
-    div = kernel_size - 1
-    t = np.arange(div, dtype=np.float32) / np.float32(max(div, 1))
-    x = np.append(-half * (np.float32(1) - t) + half * t, -half if div == 0 else half).astype(np.float32)
+    half = (kernel_size - 1) * 0.5
+    x = linspace_f32(-half, half, kernel_size)
     pdf = torch.exp(-0.5 * torch.square(torch.from_numpy(x) / float(np.float32(sigma))))
     total = pdf[0]
     for v in pdf[1:]:

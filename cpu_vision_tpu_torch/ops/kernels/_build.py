@@ -19,16 +19,22 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["NVCC_FLAGS", "build", "load"]
+import torch
+
+__all__ = ["NVCC_FLAGS", "SOURCE_FLAGS", "build", "load", "on_card", "launch"]
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3",
-    "--fmad=false",  # no a*b+c contraction: sums round as the plain twins' do
     "-std=c++17",
     "-shared",
     "-Xcompiler", "-fPIC",
 ]
+
+# Flags of single sources, by stem.  The stencil kernels must equal their
+# twins bit for bit, so no a*b+c is contracted there; the convolution is held
+# to a tolerance and keeps the fused multiply-add.
+SOURCE_FLAGS = {"stencil": ["--fmad=false"]}
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -47,7 +53,7 @@ def _nvcc() -> str:
 
 
 def _build_dir() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(repr((NVCC_FLAGS, sorted(SOURCE_FLAGS.items()))).encode())
     for f in sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(f.name.encode())
         digest.update(f.read_bytes())
@@ -72,7 +78,8 @@ def build(ptxas_verbose: bool = False) -> Dict[str, str]:
         if lib.exists():
             continue
         tmp = out_dir / f"lib{src.stem}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC_DIR), "-o", str(tmp), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.stem, []), *extra, "-I", str(CSRC_DIR),
+               "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((src, lib, tmp, proc))
     logs, failures = {}, []
@@ -94,3 +101,23 @@ def load(stem: str) -> ctypes.CDLL:
     if not path.exists():
         build()
     return ctypes.CDLL(str(path))
+
+
+def on_card(x: torch.Tensor) -> bool:
+    """Whether a wrapper given ``x`` launches its kernel (a CUDA tensor) or
+    runs its plain twin (a CPU tensor); any other device is refused."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"expected a CPU or CUDA tensor, got one on {x.device}")
+
+
+def launch(lib: ctypes.CDLL, name: str, x: torch.Tensor, *args) -> None:
+    """Call the launcher ``name`` of ``lib`` with ``args`` and ``x``'s current
+    stream, on ``x``'s card; raise if the launch is refused."""
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")

@@ -21,6 +21,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..._dtype import cast_to_float
 from ..._layout import as_tensor, ensure_nhwc, num_channels
@@ -30,20 +31,21 @@ from ..filters import get_gaussian_kernel1d, reflect_pad_hw
 from . import _build
 
 __all__ = [
+    "fused_gaussian_blur",
     "canny_stage1",
+    "canny_stage1_in_tile",
     "hysteresis_sweeps",
     "fused_blur_sobel",
     "harris_response_fused",
     "fused_canny",
     "hysteresis_fixpoint",
     "gaussian_taps",
+    "fused_gaussian_blur_plain",
     "canny_stage1_plain",
     "hysteresis_sweeps_plain",
     "fused_blur_sobel_plain",
     "harris_response_fused_plain",
     "KERNEL_WRAPPERS",
-    "launch_counts",
-    "reset_launch_counts",
 ]
 
 # Sweeps per hysteresis pass in the fixpoint, and passes per host check of
@@ -53,6 +55,7 @@ SWEEPS_PER_PASS = 4
 PASSES_PER_CHECK = 2
 MAX_SWEEPS = 16  # csrc/stencil.cu MAX_SWEEPS
 MAX_TAPS = 31    # csrc/stencil.cu MAX_TAPS
+IN_TILE = (32, 32)  # csrc/stencil.cu TILE_H, TILE_W: the tile of the in-tile hysteresis
 
 
 def gaussian_taps(kernel_size: int, sigma: float) -> np.ndarray:
@@ -77,7 +80,8 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("stencil")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         sigs = {
-            "cvt_canny_stage1": [p, p, i, i, i, p, i, f, f, p],
+            "cvt_canny_stage1": [p, p, i, i, i, p, i, f, f, i, p],
+            "cvt_gaussian_blur": [p, p, i, i, i, p, i, p],
             "cvt_hysteresis_sweeps": [p, p, i, i, i, i, p, p],
             "cvt_blur_sobel": [p, p, i, i, i, p, i, p],
             "cvt_harris": [p, p, i, i, i, p, i, f, p],
@@ -90,20 +94,8 @@ def _lib() -> ctypes.CDLL:
     return _c_lib
 
 
-def _on_card(x: torch.Tensor) -> bool:
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"expected a CPU or CUDA tensor, got one on {x.device}")
-
-
 def _launch(name: str, x: torch.Tensor, *args) -> None:
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(_lib(), name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    _build.launch(_lib(), name, x, *args)
 
 
 def _c_taps(taps: np.ndarray) -> ctypes.Array:
@@ -179,9 +171,38 @@ def _sobel_pair(x: torch.Tensor, out_h: int, out_w: int) -> Tuple[torch.Tensor, 
     return gx, gy
 
 
+def fused_gaussian_blur_plain(maps: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+    """Twin of ``cvt_gaussian_blur``: separable blur of (N,H,W) f32 maps."""
+    k = taps.tolist()
+    h, w = maps.shape[-2:]
+    return _sep_blur(reflect_pad_hw(maps, len(k) // 2), k, h, w)
+
+
+def _grow_in_tiles(cls: torch.Tensor, tile: Tuple[int, int]) -> torch.Tensor:
+    """Grow strong (2) through 8-connected weak (1) to a fixpoint inside each
+    ``tile`` = (rows, cols) of the (N,H,W) class map on its own: nothing
+    crosses a tile's edge or the image's."""
+    n, h, w = cls.shape
+    th, tw = tile
+    ht, wt = -(-h // th) * th, -(-w // tw) * tw
+    t = F.pad(cls, (0, wt - w, 0, ht - h))
+    t = t.reshape(n, ht // th, th, wt // tw, tw).permute(0, 1, 3, 2, 4)
+    while True:
+        p = F.pad(t, (1, 1, 1, 1))
+        v = torch.maximum(p[..., 1:-1, :], torch.maximum(p[..., :-2, :], p[..., 2:, :]))
+        nb = torch.maximum(v[..., 1:-1], torch.maximum(v[..., :-2], v[..., 2:]))
+        grown = torch.where((t == 1) & (nb == 2), 2, t).to(cls.dtype)
+        if torch.equal(grown, t):
+            break
+        t = grown
+    return t.permute(0, 1, 3, 2, 4).reshape(n, ht, wt)[:, :h, :w].contiguous()
+
+
 def canny_stage1_plain(maps: torch.Tensor, taps: np.ndarray, low_threshold: float,
-                       high_threshold: float) -> torch.Tensor:
-    """Twin of ``cvt_canny_stage1``: (N,H,W) f32 -> uint8 class map."""
+                       high_threshold: float, in_tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Twin of ``cvt_canny_stage1``: (N,H,W) f32 -> uint8 class map.  With
+    ``in_tile`` = (rows, cols), strong then grows through weak to a fixpoint
+    inside each such tile (the kernel's option at its ``IN_TILE``)."""
     k = taps.tolist()
     h, w = maps.shape[-2:]
     padded = reflect_pad_hw(maps, len(k) // 2 + 2)  # +1 Sobel, +1 NMS
@@ -201,7 +222,8 @@ def canny_stage1_plain(maps: torch.Tensor, taps: np.ndarray, low_threshold: floa
     sup = torch.where(keep, m0, 0.0)
     strong = sup >= _f32(high_threshold)
     weak = sup >= _f32(low_threshold)
-    return torch.where(strong, 2, weak.to(torch.uint8))
+    cls = torch.where(strong, 2, weak.to(torch.uint8))
+    return cls if in_tile is None else _grow_in_tiles(cls, in_tile)
 
 
 def hysteresis_sweeps_plain(cls: torch.Tensor, sweeps: int = 4) -> torch.Tensor:
@@ -252,23 +274,37 @@ def canny_stage1(maps: torch.Tensor, low_threshold: float, high_threshold: float
     """Fused Canny front half: blur → Sobel → magnitude → directional NMS →
     double threshold in one pass.  ``maps`` is (N, H, W) float32 grayscale.
     Returns a (N,H,W) uint8 class map: 2 = strong, 1 = weak, 0 = suppressed.
+
+    ``in_tile_hysteresis``: see ``canny_stage1_in_tile``.
     """
     if in_tile_hysteresis:
-        raise NotImplementedError("in_tile_hysteresis is not ported yet")
+        return canny_stage1_in_tile(maps, low_threshold, high_threshold, kernel_size, sigma)
     return _canny_stage1(maps, gaussian_taps(kernel_size, sigma), low_threshold, high_threshold)
 
 
+def canny_stage1_in_tile(maps: torch.Tensor, low_threshold: float, high_threshold: float,
+                         kernel_size: int = 5, sigma: float = 1.4) -> torch.Tensor:
+    """``canny_stage1`` that also grows strong through 8-connected weak to a
+    fixpoint inside each ``IN_TILE`` tile of the image, in the block's shared
+    memory, before the class map is written.  This class map depends on the
+    tiling; the fixpoint of the global hysteresis that follows
+    (``hysteresis_fixpoint``) does not.  Chains that cross tiles still take
+    their global sweeps: on the inputs measured on the card the option saved
+    no global pass (``PERF.md``)."""
+    return _canny_stage1(maps, gaussian_taps(kernel_size, sigma), low_threshold, high_threshold, in_tile=True)
+
+
 def _canny_stage1(maps: torch.Tensor, taps: np.ndarray, low_threshold: float,
-                  high_threshold: float) -> torch.Tensor:
+                  high_threshold: float, in_tile: bool = False) -> torch.Tensor:
     maps = _check_maps(maps, torch.float32, "canny_stage1")
     c_taps = _c_taps(taps)
-    if not _on_card(maps):
-        return canny_stage1_plain(maps, taps, low_threshold, high_threshold)
+    if not _build.on_card(maps):
+        return canny_stage1_plain(maps, taps, low_threshold, high_threshold, IN_TILE if in_tile else None)
     n, h, w = maps.shape
     out = torch.empty((n, h, w), dtype=torch.uint8, device=maps.device)
     _launch("cvt_canny_stage1", maps, maps.data_ptr(), out.data_ptr(), n, h, w, c_taps,
-            len(taps), _f32(low_threshold), _f32(high_threshold))
-    canny_stage1.launches += 1
+            len(taps), _f32(low_threshold), _f32(high_threshold), int(in_tile))
+    (canny_stage1_in_tile if in_tile else canny_stage1).launches += 1
     return out
 
 
@@ -293,7 +329,7 @@ def hysteresis_sweeps(cls: torch.Tensor, sweeps: int = 4, changed: Optional[torc
         raise ValueError("out must be a contiguous uint8 tensor of cls's shape, distinct from cls")
     if changed is not None and (changed.dtype != torch.int32 or changed.numel() != 1 or changed.device != cls.device):
         raise ValueError("changed must be a one-element int32 tensor on cls's device")
-    if not _on_card(cls):
+    if not _build.on_card(cls):
         res = hysteresis_sweeps_plain(cls, sweeps)
         if changed is not None:
             changed |= (res != cls).any().to(torch.int32)
@@ -305,6 +341,23 @@ def hysteresis_sweeps(cls: torch.Tensor, sweeps: int = 4, changed: Optional[torc
     return out
 
 
+def fused_gaussian_blur(image, kernel_size: int = 5, sigma: float = 1.5) -> torch.Tensor:
+    """Separable Gaussian blur in one pass (the float path of
+    ``ops.gaussian_blur``; reflect padding), with the kernels' taps
+    (``gaussian_taps``).  HW / HWC / NHWC of any dtype in, float32 of the
+    same rank out."""
+    maps, restore = _as_nhw(image)
+    taps = gaussian_taps(kernel_size, sigma)
+    c_taps = _c_taps(taps)
+    if not _build.on_card(maps):
+        return restore(fused_gaussian_blur_plain(maps, taps))
+    n, h, w = maps.shape
+    out = torch.empty_like(maps)
+    _launch("cvt_gaussian_blur", maps, maps.data_ptr(), out.data_ptr(), n, h, w, c_taps, kernel_size)
+    fused_gaussian_blur.launches += 1
+    return restore(out)
+
+
 def fused_blur_sobel(image, kernel_size: int = 5, sigma: float = 1.5) -> torch.Tensor:
     """Gaussian blur + Sobel magnitude in one pass; matches
     ``sobel(gaussian_blur(img, k, sigma))`` of the op-by-op path.
@@ -312,7 +365,7 @@ def fused_blur_sobel(image, kernel_size: int = 5, sigma: float = 1.5) -> torch.T
     maps, restore = _as_nhw(image)
     taps = gaussian_taps(kernel_size, sigma)
     c_taps = _c_taps(taps)
-    if not _on_card(maps):
+    if not _build.on_card(maps):
         return restore(fused_blur_sobel_plain(maps, taps))
     n, h, w = maps.shape
     out = torch.empty_like(maps)
@@ -328,7 +381,7 @@ def harris_response_fused(image, k: float = 0.04, window_size: int = 5, sigma: f
     maps, restore = _gray_maps(image)
     taps = gaussian_taps(window_size, sigma)
     c_taps = _c_taps(taps)
-    if not _on_card(maps):
+    if not _build.on_card(maps):
         return restore(harris_response_fused_plain(maps, taps, k))
     n, h, w = maps.shape
     out = torch.empty_like(maps)
@@ -337,20 +390,10 @@ def harris_response_fused(image, k: float = 0.04, window_size: int = 5, sigma: f
     return restore(out)
 
 
-KERNEL_WRAPPERS = (canny_stage1, hysteresis_sweeps, fused_blur_sobel, harris_response_fused)
-
-
-def launch_counts() -> dict:
-    """``{wrapper name: kernel launches so far}``."""
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
-        fn.launches = 0
-
-
-reset_launch_counts()
+KERNEL_WRAPPERS = (canny_stage1, canny_stage1_in_tile, hysteresis_sweeps, fused_blur_sobel,
+                   harris_response_fused, fused_gaussian_blur)
+for _fn in KERNEL_WRAPPERS:
+    _fn.launches = 0
 
 
 # ---------------------------------------------------------------- pipelines

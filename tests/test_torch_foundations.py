@@ -4,6 +4,7 @@ JAX package, on the same numpy inputs; and the port's import hygiene."""
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -137,6 +138,34 @@ def test_single_channel_grayscale_passes_through(rng, shape):
 def test_grayscale_to_rgb_matches_jax(rng, shape):
     x = rng.random(shape).astype(np.float32)
     np.testing.assert_array_equal(_np(tc.grayscale_to_rgb(_t(x))), np.asarray(jc.grayscale_to_rgb(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("start,stop,num", [(-3.0, 3.0, 7), (-2.0, 2.0, 5), (-47.5, 47.5, 96), (-319.5, 319.5, 640),
+                                            (0.5, 479.5, 480), (0.5, 12.5, 13), (1.5, 1.5, 1), (0.0, 1.0, 2)])
+def test_linspace_f32_is_jnp_linspace(start, stop, num):
+    from cpu_vision_tpu_torch.ops.filters import linspace_f32
+
+    out = linspace_f32(start, stop, num)
+    assert out.dtype == np.float32
+    with jax.disable_jit():  # op by op: every product and sum rounded on its own, as in the port
+        np.testing.assert_array_equal(out, np.asarray(jnp.linspace(start, stop, num, dtype=jnp.float32)))
+    # compiled, XLA contracts products into sums: a last bit of the larger end point
+    np.testing.assert_allclose(out, np.asarray(jnp.linspace(start, stop, num, dtype=jnp.float32)),
+                               rtol=0, atol=2.4e-7 * max(abs(start), abs(stop)))
+
+
+def test_full_float32_sets_and_restores_the_tf32_switches():
+    before = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with td.full_float32():
+            assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32 == before[1]
+        with pytest.raises(KeyError), td.full_float32():
+            raise KeyError("restored after an error too")
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before[0]
 
 
 def test_port_imports_no_jax():

@@ -5,8 +5,11 @@ On CPU tensors the wrappers run their plain twins, which hold the Pallas
 kernels' order of operations: class maps must be equal, and blur+Sobel and
 Harris agree within ``atol=1e-5`` (as the JAX tests hold the Pallas kernels
 to their XLA oracles; XLA contracts some products and sums into FMAs when it
-compiles the kernel body, torch's eager ops do not).  The CUDA kernels are
-held against these twins on the card by ``test_torch_cuda.py``.
+compiles the kernel body, torch's eager ops do not); the blur alone agrees
+within ``1e-6``.  With ``in_tile_hysteresis`` the class map depends on the
+tiling, so only its global hysteresis fixpoint is compared, exactly.  The
+CUDA kernels are held against these twins on the card by
+``test_torch_cuda.py``.
 """
 
 import jax.numpy as jnp
@@ -14,9 +17,12 @@ import numpy as np
 import pytest
 import torch
 
+from cpu_vision_tpu import ops as jops
 from cpu_vision_tpu.ops import edges as jedges
 from cpu_vision_tpu.ops.pallas import stencil as js
+from cpu_vision_tpu_torch import ops as tops
 from cpu_vision_tpu_torch.ops import kernels
+from cpu_vision_tpu_torch.ops.kernels import stencil
 
 SHAPES = [(64, 96), (72, 130), (33, 257), (6, 9), (67, 131)]
 
@@ -49,6 +55,60 @@ def test_blur_sobel_batched_rgb_and_kernel7(rng, shape, ks, sigma):
     out = kernels.fused_blur_sobel(_t(img), ks, sigma)
     assert out.shape == img.shape
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,ks,sigma", [((64, 96), 5, 1.5), ((2, 40, 56, 3), 5, 1.5), ((6, 9), 5, 1.5),
+                                            ((33, 257), 7, 2.0), ((67, 131, 2), 3, 0.8)])
+def test_gaussian_blur_matches_pallas_and_op_by_op(rng, shape, ks, sigma):
+    img = rng.random(shape, dtype=np.float32)
+    out = kernels.fused_gaussian_blur(_t(img), ks, sigma)
+    assert out.shape == img.shape and out.dtype == torch.float32
+    ref = np.asarray(js.fused_gaussian_blur(jnp.asarray(img), ks, sigma, interpret=True))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
+    # the op-by-op blur has its own taps (last bit) and the same order of sums
+    np.testing.assert_allclose(out.numpy(), tops.gaussian_blur(_t(img), ks, sigma).numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jops.gaussian_blur(jnp.asarray(img), ks, sigma)), rtol=0, atol=1e-5)
+
+
+def test_gaussian_blur_casts_integer_images_to_float(rng):
+    img = rng.integers(0, 256, (20, 30, 3), dtype=np.uint8)
+    out = kernels.fused_gaussian_blur(_t(img), 5, 1.5)
+    ref = np.asarray(js.fused_gaussian_blur(jnp.asarray(img), 5, 1.5, interpret=True))
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-4)  # values up to 255
+
+
+@pytest.mark.parametrize("tile", [stencil.IN_TILE, (64, 128), (16, 24), (7, 200)])
+def test_in_tile_hysteresis_fixpoint_matches_xla_exactly(tile):
+    # the noise image the JAX package's own test of the option uses
+    img = np.random.default_rng(0).random((1, 96, 120), dtype=np.float32)
+    ref = np.asarray(jops.canny(jnp.asarray(img)[..., None], 0.3, 0.6, backend="xla"))[..., 0]
+    plain = kernels.canny_stage1(_t(img), 0.3, 0.6)
+    cls = stencil.canny_stage1_plain(_t(img), stencil.gaussian_taps(5, 1.4), 0.3, 0.6, in_tile=tile)
+    assert cls.dtype == torch.uint8 and torch.equal(cls >= 1, plain >= 1)
+    assert bool(((cls == 2) >= (plain == 2)).all()) and int((cls == 2).sum()) > int((plain == 2).sum())
+    edges = kernels.hysteresis_fixpoint(cls) == 2
+    np.testing.assert_array_equal(edges.numpy().astype(np.float32), ref)
+    np.testing.assert_array_equal(edges.numpy(), np.asarray(jedges.hysteresis(cls.numpy() == 2, cls.numpy() >= 1)))
+
+
+def test_in_tile_hysteresis_class_map_matches_pallas_at_its_tiling():
+    # the Pallas kernel's tile is a 64-row band of the full width
+    img = np.random.default_rng(0).random((1, 96, 120), dtype=np.float32)
+    ref = np.asarray(js.canny_stage1(jnp.asarray(img), 0.3, 0.6, interpret=True, in_tile_hysteresis=True))
+    cls = stencil.canny_stage1_plain(_t(img), stencil.gaussian_taps(5, 1.4), 0.3, 0.6, in_tile=(64, 120))
+    np.testing.assert_array_equal(cls.numpy(), ref)
+
+
+def test_in_tile_option_takes_the_kernels_tile(rng):
+    maps = _t(rng.random((2, 50, 70), dtype=np.float32))
+    out = kernels.canny_stage1(maps, 0.2, 0.5, in_tile_hysteresis=True)
+    assert torch.equal(out, kernels.canny_stage1_in_tile(maps, 0.2, 0.5))
+    assert torch.equal(out, stencil.canny_stage1_plain(maps, stencil.gaussian_taps(5, 1.4), 0.2, 0.5,
+                                                       in_tile=stencil.IN_TILE))
+    # a tile that holds the whole image reaches the global fixpoint at once
+    whole = stencil.canny_stage1_plain(maps, stencil.gaussian_taps(5, 1.4), 0.2, 0.5, in_tile=(50, 70))
+    assert torch.equal(whole, kernels.hysteresis_fixpoint(out))
 
 
 @pytest.mark.parametrize("shape", [(64, 96), (50, 70), (6, 9), (67, 131), (20, 24, 3)])
@@ -118,15 +178,19 @@ def test_cpu_tensors_launch_nothing(rng):
     kernels.fused_canny(img)
     kernels.fused_blur_sobel(img)
     kernels.harris_response_fused(img)
+    kernels.fused_gaussian_blur(img)
+    kernels.canny_stage1(img[..., 0], 0.1, 0.2, in_tile_hysteresis=True)
     assert set(kernels.launch_counts().values()) == {0}
 
 
 def test_wrappers_reject_bad_arguments():
     maps = torch.rand(1, 8, 8)
-    with pytest.raises(NotImplementedError):
-        kernels.canny_stage1(maps, 0.1, 0.2, in_tile_hysteresis=True)
+    with pytest.raises(ValueError):
+        kernels.canny_stage1(maps[0], 0.1, 0.2, in_tile_hysteresis=True)
     with pytest.raises(ValueError):
         kernels.canny_stage1(maps[0], 0.1, 0.2)
+    with pytest.raises(ValueError):
+        kernels.fused_gaussian_blur(maps[0], 33, 1.5)
     with pytest.raises(TypeError):
         kernels.canny_stage1(maps.double(), 0.1, 0.2)
     with pytest.raises(ValueError):
