@@ -1,9 +1,10 @@
 """cpu_vision_tpu_torch — the PyTorch/CUDA port of ``cpu_vision_tpu``.
 
 Same public functions, semantics and module layout as the JAX package,
-on PyTorch tensors, with the fused stencil pipelines and the CNN's fused
-conv stage as hand-written CUDA kernels for Hopper (``ops/kernels``,
-sources in ``csrc/``).  Images are
+on PyTorch tensors, with the fused stencil pipelines, the CNN's fused conv
+stage and the transformer encoder's attention and MLP sub-blocks as
+hand-written CUDA kernels for Hopper (``ops/kernels``, sources in
+``csrc/``).  Images are
 channels-last (HW / HWC / NHWC).  A tensor is computed on its own device;
 any other input (a numpy array) goes to the first CUDA card.
 
@@ -12,9 +13,13 @@ Subpackages
 ``ops``   color, filters (blur, Sobel, ...), Canny and Harris, resize,
           pyramids, warps, the small CNN, and the fused kernels in
           ``ops.kernels``
+``models``  the model registry (``get_model``), the Vision Transformers on
+          the transformer kernels, the ResNet family on stock operators,
+          and the carriers of the JAX package's parameters
+``graft_entry``  ``entry()``: the ResNet-50 forward step
 """
 
 __version__ = "0.1.0"
 
-from . import _dtype, _layout, ops  # noqa: F401
+from . import _dtype, _layout, graft_entry, models, ops  # noqa: F401
 from ._dtype import to_dtype  # noqa: F401

@@ -1,0 +1,234 @@
+// Shared pieces of the transformer kernels for Hopper (sm_90a): the storage
+// type helpers and the softmax(scale * Q K^T) V core that attention.cu
+// (flash_mha) and transformer_block.cu (attention_block) both instantiate.
+//
+// Types.  A kernel is a template over its storage type T, float or
+// __nv_bfloat16.  Every operand is widened to f32 when it is staged in shared
+// memory (exact for both types), every product and sum is an f32 FMA, and a
+// value that the TPU kernels cast to the compute type (probabilities before
+// P V, the head outputs) is rounded through T with round_to<T>, to nearest
+// even, at the same place.
+//
+// The attention core.  One block owns ATT_BQ = 64 query rows of one head of
+// one image and streams the keys in tiles of ATT_BK = 64 with an online
+// softmax (running row maximum and sum), so the (S, S) scores never exist in
+// any memory: a tile of them lives in registers, its probabilities in shared
+// memory.  Keys past S are masked with -inf before the row maximum, query rows
+// past S are computed on zeros and not stored.  256 threads as 16 x 16: thread
+// (ty, tx) owns query rows 4 ty .. 4 ty + 3, for the scores the keys
+// tx + 16 j, for the output the head dims tx + 16 e.  Row reductions run over
+// the 16 lanes of a half warp with shuffles.  Rows of Q, K, V sit in shared
+// memory at a stride of hd + 4 words, which keeps float4 reads aligned and
+// spreads eight rows over all 32 banks.
+//
+// Layouts are strides, so no transpose is ever materialised: element
+// (n, s, h, d) of q, k and v is at n * in_n + s * in_s + h * in_h + d, and of
+// the output at n * o_n + s * o_s + h * o_h + d.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace cvt {
+
+template <typename T> __device__ __forceinline__ float to_f32(T v);
+template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// v after a cast to T, widened again
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f32<T>(from_f32<T>(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+constexpr int ATT_BQ = 64;
+constexpr int ATT_BK = 64;
+constexpr int ATT_THREADS = 256;
+constexpr int ATT_LDP = ATT_BK + 4;
+
+template <int HD> constexpr size_t attention_smem_bytes() {
+  return sizeof(float) * ((size_t)(ATT_BQ + 2 * ATT_BK) * (HD + 4) + (size_t)ATT_BQ * ATT_LDP);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(ATT_THREADS)
+attention_core_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      T* __restrict__ o, int s_len, float scale, long long in_n, long long in_s,
+                      long long in_h, long long o_n, long long o_s, long long o_h) {
+  static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int LD = HD + 4;
+  constexpr int DPT = HD / 16;  // head dims a thread owns
+  extern __shared__ __align__(16) float smem[];
+  float* s_q = smem;                 // [ATT_BQ][LD]
+  float* s_k = s_q + ATT_BQ * LD;    // [ATT_BK][LD]
+  float* s_v = s_k + ATT_BK * LD;    // [ATT_BK][LD]
+  float* s_p = s_v + ATT_BK * LD;    // [ATT_BQ][ATT_LDP]
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int q0 = blockIdx.x * ATT_BQ;
+  const long long in_base = (long long)blockIdx.z * in_n + (long long)blockIdx.y * in_h;
+  const T* qb = q + in_base;
+  const T* kb = k + in_base;
+  const T* vb = v + in_base;
+
+  for (int e = tid; e < ATT_BQ * HD; e += ATT_THREADS) {
+    const int r = e / HD, d = e - r * HD;
+    const int row = q0 + r;
+    s_q[r * LD + d] = row < s_len ? to_f32<T>(qb[(long long)row * in_s + d]) : 0.0f;
+  }
+
+  float m_run[4], l_run[4], acc[4][DPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < DPT; ++e) acc[i][e] = 0.0f;
+  }
+
+  for (int k0 = 0; k0 < s_len; k0 += ATT_BK) {
+    __syncthreads();  // the tile before is read to its end (and s_q is written)
+    for (int e = tid; e < ATT_BK * HD; e += ATT_THREADS) {
+      const int r = e / HD, d = e - r * HD;
+      const int key = k0 + r;
+      const bool in = key < s_len;
+      s_k[r * LD + d] = in ? to_f32<T>(kb[(long long)key * in_s + d]) : 0.0f;
+      s_v[r * LD + d] = in ? to_f32<T>(vb[(long long)key * in_s + d]) : 0.0f;
+    }
+    __syncthreads();
+
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      float4 qa[4], ka[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(s_q + (4 * ty + i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ka[j] = *reinterpret_cast<const float4*>(s_k + (tx + 16 * j) * LD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sc[i][j] += qa[i].x * ka[j].x;
+          sc[i][j] += qa[i].y * ka[j].y;
+          sc[i][j] += qa[i].z * ka[j].z;
+          sc[i][j] += qa[i].w * ka[j].w;
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[i][j] = (k0 + tx + 16 * j < s_len) ? sc[i][j] * scale : -INFINITY;
+        mx = fmaxf(mx, sc[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      // key k0 is always real, so m_new is finite; exp(-inf - m_new) = 0 on the first tile
+      const float m_new = fmaxf(m_run[i], mx);
+      const float alpha = expf(m_run[i] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(sc[i][j] - m_new);
+        sum += p;
+        s_p[(4 * ty + i) * ATT_LDP + tx + 16 * j] = round_to<T>(p);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l_run[i] = l_run[i] * alpha + sum;
+      m_run[i] = m_new;
+#pragma unroll
+      for (int e = 0; e < DPT; ++e) acc[i][e] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int kk = 0; kk < ATT_BK; kk += 4) {
+      float4 pa[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pa[i] = *reinterpret_cast<const float4*>(s_p + (4 * ty + i) * ATT_LDP + kk);
+#pragma unroll
+      for (int e = 0; e < DPT; ++e) {
+        const float v0 = s_v[(kk + 0) * LD + tx + 16 * e];
+        const float v1 = s_v[(kk + 1) * LD + tx + 16 * e];
+        const float v2 = s_v[(kk + 2) * LD + tx + 16 * e];
+        const float v3 = s_v[(kk + 3) * LD + tx + 16 * e];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][e] += pa[i].x * v0;
+          acc[i][e] += pa[i].y * v1;
+          acc[i][e] += pa[i].z * v2;
+          acc[i][e] += pa[i].w * v3;
+        }
+      }
+    }
+  }
+
+  T* ob = o + (long long)blockIdx.z * o_n + (long long)blockIdx.y * o_h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= s_len) continue;
+    const float inv = 1.0f / l_run[i];
+#pragma unroll
+    for (int e = 0; e < DPT; ++e) ob[(long long)row * o_s + tx + 16 * e] = from_f32<T>(acc[i][e] * inv);
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch_attention_core(const T* q, const T* k, const T* v, T* o, int n, int s_len, int heads,
+                                  float scale, long long in_n, long long in_s, long long in_h,
+                                  long long o_n, long long o_s, long long o_h, cudaStream_t stream) {
+  constexpr size_t smem = attention_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(attention_core_kernel<T, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s_len + ATT_BQ - 1) / ATT_BQ, heads, n);
+  attention_core_kernel<T, HD><<<grid, ATT_THREADS, smem, stream>>>(q, k, v, o, s_len, scale, in_n, in_s,
+                                                                    in_h, o_n, o_s, o_h);
+  return cudaGetLastError();
+}
+
+// Head dims with an instantiation; any other is refused.
+template <typename T>
+cudaError_t attention_core(const T* q, const T* k, const T* v, T* o, int n, int s_len, int heads, int hd,
+                           float scale, long long in_n, long long in_s, long long in_h, long long o_n,
+                           long long o_s, long long o_h, cudaStream_t stream) {
+  if (n < 1 || n > 65535 || heads < 1 || heads > 65535 || s_len < 1) return cudaErrorInvalidValue;
+#define CVT_ATT_CASE(HD)                                                                              \
+  case HD:                                                                                            \
+    return launch_attention_core<T, HD>(q, k, v, o, n, s_len, heads, scale, in_n, in_s, in_h, o_n, \
+                                        o_s, o_h, stream)
+  switch (hd) {
+    CVT_ATT_CASE(16);
+    CVT_ATT_CASE(64);
+    CVT_ATT_CASE(80);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef CVT_ATT_CASE
+}
+
+}  // namespace cvt

@@ -11,16 +11,20 @@ Class maps and blur, blur+Sobel and Harris maps must be equal to the twins'
 bit for bit: kernel and twin run the same float32 operations in the same
 order, without FMA contraction.  The fused convolution sums over input
 channels in another order than its twin's matrix products, and with fused
-multiply-adds: it is held to ``1e-5 + 1e-5·|twin|``.
+multiply-adds: it is held to ``1e-5 + 1e-5·|twin|``.  The transformer
+kernels (``flash_mha``, ``attention_block``, ``mlp_block``) sum their
+products in other orders than the twins' matrix products, with fused
+multiply-adds: float32 is held to ``2e-4 + 2e-4·|twin|``, bfloat16 (compared
+in bfloat16, where one step is 2^-8 of the value) to ``2e-2 + 2e-2·|twin|``.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from cpu_vision_tpu_torch import ops
+from cpu_vision_tpu_torch import graft_entry, models, ops
 from cpu_vision_tpu_torch.ops import kernels
-from cpu_vision_tpu_torch.ops.kernels import conv_block, stencil
+from cpu_vision_tpu_torch.ops.kernels import conv_block, flash_attention, stencil, transformer_block
 
 pytestmark = pytest.mark.cuda
 
@@ -59,7 +63,8 @@ def test_kernels_match_twins(cuda, rng, shape):
                        stencil.fused_gaussian_blur_plain(maps, stencil.gaussian_taps(5, 1.5)))
     assert kernels.launch_counts() == {
         "canny_stage1": 1, "canny_stage1_in_tile": 0, "hysteresis_sweeps": 3, "fused_blur_sobel": 1,
-        "harris_response_fused": 1, "fused_gaussian_blur": 1, "fused_conv3x3_relu_pool": 0}
+        "harris_response_fused": 1, "fused_gaussian_blur": 1, "fused_conv3x3_relu_pool": 0,
+        "flash_mha": 0, "attention_block": 0, "mlp_block": 0}
 
 
 @pytest.mark.parametrize("ks,sigma", [(3, 0.8), (7, 2.0), (9, 3.0)])
@@ -168,3 +173,123 @@ def test_refused_launch_raises(cuda):
     taps = stencil._c_taps(stencil.gaussian_taps(5, 1.5))
     with pytest.raises(RuntimeError):  # kernel size 0: the launcher refuses it
         stencil._launch("cvt_blur_sobel", x, x.data_ptr(), x.data_ptr(), 1, 8, 8, taps, 0)
+
+
+# ------------------------------------------------------- transformer kernels
+
+TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _normal(rng, shape, dtype, device, std=1.0, mean=0.0):
+    return torch.from_numpy((rng.standard_normal(shape) * std + mean).astype(np.float32)).to(device=device, dtype=dtype)
+
+
+def _close(out, ref, dtype):
+    assert out.shape == ref.shape and out.dtype == ref.dtype == dtype
+    assert bool(torch.isfinite(out).all())
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= TOL[dtype] + TOL[dtype] * ref.float().abs()).all()), float(err.max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 197, 12, 64), (1, 257, 2, 80), (3, 17, 2, 16), (2, 64, 4, 64)])
+def test_flash_mha_matches_twin(cuda, rng, shape, dtype):
+    q, k, v = (_normal(rng, shape, dtype, cuda) for _ in range(3))
+    scale = shape[-1] ** -0.5
+    out = kernels.flash_mha(q, k, v, scale)
+    assert kernels.launch_counts()["flash_mha"] == 1
+    assert out.shape == (shape[0], shape[2], shape[1], shape[3])  # (N, H, S, hd)
+    _close(out, kernels.flash_mha_plain(q, k, v, scale), dtype)
+
+
+def _attention_args(rng, n, s, d, heads, dtype, device):
+    return (_normal(rng, (n, s, d), dtype, device), _normal(rng, (d,), torch.float32, device, 0.2, 1.0),
+            _normal(rng, (d,), torch.float32, device, 0.1), _normal(rng, (d, 3 * d), dtype, device, d ** -0.5),
+            _normal(rng, (3 * d,), torch.float32, device, 0.1), _normal(rng, (d, d), dtype, device, d ** -0.5),
+            _normal(rng, (d,), torch.float32, device, 0.1), heads, (d // heads) ** -0.5, 1e-6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,s,d,heads", [(2, 197, 768, 12), (3, 50, 128, 2), (1, 17, 64, 4), (1, 130, 1280, 16)])
+def test_attention_block_matches_twin(cuda, rng, n, s, d, heads, dtype):
+    args = _attention_args(rng, n, s, d, heads, dtype, cuda)
+    out = kernels.attention_block(*args)
+    assert kernels.launch_counts()["attention_block"] == 1 and kernels.attention_block.kernel_launches == 3
+    _close(out, kernels.attention_block_plain(*args), dtype)
+
+
+def _mlp_args(rng, m, d, dh, dtype, device):
+    return (_normal(rng, (m, d), dtype, device), _normal(rng, (d,), torch.float32, device, 0.2, 1.0),
+            _normal(rng, (d,), torch.float32, device, 0.1), _normal(rng, (d, dh), dtype, device, d ** -0.5),
+            _normal(rng, (dh,), torch.float32, device, 0.1), _normal(rng, (dh, d), dtype, device, dh ** -0.5),
+            _normal(rng, (d,), torch.float32, device, 0.1), 1e-6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,d,dh", [(394, 768, 3072), (37, 256, 512), (1, 1280, 256), (65, 1024, 512), (32, 256, 256)])
+def test_mlp_block_matches_twin(cuda, rng, m, d, dh, dtype):
+    args = _mlp_args(rng, m, d, dh, dtype, cuda)
+    out = kernels.mlp_block(*args)
+    assert kernels.launch_counts()["mlp_block"] == 1
+    _close(out, kernels.mlp_block_plain(*args), dtype)
+
+
+def test_transformer_kernels_refuse_what_they_do_not_take(cuda, rng):
+    q = _normal(rng, (1, 9, 2, 24), torch.float32, cuda)
+    with pytest.raises(ValueError):  # no instantiation for head dim 24
+        kernels.flash_mha(q, q, q, 0.2)
+    wide = _normal(rng, (1, 9, 2, 128), torch.float32, cuda)[..., :64]
+    with pytest.raises(ValueError):  # not contiguous
+        kernels.flash_mha(wide, wide, wide, 0.2)
+    with pytest.raises(TypeError):
+        kernels.flash_mha(q.double(), q.double(), q.double(), 0.2)
+    mlp = _mlp_args(rng, 8, 256, 256, torch.float32, cuda)
+    with pytest.raises(NotImplementedError):
+        kernels.mlp_block(*mlp, post_norm=True)
+    with pytest.raises(NotImplementedError):
+        kernels.mlp_block(*mlp, ln_count=96)
+    with pytest.raises(ValueError):  # D = 384 has no instantiation
+        kernels.mlp_block(*_mlp_args(rng, 8, 384, 256, torch.float32, cuda))
+    with pytest.raises(TypeError):  # x and the weights in two dtypes
+        kernels.mlp_block(mlp[0].bfloat16(), *mlp[1:])
+    with pytest.raises(ValueError):  # x not contiguous
+        kernels.mlp_block(_normal(rng, (8, 512), torch.float32, cuda)[:, :256], *mlp[1:])
+    attn = _attention_args(rng, 1, 9, 96, 4, torch.float32, cuda)  # head dim 24
+    with pytest.raises(ValueError):
+        kernels.attention_block(*attn)
+    attn = _attention_args(rng, 1, 9, 64, 4, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        kernels.attention_block(attn[0].bfloat16(), *attn[1:])
+    counts = kernels.launch_counts()
+    assert counts["flash_mha"] == counts["attention_block"] == counts["mlp_block"] == 0
+    assert 24 not in flash_attention.HEAD_DIMS and 384 not in transformer_block.MLP_DIMS
+
+
+@pytest.mark.parametrize("dtype,attention,mlp,expected", [
+    (torch.float32, None, None, {"attention_block": 2, "mlp_block": 2, "flash_mha": 0}),
+    (torch.float32, "flash", "block", {"attention_block": 0, "mlp_block": 2, "flash_mha": 2}),
+    (torch.bfloat16, "block", "plain", {"attention_block": 2, "mlp_block": 0, "flash_mha": 0}),
+    (torch.bfloat16, "flash", None, {"attention_block": 0, "mlp_block": 2, "flash_mha": 2}),
+])
+def test_vit_routes_run_their_kernels(cuda, rng, dtype, attention, mlp, expected):
+    kw = dict(num_classes=10, image_size=32, dtype=dtype)
+    model = models.VisionTransformer(8, 2, 4, 256, 512, attention=attention, mlp=mlp,
+                                     generator=torch.Generator().manual_seed(0), **kw).to(cuda)
+    plain = models.VisionTransformer(8, 2, 4, 256, 512, attention="plain", mlp="plain", **kw).to(cuda)
+    plain.load_state_dict(model.state_dict())
+    images = rng.random((3, 32, 32, 3), dtype=np.float32)
+    logits = model(images)  # numpy in: runs on the card
+    counts = kernels.launch_counts()
+    assert {k: counts[k] for k in expected} == expected
+    assert logits.device.type == "cuda" and logits.shape == (3, 10) and logits.dtype == dtype
+    ref = plain(images)
+    tol = 1e-3 if dtype == torch.float32 else 2e-2
+    assert bool(((logits.float() - ref.float()).abs() <= tol + tol * ref.float().abs()).all())
+
+
+def test_resnet_entry_runs_on_the_card(cuda):
+    forward, (model, images) = graft_entry.entry()
+    logits = forward(model, images)
+    assert logits.device.type == "cuda" and logits.shape == (4, 1000) and bool(torch.isfinite(logits).all())
+    assert all(v == 0 for v in kernels.launch_counts().values())  # stock operators only
