@@ -2,15 +2,23 @@
 
 Counterpart of the JAX package's ``models``: so far the Vision Transformer,
 whose encoder layers run the hand-written ``attention_block``, ``flash_mha``
-and ``mlp_block`` kernels, and the ResNet family on stock operators.
+and ``mlp_block`` kernels; Swin v1, v2 and the channel-padded Swin-T on
+``window_attention_block`` and ``mlp_block``; ConvNeXt on ``cn_mlp_block`` and
+``depthwise_conv2d``; and the ResNet family on stock operators.
 ``get_model(name, dtype=..., generator=..., device=...)`` builds one on the
 first CUDA card unless ``device`` says otherwise; ``_convert`` carries the JAX
 package's parameters across.
 """
 
 from ._api import get_model, get_model_builder, list_models, register_model  # noqa: F401
-from ._convert import resnet_state_dict_from_numpy, vit_state_dict_from_numpy  # noqa: F401
-from .layers import PatchifyDense  # noqa: F401
+from ._convert import (  # noqa: F401
+    convnext_state_dict_from_numpy,
+    resnet_state_dict_from_numpy,
+    swin_state_dict_from_numpy,
+    vit_state_dict_from_numpy,
+)
+from .convnext import CNBlock, ConvNeXt, convnext_base, convnext_large, convnext_small, convnext_tiny  # noqa: F401
+from .layers import DepthwiseConv, MaskedLayerNorm, PatchifyDense, StochasticDepth  # noqa: F401
 from .resnet import (  # noqa: F401
     BasicBlock,
     Bottleneck,
@@ -26,6 +34,19 @@ from .resnet import (  # noqa: F401
     wide_resnet50_2,
     wide_resnet101_2,
 )
+from .swin import (  # noqa: F401
+    PatchMerging,
+    SwinBlock,
+    SwinTransformer,
+    WindowAttention,
+    swin_b,
+    swin_s,
+    swin_t,
+    swin_v2_b,
+    swin_v2_s,
+    swin_v2_t,
+)
+from .swin_padded import pad_swin_state_dict, swin_t_padded  # noqa: F401
 from .vision_transformer import (  # noqa: F401
     EncoderBlock,
     FusedMHA,

@@ -1,11 +1,13 @@
 """Carriers of the JAX package's parameters into the port's models.
 
-``vit_state_dict_from_numpy`` and ``resnet_state_dict_from_numpy`` turn the
-flax variable trees of the JAX package's ``VisionTransformer`` and ``ResNet``,
-given as nested dicts of numpy arrays, into ``state_dict``s under
-torchvision's keys, which the port's models load.  They are the inverses of
-the JAX package's ``models.torch_weights.vit_from_torch`` and
-``resnet_from_torch``, and extend what ``ops.cnn_params_from_numpy`` began:
+``vit_state_dict_from_numpy``, ``resnet_state_dict_from_numpy``,
+``swin_state_dict_from_numpy`` and ``convnext_state_dict_from_numpy`` turn the
+flax variable trees of the JAX package's ``VisionTransformer``, ``ResNet``,
+``SwinTransformer`` and ``ConvNeXt``, given as nested dicts of numpy arrays,
+into ``state_dict``s under torchvision's keys, which the port's models load.
+They are the inverses of the JAX package's ``models.torch_weights``
+``vit_from_torch``, ``resnet_from_torch``, ``swin_from_torch`` and
+``convnext_from_torch``, and extend what ``ops.cnn_params_from_numpy`` began:
 
 * HWIO convolution kernel → (O, I, kH, kW) ``weight``;
 * (I, O) dense kernel → (O, I) ``weight``;
@@ -22,7 +24,8 @@ from typing import Any, Dict, Mapping, Sequence
 import numpy as np
 import torch
 
-__all__ = ["vit_state_dict_from_numpy", "resnet_state_dict_from_numpy"]
+__all__ = ["vit_state_dict_from_numpy", "resnet_state_dict_from_numpy", "swin_state_dict_from_numpy",
+           "convnext_state_dict_from_numpy"]
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -105,4 +108,71 @@ def resnet_state_dict_from_numpy(variables: Mapping[str, Any], layers: Sequence[
                 sd[f"{t}.downsample.0.weight"] = _conv(bp[f"Conv_{n_convs}"]["kernel"])
                 _batch_norm(sd, f"{t}.downsample.1", bp[f"BatchNorm_{n_convs}"], bs[f"BatchNorm_{n_convs}"])
     _dense(sd, "fc", p["Dense_0"])
+    return sd
+
+
+def swin_state_dict_from_numpy(params: Mapping[str, Any], depths: Sequence[int] = (2, 2, 6, 2)) -> StateDict:
+    """The flax variables of the JAX package's ``SwinTransformer``, v1 or v2
+    (``{"params": ...}`` or the params tree itself), as a ``state_dict`` of the
+    port's ``SwinTransformer``.  A block with a ``logit_scale`` is a v2 block."""
+    p = params.get("params", params)
+    sd: StateDict = {"features.0.0.weight": _conv(p["Conv_0"]["kernel"]), "features.0.0.bias": _t(p["Conv_0"]["bias"])}
+    _norm(sd, "features.0.2", p["LayerNorm_0"])
+    bid = 0
+    for stage, depth in enumerate(depths):
+        if stage > 0:
+            merging = p[f"PatchMerging_{stage - 1}"]
+            _norm(sd, f"features.{2 * stage}.norm", merging["LayerNorm_0"])
+            sd[f"features.{2 * stage}.reduction.weight"] = _t(np.asarray(merging["Dense_0"]["kernel"]).T)
+        for blk in range(depth):
+            block = p[f"SwinBlock_{bid}"]
+            attn = block["WindowAttention_0"]
+            t = f"features.{2 * stage + 1}.{blk}"
+            _norm(sd, f"{t}.norm1", block["LayerNorm_0"])
+            _dense(sd, f"{t}.attn.qkv", attn["qkv"])
+            _dense(sd, f"{t}.attn.proj", attn["proj"])
+            if "logit_scale" in attn:
+                sd[f"{t}.attn.logit_scale"] = _t(attn["logit_scale"])
+                _dense(sd, f"{t}.attn.cpb_mlp.0", attn["cpb_fc1"])
+                sd[f"{t}.attn.cpb_mlp.2.weight"] = _t(np.asarray(attn["cpb_fc2"]["kernel"]).T)
+            else:
+                sd[f"{t}.attn.relative_position_bias_table"] = _t(attn["relative_position_bias_table"])
+            _norm(sd, f"{t}.norm2", block["LayerNorm_1"])
+            _dense(sd, f"{t}.mlp.0", block["Dense_0"])
+            _dense(sd, f"{t}.mlp.3", block["Dense_1"])
+            bid += 1
+    _norm(sd, "norm", p["LayerNorm_1"])
+    _dense(sd, "head", p["Dense_0"])
+    return sd
+
+
+def convnext_state_dict_from_numpy(params: Mapping[str, Any]) -> StateDict:
+    """The flax variables of the JAX package's ``ConvNeXt`` (``{"params": ...}``
+    or the params tree itself) as a ``state_dict`` of the port's ``ConvNeXt``.
+    The stages' depths are read off the tree: a stage ends where the channel
+    count of the blocks changes."""
+    p = params.get("params", params)
+    sd: StateDict = {"features.0.0.weight": _conv(p["Conv_0"]["kernel"]), "features.0.0.bias": _t(p["Conv_0"]["bias"])}
+    _norm(sd, "features.0.1", p["LayerNorm_0"])
+    n_blocks = sum(1 for key in p if key.startswith("CNBlock_"))
+    stage, index, width = 0, 0, None
+    for bi in range(n_blocks):
+        block = p[f"CNBlock_{bi}"]
+        dim = np.asarray(block["layer_scale"]).shape[0]
+        if width is not None and dim != width:  # the downsampling layer before the next stage
+            stage, index = stage + 1, 0
+            _norm(sd, f"features.{2 * stage}.0", p[f"LayerNorm_{stage}"])
+            sd[f"features.{2 * stage}.1.weight"] = _conv(p[f"Conv_{stage}"]["kernel"])
+            sd[f"features.{2 * stage}.1.bias"] = _t(p[f"Conv_{stage}"]["bias"])
+        width = dim
+        t = f"features.{2 * stage + 1}.{index}"
+        sd[f"{t}.block.0.weight"] = _conv(block["Conv_0"]["kernel"])
+        sd[f"{t}.block.0.bias"] = _t(block["Conv_0"]["bias"])
+        _norm(sd, f"{t}.block.2", block["LayerNorm_0"])
+        _dense(sd, f"{t}.block.3", block["Dense_0"])
+        _dense(sd, f"{t}.block.5", block["Dense_1"])
+        sd[f"{t}.layer_scale"] = _t(np.asarray(block["layer_scale"]).reshape(dim, 1, 1))
+        index += 1
+    _norm(sd, "classifier.0", p[f"LayerNorm_{stage + 1}"])
+    _dense(sd, "classifier.2", p["Dense_0"])
     return sd

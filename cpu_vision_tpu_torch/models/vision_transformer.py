@@ -42,7 +42,7 @@ from .._layout import as_tensor
 from ..ops.kernels.flash_attention import flash_mha
 from ..ops.kernels.transformer_block import attention_block, mlp_block
 from ._api import register_model
-from .layers import PatchifyDense, lecun_normal_
+from .layers import Packed, PatchifyDense, layer_norm, lecun_normal_
 
 __all__ = ["VisionTransformer", "EncoderBlock", "FusedMHA", "attn_fits_vmem", "mlp_fits_vmem",
            "vit_b_16", "vit_b_32", "vit_l_16", "vit_l_32", "vit_h_14"]
@@ -65,27 +65,6 @@ def mlp_fits_vmem(d: int, mlp_dim: int) -> bool:
     return d % 128 == 0 and mlp_dim % 256 == 0
 
 
-class _Packed:
-    """(in, out) copies of (out, in) parameters in the compute dtype, the
-    layout the kernels take; rebuilt only when a parameter was written or
-    moved, not at every call."""
-
-    def __init__(self):
-        self._key = None
-        self._value: Tuple[torch.Tensor, ...] = ()
-
-    def get(self, dtype: torch.dtype, *params: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        key = (dtype, *((p.data_ptr(), p._version) for p in params))
-        if key != self._key:
-            self._value = tuple(p.detach().to(dtype).t().contiguous() for p in params)
-            self._key = key
-        return self._value
-
-
-def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(dtype)
-
-
 class FusedMHA(nn.Module):
     """Self-attention with one fused (D → 3D) QKV product around
     ``kernels.flash_mha``.  Parameters are ``torch.nn.MultiheadAttention``'s:
@@ -102,11 +81,11 @@ class FusedMHA(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
-        self._packed = _Packed()
+        self._packed = Packed()
 
     def packed(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(w_qkv (D, 3D), w_o (D, D)) in the compute dtype."""
-        return self._packed.get(self.dtype, self.in_proj_weight, self.out_proj.weight)
+        return self._packed.transposed(self.dtype, self.in_proj_weight, self.out_proj.weight)
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         n, s, d = x.shape
@@ -142,7 +121,7 @@ class EncoderBlock(nn.Module):
         # two products are mlp.0 and mlp.3
         self.mlp = nn.Sequential(nn.Linear(hidden_dim, mlp_dim), nn.GELU(), nn.Identity(),
                                  nn.Linear(mlp_dim, hidden_dim))
-        self._packed = _Packed()
+        self._packed = Packed()
 
     def routes(self, d: int, s: int) -> Tuple[str, str]:
         """(attention route, mlp route) for (N, ``s``, ``d``) input."""
@@ -163,14 +142,14 @@ class EncoderBlock(nn.Module):
             x = attention_block(x, self.ln_1.weight, self.ln_1.bias, w_qkv, sa.in_proj_bias, w_o, sa.out_proj.bias,
                                 self.num_heads, 1.0 / math.sqrt(d // self.num_heads), LN_EPS)
         else:
-            x = x + sa(_layer_norm(x, self.ln_1, self.dtype), plain=attention == "plain")
+            x = x + sa(layer_norm(x, self.ln_1, self.dtype), plain=attention == "plain")
 
         fc1, fc2 = self.mlp[0], self.mlp[3]
         if mlp == "block":
-            w1, w2 = self._packed.get(self.dtype, fc1.weight, fc2.weight)
+            w1, w2 = self._packed.transposed(self.dtype, fc1.weight, fc2.weight)
             return mlp_block(x.reshape(n * s, d), self.ln_2.weight, self.ln_2.bias, w1, fc1.bias, w2, fc2.bias,
                              LN_EPS).reshape(n, s, d)
-        h = _layer_norm(x, self.ln_2, self.dtype)
+        h = layer_norm(x, self.ln_2, self.dtype)
         h = F.gelu(F.linear(h, fc1.weight.to(self.dtype), fc1.bias.to(self.dtype)))
         return x + F.linear(h, fc2.weight.to(self.dtype), fc2.bias.to(self.dtype))
 
@@ -245,7 +224,7 @@ class VisionTransformer(nn.Module):
             x = torch.cat([self.class_token.to(x.dtype).expand(n, -1, -1), x], dim=1)
             x = x + self.encoder.pos_embedding.to(x.dtype)
             x = self.encoder.layers(x)
-            x = _layer_norm(x[:, 0], self.encoder.ln, self.dtype)
+            x = layer_norm(x[:, 0], self.encoder.ln, self.dtype)
             head = self.heads.head
             return F.linear(x, head.weight.to(self.dtype), head.bias.to(self.dtype))
 

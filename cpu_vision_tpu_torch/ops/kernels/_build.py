@@ -21,7 +21,7 @@ from typing import Dict
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "SOURCE_FLAGS", "build", "load", "on_card", "launch"]
+__all__ = ["NVCC_FLAGS", "SOURCE_FLAGS", "build", "load", "on_card", "launch", "count_launch", "reset_count"]
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -121,3 +121,19 @@ def launch(lib: ctypes.CDLL, name: str, x: torch.Tensor, *args) -> None:
         err = getattr(lib, name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+
+
+def reset_count(fn) -> None:
+    """Set the wrapper ``fn``'s launch counts to 0."""
+    fn.launches = 0
+    fn.launches_by_shape = {}
+
+
+def count_launch(fn, x: torch.Tensor) -> None:
+    """Add one launch to the wrapper ``fn``'s count, overall (``fn.launches``)
+    and under the shape and dtype of the kernel's input ``x``
+    (``fn.launches_by_shape[(shape, dtype)]``).  Called where a wrapper has
+    launched its kernel, and nowhere else."""
+    fn.launches += 1
+    key = (tuple(x.shape), x.dtype)
+    fn.launches_by_shape[key] = fn.launches_by_shape.get(key, 0) + 1

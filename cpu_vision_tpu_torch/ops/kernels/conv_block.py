@@ -92,11 +92,11 @@ def fused_conv3x3_relu_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -
     out = torch.empty((n, h // 2, wd // 2, cout), dtype=torch.float32, device=x.device)
     _build.launch(_lib(), "cvt_conv3x3_relu_pool", x, x.data_ptr(), w.data_ptr(), b.data_ptr(),
                   out.data_ptr(), n, h, wd, cin, cout)
-    fused_conv3x3_relu_pool.launches += 1
+    _build.count_launch(fused_conv3x3_relu_pool, x)
     return out
 
 
-fused_conv3x3_relu_pool.launches = 0
+_build.reset_count(fused_conv3x3_relu_pool)
 
 
 def _stock(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -84,8 +84,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -
     out = torch.empty((n, h, s, hd), dtype=q.dtype, device=q.device)
     _build.launch(_lib(), "cvt_flash_mha", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   n, s, h, hd, float(scale), int(q.dtype == torch.bfloat16))
-    flash_mha.launches += 1
+    _build.count_launch(flash_mha, q)
     return out
 
 
-flash_mha.launches = 0
+_build.reset_count(flash_mha)

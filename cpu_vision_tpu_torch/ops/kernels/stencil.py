@@ -304,7 +304,7 @@ def _canny_stage1(maps: torch.Tensor, taps: np.ndarray, low_threshold: float,
     out = torch.empty((n, h, w), dtype=torch.uint8, device=maps.device)
     _launch("cvt_canny_stage1", maps, maps.data_ptr(), out.data_ptr(), n, h, w, c_taps,
             len(taps), _f32(low_threshold), _f32(high_threshold), int(in_tile))
-    (canny_stage1_in_tile if in_tile else canny_stage1).launches += 1
+    _build.count_launch(canny_stage1_in_tile if in_tile else canny_stage1, maps)
     return out
 
 
@@ -337,7 +337,7 @@ def hysteresis_sweeps(cls: torch.Tensor, sweeps: int = 4, changed: Optional[torc
     n, h, w = cls.shape
     _launch("cvt_hysteresis_sweeps", cls, cls.data_ptr(), out.data_ptr(), n, h, w, sweeps,
             None if changed is None else changed.data_ptr())
-    hysteresis_sweeps.launches += 1
+    _build.count_launch(hysteresis_sweeps, cls)
     return out
 
 
@@ -354,7 +354,7 @@ def fused_gaussian_blur(image, kernel_size: int = 5, sigma: float = 1.5) -> torc
     n, h, w = maps.shape
     out = torch.empty_like(maps)
     _launch("cvt_gaussian_blur", maps, maps.data_ptr(), out.data_ptr(), n, h, w, c_taps, kernel_size)
-    fused_gaussian_blur.launches += 1
+    _build.count_launch(fused_gaussian_blur, maps)
     return restore(out)
 
 
@@ -370,7 +370,7 @@ def fused_blur_sobel(image, kernel_size: int = 5, sigma: float = 1.5) -> torch.T
     n, h, w = maps.shape
     out = torch.empty_like(maps)
     _launch("cvt_blur_sobel", maps, maps.data_ptr(), out.data_ptr(), n, h, w, c_taps, kernel_size)
-    fused_blur_sobel.launches += 1
+    _build.count_launch(fused_blur_sobel, maps)
     return restore(out)
 
 
@@ -386,14 +386,14 @@ def harris_response_fused(image, k: float = 0.04, window_size: int = 5, sigma: f
     n, h, w = maps.shape
     out = torch.empty_like(maps)
     _launch("cvt_harris", maps, maps.data_ptr(), out.data_ptr(), n, h, w, c_taps, window_size, _f32(k))
-    harris_response_fused.launches += 1
+    _build.count_launch(harris_response_fused, maps)
     return restore(out)
 
 
 KERNEL_WRAPPERS = (canny_stage1, canny_stage1_in_tile, hysteresis_sweeps, fused_blur_sobel,
                    harris_response_fused, fused_gaussian_blur)
 for _fn in KERNEL_WRAPPERS:
-    _fn.launches = 0
+    _build.reset_count(_fn)
 
 
 # ---------------------------------------------------------------- pipelines

@@ -1,10 +1,15 @@
-"""The two fused sub-blocks of a pre-LN transformer encoder layer (CUDA,
-``csrc/transformer_block.cu``) and their plain PyTorch twins.
+"""The fused sub-blocks of a transformer encoder layer and of a ConvNeXt block
+(CUDA, ``csrc/transformer_block.cu``) and their plain PyTorch twins.
 
 Counterpart of the JAX package's ``ops/pallas/transformer_block.py``:
 
 * ``mlp_block``: ``x + Dense2(gelu(Dense1(LN(x))))`` for 2-D ``x`` (tokens, D),
   or with ``post_norm=True`` (Swin v2) ``x + LN(Dense2(gelu(Dense1(x))))``;
+  ``ln_count > 0`` takes the LayerNorm statistics over the first ``ln_count``
+  channels of a zero-padded row (the channel-padded Swin);
+* ``cn_mlp_block``: ``res + layer_scale * (Dense2(gelu(Dense1(LN(y)))) + b2)``
+  for 2-D ``y`` and ``res`` (tokens, D), the tail of a ConvNeXt block: the
+  same kernel with a separate residual and a per-channel scale;
 * ``attention_block``: ``x + Out(MHA(LN(x)))`` for 3-D ``x`` (N, S, D);
   ``w_qkv`` is (D, 3D) laid out [q | k | v] with each section head-major,
   ``w_o`` is (D, D).
@@ -25,10 +30,10 @@ one to the other.  ``attention_block`` is three kernel launches a call (LN +
 QKV product, attention core, output projection + residual), counted in
 ``attention_block.kernel_launches``; its QKV product and joined heads pass
 through device memory once, which the Pallas kernel kept in VMEM.  On the
-card ``x`` must have the weights' dtype, ``post_norm`` and ``ln_count`` are
-not implemented, ``mlp_block`` needs D in ``MLP_DIMS`` and Dh a multiple of
-256, and ``attention_block`` needs D a multiple of 16 and a head dim of
-``flash_attention.HEAD_DIMS``.
+card ``x`` (and ``res``) must have the weights' dtype, ``mlp_block`` and
+``cn_mlp_block`` need D in ``MLP_DIMS`` and Dh a multiple of 256, or of
+``MLP_HIDDEN_STEP`` up to D = ``MLP_RAGGED_MAX_DIM``, and ``attention_block`` needs D a multiple of 16 and a
+head dim of ``flash_attention.HEAD_DIMS``.
 """
 
 from __future__ import annotations
@@ -43,10 +48,12 @@ from ..._dtype import full_float32
 from . import _build
 from .flash_attention import DTYPES, HEAD_DIMS
 
-__all__ = ["mlp_block", "mlp_block_plain", "attention_block", "attention_block_plain", "MLP_DIMS"]
+__all__ = ["mlp_block", "mlp_block_plain", "cn_mlp_block", "cn_mlp_block_plain", "attention_block",
+           "attention_block_plain", "MLP_DIMS"]
 
-MLP_DIMS = (256, 768, 1024, 1280)  # instantiations in csrc/transformer_block.cu
-MLP_HIDDEN_STEP = 256
+MLP_DIMS = (96, 128, 192, 256, 384, 512, 768, 1024, 1280, 1536)  # instantiations in csrc/transformer_block.cu
+MLP_HIDDEN_STEP = 64       # Dh is a multiple of 256, or of this up to D = MLP_RAGGED_MAX_DIM
+MLP_RAGGED_MAX_DIM = 512
 
 _c_lib: Optional[ctypes.CDLL] = None
 
@@ -56,7 +63,7 @@ def _lib() -> ctypes.CDLL:
     if _c_lib is None:
         lib = _build.load("transformer_block")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.cvt_mlp_block.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, i, p]
+        lib.cvt_mlp_block.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, f, i, i, i, p]
         lib.cvt_mlp_block.restype = ctypes.c_int
         lib.cvt_attention_block.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, p]
         lib.cvt_attention_block.restype = ctypes.c_int
@@ -131,6 +138,8 @@ def _f32c(t: torch.Tensor) -> torch.Tensor:
 
 
 def _check_card(x: torch.Tensor, *weights: torch.Tensor) -> None:
+    """``x`` and ``weights`` (the other tensors of the storage type) in one
+    dtype the kernels take, and contiguous."""
     if x.dtype not in DTYPES:
         raise TypeError(f"the kernel takes float32 or bfloat16, got {x.dtype}")
     for w in weights:
@@ -141,6 +150,27 @@ def _check_card(x: torch.Tensor, *weights: torch.Tensor) -> None:
             raise ValueError("x and the weights must be contiguous")
 
 
+def _launch_mlp(fn, x, resid, ln_g, ln_b, w1, b1, w2, b2, gamma, eps, post_norm, ln_count) -> torch.Tensor:
+    """One launch of ``cvt_mlp_block`` for the wrapper ``fn``; ``gamma`` None for no scale."""
+    m, d = x.shape
+    dh = w1.shape[1]
+    if d not in MLP_DIMS or dh % (MLP_HIDDEN_STEP if d <= MLP_RAGGED_MAX_DIM else 256):
+        raise ValueError(f"the kernel takes D in {MLP_DIMS} and Dh a multiple of 256 (of {MLP_HIDDEN_STEP} up to "
+                         f"D = {MLP_RAGGED_MAX_DIM}), got {d} and {dh}")
+    if not 0 <= ln_count <= d:
+        raise ValueError(f"ln_count must lie in 0..D, got {ln_count}")
+    _check_card(x, resid, w1, w2)
+    out = torch.empty_like(resid)
+    ln_g, ln_b, b1, b2 = _f32c(ln_g), _f32c(ln_b), _f32c(b1), _f32c(b2)
+    gamma = None if gamma is None else _f32c(gamma)
+    _build.launch(_lib(), "cvt_mlp_block", x, x.data_ptr(), resid.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(),
+                  w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                  None if gamma is None else gamma.data_ptr(), out.data_ptr(), m, d, dh, float(eps),
+                  int(bool(post_norm)), int(ln_count), int(x.dtype == torch.bfloat16))
+    _build.count_launch(fn, x)
+    return out
+
+
 def mlp_block(x, ln_g, ln_b, w1, b1, w2, b2, eps: float = 1e-6, post_norm: bool = False,
               ln_count: int = 0) -> torch.Tensor:
     """``x + Dense2(gelu(Dense1(LN(x))))`` for 2-D ``x`` (tokens, D), in one
@@ -148,23 +178,42 @@ def mlp_block(x, ln_g, ln_b, w1, b1, w2, b2, eps: float = 1e-6, post_norm: bool 
     _check_mlp(x, ln_g, ln_b, w1, b1, w2, b2)
     if not _build.on_card(x):
         return mlp_block_plain(x, ln_g, ln_b, w1, b1, w2, b2, eps, post_norm, ln_count)
-    if post_norm or ln_count:
-        raise NotImplementedError("the CUDA kernel has no post_norm or ln_count yet")
-    m, d = x.shape
-    dh = w1.shape[1]
-    if d not in MLP_DIMS or dh % MLP_HIDDEN_STEP:
-        raise ValueError(f"the kernel takes D in {MLP_DIMS} and Dh a multiple of {MLP_HIDDEN_STEP}, got {d} and {dh}")
-    _check_card(x, w1, w2)
-    out = torch.empty_like(x)
-    ln_g, ln_b, b1, b2 = _f32c(ln_g), _f32c(ln_b), _f32c(b1), _f32c(b2)
-    _build.launch(_lib(), "cvt_mlp_block", x, x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
-                  b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), m, d, dh, float(eps),
-                  int(x.dtype == torch.bfloat16))
-    mlp_block.launches += 1
-    return out
+    return _launch_mlp(mlp_block, x, x, ln_g, ln_b, w1, b1, w2, b2, None, eps, post_norm, ln_count)
 
 
-mlp_block.launches = 0
+_build.reset_count(mlp_block)
+
+
+def _check_cn(y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale) -> None:
+    _check_mlp(y, ln_g, ln_b, w1, b1, w2, b2)
+    _check_float(y, res, layer_scale)
+    if res.shape != y.shape or layer_scale.shape != (y.shape[1],):
+        raise ValueError("expects res like y and layer_scale (D,)")
+
+
+def cn_mlp_block_plain(y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale, eps: float = 1e-6) -> torch.Tensor:
+    """Twin of ``cvt_mlp_block`` with a residual and a scale: the same math in
+    plain PyTorch operators (bias first, then the scale)."""
+    _check_cn(y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale)
+    dtype = w1.dtype
+    with full_float32():
+        h = _ln_f32(y.float(), ln_g.float(), ln_b.float(), eps).to(dtype)
+        h = _gelu_f32(_dot_f32(h, w1) + b1.float()).to(dtype)
+        h = (_dot_f32(h, w2) + b2.float()) * layer_scale.float()
+    return (res.float() + h).to(res.dtype)
+
+
+def cn_mlp_block(y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale, eps: float = 1e-6) -> torch.Tensor:
+    """``res + layer_scale * (Dense2(gelu(Dense1(LN(y)))) + b2)`` for 2-D ``y``
+    and ``res`` (tokens, D), the tail of a ConvNeXt block after its depthwise
+    convolution, in one kernel on the card."""
+    _check_cn(y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale)
+    if not _build.on_card(y):
+        return cn_mlp_block_plain(y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale, eps)
+    return _launch_mlp(cn_mlp_block, y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale, eps, False, 0)
+
+
+_build.reset_count(cn_mlp_block)
 
 
 def _check_attn(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads: int) -> None:
@@ -219,10 +268,10 @@ def attention_block(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads: int, scale: fl
                   w_qkv.data_ptr(), b_qkv.data_ptr(), w_o.data_ptr(), b_o.data_ptr(), qkv.data_ptr(),
                   joined.data_ptr(), out.data_ptr(), n, s, d, heads, float(scale), float(eps),
                   int(x.dtype == torch.bfloat16))
-    attention_block.launches += 1
+    _build.count_launch(attention_block, x)
     attention_block.kernel_launches += 3
     return out
 
 
-attention_block.launches = 0
+_build.reset_count(attention_block)
 attention_block.kernel_launches = 0

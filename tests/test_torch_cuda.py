@@ -12,10 +12,13 @@ bit for bit: kernel and twin run the same float32 operations in the same
 order, without FMA contraction.  The fused convolution sums over input
 channels in another order than its twin's matrix products, and with fused
 multiply-adds: it is held to ``1e-5 + 1e-5·|twin|``.  The transformer
-kernels (``flash_mha``, ``attention_block``, ``mlp_block``) sum their
-products in other orders than the twins' matrix products, with fused
-multiply-adds: float32 is held to ``2e-4 + 2e-4·|twin|``, bfloat16 (compared
-in bfloat16, where one step is 2^-8 of the value) to ``2e-2 + 2e-2·|twin|``.
+kernels (``flash_mha``, ``attention_block``, ``mlp_block``, ``cn_mlp_block``,
+``window_attention_block``) sum their products in other orders than the twins'
+matrix products, with fused multiply-adds: float32 is held to
+``2e-4 + 2e-4·|twin|``, bfloat16 (compared in bfloat16, where one step is 2^-8
+of the value) to ``2e-2 + 2e-2·|twin|``.  The depthwise convolution sums its
+taps in the twin's order, with fused multiply-adds: ``1e-5 + 1e-5·|twin|`` in
+float32, ``2e-2·(1 + |twin|)`` in bfloat16.
 """
 
 import numpy as np
@@ -24,7 +27,7 @@ import torch
 
 from cpu_vision_tpu_torch import graft_entry, models, ops
 from cpu_vision_tpu_torch.ops import kernels
-from cpu_vision_tpu_torch.ops.kernels import conv_block, flash_attention, stencil, transformer_block
+from cpu_vision_tpu_torch.ops.kernels import conv_block, depthwise, flash_attention, stencil, swin_attention, transformer_block
 
 pytestmark = pytest.mark.cuda
 
@@ -64,7 +67,8 @@ def test_kernels_match_twins(cuda, rng, shape):
     assert kernels.launch_counts() == {
         "canny_stage1": 1, "canny_stage1_in_tile": 0, "hysteresis_sweeps": 3, "fused_blur_sobel": 1,
         "harris_response_fused": 1, "fused_gaussian_blur": 1, "fused_conv3x3_relu_pool": 0,
-        "flash_mha": 0, "attention_block": 0, "mlp_block": 0}
+        "flash_mha": 0, "attention_block": 0, "mlp_block": 0, "cn_mlp_block": 0, "window_attention_block": 0,
+        "depthwise_conv2d": 0}
 
 
 @pytest.mark.parametrize("ks,sigma", [(3, 0.8), (7, 2.0), (9, 3.0)])
@@ -245,12 +249,14 @@ def test_transformer_kernels_refuse_what_they_do_not_take(cuda, rng):
     with pytest.raises(TypeError):
         kernels.flash_mha(q.double(), q.double(), q.double(), 0.2)
     mlp = _mlp_args(rng, 8, 256, 256, torch.float32, cuda)
-    with pytest.raises(NotImplementedError):
-        kernels.mlp_block(*mlp, post_norm=True)
-    with pytest.raises(NotImplementedError):
-        kernels.mlp_block(*mlp, ln_count=96)
-    with pytest.raises(ValueError):  # D = 384 has no instantiation
-        kernels.mlp_block(*_mlp_args(rng, 8, 384, 256, torch.float32, cuda))
+    with pytest.raises(ValueError):  # ln_count past D
+        kernels.mlp_block(*mlp, ln_count=257)
+    with pytest.raises(ValueError):  # D = 320 has no instantiation
+        kernels.mlp_block(*_mlp_args(rng, 8, 320, 256, torch.float32, cuda))
+    with pytest.raises(ValueError):  # the hidden dim is no multiple of 64
+        kernels.mlp_block(*_mlp_args(rng, 8, 256, 96, torch.float32, cuda))
+    with pytest.raises(ValueError):  # past D 512 the hidden dim is a multiple of 256
+        kernels.mlp_block(*_mlp_args(rng, 8, 768, 384, torch.float32, cuda))
     with pytest.raises(TypeError):  # x and the weights in two dtypes
         kernels.mlp_block(mlp[0].bfloat16(), *mlp[1:])
     with pytest.raises(ValueError):  # x not contiguous
@@ -263,7 +269,191 @@ def test_transformer_kernels_refuse_what_they_do_not_take(cuda, rng):
         kernels.attention_block(attn[0].bfloat16(), *attn[1:])
     counts = kernels.launch_counts()
     assert counts["flash_mha"] == counts["attention_block"] == counts["mlp_block"] == 0
-    assert 24 not in flash_attention.HEAD_DIMS and 384 not in transformer_block.MLP_DIMS
+    assert 24 not in flash_attention.HEAD_DIMS and 320 not in transformer_block.MLP_DIMS
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", transformer_block.MLP_DIMS)
+def test_mlp_block_takes_every_width_at_four_times_the_hidden_dim(cuda, rng, d, dtype):
+    args = _mlp_args(rng, 45, d, 4 * d, dtype, cuda)
+    out = kernels.mlp_block(*args)
+    assert kernels.launch_counts()["mlp_block"] == 1
+    _close(out, kernels.mlp_block_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,d,dh,post_norm,ln_count", [(70, 96, 384, True, 0), (33, 128, 384, False, 96),
+                                                       (33, 128, 384, True, 96), (19, 768, 3072, True, 0),
+                                                       (21, 1536, 256, True, 1000)])
+def test_mlp_block_options_match_twin(cuda, rng, m, d, dh, post_norm, ln_count, dtype):
+    args = list(_mlp_args(rng, m, d, dh, dtype, cuda))
+    if ln_count:  # a zero-padded channel layout: real channels first
+        for i in (0, 1, 2, 6):
+            args[i][..., ln_count:] = 0
+        args[3][ln_count:] = 0
+        args[5][:, ln_count:] = 0
+    args[7] = 1e-5
+    out = kernels.mlp_block(*args, post_norm, ln_count)
+    assert kernels.launch_counts()["mlp_block"] == 1
+    _close(out, kernels.mlp_block_plain(*args, post_norm, ln_count), dtype)
+    if ln_count:
+        assert bool((out[:, ln_count:] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,d", [(3137, 96), (50, 192), (197, 384), (49, 768), (9, 1536)])
+def test_cn_mlp_block_matches_twin(cuda, rng, m, d, dtype):
+    mlp = _mlp_args(rng, m, d, 4 * d, dtype, cuda)
+    args = (mlp[0], _normal(rng, (m, d), dtype, cuda), *mlp[1:7], _normal(rng, (d,), torch.float32, cuda, 0.5), 1e-6)
+    out = kernels.cn_mlp_block(*args)
+    counts = kernels.launch_counts()
+    assert counts["cn_mlp_block"] == 1 and counts["mlp_block"] == 0
+    _close(out, kernels.cn_mlp_block_plain(*args), dtype)
+    with pytest.raises(TypeError):  # the residual in another dtype than the weights
+        kernels.cn_mlp_block(args[0], args[1].double(), *args[2:])
+
+
+def _window_args(rng, nw, s, c, v2, masked, nw_img, dtype, device, ln_count=0):
+    heads = c // 32
+    mask = None
+    if masked:
+        mask = torch.from_numpy(np.where(rng.random((nw_img, s, s)) < 0.3, -100.0, 0.0).astype(np.float32)).to(device)
+    logit_scale = torch.from_numpy(rng.uniform(0.5, 2.0, heads).astype(np.float32)).to(device) if v2 else None
+    args = [_normal(rng, (nw, s, c), dtype, device), _normal(rng, (c,), torch.float32, device, 0.2, 1.0),
+            _normal(rng, (c,), torch.float32, device, 0.1), _normal(rng, (c, 3 * c), dtype, device, c ** -0.5),
+            _normal(rng, (3 * c,), torch.float32, device, 0.1), _normal(rng, (c, c), dtype, device, c ** -0.5),
+            _normal(rng, (c,), torch.float32, device, 0.1), _normal(rng, (heads, s, s), torch.float32, device, 0.3),
+            mask, logit_scale, heads, 32 ** -0.5, 1e-5, v2, nw_img, ln_count]
+    if ln_count:
+        for i in (0, 1, 2, 6):
+            args[i][..., ln_count:] = 0
+        args[3][ln_count:] = 0
+        args[5][:, ln_count:] = 0
+    return args
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("v2", [False, True], ids=["v1", "v2"])
+@pytest.mark.parametrize("nw,s,c,masked,nw_img,ln_count", [
+    (128, 49, 96, True, 64, 0), (8, 49, 192, False, 4, 0), (6, 49, 384, True, 2, 0), (2, 49, 768, True, 1, 0),
+    (12, 64, 96, True, 4, 0), (5, 16, 64, False, 1, 0), (9, 1, 32, False, 3, 0), (8, 49, 128, True, 4, 96)])
+def test_window_attention_block_matches_twin(cuda, rng, nw, s, c, masked, nw_img, ln_count, v2, dtype):
+    args = _window_args(rng, nw, s, c, v2, masked, nw_img, dtype, cuda, ln_count)
+    out = kernels.window_attention_block(*args)
+    assert kernels.launch_counts()["window_attention_block"] == 1
+    assert kernels.window_attention_block.kernel_launches == (4 if v2 else 3)
+    _close(out, kernels.window_attention_block_plain(*args), dtype)
+    if ln_count:
+        assert bool((out[..., ln_count:] == 0).all())
+
+
+def test_window_attention_block_keeps_a_row_maximum_per_head(cuda, rng):
+    """Per-head logit scales of 100, 0.01 and 1 (v2) and per-head bias offsets
+    of 0, -150 and 120 (v1): float32 within 2e-4·(1 + |twin|) all the same."""
+    args = _window_args(rng, 16, 64, 96, True, False, 16, torch.float32, cuda)
+    args[9] = torch.tensor([100.0, 0.01, 1.0], device=cuda)
+    args[7] = torch.zeros_like(args[7])
+    _close(kernels.window_attention_block(*args), kernels.window_attention_block_plain(*args), torch.float32)
+    args = _window_args(rng, 64, 49, 96, False, False, 64, torch.float32, cuda)
+    args[7] = args[7] + torch.tensor([0.0, -150.0, 120.0], device=cuda)[:, None, None]
+    _close(kernels.window_attention_block(*args), kernels.window_attention_block_plain(*args), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("use_bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("shape,k", [((2, 56, 56, 96), 7), ((3, 7, 7, 768), 7), ((1, 14, 14, 384), 7), ((2, 9, 19, 40), 3),
+                                     ((1, 33, 17, 8), 5), ((2, 1, 1, 32), 7)])
+def test_depthwise_conv2d_matches_twin(cuda, rng, shape, k, use_bias, dtype):
+    x = _normal(rng, shape, dtype, cuda)
+    taps = _normal(rng, (k, k, shape[3]), dtype, cuda, 1.0 / k)
+    bias = _normal(rng, (shape[3],), torch.float32, cuda)
+    out = kernels.depthwise_conv2d(x, taps, bias, use_bias)
+    assert kernels.launch_counts()["depthwise_conv2d"] == 1
+    assert kernels.launch_counts_by_shape()["depthwise_conv2d"] == {(tuple(shape), dtype): 1}
+    ref = kernels.depthwise_conv2d_plain(x, taps, bias, use_bias)
+    assert out.shape == ref.shape and out.dtype == ref.dtype == dtype and bool(torch.isfinite(out).all())
+    err, scale = (out.float() - ref.float()).abs(), ref.float().abs()
+    assert bool((err <= (1e-5 + 1e-5 * scale if dtype == torch.float32 else 2e-2 * (1 + scale))).all()), float(err.max())
+
+
+def test_new_kernels_refuse_what_they_do_not_take(cuda, rng):
+    x = _normal(rng, (1, 8, 8, 32), torch.float32, cuda)
+    with pytest.raises(ValueError):  # 3x5 taps: square kernels only
+        kernels.depthwise_conv2d(x, _normal(rng, (3, 5, 32), torch.float32, cuda), None, False)
+    with pytest.raises(ValueError):  # 9x9 has no instantiation
+        kernels.depthwise_conv2d(x, _normal(rng, (9, 9, 32), torch.float32, cuda), None, False)
+    with pytest.raises(TypeError):  # x and the taps in two dtypes
+        kernels.depthwise_conv2d(x.bfloat16(), _normal(rng, (3, 3, 32), torch.float32, cuda), None, False)
+    with pytest.raises(ValueError):  # not contiguous
+        kernels.depthwise_conv2d(x.permute(0, 2, 1, 3), _normal(rng, (3, 3, 32), torch.float32, cuda), None, False)
+    args = _window_args(rng, 2, 16, 64, False, False, 1, torch.float32, cuda)
+    with pytest.raises(ValueError):  # head dim 16
+        kernels.window_attention_block(*args[:10], 4, *args[11:])
+    with pytest.raises(TypeError):  # x and the weights in two dtypes
+        kernels.window_attention_block(args[0].bfloat16(), *args[1:])
+    with pytest.raises(ValueError):  # 81 tokens a window
+        kernels.window_attention_block(*_window_args(rng, 1, 81, 32, False, False, 1, torch.float32, cuda))
+    # an explicit kernel route never gives way to stock operators: a map that needs padding, a strided convolution
+    swin = models.SwinTransformer(96, (1,), (3,), 7, num_classes=4, attention="block").to(cuda)
+    with pytest.raises(ValueError, match='attention="block"'):
+        swin(torch.zeros(1, 40, 40, 3, device=cuda))
+    with pytest.raises(ValueError, match='backend="kernel"'):
+        models.DepthwiseConv(32, (3, 3), strides=(2, 2), backend="kernel")
+    counts = kernels.launch_counts()
+    assert counts["depthwise_conv2d"] == counts["window_attention_block"] == 0
+    assert 16 != swin_attention.HEAD_DIM and 9 not in depthwise.KERNEL_SIZES
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("v2,pad_channels,window,size", [(False, False, 7, 56), (True, False, 8, 64), (False, True, 7, 112)],
+                         ids=["v1", "v2", "padded"])
+def test_swin_routes_run_their_kernels(cuda, rng, v2, pad_channels, window, size, dtype):
+    """Embed dim 96, so head dim 32: two stages of two blocks, the second of each shifted and masked."""
+    kw = dict(embed_dim=96, depths=(2, 2), num_heads=(3, 6), window_size=window, num_classes=10, v2=v2, dtype=dtype)
+    native = models.SwinTransformer(**kw, attention="plain", mlp="plain", generator=torch.Generator().manual_seed(0))
+    state = native.state_dict()
+    if pad_channels:
+        # a third stage of 384 channels, which need no padding, so that final norm and head keep their size
+        kw.update(depths=(2, 1, 1), num_heads=(3, 6, 12))
+        native = models.SwinTransformer(**kw, attention="plain", mlp="plain", generator=torch.Generator().manual_seed(0))
+        state = models.pad_swin_state_dict(native.state_dict(), 96, kw["depths"], kw["num_heads"])
+    model = models.SwinTransformer(**kw, pad_channels=pad_channels).to(cuda)
+    model.load_state_dict(state)
+    images = rng.random((3, size, size, 3), dtype=np.float32)
+    logits = model(images)  # numpy in: runs on the card
+    counts = kernels.launch_counts()
+    blocks = len(model.blocks())
+    assert counts["window_attention_block"] == blocks and counts["mlp_block"] == blocks
+    # the counts by shape: two blocks a stage of (tokens, channels) for the MLP and (windows, tokens, channels) windows
+    dim, grid = (128 if pad_channels else 96), size // 4
+    by_shape = kernels.launch_counts_by_shape()
+    assert by_shape["mlp_block"][((3 * grid * grid, dim), dtype)] == 2
+    assert by_shape["window_attention_block"][((3 * (grid // window) ** 2, window * window, dim), dtype)] == 2
+    assert sum(by_shape["mlp_block"].values()) == blocks
+    assert logits.device.type == "cuda" and logits.shape == (3, 10) and logits.dtype == dtype
+    ref = native.to(cuda)(images)
+    tol = 1e-3 if dtype == torch.float32 else 4e-2
+    assert bool(((logits.float() - ref.float()).abs() <= tol + tol * ref.float().abs()).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("depthwise_route,expected", [("kernel", 3), ("stock", 0), (None, 0)])
+def test_convnext_routes_run_their_kernels(cuda, rng, depthwise_route, expected, dtype):
+    kw = dict(block_dims=(96, 192), block_depths=(1, 2), num_classes=10, dtype=dtype)
+    model = models.ConvNeXt(**kw, depthwise=depthwise_route, generator=torch.Generator().manual_seed(0)).to(cuda)
+    with torch.no_grad():
+        for block in model.blocks():
+            block.layer_scale.fill_(0.5)  # the initial 1e-6 would hide the branch
+    plain = models.ConvNeXt(**kw, mlp="plain", depthwise="stock").to(cuda)
+    plain.load_state_dict(model.state_dict())
+    images = rng.random((3, 64, 64, 3), dtype=np.float32)
+    logits = model(images)  # numpy in: runs on the card
+    counts = kernels.launch_counts()
+    assert counts["cn_mlp_block"] == 3 and counts["depthwise_conv2d"] == expected
+    assert logits.device.type == "cuda" and logits.shape == (3, 10) and logits.dtype == dtype
+    ref = plain(images)
+    tol = 1e-3 if dtype == torch.float32 else 4e-2
+    assert bool(((logits.float() - ref.float()).abs() <= tol + tol * ref.float().abs()).all())
 
 
 @pytest.mark.parametrize("dtype,attention,mlp,expected", [

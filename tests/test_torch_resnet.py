@@ -126,7 +126,8 @@ def test_variants_are_registered_with_the_jax_names(name):
 def test_registry():
     assert models.list_models("resne*t50*") == ["resnet50", "resnext50_32x4d"]
     assert models.list_models("resnet*", exclude="resnet1*") == ["resnet34", "resnet50"]
-    assert set(models.list_models()) <= set(jmodels.list_models())
+    # the JAX package keeps swin_t_padded (models/swin_padded.py) outside its registry
+    assert set(models.list_models()) - {"swin_t_padded"} <= set(jmodels.list_models())
     with pytest.raises(ValueError):
         models.get_model("resnet51")
     with pytest.raises(ValueError):

@@ -34,6 +34,12 @@ def _mlp_inputs(rng, m, d, dh):
                 b2=(0.1 * rng.standard_normal(d)).astype(np.float32))
 
 
+def _cn_inputs(rng, m, d, dh):
+    mlp = _mlp_inputs(rng, m, d, dh)
+    return dict(y=mlp.pop("x"), res=rng.standard_normal((m, d)).astype(np.float32), **mlp,
+                layer_scale=(0.5 * rng.standard_normal(d)).astype(np.float32))
+
+
 def _attn_inputs(rng, n, s, d):
     return dict(x=rng.standard_normal((n, s, d)).astype(np.float32),
                 ln_g=(1 + 0.2 * rng.standard_normal(d)).astype(np.float32),
@@ -48,7 +54,7 @@ def _both(inputs, weights, wdtype, xdtype="float32"):
     """The inputs as JAX arrays and as CPU tensors; ``weights`` in ``wdtype``,
     ``x`` in ``xdtype``, LayerNorm parameters and biases float32."""
     def dtype_of(name):
-        return wdtype if name in weights else xdtype if name == "x" else "float32"
+        return wdtype if name in weights else xdtype if name in ("x", "y", "res") else "float32"
 
     jax_args = [jnp.asarray(v).astype(JDT[dtype_of(k)]) for k, v in inputs.items()]
     torch_args = [torch.from_numpy(v).to(TDT[dtype_of(k)]) for k, v in inputs.items()]
@@ -89,6 +95,36 @@ def test_mlp_block_twin_options_match_pallas_interpret(rng, post_norm, ln_count,
     out = ttb.mlp_block_plain(*targs, 1e-6, post_norm, ln_count)
     _assert_close(out, ref, TOL[wdtype])
     _assert_close(kernels.mlp_block(*targs, 1e-6, post_norm, ln_count), ref, TOL[wdtype])
+
+
+@pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("post_norm,ln_count", [(False, 0), (True, 0), (False, 80)], ids=["pre_norm", "post_norm", "ln_count"])
+def test_mlp_block_at_swins_first_width_matches_pallas_interpret(rng, post_norm, ln_count, wdtype):
+    """D 96 with a hidden dim of 384, which is no multiple of 256."""
+    inputs = _mlp_inputs(rng, 50, 96, 384)
+    if ln_count:
+        for name in ("x", "ln_g", "ln_b", "b2"):
+            inputs[name][..., ln_count:] = 0
+        inputs["w1"][ln_count:] = 0
+        inputs["w2"][:, ln_count:] = 0
+    jargs, targs = _both(inputs, ("w1", "w2"), wdtype, wdtype)
+    ref = jtb.mlp_block(*jargs, 1e-5, 16, True, post_norm, ln_count)
+    out = kernels.mlp_block(*targs, 1e-5, post_norm, ln_count)
+    assert out.dtype == TDT[wdtype]
+    _assert_close(out, ref, TOL[wdtype])
+
+
+@pytest.mark.parametrize("wdtype,xdtype", [("float32", "float32"), ("bfloat16", "float32"), ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("m,d,dh,block_m", [(64, 96, 384, 32), (37, 128, 512, 16), (5, 192, 768, 8)],
+                         ids=["even", "ragged", "short"])
+def test_cn_mlp_block_matches_pallas_interpret(rng, m, d, dh, block_m, wdtype, xdtype):
+    jargs, targs = _both(_cn_inputs(rng, m, d, dh), ("w1", "w2"), wdtype, xdtype)
+    ref = jtb.cn_mlp_block(*jargs, 1e-6, block_m, True)
+    out = kernels.cn_mlp_block(*targs, 1e-6)
+    assert out.dtype == TDT[xdtype]
+    _assert_close(out, ref, TOL[wdtype])
+    _assert_close(ttb.cn_mlp_block_plain(*targs, 1e-6), jtb._cn_ref_math(*jargs, 1e-6, JDT[wdtype]), TOL[wdtype])
+    assert kernels.launch_counts()["cn_mlp_block"] == 0  # CPU tensors launch nothing
 
 
 @pytest.mark.parametrize("wdtype,xdtype", [("float32", "float32"), ("bfloat16", "float32"), ("bfloat16", "bfloat16")])
@@ -140,6 +176,12 @@ def test_bad_arguments_raise(rng):
         kernels.mlp_block(mlp[0].long(), *mlp[1:])
     with pytest.raises(ValueError):
         kernels.mlp_block(*(t.to("meta") for t in mlp))
+    cn = [torch.from_numpy(v) for v in _cn_inputs(rng, 4, 128, 256).values()]
+    with pytest.raises(ValueError):  # res of another shape
+        kernels.cn_mlp_block(cn[0], cn[1][:2], *cn[2:])
+    with pytest.raises(ValueError):  # layer scale of the wrong length
+        kernels.cn_mlp_block(*cn[:8], cn[8][:64])
+    assert kernels.cn_mlp_block(cn[0], cn[1].bfloat16(), *cn[2:]).dtype == torch.bfloat16  # the residual's dtype
     attn = [torch.from_numpy(v) for v in _attn_inputs(rng, 1, 4, 64).values()]
     with pytest.raises(ValueError):  # 64 is not a multiple of 5 heads
         kernels.attention_block(*attn, 5, 0.25)

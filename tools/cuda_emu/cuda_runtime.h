@@ -67,6 +67,7 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
 }
 
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+inline int min(int a, int b) { return a < b ? a : b; }
 
 // kernel<<<grid, block, shared, stream>>>(args) becomes
 // emu_launch(grid, block, shared, stream, [=] { kernel(args); }).  The block

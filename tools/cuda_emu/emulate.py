@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Run the port's transformer kernels on the CPU, with no card and no ``nvcc``.
+"""Run the port's transformer, window attention and depthwise kernels on the
+CPU, with no card and no ``nvcc``.
 
-The sources ``cpu_vision_tpu_torch/csrc/attention.cu`` and
-``transformer_block.cu`` (with ``attention.cuh``) are rewritten a little,
+The sources ``cpu_vision_tpu_torch/csrc/attention.cu``, ``transformer_block.cu``,
+``swin_attention.cu`` and ``depthwise.cu`` (with the ``.cuh`` headers) are rewritten a little,
 compiled with ``g++ -std=c++20`` against the stand-in headers beside this file,
 and loaded in place of the libraries ``nvcc`` would build.  The kernels then
 run one ``std::thread`` per CUDA thread, block after block, so the wrappers in
@@ -16,7 +17,7 @@ card and says nothing of speed, registers or what ``nvcc`` accepts.
         out = kernels.mlp_block(x, ...)      # CPU tensors, through the CUDA source
 
 or, from the repository root, ``python3 tools/cuda_emu/emulate.py`` for a
-self-check of the three kernels against their plain twins.
+self-check of the kernels against their plain twins.
 
 Covered: ``__global__`` templates, ``threadIdx``/``blockIdx``, ``__syncthreads``,
 ``__shfl_xor_sync`` on floats, dynamic shared memory declared as
@@ -41,7 +42,7 @@ from typing import Iterator
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parents[1]
 CSRC = REPO / "cpu_vision_tpu_torch" / "csrc"
-STEMS = ("attention", "transformer_block")
+STEMS = ("attention", "transformer_block", "swin_attention", "depthwise")
 
 _LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;(]*>)?)<<<([^;]*?)>>>\(([^;]*?)\);", re.S)
 
@@ -82,11 +83,13 @@ def build(build_dir) -> Path:
 
 @contextlib.contextmanager
 def kernels_on_cpu(build_dir) -> Iterator[None]:
-    """Inside, the wrappers of ``flash_attention`` and ``transformer_block``
-    take CPU tensors through the emulated CUDA sources instead of the twins.
+    """Inside, the wrappers of ``flash_attention``, ``transformer_block``,
+    ``swin_attention`` and ``depthwise`` take CPU tensors through the emulated CUDA sources instead of the twins.
     Builds into ``build_dir`` unless the libraries are there already."""
     sys.path.insert(0, str(REPO))
-    from cpu_vision_tpu_torch.ops.kernels import _build, flash_attention, transformer_block
+    from cpu_vision_tpu_torch.ops.kernels import _build, depthwise, flash_attention, swin_attention, transformer_block
+
+    modules = (flash_attention, transformer_block, swin_attention, depthwise)
 
     build_dir = Path(build_dir)
     if not all((build_dir / f"lib{stem}.so").exists() for stem in STEMS):
@@ -101,12 +104,14 @@ def kernels_on_cpu(build_dir) -> Iterator[None]:
     _build.load = lambda stem: ctypes.CDLL(str(build_dir / f"lib{stem}.so"))
     _build.on_card = lambda x: True
     _build.launch = launch
-    flash_attention._c_lib = transformer_block._c_lib = None
+    for module in modules:
+        module._c_lib = None
     try:
         yield
     finally:
         _build.load, _build.on_card, _build.launch = saved
-        flash_attention._c_lib = transformer_block._c_lib = None
+        for module in modules:
+            module._c_lib = None
 
 
 def main() -> int:
@@ -135,6 +140,38 @@ def main() -> int:
             mlp = (normal((37, d), dtype), *ln, normal((d, dh), dtype, d ** -0.5), normal((dh,), torch.float32, 0.1),
                    normal((dh, d), dtype, dh ** -0.5), normal((d,), torch.float32, 0.1))
             pairs.append(("mlp_block", kernels.mlp_block(*mlp), kernels.mlp_block_plain(*mlp)))
+            # D 96 with a hidden dim of 256 + 128, post_norm, ln_count, the ConvNeXt tail; D 1536 at 16 rows a block
+            d, dh = 96, 384
+            ln = (normal((d,), torch.float32, 0.2, 1.0), normal((d,), torch.float32, 0.1))
+            mlp = (normal((41, d), dtype), *ln, normal((d, dh), dtype, d ** -0.5), normal((dh,), torch.float32, 0.1),
+                   normal((dh, d), dtype, dh ** -0.5), normal((d,), torch.float32, 0.1))
+            for kw in ({}, {"post_norm": True}, {"ln_count": 80}, {"post_norm": True, "ln_count": 80}):
+                pairs.append((f"mlp_block D 96 {kw}", kernels.mlp_block(*mlp, 1e-5, **kw),
+                              kernels.mlp_block_plain(*mlp, 1e-5, **kw)))
+            cn = (mlp[0], normal((41, d), dtype), *mlp[1:], normal((d,), torch.float32, 0.5))
+            pairs.append(("cn_mlp_block", kernels.cn_mlp_block(*cn), kernels.cn_mlp_block_plain(*cn)))
+            d, dh = 1536, 256
+            mlp = (normal((19, d), dtype), normal((d,), torch.float32, 0.2, 1.0), normal((d,), torch.float32, 0.1),
+                   normal((d, dh), dtype, d ** -0.5), normal((dh,), torch.float32, 0.1),
+                   normal((dh, d), dtype, dh ** -0.5), normal((d,), torch.float32, 0.1))
+            pairs.append(("mlp_block D 1536", kernels.mlp_block(*mlp), kernels.mlp_block_plain(*mlp)))
+            # window attention: 2 heads of 32, 49 tokens, 2 images of 2 windows; v1/v2, with and without mask
+            c, heads, s_len, nw, nw_img = 64, 2, 49, 4, 2
+            for v2 in (False, True):
+                for masked in (False, True):
+                    mask = (normal((nw_img, s_len, s_len), torch.float32) > 0.5).float() * -100.0 if masked else None
+                    swin = (normal((nw, s_len, c), dtype), normal((c,), torch.float32, 0.2, 1.0),
+                            normal((c,), torch.float32, 0.1), normal((c, 3 * c), dtype, c ** -0.5),
+                            normal((3 * c,), torch.float32, 0.1), normal((c, c), dtype, c ** -0.5),
+                            normal((c,), torch.float32, 0.1), normal((heads, s_len, s_len), torch.float32, 0.3), mask,
+                            torch.tensor([4.7, -1.0]) if v2 else None, heads, 32 ** -0.5, 1e-5, v2, nw_img,
+                            48 if masked else 0)
+                    pairs.append((f"window_attention_block v2={v2} masked={masked}",
+                                  kernels.window_attention_block(*swin), kernels.window_attention_block_plain(*swin)))
+            for ks in (3, 5, 7):
+                dw = (normal((2, 9, 19, 40), dtype), normal((ks, ks, 40), dtype, 1.0 / ks), normal((40,), torch.float32))
+                pairs.append((f"depthwise_conv2d {ks}x{ks}", kernels.depthwise_conv2d(*dw, use_bias=ks != 5),
+                              kernels.depthwise_conv2d_plain(*dw, use_bias=ks != 5)))
             for name, out, ref in pairs:
                 err = (out.float() - ref.float()).abs()
                 ok = bool((err <= tol + tol * ref.float().abs()).all())
