@@ -25,8 +25,11 @@ It builds the CUDA kernels from ``cpu_vision_tpu_torch/csrc/``, then:
    depthwise kernel and with the stock depthwise convolution), all at full
    depth and width (``window_attention_block`` + ``mlp_block`` in each Swin
    block, ``depthwise_conv2d`` + ``cn_mlp_block`` in each ConvNeXt block); and
-   checks their outputs against the op-by-op paths and stock PyTorch
-   operators;
+   ``models.detection.detect`` with ``fasterrcnn_resnet50_fpn`` (bfloat16 and
+   float32) and ``fasterrcnn_resnet50_fpn_v2`` (float32) at full depth and
+   width on 8 images of unequal sizes on a 640x640 canvas (``nms_sorted`` in
+   the RPN's two NMS calls and the postprocess's one); and checks their
+   outputs against the op-by-op paths and stock PyTorch operators;
 2. holds every kernel against its plain PyTorch twin on the card at every
    shape and dtype those paths handed it (the wrappers count their launches
    by input shape, and the script fails if a Swin or ConvNeXt path ran a
@@ -84,7 +87,12 @@ BF16_OPS_PER_S = 989e12
 # from the float32 logits than BF16_SLACK times the plain bfloat16 route and
 # within VIT_TOL[bfloat16] of it.  The depthwise convolution sums its taps in
 # its twin's order with FMAs: CONV_ATOL + CONV_RTOL * |twin| in float32,
-# TOL[bfloat16] * (1 + |twin|) in bfloat16.
+# TOL[bfloat16] * (1 + |twin|) in bfloat16.  NMS keep masks equal the twin's bit for bit, and so do the
+# float32 and bfloat16 detections on the kernel route and on the plain one (cuDNN deterministic): the logits'
+# rule below with no difference at all.  The bfloat16 detector is held to the float32 one by the logits' rule
+# restated for what its heads emit on the float32 run's proposals (class logits and box deltas of every class of
+# every proposal, before any threshold, top-k or NMS decision): within VIT_TOL[bfloat16] * (1 + |float32|); the
+# softmax scores (a function of those logits) and the decoded boxes' differences are printed.
 F32_ATOL, F32_RTOL = 1e-5, 1e-6
 CONV_ATOL, CONV_RTOL = 1e-5, 1e-5
 LOGIT_TOL = 1e-4
@@ -97,12 +105,23 @@ ATTENTION = "cpu_vision_tpu_torch/csrc/attention.cu"
 TRANSFORMER = "cpu_vision_tpu_torch/csrc/transformer_block.cu"
 SWIN_ATTENTION = "cpu_vision_tpu_torch/csrc/swin_attention.cu"
 DEPTHWISE = "cpu_vision_tpu_torch/csrc/depthwise.cu"
+NMS = "cpu_vision_tpu_torch/csrc/nms.cu"
 PALLAS = "cpu_vision_tpu/ops/pallas/stencil.py"
 PALLAS_CONV = "cpu_vision_tpu/ops/pallas/conv_block.py"
 PALLAS_FLASH = "cpu_vision_tpu/ops/pallas/flash_attention.py"
 PALLAS_BLOCK = "cpu_vision_tpu/ops/pallas/transformer_block.py"
 PALLAS_SWIN = "cpu_vision_tpu/ops/pallas/swin_attention.py"
 PALLAS_DEPTHWISE = "cpu_vision_tpu/ops/pallas/depthwise.py"
+PALLAS_NMS = "cpu_vision_tpu/ops/pallas/nms.py"
+# Faster R-CNN at the JAX package's benchmarked settings (bench_all.py:342-344).  At random weights the 91
+# class scores of a proposal are all near 1/91, under the 0.05 score threshold; the class scores' weights are
+# scaled up from their draw (seed 0) so that some, not all, of the 100 detection slots fill
+DET_SETTINGS = dict(num_classes=91, rpn_pre_nms_top_n=1000, rpn_post_nms_top_n=300, max_detections=100)
+DET_CLS_SCALE = {"fasterrcnn_resnet50_fpn": 2.0, "fasterrcnn_resnet50_fpn_v2": 4.0}
+# float32 operations of the greedy NMS: a box's area (2 subtractions, 1 product) once; a pair's clipped sides
+# (4 each) and their product, which decides a pair whose product is 0; the union (2), its floor, the division and
+# the comparison with the threshold where it is not (csrc/nms.cu)
+NMS_AREA_OPS, NMS_DISJOINT_OPS, NMS_PAIR_OPS = 3, 9, 14
 
 
 def scene(h: int, w: int, batch: int) -> np.ndarray:
@@ -238,6 +257,7 @@ def main() -> int:
     from cpu_vision_tpu_torch.ops import kernels
     from cpu_vision_tpu_torch.ops.kernels import (_build, conv_block, depthwise, flash_attention, stencil, swin_attention,
                                                   transformer_block)
+    from cpu_vision_tpu_torch.ops.kernels import nms as nms_kernel
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -594,6 +614,113 @@ def main() -> int:
     window_kernel_launches = {label: path["window_launches"] for label, path in served.items() if path["window_launches"]}
     del serve_images, swin_state, native64
     served.clear()
+
+    # ------ main paths 15 to 17: Faster R-CNN ResNet-50 FPN serving through detection.detect, b8 on a 640x640 canvas
+    from cpu_vision_tpu_torch.models import detection
+    from cpu_vision_tpu_torch.ops.boxes import box_iou, clip_boxes_to_image
+
+    det_rng = np.random.default_rng(2)
+    det_sizes = [(480, 640), (640, 427), (512, 512), (427, 640), (640, 480), (375, 500), (500, 375), (640, 640)]
+    det_images = [torch.from_numpy(det_rng.random((hh, ww, 3), dtype=np.float32)).to(dev) for hh, ww in det_sizes]
+    DET_BF16, DET_F32, DET_V2 = ("fasterrcnn_resnet50_fpn bf16 b8 640x640", "fasterrcnn_resnet50_fpn f32 b8 640x640",
+                                 "fasterrcnn_resnet50_fpn_v2 f32 b8 640x640")
+    det_nms_shapes = {((32, 1000, 4), torch.float32): 1, ((8, 300, 4), torch.float32): 1,
+                      ((8, 4096, 4), torch.float32): 1}  # the RPN's 4 levels of 1000 and 1 of 300, the postprocess
+
+    def detector(name, dtype, state=None):
+        model = models.get_model(name, dtype=dtype, generator=torch.Generator().manual_seed(0), **DET_SETTINGS)
+        if state is None:
+            with torch.no_grad():
+                model.roi_heads.box_predictor.cls_score.weight.mul_(DET_CLS_SCALE[name])
+        else:
+            model.load_state_dict(state)
+        return model
+
+    def deterministic(fn):
+        torch.backends.cudnn.deterministic = True
+        try:
+            return fn()
+        finally:
+            torch.backends.cudnn.deterministic = False
+
+    def serve_detector(label, model):
+        """One detection path: counts read around one ``detect`` of the 8 images, its output checked, the route
+        on the kernel held equal to the plain route's, ``detect`` timed over 10 single calls."""
+        kernels.reset_launch_counts()
+        dets = detection.detect(model, det_images)
+        counts = read_counts(label)
+        by_shape = path_shapes[label]["nms_sorted"]
+        print(f"{label} main path launches: {counts}; nms_sorted by shape {by_shape}")
+        require(counts["nms_sorted"] == 3 and by_shape == det_nms_shapes, f"{label}: nms_sorted launches {by_shape}")
+        require(len(dets) == 8 and all(d["boxes"].shape == (100, 4) and d["boxes"].device.type == "cuda"
+                                       and bool(torch.isfinite(d["boxes"]).all()) for d in dets), f"{label}: detections")
+        valid = [int(d["valid"].sum()) for d in dets]
+        require(sum(valid) > 0, f"{label}: no valid detection")
+        require(all(bool((d["labels"][d["valid"]] >= 1).all()) and bool((d["scores"][d["valid"]] > 0.05).all())
+                    for d in dets), f"{label}: labels and scores of the valid detections")
+        kernel_dets = deterministic(lambda: detection.detect(model, det_images))
+        model.set_nms("plain")
+        plain_dets = deterministic(lambda: detection.detect(model, det_images))
+        plain_ms, plain_least, plain_most = spread_ms(lambda: detection.detect(model, det_images), 3, warmup=1)
+        model.set_nms(None)
+        for a, b in zip(kernel_dets, plain_dets):
+            for key in a:
+                exact(a[key], b[key], f"{label}: {key} on the kernel route vs the plain route")
+        ms, ms_least, ms_most = spread_ms(lambda: detection.detect(model, det_images), 10, warmup=2)
+        print(f"{label}: {ms:.4f} ms/batch ({ms_least:.4f} to {ms_most:.4f} over 10 calls of detect), "
+              f"{8 / ms * 1e3:.1f} img/s; nms_sorted launches a forward {counts['nms_sorted']} ({by_shape}); valid "
+              f"detections by image {valid}; equal to the plain NMS route, which takes {plain_ms:.4f} ms/batch "
+              f"({plain_least:.4f} to {plain_most:.4f} over 3 calls) ({card}); under this path's load: "
+              f"{clock_under(lambda: detection.detect(model, det_images), 3)}")
+        return dets, ms
+
+    det_bf16 = detector("fasterrcnn_resnet50_fpn", torch.bfloat16)
+    det_state = det_bf16.state_dict()
+    dets_bf16, det_bf16_ms = serve_detector(DET_BF16, det_bf16)
+    det_f32 = detector("fasterrcnn_resnet50_fpn", torch.float32, det_state)
+    dets_f32, det_f32_ms = serve_detector(DET_F32, det_f32)
+
+    # bfloat16 against float32, same weights: the dense scores and boxes of the float32 run's proposals
+    batch, _, _ = detection.GeneralizedRCNNTransform(min_size=320, max_size=640)(det_images)
+    canvas = (batch.shape[1], batch.shape[2])
+    with _dtype.full_float32(), torch.no_grad():
+        feats32 = det_f32.backbone(batch)
+        props32, _, _ = det_f32.rpn(feats32, canvas)
+        dense = {}
+        for name, model in (("f32", det_f32), ("bf16", det_bf16)):
+            feats = feats32 if model is det_f32 else model.backbone(batch)
+            cl, bd = model.roi_heads(feats[:-1], props32, canvas)
+            dense[name] = (cl.float(), bd.float(), torch.softmax(cl.float(), -1)[..., 1:],
+                           clip_boxes_to_image(model.roi_heads.coder.decode(bd.float()[:, :, 1:], props32[:, :, None]),
+                                               canvas))
+    logit_err, delta_err, box_err = (scaled_err(dense["bf16"][i], dense["f32"][i]) for i in (0, 1, 3))
+    score_rel = float(((dense["bf16"][2] - dense["f32"][2]).abs() / dense["f32"][2]).max())
+    box_px = float((dense["bf16"][3] - dense["f32"][3]).abs().max())
+    require(max(logit_err, delta_err) <= VIT_TOL[torch.bfloat16],
+            f"bf16 detector vs f32: class logits {logit_err:.3e}, box deltas {delta_err:.3e}")
+    matched, total = 0, 0
+    for ref_det, got_det in zip(dets_f32, dets_bf16):
+        ref_boxes, ref_labels = ref_det["boxes"][ref_det["valid"]], ref_det["labels"][ref_det["valid"]]
+        got_boxes, got_labels = got_det["boxes"][got_det["valid"]], got_det["labels"][got_det["valid"]]
+        total += len(ref_boxes)
+        if len(ref_boxes) and len(got_boxes):
+            same = (box_iou(ref_boxes, got_boxes) >= 0.5) & (ref_labels[:, None] == got_labels[None, :])
+            matched += int(same.any(dim=1).sum())
+    print(f"fasterrcnn_resnet50_fpn bf16 vs f32, same weights, on the f32 run's proposals, max |a - b| / (1 + |b|): "
+          f"class logits {logit_err:.3e}, box deltas {delta_err:.3e}, decoded boxes {box_err:.3e} (max |a - b| "
+          f"{box_px:.3f} px); scores max |a - b| / |b| {score_rel:.3e}; {matched} of {total} valid "
+          f"f32 detections have a bf16 detection of their label at IoU >= 0.5 (the random head's scores differ by "
+          f"less than a bf16 step, so the top 100 are chosen by rounding)")
+    del feats32, props32, dense, batch
+
+    det_v2 = detector("fasterrcnn_resnet50_fpn_v2", torch.float32)
+    dets_v2, det_v2_ms = serve_detector(DET_V2, det_v2)
+
+    # the real inputs of the three nms_sorted calls of one float32 forward, for the kernel's rows
+    with nms_kernel.recording() as calls:
+        det_f32(detection.GeneralizedRCNNTransform(min_size=320, max_size=640)(det_images)[0])
+    nms_inputs = {(tuple(boxes.shape), float(thr)): boxes for boxes, thr in calls}
+    del det_bf16, det_f32, det_v2, det_state, dets_bf16, dets_f32, dets_v2
 
     # ------------------------------------ each kernel against its plain twin
     rows = []
@@ -1032,6 +1159,54 @@ def main() -> int:
     main = next(r for r in dw_rows if r["dtype"] == "bfloat16" and r["shape"] == [256, 56, 56, 96])
     rows.append(entry(main, CN, [r for r in dw_rows if r is not main]))
 
+    # nms_sorted at the three shapes of a detection forward, on the boxes the float32 path handed it; the bound counts
+    # the IoUs this data needs (every pair of kept boxes, one a struck box against a kept box that struck it), each
+    # box's area once, and the boxes and keep mask once; the suppression bits the first launch writes and the second
+    # reads are the split's own traffic (split_bytes_ms)
+    def nms_needed_ops(boxes, keep):
+        """NMS_*_OPS over the pairs this data needs: a struck box's pair meets; a pair of kept boxes meets where
+        the product of its clipped sides is above 0, as the kernel computes it."""
+        n_ = boxes.shape[1]
+        meeting, disjoint = 0, 0
+        for b, k in zip(boxes.float(), keep):
+            x1, y1, x2, y2 = b[k].unbind(-1)
+            w = (torch.minimum(x2[:, None], x2[None]) - torch.maximum(x1[:, None], x1[None])).clamp_min(0)
+            h = (torch.minimum(y2[:, None], y2[None]) - torch.maximum(y1[:, None], y1[None])).clamp_min(0)
+            meets = int(torch.triu(w * h > 0, diagonal=1).sum())
+            kept = int(k.sum())
+            meeting += meets + n_ - kept
+            disjoint += kept * (kept - 1) // 2 - meets
+            del w, h
+        nops = boxes.shape[0] * n_ * NMS_AREA_OPS + meeting * NMS_PAIR_OPS + disjoint * NMS_DISJOINT_OPS
+        return nops, meeting, disjoint
+
+    def nms_case(boxes, thr, path=None, what=""):
+        keep = kernels.nms_sorted(boxes, thr)
+        err = exact(keep, nms_kernel.nms_sorted_plain(boxes, thr), f"nms_sorted {list(boxes.shape)} {what}")
+        p_, n_ = boxes.shape[0], boxes.shape[1]
+        kept = keep.sum(dim=1).double()
+        if path is None:
+            hold("nms_sorted", boxes.shape, boxes.dtype, err, threshold=thr, case=what, kept=int(kept.sum()))
+            return None
+        nops, meeting, disjoint = nms_needed_ops(boxes, keep)
+        return row("nms_sorted", f"{PALLAS_NMS}:93", path, err, time_ms(lambda: kernels.nms_sorted(boxes, thr), 20),
+                   time_ms(lambda: nms_kernel.nms_sorted_plain(boxes, thr), 3), p_ * n_ * (16 + 1), nops,
+                   source=NMS, at=(boxes.shape, boxes.dtype), shape=list(boxes.shape), threshold=thr,
+                   kept=int(kept.sum()), iou_pairs_needed={"meeting": meeting, "disjoint": disjoint}, ops_needed=nops,
+                   split_bytes_ms=2 * p_ * n_ * -(-n_ // nms_kernel.MASK_BITS) * 8 / HBM_BYTES_PER_S * 1e3)
+
+    require({(shape, torch.float32) for shape, _ in nms_inputs} == set(det_nms_shapes),
+            f"captured nms_sorted inputs {list(nms_inputs)}")
+    nms_rows = [nms_case(boxes, thr, DET_F32, "the f32 detection path's boxes") for (_, thr), boxes in nms_inputs.items()]
+    crowd_ctr = torch.rand((8, 4096, 2), generator=gen, device=dev) * 80
+    crowd_wh = torch.rand((8, 4096, 2), generator=gen, device=dev) * 40 + 5
+    nms_case(torch.cat([crowd_ctr - crowd_wh / 2, crowd_ctr + crowd_wh / 2], -1), 0.5, what="dense overlaps")
+    odd = torch.rand((3, 333, 4), generator=gen, device=dev) * 50
+    nms_case(torch.cat([odd[..., :2], odd[..., :2] + odd[..., 2:] + 1], -1), 0.7, what="N off the tile of 64")
+    main = next(r for r in nms_rows if r["shape"] == [8, 4096, 4])
+    nms_entry = entry(main, DET_F32, [r for r in nms_rows if r is not main])
+    rows.append(nms_entry)
+
     # every shape that a Swin or ConvNeXt main path handed to one of these four wrappers was held above
     new_kernels = ("mlp_block", "cn_mlp_block", "window_attention_block", "depthwise_conv2d")
     checked = {(r["name"], tuple(r["shape"]), r["dtype"]) for r in held}
@@ -1043,9 +1218,15 @@ def main() -> int:
             for shape, dtype in path_shapes[path][name]:
                 require((name, shape, str(dtype).replace("torch.", "")) in checked,
                         f"{path}: {name} ran on {shape} {dtype}, which was not held against its twin")
+    # and every shape that a detection path handed to nms_sorted
+    held_nms = {tuple(r["shape"]) for r in (nms_entry, *nms_entry["other_shapes"])}
+    for path in (DET_BF16, DET_F32, DET_V2):
+        for shape, dtype in path_shapes[path]["nms_sorted"]:
+            require(shape in held_nms and dtype == torch.float32,
+                    f"{path}: nms_sorted ran on {shape} {dtype}, which was not held against its twin")
 
-    require(len(rows) == 14 and len({r["name"] for r in rows}) == 13 and all(r["launches"] >= 1 for r in rows),
-            "fourteen entries of thirteen wrappers, each launched on a main path")
+    require(len(rows) == 15 and len({r["name"] for r in rows}) == 14 and all(r["launches"] >= 1 for r in rows),
+            "fifteen entries of fourteen wrappers, each launched on a main path")
     print(json.dumps({"kernels": rows, "held_untimed": held}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -11,11 +11,13 @@ any other input (a numpy array) goes to the first CUDA card.
 Subpackages
 -----------
 ``ops``   color, filters (blur, Sobel, ...), Canny and Harris, resize,
-          pyramids, warps, the small CNN, and the fused kernels in
-          ``ops.kernels``
-``models``  the model registry (``get_model``), the Vision Transformers on
-          the transformer kernels, the ResNet family on stock operators,
-          and the carriers of the JAX package's parameters
+          pyramids, warps, the small CNN, boxes and NMS, RoIAlign, and the
+          fused kernels in ``ops.kernels``
+``models``  the model registry (``get_model``), the Vision Transformers,
+          Swin and ConvNeXt on the transformer kernels, the ResNet family
+          on stock operators, Faster R-CNN (``models.detection``, its NMS
+          on the ``nms_sorted`` kernel), and the carriers of the JAX
+          package's parameters
 ``graft_entry``  ``entry()``: the ResNet-50 forward step
 """
 

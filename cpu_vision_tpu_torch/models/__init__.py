@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``models``: so far the Vision Transformer,
 whose encoder layers run the hand-written ``attention_block``, ``flash_mha``
 and ``mlp_block`` kernels; Swin v1, v2 and the channel-padded Swin-T on
 ``window_attention_block`` and ``mlp_block``; ConvNeXt on ``cn_mlp_block`` and
-``depthwise_conv2d``; and the ResNet family on stock operators.
+``depthwise_conv2d``; the ResNet family on stock operators; and, in
+``models.detection``, Faster R-CNN ResNet-50 FPN (v1 and v2) on the
+``nms_sorted`` kernel, served through ``detection.detect``.
 ``get_model(name, dtype=..., generator=..., device=...)`` builds one on the
 first CUDA card unless ``device`` says otherwise; ``_convert`` carries the JAX
 package's parameters across.
@@ -13,10 +15,12 @@ package's parameters across.
 from ._api import get_model, get_model_builder, list_models, register_model  # noqa: F401
 from ._convert import (  # noqa: F401
     convnext_state_dict_from_numpy,
+    faster_rcnn_state_dict_from_numpy,
     resnet_state_dict_from_numpy,
     swin_state_dict_from_numpy,
     vit_state_dict_from_numpy,
 )
+from . import detection  # noqa: F401
 from .convnext import CNBlock, ConvNeXt, convnext_base, convnext_large, convnext_small, convnext_tiny  # noqa: F401
 from .layers import DepthwiseConv, MaskedLayerNorm, PatchifyDense, StochasticDepth  # noqa: F401
 from .resnet import (  # noqa: F401

@@ -1,20 +1,24 @@
 """Carriers of the JAX package's parameters into the port's models.
 
 ``vit_state_dict_from_numpy``, ``resnet_state_dict_from_numpy``,
-``swin_state_dict_from_numpy`` and ``convnext_state_dict_from_numpy`` turn the
-flax variable trees of the JAX package's ``VisionTransformer``, ``ResNet``,
-``SwinTransformer`` and ``ConvNeXt``, given as nested dicts of numpy arrays,
-into ``state_dict``s under torchvision's keys, which the port's models load.
-They are the inverses of the JAX package's ``models.torch_weights``
-``vit_from_torch``, ``resnet_from_torch``, ``swin_from_torch`` and
-``convnext_from_torch``, and extend what ``ops.cnn_params_from_numpy`` began:
+``swin_state_dict_from_numpy``, ``convnext_state_dict_from_numpy`` and
+``faster_rcnn_state_dict_from_numpy`` turn the flax variable trees of the JAX
+package's ``VisionTransformer``, ``ResNet``, ``SwinTransformer``, ``ConvNeXt``
+and ``FasterRCNN``, given as nested dicts of numpy arrays, into
+``state_dict``s under torchvision's keys, which the port's models load.  They
+are the inverses of the JAX package's ``models.torch_weights``
+``vit_from_torch``, ``resnet_from_torch``, ``swin_from_torch``,
+``convnext_from_torch`` and ``faster_rcnn_from_torch``, and extend what
+``ops.cnn_params_from_numpy`` began:
 
 * HWIO convolution kernel → (O, I, kH, kW) ``weight``;
 * (I, O) dense kernel → (O, I) ``weight``;
 * flax attention's query/key/value kernels (D, H, hd) → the packed
   ``in_proj_weight`` (3D, D), its out kernel (H, hd, D) → ``out_proj.weight``;
 * batch-norm scale/bias → ``weight``/``bias``, batch_stats mean/var →
-  ``running_mean``/``running_var`` (``num_batches_tracked`` is 0).
+  ``running_mean``/``running_var`` (``num_batches_tracked`` is 0);
+* a dense kernel over a flattened HWC map → torchvision's ``weight`` over
+  the CHW flattening (Faster R-CNN's ``fc6``).
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 
 __all__ = ["vit_state_dict_from_numpy", "resnet_state_dict_from_numpy", "swin_state_dict_from_numpy",
-           "convnext_state_dict_from_numpy"]
+           "convnext_state_dict_from_numpy", "faster_rcnn_state_dict_from_numpy"]
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -107,7 +111,8 @@ def resnet_state_dict_from_numpy(variables: Mapping[str, Any], layers: Sequence[
             if f"Conv_{n_convs}" in bp:
                 sd[f"{t}.downsample.0.weight"] = _conv(bp[f"Conv_{n_convs}"]["kernel"])
                 _batch_norm(sd, f"{t}.downsample.1", bp[f"BatchNorm_{n_convs}"], bs[f"BatchNorm_{n_convs}"])
-    _dense(sd, "fc", p["Dense_0"])
+    if "Dense_0" in p:  # a detector's body has no classifier
+        _dense(sd, "fc", p["Dense_0"])
     return sd
 
 
@@ -175,4 +180,63 @@ def convnext_state_dict_from_numpy(params: Mapping[str, Any]) -> StateDict:
         index += 1
     _norm(sd, "classifier.0", p[f"LayerNorm_{stage + 1}"])
     _dense(sd, "classifier.2", p["Dense_0"])
+    return sd
+
+
+def _dense_from_hwc(sd: StateDict, prefix: str, leaf: Mapping[str, Any], c: int, h: int, w: int) -> None:
+    """A dense kernel (H*W*C, O) over a flattened HWC map as torchvision's
+    (O, C*H*W) ``weight`` over the CHW flattening."""
+    kernel = np.asarray(leaf["kernel"])
+    sd[f"{prefix}.weight"] = _t(kernel.T.reshape(-1, h, w, c).transpose(0, 3, 1, 2).reshape(kernel.shape[1], -1))
+    sd[f"{prefix}.bias"] = _t(leaf["bias"])
+
+
+def _conv_bias(sd: StateDict, prefix: str, leaf: Mapping[str, Any]) -> None:
+    sd[f"{prefix}.weight"] = _conv(leaf["kernel"])
+    sd[f"{prefix}.bias"] = _t(leaf["bias"])
+
+
+FASTER_RCNN_ARCHS = ("fasterrcnn_resnet50_fpn", "fasterrcnn_resnet50_fpn_v2")
+
+
+def faster_rcnn_state_dict_from_numpy(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+                                      arch: str = "fasterrcnn_resnet50_fpn") -> StateDict:
+    """The flax variables of the JAX package's ``FasterRCNN`` (ResNet-50 FPN,
+    ``arch`` v1 or v2) as a ``state_dict`` of the port's ``FasterRCNN``."""
+    if arch not in FASTER_RCNN_ARCHS:
+        raise ValueError(f"arch must be one of {FASTER_RCNN_ARCHS}, got {arch!r}")
+    v2 = arch.endswith("_v2")
+    bb_p, bb_s = params["backbone"], batch_stats["backbone"]
+    body = resnet_state_dict_from_numpy({"params": bb_p["backbone"], "batch_stats": bb_s["backbone"]},
+                                        (3, 4, 6, 3), True)
+    sd: StateDict = {f"backbone.body.{k}": v for k, v in body.items()}
+    fpn_p = bb_p["FeaturePyramidNetwork_0"]
+    fpn_s = bb_s.get("FeaturePyramidNetwork_0", {})
+    for i, name in enumerate(("layer1", "layer2", "layer3", "layer4")):
+        for tset, oset in (("inner_blocks", "inner"), ("layer_blocks", "layer")):
+            t = f"backbone.fpn.{tset}.{i}"
+            if v2:
+                sd[f"{t}.0.weight"] = _conv(fpn_p[f"{oset}_{name}"]["kernel"])
+                _batch_norm(sd, f"{t}.1", fpn_p[f"{oset}_bn_{name}"], fpn_s[f"{oset}_bn_{name}"])
+            else:
+                _conv_bias(sd, f"{t}.0", fpn_p[f"{oset}_{name}"])
+    head = params["rpn"]["head"]
+    _conv_bias(sd, "rpn.head.conv.0.0", head["conv"])
+    if v2:
+        _conv_bias(sd, "rpn.head.conv.1.0", head["conv1"])
+    _conv_bias(sd, "rpn.head.cls_logits", head["cls_logits"])
+    _conv_bias(sd, "rpn.head.bbox_pred", head["bbox_pred"])
+    box_p = params["roi_heads"]["box_head"]
+    if v2:
+        box_s = batch_stats["roi_heads"]["box_head"]
+        for i in range(4):
+            sd[f"roi_heads.box_head.{i}.0.weight"] = _conv(box_p[f"Conv_{i}"]["kernel"])
+            _batch_norm(sd, f"roi_heads.box_head.{i}.1", box_p[f"BatchNorm_{i}"], box_s[f"BatchNorm_{i}"])
+        _dense_from_hwc(sd, "roi_heads.box_head.5", box_p["Dense_0"], 256, 7, 7)
+    else:
+        _dense_from_hwc(sd, "roi_heads.box_head.fc6", box_p["Dense_0"], 256, 7, 7)
+        _dense(sd, "roi_heads.box_head.fc7", box_p["Dense_1"])
+    pred = params["roi_heads"]["predictor"]
+    _dense(sd, "roi_heads.box_predictor.cls_score", pred["Dense_0"])
+    _dense(sd, "roi_heads.box_predictor.bbox_pred", pred["Dense_1"])
     return sd

@@ -114,9 +114,12 @@ class ResNet(nn.Module):
     """Reference ``ResNet``: 7x7/2 stem and 3x3/2 max pool, four stages of
     [64, 128, 256, 512] width, global average pool, ``fc``.  ``forward`` takes
     an NHWC tensor on the parameters' device, or a numpy array, which goes to
-    the card; with ``features_only`` it returns the four stages' NHWC maps."""
+    the card; with ``features_only`` it returns the four stages' NHWC maps.
+    ``num_classes=None`` builds no ``fc`` (a detector's body, whose
+    ``state_dict`` torchvision keeps without it) and runs ``features_only``."""
 
-    def __init__(self, block: Type[Union[BasicBlock, Bottleneck]], layers: Sequence[int], num_classes: int = 1000,
+    def __init__(self, block: Type[Union[BasicBlock, Bottleneck]], layers: Sequence[int],
+                 num_classes: Optional[int] = 1000,
                  groups: int = 1, width_per_group: int = 64, zero_init_residual: bool = True,
                  replace_stride_with_dilation: Sequence[bool] = (False, False, False),
                  dtype: torch.dtype = torch.float32, in_channels: int = 3,
@@ -146,7 +149,7 @@ class ResNet(nn.Module):
                                     prev_dilation if j == 0 else dilation, zero_init_residual))
                 inplanes = width * block.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
-        self.fc = nn.Linear(inplanes, num_classes)
+        self.fc = nn.Linear(inplanes, num_classes) if num_classes is not None else None
         self.reset_parameters(generator)
         self.eval()
 
@@ -179,7 +182,7 @@ class ResNet(nn.Module):
             for i in range(1, 5):
                 x = getattr(self, f"layer{i}")(x)
                 feats[f"layer{i}"] = x.permute(0, 2, 3, 1)
-            if features_only:
+            if features_only or self.fc is None:
                 return feats
             x = x.float().mean(dim=(2, 3)).to(self.dtype)
             return F.linear(x, self.fc.weight.to(self.dtype), self.fc.bias.to(self.dtype))

@@ -1,6 +1,20 @@
 """Image ops (PyTorch): op-by-op implementations, and the fused CUDA
 kernels in ``ops.kernels``."""
 
+from .boxes import (  # noqa: F401
+    batched_nms,
+    box_area,
+    box_convert,
+    box_iou,
+    clip_boxes_to_image,
+    complete_box_iou,
+    distance_box_iou,
+    generalized_box_iou,
+    masks_to_boxes,
+    nms,
+    nms_padded,
+    remove_small_boxes,
+)
 from .cnn import cnn_forward, cnn_init, cnn_params_from_numpy  # noqa: F401
 from .color import (  # noqa: F401
     adjust_brightness,
@@ -38,6 +52,7 @@ from .filters import (  # noqa: F401
     spatial_gradient,
     unsharp_mask,
 )
+from .poolers import LevelMapper, MultiScaleRoIAlign, multiscale_roi_align  # noqa: F401
 from .pyramid import (  # noqa: F401
     gaussian_pyramid,
     laplacian_pyramid,
@@ -46,6 +61,7 @@ from .pyramid import (  # noqa: F401
     reconstruct_from_laplacian,
 )
 from .resize import rescale, resize, resize_weight_matrix  # noqa: F401
+from .roi import roi_align, roi_align_pyramid  # noqa: F401
 from .warp import (  # noqa: F401
     affine,
     affine_grid,

@@ -8,7 +8,8 @@ the fused attention and MLP sub-blocks of a transformer encoder layer and the
 tail of a ConvNeXt block (``transformer_block.py``,
 ``csrc/transformer_block.cu``), Swin's window attention sub-block
 (``swin_attention.py``, ``csrc/swin_attention.cu``) and the depthwise
-convolution (``depthwise.py``, ``csrc/depthwise.cu``).  The op-by-op
+convolution (``depthwise.py``, ``csrc/depthwise.cu``) and the greedy NMS of
+boxes sorted by score (``nms.py``, ``csrc/nms.cu``).  The op-by-op
 functions of ``cpu_vision_tpu_torch.ops`` and the stock-operator routes of
 ``cpu_vision_tpu_torch.models`` are their oracles.
 """
@@ -20,6 +21,7 @@ from .conv_block import (  # noqa: F401
 )
 from .depthwise import depthwise_conv2d, depthwise_conv2d_plain  # noqa: F401
 from .flash_attention import flash_mha, flash_mha_plain  # noqa: F401
+from .nms import nms_sorted, nms_sorted_plain  # noqa: F401
 from .stencil import (  # noqa: F401
     canny_stage1,
     canny_stage1_in_tile,
@@ -44,7 +46,7 @@ from . import stencil as _stencil
 
 # Every wrapper that launches a kernel; each counts its launches.
 KERNEL_WRAPPERS = (*_stencil.KERNEL_WRAPPERS, fused_conv3x3_relu_pool, flash_mha, attention_block, mlp_block,
-                   cn_mlp_block, window_attention_block, depthwise_conv2d)
+                   cn_mlp_block, window_attention_block, depthwise_conv2d, nms_sorted)
 
 
 def launch_counts() -> dict:

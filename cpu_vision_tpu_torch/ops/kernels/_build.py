@@ -31,10 +31,10 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC",
 ]
 
-# Flags of single sources, by stem.  The stencil kernels must equal their
-# twins bit for bit, so no a*b+c is contracted there; the convolution is held
-# to a tolerance and keeps the fused multiply-add.
-SOURCE_FLAGS = {"stencil": ["--fmad=false"]}
+# Flags of single sources, by stem.  The stencil and NMS kernels must equal
+# their twins bit for bit, so no a*b+c is contracted there; the convolution is
+# held to a tolerance and keeps the fused multiply-add.
+SOURCE_FLAGS = {"stencil": ["--fmad=false"], "nms": ["--fmad=false"]}
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"

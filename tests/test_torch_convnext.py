@@ -158,7 +158,7 @@ def test_registered_models_have_the_references_parameter_counts(name, params, bl
 
 def test_registry_and_bad_arguments():
     assert models.list_models("convnext*") == ["convnext_base", "convnext_large", "convnext_small", "convnext_tiny"]
-    assert len(models.list_models()) == 26
+    assert len(models.list_models()) == 28  # with fasterrcnn_resnet50_fpn and _v2
     model = models.get_model("convnext_tiny", device="cpu", num_classes=5, depthwise="kernel",
                              generator=torch.Generator().manual_seed(0))
     assert isinstance(model, models.ConvNeXt) and next(model.parameters()).device.type == "cpu" and not model.training

@@ -18,7 +18,10 @@ matrix products, with fused multiply-adds: float32 is held to
 ``2e-4 + 2e-4·|twin|``, bfloat16 (compared in bfloat16, where one step is 2^-8
 of the value) to ``2e-2 + 2e-2·|twin|``.  The depthwise convolution sums its
 taps in the twin's order, with fused multiply-adds: ``1e-5 + 1e-5·|twin|`` in
-float32, ``2e-2·(1 + |twin|)`` in bfloat16.
+float32, ``2e-2·(1 + |twin|)`` in bfloat16.  NMS keep masks must equal the
+twin's bit for bit (the IoUs are the same float32 operations in the same
+order, without FMA contraction), and so must Faster R-CNN's float32
+detections on the kernel route and on the plain one.
 """
 
 import numpy as np
@@ -27,7 +30,8 @@ import torch
 
 from cpu_vision_tpu_torch import graft_entry, models, ops
 from cpu_vision_tpu_torch.ops import kernels
-from cpu_vision_tpu_torch.ops.kernels import conv_block, depthwise, flash_attention, stencil, swin_attention, transformer_block
+from cpu_vision_tpu_torch.ops.kernels import (conv_block, depthwise, flash_attention, nms, stencil, swin_attention,
+                                              transformer_block)
 
 pytestmark = pytest.mark.cuda
 
@@ -68,7 +72,7 @@ def test_kernels_match_twins(cuda, rng, shape):
         "canny_stage1": 1, "canny_stage1_in_tile": 0, "hysteresis_sweeps": 3, "fused_blur_sobel": 1,
         "harris_response_fused": 1, "fused_gaussian_blur": 1, "fused_conv3x3_relu_pool": 0,
         "flash_mha": 0, "attention_block": 0, "mlp_block": 0, "cn_mlp_block": 0, "window_attention_block": 0,
-        "depthwise_conv2d": 0}
+        "depthwise_conv2d": 0, "nms_sorted": 0}
 
 
 @pytest.mark.parametrize("ks,sigma", [(3, 0.8), (7, 2.0), (9, 3.0)])
@@ -483,3 +487,79 @@ def test_resnet_entry_runs_on_the_card(cuda):
     logits = forward(model, images)
     assert logits.device.type == "cuda" and logits.shape == (4, 1000) and bool(torch.isfinite(logits).all())
     assert all(v == 0 for v in kernels.launch_counts().values())  # stock operators only
+
+
+def _nms_field(rng, p, n, extent=100.0, spread=30.0):
+    ctr = rng.random((p, n, 2)) * extent
+    wh = rng.random((p, n, 2)) * spread + 1
+    return torch.from_numpy(np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32))
+
+
+@pytest.mark.parametrize("n", [1, 130, 300, 1000, 4096])
+@pytest.mark.parametrize("p", [1, 8, 32])
+def test_nms_sorted_matches_twin(cuda, rng, p, n):
+    boxes = _nms_field(rng, p, n, extent=max(20.0, n ** 0.5 * 3)).to(cuda)
+    for thr in (0.3, 0.5, 0.7):
+        keep = kernels.nms_sorted(boxes, thr)
+        assert keep.dtype == torch.bool and keep.shape == (p, n)
+        assert torch.equal(keep, nms.nms_sorted_plain(boxes, thr))
+    assert kernels.launch_counts_by_shape()["nms_sorted"] == {((p, n, 4), torch.float32): 3}
+
+
+def test_nms_sorted_degenerate_and_offset_boxes(cuda, rng):
+    same = torch.tensor([[10.0, 10.0, 30.0, 40.0]]).repeat(2, 100, 1)  # all identical: the first is kept
+    flat = _nms_field(rng, 2, 100)
+    flat[..., 2] = flat[..., 0]  # zero width: unions of 0 and below the 1e-12 floor
+    crowd = _nms_field(rng, 4, 700, extent=20.0, spread=15.0)  # deep suppression chains
+    for boxes in (same, flat, crowd, crowd.to(torch.bfloat16)):
+        for thr in (0.3, 0.5, 0.7):
+            got = kernels.nms_sorted(boxes.to(cuda), thr)
+            assert torch.equal(got.cpu(), nms.nms_sorted_plain(boxes, thr))
+    assert int(kernels.nms_sorted(same.to(cuda), 0.5).sum()) == 2
+    # the class offsets of batched_nms at 90 classes on a 640 canvas, through ops.nms with unsorted scores
+    boxes, scores = _nms_field(rng, 8, 4096, extent=600.0), torch.from_numpy(rng.random((8, 4096), dtype=np.float32))
+    ids = torch.from_numpy(rng.integers(0, 90, (8, 4096)))
+    got = ops.batched_nms(boxes.to(cuda), scores.to(cuda), ids.to(cuda), 0.5)
+    assert torch.equal(got.cpu(), ops.batched_nms(boxes, scores, ids, 0.5))
+    assert torch.equal(got, ops.batched_nms(boxes.to(cuda), scores.to(cuda), ids.to(cuda), 0.5, backend="plain"))
+
+
+def test_nms_refuses_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError, match="at most"):
+        kernels.nms_sorted(torch.zeros((1, nms.MAX_BOXES + 1, 4), device=cuda), 0.5)
+    with pytest.raises(ValueError, match="at most"):
+        ops.nms(torch.zeros((nms.MAX_BOXES + 1, 4), device=cuda), torch.zeros(nms.MAX_BOXES + 1, device=cuda), 0.5,
+                backend="kernel")
+    with pytest.raises(ValueError, match="problems"):
+        kernels.nms_sorted(torch.zeros((nms.MAX_PROBLEMS + 1, 2, 4), device=cuda), 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.nms(torch.zeros((5, 4)), torch.zeros(5), 0.5, backend="kernel")
+    assert kernels.launch_counts()["nms_sorted"] == 0
+
+
+def test_faster_rcnn_kernel_route_equals_plain(cuda, rng):
+    """A small float32 forward (full width, 2 images of 320x320) with the
+    three NMS calls (the four levels of 300 candidates, the max-pool level's
+    75, the postprocess's 400) on the kernel and on the twin: equal detections."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = models.get_model("fasterrcnn_resnet50_fpn", num_classes=5, rpn_pre_nms_top_n=300,
+                                 rpn_post_nms_top_n=100, max_detections=20, generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            model.roi_heads.box_predictor.cls_score.weight.mul_(4.0)
+        images = torch.from_numpy(rng.random((2, 320, 320, 3), dtype=np.float32)).to(cuda)
+        with nms.recording() as calls:
+            dets = model(images)
+        counts = kernels.launch_counts_by_shape()["nms_sorted"]
+        assert counts == {((8, 300, 4), torch.float32): 1, ((2, 75, 4), torch.float32): 1,
+                          ((2, 400, 4), torch.float32): 1}, counts
+        assert [(tuple(b.shape), thr) for b, thr in calls] == [((8, 300, 4), 0.7), ((2, 75, 4), 0.7),
+                                                                ((2, 400, 4), 0.5)]
+        model.set_nms("plain")
+        plain = model(images)
+        for key in dets:
+            assert torch.equal(dets[key], plain[key]), key
+        assert int(dets["valid"].sum()) > 0 and bool(torch.isfinite(dets["boxes"]).all())
+        assert kernels.launch_counts()["nms_sorted"] == 3
+    finally:
+        torch.backends.cudnn.deterministic = False

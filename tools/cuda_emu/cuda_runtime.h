@@ -1,5 +1,5 @@
-// A CPU stand-in for the little of CUDA that csrc/attention.cuh, attention.cu
-// and transformer_block.cu use, so that those sources compile with g++ and
+// A CPU stand-in for the little of CUDA that csrc/attention.cuh, attention.cu,
+// transformer_block.cu and the other covered sources use, so that those sources compile with g++ and
 // their kernels run, slowly, where there is no card and no nvcc: one
 // std::thread per CUDA thread, the blocks of a launch one after another.
 // tools/cuda_emu/emulate.py rewrites the launch syntax and the shared-memory
@@ -47,7 +47,7 @@ template <typename F> cudaError_t cudaFuncSetAttribute(F, int, int bytes) {
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
-inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local dim3 threadIdx, blockIdx, blockDim;
 inline std::barrier<>* emu_block_barrier;
 inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
 inline float emu_shuffle[1024];
@@ -88,6 +88,7 @@ inline void emu_launch(dim3 grid, int block, size_t shared_bytes, cudaStream_t, 
           threads.emplace_back([=] {
             threadIdx = dim3(t);
             blockIdx = dim3(x, y, z);
+            blockDim = dim3(block);
             kernel();
           });
         for (auto& th : threads) th.join();

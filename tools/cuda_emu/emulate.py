@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Run the port's transformer, window attention and depthwise kernels on the
-CPU, with no card and no ``nvcc``.
+"""Run the port's transformer, window attention, depthwise and NMS kernels on
+the CPU, with no card and no ``nvcc``.
 
 The sources ``cpu_vision_tpu_torch/csrc/attention.cu``, ``transformer_block.cu``,
-``swin_attention.cu`` and ``depthwise.cu`` (with the ``.cuh`` headers) are rewritten a little,
+``swin_attention.cu``, ``depthwise.cu`` and ``nms.cu`` (with the ``.cuh`` headers) are rewritten a little,
 compiled with ``g++ -std=c++20`` against the stand-in headers beside this file,
 and loaded in place of the libraries ``nvcc`` would build.  The kernels then
 run one ``std::thread`` per CUDA thread, block after block, so the wrappers in
@@ -22,8 +22,8 @@ self-check of the kernels against their plain twins.
 Covered: ``__global__`` templates, ``threadIdx``/``blockIdx``, ``__syncthreads``,
 ``__shfl_xor_sync`` on floats, dynamic shared memory declared as
 ``extern __shared__ __align__(16) float smem[];``, static ``__shared__`` arrays,
-``float4``, ``__nv_bfloat16`` with its two conversions, ``cudaFuncSetAttribute``
-and the ``<<<...>>>`` launch.  Not covered: everything else (``stencil.cu`` and
+``float4``, ``__nv_bfloat16`` with its two conversions, ``cudaFuncSetAttribute``,
+``blockDim`` and the ``<<<...>>>`` launch.  Not covered: everything else (``stencil.cu`` and
 ``conv_block.cu`` use typed shared arrays and ``__syncthreads_or``); extend the
 headers as a source needs.
 """
@@ -42,7 +42,7 @@ from typing import Iterator
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parents[1]
 CSRC = REPO / "cpu_vision_tpu_torch" / "csrc"
-STEMS = ("attention", "transformer_block", "swin_attention", "depthwise")
+STEMS = ("attention", "transformer_block", "swin_attention", "depthwise", "nms")
 
 _LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;(]*>)?)<<<([^;]*?)>>>\(([^;]*?)\);", re.S)
 
@@ -84,12 +84,12 @@ def build(build_dir) -> Path:
 @contextlib.contextmanager
 def kernels_on_cpu(build_dir) -> Iterator[None]:
     """Inside, the wrappers of ``flash_attention``, ``transformer_block``,
-    ``swin_attention`` and ``depthwise`` take CPU tensors through the emulated CUDA sources instead of the twins.
+    ``swin_attention``, ``depthwise`` and ``nms`` take CPU tensors through the emulated CUDA sources instead of the twins.
     Builds into ``build_dir`` unless the libraries are there already."""
     sys.path.insert(0, str(REPO))
-    from cpu_vision_tpu_torch.ops.kernels import _build, depthwise, flash_attention, swin_attention, transformer_block
+    from cpu_vision_tpu_torch.ops.kernels import _build, depthwise, flash_attention, nms, swin_attention, transformer_block
 
-    modules = (flash_attention, transformer_block, swin_attention, depthwise)
+    modules = (flash_attention, transformer_block, swin_attention, depthwise, nms)
 
     build_dir = Path(build_dir)
     if not all((build_dir / f"lib{stem}.so").exists() for stem in STEMS):
@@ -172,6 +172,13 @@ def main() -> int:
                 dw = (normal((2, 9, 19, 40), dtype), normal((ks, ks, 40), dtype, 1.0 / ks), normal((40,), torch.float32))
                 pairs.append((f"depthwise_conv2d {ks}x{ks}", kernels.depthwise_conv2d(*dw, use_bias=ks != 5),
                               kernels.depthwise_conv2d_plain(*dw, use_bias=ks != 5)))
+            if dtype == torch.float32:  # NMS: fields sparse and crowded, N off the tile of 32, identical boxes
+                for p, n, extent, thr in ((3, 70, 100.0, 0.5), (2, 300, 20.0, 0.3), (1, 33, 5.0, 0.7), (2, 129, 8.0, 0.5)):
+                    ctr, wh = torch.rand((p, n, 2), generator=gen) * extent, torch.rand((p, n, 2), generator=gen) * 15 + 1
+                    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], -1)
+                    boxes[0, 5:9] = boxes[0, 4]
+                    pairs.append((f"nms_sorted {p}x{n} thr {thr}", kernels.nms_sorted(boxes, thr).float(),
+                                  kernels.nms_sorted_plain(boxes, thr).float()))
             for name, out, ref in pairs:
                 err = (out.float() - ref.float()).abs()
                 ok = bool((err <= tol + tol * ref.float().abs()).all())
