@@ -28,8 +28,12 @@ It builds the CUDA kernels from ``cpu_vision_tpu_torch/csrc/``, then:
    ``models.detection.detect`` with ``fasterrcnn_resnet50_fpn`` (bfloat16 and
    float32) and ``fasterrcnn_resnet50_fpn_v2`` (float32) at full depth and
    width on 8 images of unequal sizes on a 640x640 canvas (``nms_sorted`` in
-   the RPN's two NMS calls and the postprocess's one); and checks their
-   outputs against the op-by-op paths and stock PyTorch operators;
+   the RPN's two NMS calls and the postprocess's one); and the int8 engines
+   ``models.Int8ViT`` over ``vit_b_16`` (bfloat16, ``attention_block_int8`` and
+   ``mlp_block_int8`` in each of the 12 layers) and ``models.Int8ResNet`` over
+   ``resnet50`` (``int8_matmul_requant`` in its 36 1x1 convolutions), both at
+   batch 256 on 224x224 images; and checks their outputs against the op-by-op
+   paths, stock PyTorch operators and the engines on their twins;
 2. holds every kernel against its plain PyTorch twin on the card at every
    shape and dtype those paths handed it (the wrappers count their launches
    by input shape, and the script fails if a Swin or ConvNeXt path ran a
@@ -63,6 +67,7 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12  # dense int8 in the tensor cores
 
 # Kernel vs twin: class maps must be equal; f32 stencil maps must agree
 # within F32_ATOL + F32_RTOL * |twin| (both run the same f32 operations in
@@ -92,7 +97,14 @@ BF16_OPS_PER_S = 989e12
 # rule below with no difference at all.  The bfloat16 detector is held to the float32 one by the logits' rule
 # restated for what its heads emit on the float32 run's proposals (class logits and box deltas of every class of
 # every proposal, before any threshold, top-k or NMS decision): within VIT_TOL[bfloat16] * (1 + |float32|); the
-# softmax scores (a function of those logits) and the decoded boxes' differences are printed.
+# softmax scores (a function of those logits) and the decoded boxes' differences are printed.  The int8 product
+# (int8_matmul_requant) must equal its twin bit for bit at every launch of the int8 ResNet-50 path (exact int32
+# sums, the same float32 epilogue without FMA); the ResNet's logits on its two 1x1 routes are compared and their
+# difference printed (expected 0).  The int8 sub-blocks take their LayerNorm statistics and exponentials in other
+# orders than their twins, so a quantised activation near a rounding half may land one step apart: TOL[dtype] *
+# (1 + |twin|) as the bf16 transformer kernels, and the int8 ViT's logits within VIT_TOL[bfloat16] * (1 + |ref|) of
+# the same engine on its twins.  The int8 engines' distance to their float models is printed only: the weights are
+# random, so it is no accuracy figure.
 F32_ATOL, F32_RTOL = 1e-5, 1e-6
 CONV_ATOL, CONV_RTOL = 1e-5, 1e-5
 LOGIT_TOL = 1e-4
@@ -106,6 +118,8 @@ TRANSFORMER = "cpu_vision_tpu_torch/csrc/transformer_block.cu"
 SWIN_ATTENTION = "cpu_vision_tpu_torch/csrc/swin_attention.cu"
 DEPTHWISE = "cpu_vision_tpu_torch/csrc/depthwise.cu"
 NMS = "cpu_vision_tpu_torch/csrc/nms.cu"
+INT8_MATMUL = "cpu_vision_tpu_torch/csrc/int8_matmul.cu"
+INT8_TRANSFORMER = "cpu_vision_tpu_torch/csrc/int8_transformer.cu"
 PALLAS = "cpu_vision_tpu/ops/pallas/stencil.py"
 PALLAS_CONV = "cpu_vision_tpu/ops/pallas/conv_block.py"
 PALLAS_FLASH = "cpu_vision_tpu/ops/pallas/flash_attention.py"
@@ -113,6 +127,8 @@ PALLAS_BLOCK = "cpu_vision_tpu/ops/pallas/transformer_block.py"
 PALLAS_SWIN = "cpu_vision_tpu/ops/pallas/swin_attention.py"
 PALLAS_DEPTHWISE = "cpu_vision_tpu/ops/pallas/depthwise.py"
 PALLAS_NMS = "cpu_vision_tpu/ops/pallas/nms.py"
+PALLAS_INT8_MM = "cpu_vision_tpu/ops/pallas/int8_matmul.py"
+PALLAS_INT8_TB = "cpu_vision_tpu/ops/pallas/int8_transformer.py"
 # Faster R-CNN at the JAX package's benchmarked settings (bench_all.py:342-344).  At random weights the 91
 # class scores of a proposal are all near 1/91, under the 0.05 score threshold; the class scores' weights are
 # scaled up from their draw (seed 0) so that some, not all, of the 100 detection slots fill
@@ -255,8 +271,8 @@ def main() -> int:
         return 1
     from cpu_vision_tpu_torch import _dtype, graft_entry, models, ops
     from cpu_vision_tpu_torch.ops import kernels
-    from cpu_vision_tpu_torch.ops.kernels import (_build, conv_block, depthwise, flash_attention, stencil, swin_attention,
-                                                  transformer_block)
+    from cpu_vision_tpu_torch.ops.kernels import (_build, conv_block, depthwise, flash_attention, int8_matmul,
+                                                  int8_transformer, stencil, swin_attention, transformer_block)
     from cpu_vision_tpu_torch.ops.kernels import nms as nms_kernel
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -722,6 +738,85 @@ def main() -> int:
     nms_inputs = {(tuple(boxes.shape), float(thr)): boxes for boxes, thr in calls}
     del det_bf16, det_f32, det_v2, det_state, dets_bf16, dets_f32, dets_v2
 
+    # ------------------------------ main paths 18 and 19: int8 serving, ViT-B/16 and ResNet-50 at batch 256
+    INT8_VIT, INT8_R50 = "int8 vit_b_16 bf16 b256", "int8 resnet50 b256"
+    int8_images = torch.from_numpy(np.random.default_rng(0).random((256, 224, 224, 3), dtype=np.float32)).to(dev)
+    vit16 = models.get_model("vit_b_16", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
+    veng = models.Int8ViT.from_model(vit16).calibrate([int8_images[:8]])  # bench_all.py:428
+    kernels.reset_launch_counts()
+    vlogits = veng(int8_images)
+    vcounts = read_counts(INT8_VIT)
+    vit_i8_kernel_launches = kernels.attention_block_int8.kernel_launches
+    print(f"{INT8_VIT} main path launches: {vcounts} (routes {veng.routes()}, {vit_i8_kernel_launches} kernel "
+          f"launches in attention_block_int8)")
+    require(launches_at("mlp_block_int8", (256 * 197, 768), torch.bfloat16).get(INT8_VIT) == 12
+            and launches_at("attention_block_int8", (256, 197, 768), torch.bfloat16).get(INT8_VIT) == 12
+            and vit_i8_kernel_launches == 36 and vcounts["mlp_block_int8"] == 12
+            and vcounts["attention_block_int8"] == 12, f"{INT8_VIT}: expected 12 + 12 launches at its shapes")
+    require(vlogits.device.type == "cuda" and vlogits.shape == (256, 1000) and vlogits.dtype == torch.float32
+            and bool(torch.isfinite(vlogits).all()), "int8 vit logits shape/dtype/device/finite")
+    vtwin = models.Int8ViT.from_model(vit16, route="plain").set_scales(veng.scales)(int8_images)
+    verr = max_err_f32(vlogits, vtwin, f"{INT8_VIT} vs the same engine on its twins", VIT_TOL[torch.bfloat16],
+                       VIT_TOL[torch.bfloat16])
+    vbf16 = vit16(int8_images[:64]).float()
+    vrel = float(torch.linalg.norm(vlogits[:64] - vbf16) / torch.linalg.norm(vbf16)) * 100
+    vfloat = veng.float_reference(int8_images[:64])
+    v_ms, v_least, v_most = spread_ms(lambda: veng(int8_images), 10, warmup=2)
+    print(f"{INT8_VIT}: {v_ms:.4f} ms/batch ({v_least:.4f} to {v_most:.4f} over 10 calls), {256 / v_ms * 1e3:.1f} "
+          f"img/s; logits vs the engine on its twins max |err| {verr:.3e}, scaled {scaled_err(vlogits, vtwin):.3e}; "
+          f"|int8 - bf16 model| / |bf16 model| {vrel:.3f} % over 64 images, vs its float graph "
+          f"{float(torch.linalg.norm(vlogits[:64] - vfloat) / torch.linalg.norm(vfloat)) * 100:.3f} % (random weights: "
+          f"no accuracy figure) ({card}); under its load: {clock_under(lambda: veng(int8_images), 3)}")
+    # the kernels' inputs at the main path's shapes: layer 0's real tokens and weights
+    with torch.no_grad(), _dtype.full_float32():
+        vit_tokens = veng._embed(int8_images)
+        ly0, vsc = veng.layers[0], veng.scales
+        vit_attn_args = (vit_tokens, ly0.g0, ly0.b0, ly0.qw_qkv, ly0.s_qkv, ly0.b_qkv, ly0.qw_o, ly0.s_o, ly0.b_o,
+                         vsc["L0/attn_in"], vsc["L0/attn_out"], 12, 64 ** -0.5, 1e-6)
+        vit_mlp_args = (kernels.attention_block_int8(*vit_attn_args).reshape(-1, 768), ly0.g1, ly0.b1ln, ly0.qw1,
+                        ly0.s1, ly0.b1, ly0.qw2, ly0.s2, ly0.b2, vsc["L0/mlp_in"], vsc["L0/mlp_gelu"], 1e-6)
+    del vit16, vtwin, vbf16, vfloat, vlogits
+
+    r50 = models.get_model("resnet50", generator=torch.Generator().manual_seed(0))
+    bn_gen = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():  # else each block's last batch-norm scale is 0 and its residual branch vanishes
+        for m_ in r50.modules():
+            if isinstance(m_, torch.nn.BatchNorm2d):
+                m_.weight.uniform_(0.5, 1.5, generator=bn_gen)
+                m_.bias.uniform_(-0.1, 0.1, generator=bn_gen)
+                m_.running_mean.uniform_(-0.3, 0.3, generator=bn_gen)
+                m_.running_var.uniform_(0.5, 1.5, generator=bn_gen)
+    reng = models.Int8ResNet.from_model(r50).calibrate([int8_images[:32]])  # bench_all.py:410-411
+    kernels.reset_launch_counts()
+    with int8_matmul.recording() as r50_calls:
+        rlogits = reng(int8_images)
+        rcounts = read_counts(INT8_R50)
+    print(f"{INT8_R50} main path launches: {rcounts}")
+    require(rcounts["int8_matmul_requant"] == 36 and len(r50_calls) == 36,
+            f"{INT8_R50}: expected 36 int8_matmul_requant launches (16 blocks x 2 + 4 downsamples)")
+    require(rlogits.shape == (256, 1000) and bool(torch.isfinite(rlogits).all()), "int8 resnet50 logits")
+    r50_held = {}
+    for qx_, qw_, sc_, b_, os_, relu_, out_ in r50_calls:  # every launch equal to its twin bit for bit
+        exact(out_, int8_matmul.int8_matmul_requant_plain(qx_, qw_, sc_, b_, os_, relu_),
+              f"int8_matmul_requant {tuple(qx_.shape)} x {tuple(qw_.shape)}")
+        key = (tuple(qx_.shape), qw_.shape[1], relu_)
+        r50_held[key] = r50_held.get(key, 0) + 1
+    rstock = models.Int8ResNet.from_model(r50, conv1x1="stock").set_scales(reng.scales)(int8_images)
+    route_diff = float((rlogits - rstock).abs().max())
+    rfloat = reng.float_reference(int8_images[:64])
+    r_ms, r_least, r_most = spread_ms(lambda: reng(int8_images), 10, warmup=2)
+    reng_stock = models.Int8ResNet.from_model(r50, conv1x1="stock").set_scales(reng.scales)
+    rs_ms, rs_least, rs_most = spread_ms(lambda: reng_stock(int8_images), 3, warmup=1)
+    print(f"{INT8_R50}: {r_ms:.4f} ms/batch ({r_least:.4f} to {r_most:.4f} over 10 calls), {256 / r_ms * 1e3:.1f} "
+          f"img/s; stock 1x1 route {rs_ms:.4f} ms/batch ({rs_least:.4f} to {rs_most:.4f} over 3 calls); every one of "
+          f"the 36 launches equal to its twin ({len(r50_held)} shapes); logits on conv1x1=None vs \"stock\": "
+          f"max |a - b| {route_diff:.3e} ({'bit for bit' if route_diff == 0 else 'NOT bit for bit'}); "
+          f"|int8 - f32 model| / |f32 model| "
+          f"{float(torch.linalg.norm(rlogits[:64] - rfloat) / torch.linalg.norm(rfloat)) * 100:.3f} % over 64 images "
+          f"(random weights: no accuracy figure) ({card}); under its load: {clock_under(lambda: reng(int8_images), 3)}")
+    r50_inputs = [(qx_, qw_, sc_, b_, os_, relu_) for qx_, qw_, sc_, b_, os_, relu_, _ in r50_calls]
+    del r50_calls, rstock, rfloat, rlogits, r50, int8_images, reng_stock
+
     # ------------------------------------ each kernel against its plain twin
     rows = []
 
@@ -1060,7 +1155,7 @@ def main() -> int:
         add = rel_bias[None].expand(nw, -1, -1, -1)
         if mask is not None:
             add = add + mask.repeat(nw // nw_img, 1, 1)[:, None]
-        add = add.to(dtype).contiguous()
+        add32, add = add.float().contiguous(), add.to(dtype).contiguous()
 
         def library():
             h = F.layer_norm(x, (c,), ln_g.to(dtype), ln_b.to(dtype), 1e-5)
@@ -1069,8 +1164,27 @@ def main() -> int:
             o = F.scaled_dot_product_attention(q, k, v, attn_mask=add, scale=scale).permute(0, 2, 1, 3).reshape(nw, s, c)
             return x + F.linear(o, w_o.t(), b_o.to(dtype))
 
-        library_ms = None
-        if not v2:
+        # v2: linear, cosine attention (q and k normalised, q times each head's exp(logit scale)) through SDPA with
+        # the CPB bias and mask as its additive mask, linear, then the post-norm layer_norm and the residual
+        def library_v2(dt):
+            xx = x.to(dt)
+            q, k, v = (t.reshape(nw, s, n_heads, 32).permute(0, 2, 1, 3)
+                       for t in F.linear(xx, w_qkv.to(dt).t(), b_qkv.to(dt)).split(c, dim=-1))
+            q = F.normalize(q, dim=-1) * torch.exp(logit_scale.clamp_max(float(np.log(100.0)))).to(dt)[:, None, None]
+            o = F.scaled_dot_product_attention(q, F.normalize(k, dim=-1), v, attn_mask=add if dt == dtype else add32,
+                                               scale=1.0)
+            o = F.linear(o.permute(0, 2, 1, 3).reshape(nw, s, c), w_o.to(dt).t(), b_o.to(dt))
+            return xx + F.layer_norm(o, (c,), ln_g.to(dt), ln_b.to(dt), 1e-5)
+
+        if v2:
+            # in bfloat16 the composite rounds q, k and the post-norm's input where the kernel keeps float32, and the
+            # post-norm magnifies that (0.25 on an H100): its formula is held in float32 against the twin instead
+            args32 = (x.float(), ln_g, ln_b, w_qkv.float(), b_qkv, w_o.float(), *args[6:])
+            with _dtype.full_float32():
+                max_err_f32(library_v2(torch.float32), swin_attention.window_attention_block_plain(*args32),
+                            what + " in float32 vs the stock composite", 1e-3, 1e-3)
+            library_ms = time_ms(lambda: library_v2(dtype), 5)
+        else:
             max_err_f32(out, library(), what + " vs the stock composite", 5e-2 if dtype == torch.bfloat16 else 1e-3,
                         5e-2 if dtype == torch.bfloat16 else 1e-3)
             library_ms = time_ms(library, 5)
@@ -1207,6 +1321,106 @@ def main() -> int:
     nms_entry = entry(main, DET_F32, [r for r in nms_rows if r is not main])
     rows.append(nms_entry)
 
+    # int8_matmul_requant at ResNet-50's heaviest 1x1 shape, layer 1's (802,816 x 256) @ (256 x 64), on the main
+    # path's own inputs; library_ms is a composite: torch._int_mm on the weight laid out for cuBLASLt, then the
+    # stock epilogue.  Bound: the int8 operands and output once, 2 M K N int8 operations
+    def int8_mm_row(qx_, qw_, sc_, b_, os_, relu_, timed):
+        m_, k_ = qx_.shape
+        n_ = qw_.shape[1]
+        err = exact(kernels.int8_matmul_requant(qx_, qw_, sc_, b_, os_, relu_),
+                    int8_matmul.int8_matmul_requant_plain(qx_, qw_, sc_, b_, os_, relu_),
+                    f"int8_matmul_requant {m_}x{k_}x{n_}")
+        inv_ = 1.0 / os_
+        qw_cm = qw_.t().contiguous().t()
+
+        def library():
+            f_ = torch._int_mm(qx_, qw_cm).float() * sc_ + b_
+            return int8_matmul.quantize_i8(torch.relu(f_) if relu_ else f_, inv_)
+
+        exact(library(), int8_matmul.int8_matmul_requant_plain(qx_, qw_, sc_, b_, os_, relu_), "int8 composite")
+        if not timed:
+            return None
+        return row("int8_matmul_requant", f"{PALLAS_INT8_MM}:55", INT8_R50, err,
+                   time_ms(lambda: kernels.int8_matmul_requant(qx_, qw_, sc_, b_, os_, relu_), 20),
+                   time_ms(lambda: int8_matmul.int8_matmul_requant_plain(qx_, qw_, sc_, b_, os_, relu_), 5),
+                   m_ * k_ + k_ * n_ + m_ * n_ + 8 * n_, 2 * m_ * k_ * n_, library_ms=time_ms(library, 10),
+                   source=INT8_MATMUL, ops_per_s=INT8_OPS_PER_S, at=(qx_.shape, qx_.dtype), shape=[m_, k_, n_],
+                   relu=relu_)
+
+    mm_rows = []
+    timed_shapes = {(802816, 256, 64), (200704, 128, 512), (12544, 2048, 512)}
+    for args in r50_inputs:
+        key = (args[0].shape[0], args[0].shape[1], args[1].shape[1])
+        mm_rows.append(int8_mm_row(*args, timed=key in timed_shapes))
+        timed_shapes.discard(key)
+    mm_rows = [r for r in mm_rows if r is not None]
+    main = next(r for r in mm_rows if r["shape"] == [802816, 256, 64])
+    rows.append(entry(main, INT8_R50, [r for r in mm_rows if r is not main], held_exact_at_shapes=len(r50_held)))
+    del r50_inputs
+
+    # mlp_block_int8 and attention_block_int8 at ViT-B/16's shapes on layer 0's real inputs; library_ms is a composite
+    # (layer_norm, quantise, torch._int_mm, gelu or SDPA, quantise, torch._int_mm, epilogue).  Bound: x in and out
+    # once, the int8 weights once, 4 D Dh (MLP) or 8 D^2 (attention projections) int8 operations a token at the
+    # int8 rate, plus the attention core's S^2 (4 hd + 5) a head at the bf16 rate
+    xm = vit_mlp_args[0]
+    err = max_err_f32(kernels.mlp_block_int8(*vit_mlp_args), int8_transformer.mlp_block_int8_plain(*vit_mlp_args),
+                      "mlp_block_int8", TOL[torch.bfloat16], TOL[torch.bfloat16])
+    w1c, w2c = vit_mlp_args[3].t().contiguous().t(), vit_mlp_args[6].t().contiguous().t()
+    inv1, inv2 = 1.0 / vit_mlp_args[9], 1.0 / vit_mlp_args[10]
+
+    def mlp_i8_library():
+        _, g_, bb_, _, s1_, b1_, _, s2_, b2_, _, _, eps_ = vit_mlp_args
+        h_ = F.layer_norm(xm.float(), (768,), g_, bb_, eps_)
+        f_ = F.gelu(torch._int_mm(int8_matmul.quantize_i8(h_, inv1), w1c).float() * s1_ + b1_)
+        return (xm.float() + (torch._int_mm(int8_matmul.quantize_i8(f_, inv2), w2c).float() * s2_ + b2_)).to(xm.dtype)
+
+    max_err_f32(mlp_i8_library(), int8_transformer.mlp_block_int8_plain(*vit_mlp_args), "mlp_block_int8 composite",
+                5e-2, 5e-2)
+    tok = xm.shape[0]
+    rows.append(entry(row("mlp_block_int8", f"{PALLAS_INT8_TB}:88", INT8_VIT, err,
+                          time_ms(lambda: kernels.mlp_block_int8(*vit_mlp_args), 5),
+                          time_ms(lambda: int8_transformer.mlp_block_int8_plain(*vit_mlp_args), 3),
+                          2 * xm.numel() * 2 + 2 * 768 * 3072 + 4 * (5 * 768 + 3 * 3072), tok * 4 * 768 * 3072,
+                          library_ms=time_ms(mlp_i8_library, 5), source=INT8_TRANSFORMER,
+                          ops_per_s=INT8_OPS_PER_S, at=(xm.shape, xm.dtype), shape=list(xm.shape), dtype="bfloat16"),
+                      INT8_VIT, []))
+    print(f"  under mlp_block_int8's load: {clock_under(lambda: kernels.mlp_block_int8(*vit_mlp_args), 20)}")
+
+    xa = vit_attn_args[0]
+    err = max_err_f32(kernels.attention_block_int8(*vit_attn_args),
+                      int8_transformer.attention_block_int8_plain(*vit_attn_args), "attention_block_int8",
+                      TOL[torch.bfloat16], TOL[torch.bfloat16])
+    wqkv_c, wo_c = vit_attn_args[3].t().contiguous().t(), vit_attn_args[6].t().contiguous().t()
+    inv_a, inv_o = 1.0 / vit_attn_args[9], 1.0 / vit_attn_args[10]
+
+    def attention_i8_library():
+        _, g_, bb_, _, sq_, bq_, _, so_, bo_, _, _, nh_, sc_, eps_ = vit_attn_args
+        n_, s_, d_ = xa.shape
+        h_ = F.layer_norm(xa.float(), (d_,), g_, bb_, eps_).reshape(-1, d_)
+        qkv_ = (torch._int_mm(int8_matmul.quantize_i8(h_, inv_a), wqkv_c).float() * sq_ + bq_).to(xa.dtype)
+        q_, k_, v_ = (t_.reshape(n_, s_, nh_, d_ // nh_).transpose(1, 2) for t_ in qkv_.split(d_, dim=-1))
+        o_ = F.scaled_dot_product_attention(q_, k_, v_, scale=sc_).transpose(1, 2).reshape(-1, d_)
+        proj_ = torch._int_mm(int8_matmul.quantize_i8(o_.float(), inv_o), wo_c)
+        return ((xa.float().reshape(-1, d_) + proj_.float() * so_) + bo_).to(xa.dtype).reshape(n_, s_, d_)
+
+    max_err_f32(attention_i8_library(), int8_transformer.attention_block_int8_plain(*vit_attn_args),
+                "attention_block_int8 composite", 5e-2, 5e-2)
+    tok = xa.shape[0] * xa.shape[1]
+    attn_core_ops = 256 * 12 * 197 * 197 * (4 * 64 + 5)
+    rows.append(entry(row("attention_block_int8", f"{PALLAS_INT8_TB}:163", INT8_VIT, err,
+                          time_ms(lambda: kernels.attention_block_int8(*vit_attn_args), 5),
+                          time_ms(lambda: int8_transformer.attention_block_int8_plain(*vit_attn_args), 3),
+                          2 * xa.numel() * 2 + 4 * 768 * 768 + 4 * (8 * 768),
+                          tok * 8 * 768 * 768 + attn_core_ops * INT8_OPS_PER_S / BF16_OPS_PER_S,
+                          library_ms=time_ms(attention_i8_library, 5), source=INT8_TRANSFORMER,
+                          ops_per_s=INT8_OPS_PER_S, at=(xa.shape, xa.dtype), shape=list(xa.shape), dtype="bfloat16",
+                          kernel_launches=vit_i8_kernel_launches,
+                          split_bytes_ms=(tok * 3 * 768 * 2 * 2 + tok * 768 * 2) / HBM_BYTES_PER_S * 1e3),
+                      INT8_VIT, []))
+    print(f"  under attention_block_int8's load: "
+          f"{clock_under(lambda: kernels.attention_block_int8(*vit_attn_args), 20)}")
+    del vit_mlp_args, vit_attn_args, xm, xa, veng, reng
+
     # every shape that a Swin or ConvNeXt main path handed to one of these four wrappers was held above
     new_kernels = ("mlp_block", "cn_mlp_block", "window_attention_block", "depthwise_conv2d")
     checked = {(r["name"], tuple(r["shape"]), r["dtype"]) for r in held}
@@ -1225,8 +1439,8 @@ def main() -> int:
             require(shape in held_nms and dtype == torch.float32,
                     f"{path}: nms_sorted ran on {shape} {dtype}, which was not held against its twin")
 
-    require(len(rows) == 15 and len({r["name"] for r in rows}) == 14 and all(r["launches"] >= 1 for r in rows),
-            "fifteen entries of fourteen wrappers, each launched on a main path")
+    require(len(rows) == 18 and len({r["name"] for r in rows}) == 17 and all(r["launches"] >= 1 for r in rows),
+            "eighteen entries of seventeen wrappers, each launched on a main path")
     print(json.dumps({"kernels": rows, "held_untimed": held}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -24,12 +24,19 @@
 // Layouts are strides, so no transpose is ever materialised: element
 // (n, s, h, d) of q, k and v is at n * in_n + s * in_s + h * in_h + d, and of
 // the output at n * o_n + s * o_s + h * o_h + d.
+//
+// The output is of T, or (OutT = int8_t, for the int8 attention block) the f32
+// head outputs quantised in the epilogue, clamp(rint(o * o_inv[h hd + d]),
+// -127, 127), with o_inv the inverse activation scale of each joined channel:
+// the quantised tensor is what the output projection reads, a quarter of the
+// f32 one's bytes.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace cvt {
 
@@ -50,6 +57,14 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32<T>(from_f32<T>(v));
 }
 
+// an attention output as OutT; o_inv[c] is read for int8 only
+template <typename OutT> __device__ __forceinline__ OutT core_out(float v, const float* o_inv, int c) {
+  return from_f32<OutT>(v);
+}
+template <> __device__ __forceinline__ int8_t core_out<int8_t>(float v, const float* o_inv, int c) {
+  return (int8_t)fminf(fmaxf(rintf(v * o_inv[c]), -127.0f), 127.0f);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -65,11 +80,12 @@ template <int HD> constexpr size_t attention_smem_bytes() {
   return sizeof(float) * ((size_t)(ATT_BQ + 2 * ATT_BK) * (HD + 4) + (size_t)ATT_BQ * ATT_LDP);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, typename OutT>
 __global__ void __launch_bounds__(ATT_THREADS)
 attention_core_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      T* __restrict__ o, int s_len, float scale, long long in_n, long long in_s,
-                      long long in_h, long long o_n, long long o_s, long long o_h) {
+                      OutT* __restrict__ o, int s_len, float scale, long long in_n, long long in_s,
+                      long long in_h, long long o_n, long long o_s, long long o_h,
+                      const float* __restrict__ o_inv) {
   static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
   constexpr int LD = HD + 4;
   constexpr int DPT = HD / 16;  // head dims a thread owns
@@ -186,41 +202,44 @@ attention_core_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     }
   }
 
-  T* ob = o + (long long)blockIdx.z * o_n + (long long)blockIdx.y * o_h;
+  OutT* ob = o + (long long)blockIdx.z * o_n + (long long)blockIdx.y * o_h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
     if (row >= s_len) continue;
     const float inv = 1.0f / l_run[i];
 #pragma unroll
-    for (int e = 0; e < DPT; ++e) ob[(long long)row * o_s + tx + 16 * e] = from_f32<T>(acc[i][e] * inv);
+    for (int e = 0; e < DPT; ++e)
+      ob[(long long)row * o_s + tx + 16 * e] = core_out<OutT>(acc[i][e] * inv, o_inv, blockIdx.y * HD + tx + 16 * e);
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch_attention_core(const T* q, const T* k, const T* v, T* o, int n, int s_len, int heads,
+template <typename T, int HD, typename OutT>
+cudaError_t launch_attention_core(const T* q, const T* k, const T* v, OutT* o, int n, int s_len, int heads,
                                   float scale, long long in_n, long long in_s, long long in_h,
-                                  long long o_n, long long o_s, long long o_h, cudaStream_t stream) {
+                                  long long o_n, long long o_s, long long o_h, cudaStream_t stream,
+                                  const float* o_inv) {
   constexpr size_t smem = attention_smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(attention_core_kernel<T, HD>,
+  cudaError_t err = cudaFuncSetAttribute(attention_core_kernel<T, HD, OutT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s_len + ATT_BQ - 1) / ATT_BQ, heads, n);
-  attention_core_kernel<T, HD><<<grid, ATT_THREADS, smem, stream>>>(q, k, v, o, s_len, scale, in_n, in_s,
-                                                                    in_h, o_n, o_s, o_h);
+  attention_core_kernel<T, HD, OutT><<<grid, ATT_THREADS, smem, stream>>>(q, k, v, o, s_len, scale, in_n, in_s,
+                                                                          in_h, o_n, o_s, o_h, o_inv);
   return cudaGetLastError();
 }
 
-// Head dims with an instantiation; any other is refused.
-template <typename T>
-cudaError_t attention_core(const T* q, const T* k, const T* v, T* o, int n, int s_len, int heads, int hd,
+// Head dims with an instantiation; any other is refused.  o_inv: the int8
+// output's inverse scales, one a joined channel (OutT = int8_t only).
+template <typename T, typename OutT>
+cudaError_t attention_core(const T* q, const T* k, const T* v, OutT* o, int n, int s_len, int heads, int hd,
                            float scale, long long in_n, long long in_s, long long in_h, long long o_n,
-                           long long o_s, long long o_h, cudaStream_t stream) {
+                           long long o_s, long long o_h, cudaStream_t stream, const float* o_inv = nullptr) {
   if (n < 1 || n > 65535 || heads < 1 || heads > 65535 || s_len < 1) return cudaErrorInvalidValue;
 #define CVT_ATT_CASE(HD)                                                                              \
   case HD:                                                                                            \
-    return launch_attention_core<T, HD>(q, k, v, o, n, s_len, heads, scale, in_n, in_s, in_h, o_n, \
-                                        o_s, o_h, stream)
+    return launch_attention_core<T, HD, OutT>(q, k, v, o, n, s_len, heads, scale, in_n, in_s, in_h, o_n, \
+                                              o_s, o_h, stream, o_inv)
   switch (hd) {
     CVT_ATT_CASE(16);
     CVT_ATT_CASE(64);

@@ -26,6 +26,20 @@
 
 namespace cvt {
 
+// The TPU kernels' erf, the Abramowitz-Stegun 7.1.26 polynomial (|err| <
+// 1.5e-7), not erff; and the exact-erf gelu over it.
+__device__ __forceinline__ float erf_poly(float x) {
+  const float a = fabsf(x);
+  const float t = 1.0f / (1.0f + 0.3275911f * a);
+  const float poly =
+      t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  return copysignf(1.0f - poly * expf(-a * a), x);
+}
+
+__device__ __forceinline__ float gelu_erf(float h) {
+  return 0.5f * h * (1.0f + erf_poly(h * 0.70710678118654752f));
+}
+
 // Mean and 1/sqrt(var + eps) of one row of `d` values, by a whole warp.
 template <typename T>
 __device__ __forceinline__ void row_stats(const T* __restrict__ p, int d, float eps, int count, int lane,

@@ -73,23 +73,12 @@
 namespace {
 
 using cvt::from_f32;
+using cvt::gelu_erf;
 using cvt::launch_ln_gemm;
 using cvt::row_stats;
 using cvt::round_to;
 using cvt::to_f32;
 using cvt::warp_sum;
-
-__device__ __forceinline__ float erf_poly(float x) {
-  const float a = fabsf(x);
-  const float t = 1.0f / (1.0f + 0.3275911f * a);
-  const float poly =
-      t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  return copysignf(1.0f - poly * expf(-a * a), x);
-}
-
-__device__ __forceinline__ float gelu_erf(float h) {
-  return 0.5f * h * (1.0f + erf_poly(h * 0.70710678118654752f));
-}
 
 template <typename T>
 cudaError_t attention_block(const T* x, const float* ln_g, const float* ln_b, const T* w_qkv,

@@ -19,6 +19,10 @@ are the inverses of the JAX package's ``models.torch_weights``
   ``running_mean``/``running_var`` (``num_batches_tracked`` is 0);
 * a dense kernel over a flattened HWC map → torchvision's ``weight`` over
   the CHW flattening (Faster R-CNN's ``fc6``).
+
+``int8_scales_from_numpy`` carries the calibrated ``scales`` of the JAX
+package's ``Int8ViT`` or ``Int8ResNet`` into the port's engine of the same
+model (the weights cross as above).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import numpy as np
 import torch
 
 __all__ = ["vit_state_dict_from_numpy", "resnet_state_dict_from_numpy", "swin_state_dict_from_numpy",
-           "convnext_state_dict_from_numpy", "faster_rcnn_state_dict_from_numpy"]
+           "convnext_state_dict_from_numpy", "faster_rcnn_state_dict_from_numpy", "int8_scales_from_numpy"]
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -240,3 +244,14 @@ def faster_rcnn_state_dict_from_numpy(params: Mapping[str, Any], batch_stats: Ma
     _dense(sd, "roi_heads.box_predictor.cls_score", pred["Dense_0"])
     _dense(sd, "roi_heads.box_predictor.bbox_pred", pred["Dense_1"])
     return sd
+
+
+def int8_scales_from_numpy(engine, scales: Mapping[str, Any]):
+    """Set the activation scales of the port's ``Int8ViT`` or ``Int8ResNet``
+    from the JAX engine's calibrated ``scales`` dict, given as numpy arrays
+    (per-channel vectors for the ViT, scalars for the ResNet; the same site
+    names), on the engine's device.  An ``Int8ViT`` re-quantises its weights
+    with the scales folded into their rows, as its ``calibrate`` does.
+    Returns the engine."""
+    device = engine.fc_bias.device if hasattr(engine, "fc_bias") else engine.pos.device
+    return engine.set_scales({k: _t(v).to(device) for k, v in scales.items()})

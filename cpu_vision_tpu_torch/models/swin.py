@@ -30,7 +30,10 @@ chosen with ``attention=`` and ``mlp=`` (the counterparts of the JAX module's
 * ``"plain"``: stock PyTorch operators only, the oracle of the other routes;
 * ``None``: what the JAX package would run for the same configuration and
   batch, by a copy of its rules (``attn_fusable``, ``mlp_fusable``; a map
-  that needs padding takes the plain attention route).
+  that needs padding takes the plain attention route), where the kernel takes
+  the widths: attention needs a head dim of 32 and at most 64 tokens a window
+  (``swin_attention.kernel_takes``), the MLP a C in ``MLP_DIMS``
+  (``transformer_block.mlp_kernel_takes``); else the plain route, by shape.
 
 A kernel route launches its kernel on CUDA tensors, or raises where the
 kernel does not take the widths, and runs the kernel's plain twin on CPU
@@ -52,8 +55,9 @@ from torch import nn
 
 from .._dtype import full_float32
 from .._layout import as_tensor
+from ..ops.kernels.swin_attention import kernel_takes as window_kernel_takes
 from ..ops.kernels.swin_attention import window_attention_block
-from ..ops.kernels.transformer_block import mlp_block
+from ..ops.kernels.transformer_block import mlp_block, mlp_kernel_takes
 from ._api import register_model
 from .layers import MaskedLayerNorm, Packed, PatchifyDense, StochasticDepth, layer_norm, lecun_normal_
 
@@ -256,14 +260,15 @@ class SwinBlock(nn.Module):
         attention, mlp = self.attention_route, self.mlp_route
         padded = (ph, pw) != (h, w)
         if attention is None:
-            fits = not padded and attn_fusable(c, self.num_heads, ws, n, (ph // ws) * (pw // ws),
-                                               shift_h + shift_w > 0, itemsize)
+            fits = (not padded and window_kernel_takes(c, self.num_heads, ws * ws)
+                    and attn_fusable(c, self.num_heads, ws, n, (ph // ws) * (pw // ws), shift_h + shift_w > 0,
+                                     itemsize))
             attention = "block" if fits else "plain"
         elif attention == "block" and padded:
             raise ValueError(f'attention="block" takes maps of whole windows; a {h}x{w} map in windows of {ws} '
                              f'needs padding (use attention=None or "plain")')
         if mlp is None:
-            mlp = "block" if mlp_fusable(c, self.mlp_dim, itemsize) else "plain"
+            mlp = "block" if mlp_fusable(c, self.mlp_dim, itemsize) and mlp_kernel_takes(c, self.mlp_dim) else "plain"
         return attention, mlp
 
     def _mask(self, ph: int, pw: int, shift_h: int, shift_w: int, device) -> torch.Tensor:

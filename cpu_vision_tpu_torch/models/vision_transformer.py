@@ -20,11 +20,14 @@ module's ``FUSED_ATTENTION`` and ``FUSED_MLP`` switches):
   TPU's fast memory (``attn_fits_vmem``), else ``flash_mha``; ``mlp_block``
   when the widths are aligned (``mlp_fits_vmem``), else stock operators.  So
   ViT-B/16 runs ``attention_block`` in bfloat16 and ``flash_mha`` in float32,
-  as it does there.
+  as it does there.  Where the kernel the rule picks does not take the
+  widths (a head dim outside ``HEAD_DIMS``, a D outside ``MLP_DIMS``), the
+  sub-block takes the next route that does, down to ``"plain"``: a decision by
+  shape, the same on either device.
 
-A kernel route launches its kernel on CUDA tensors, or raises where the
-kernel does not take the widths, and runs the kernel's plain twin on CPU
-tensors; no route gives way to another.
+A kernel route asked for by name launches its kernel on CUDA tensors, or
+raises where the kernel does not take the widths, and runs the kernel's plain
+twin on CPU tensors; no route gives way to another.
 """
 
 from __future__ import annotations
@@ -39,8 +42,8 @@ from torch import nn
 
 from .._dtype import full_float32
 from .._layout import as_tensor
-from ..ops.kernels.flash_attention import flash_mha
-from ..ops.kernels.transformer_block import attention_block, mlp_block
+from ..ops.kernels.flash_attention import HEAD_DIMS, flash_mha
+from ..ops.kernels.transformer_block import attention_block, attention_kernel_takes, mlp_block, mlp_kernel_takes
 from ._api import register_model
 from .layers import Packed, PatchifyDense, layer_norm, lecun_normal_
 
@@ -129,8 +132,12 @@ class EncoderBlock(nn.Module):
         if attention is None:
             itemsize = torch.empty((), dtype=self.dtype).element_size()
             attention = "block" if attn_fits_vmem(d, s, itemsize) else "flash"
+            if attention == "block" and not attention_kernel_takes(d, self.num_heads):
+                attention = "flash"
+            if attention == "flash" and d // self.num_heads not in HEAD_DIMS:
+                attention = "plain"
         if mlp is None:
-            mlp = "block" if mlp_fits_vmem(d, self.mlp_dim) else "plain"
+            mlp = "block" if mlp_fits_vmem(d, self.mlp_dim) and mlp_kernel_takes(d, self.mlp_dim) else "plain"
         return attention, mlp
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -53,6 +53,7 @@ from .filters import (  # noqa: F401
     unsharp_mask,
 )
 from .poolers import LevelMapper, MultiScaleRoIAlign, multiscale_roi_align  # noqa: F401
+from .quantized import dequantize, qnms, qroi_align, quantize  # noqa: F401
 from .pyramid import (  # noqa: F401
     gaussian_pyramid,
     laplacian_pyramid,

@@ -8,8 +8,11 @@ independent problems: each call site of a detector is one call.
 
 ``nms(..., backend=None|"kernel"|"plain")``: ``None`` runs the hand-written
 CUDA kernel ``ops.kernels.nms_sorted`` on a CUDA tensor and its plain twin on
-a CPU tensor; ``"kernel"`` runs the kernel and raises on a CPU tensor or on
-more boxes than it takes; ``"plain"`` runs the twin anywhere.  (The JAX
+a CPU tensor, and sends a shape the kernel does not take (more than
+``MAX_BOXES`` boxes a problem or ``MAX_PROBLEMS`` problems) to the twin,
+counted in ``nms_sorted.plain_routes``; ``"kernel"`` runs the kernel and
+raises on a CPU tensor or on a shape it does not take; ``"plain"`` runs the
+twin anywhere.  (The JAX
 package runs its Pallas NMS only when asked, on a TPU; there it lost to XLA.)
 Boxes are widened to float32 for the IoUs, as the Pallas kernel does.
 
@@ -25,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .kernels import _build
 from .kernels import nms as _nms_kernel
 
 __all__ = [
@@ -194,6 +198,9 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
                          f"{tuple(scores.shape)}")
     order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
     sorted_boxes = torch.take_along_dim(boxes, order[..., None], dim=-2)
+    if backend is None and not _nms_kernel.kernel_takes(sorted_boxes):
+        _build.count_plain_route(_nms_kernel.nms_sorted)
+        backend = "plain"
     if backend == "plain":
         keep_sorted = _nms_kernel.nms_sorted_plain(sorted_boxes, iou_threshold)
     else:

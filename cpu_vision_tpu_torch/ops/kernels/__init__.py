@@ -8,8 +8,11 @@ the fused attention and MLP sub-blocks of a transformer encoder layer and the
 tail of a ConvNeXt block (``transformer_block.py``,
 ``csrc/transformer_block.cu``), Swin's window attention sub-block
 (``swin_attention.py``, ``csrc/swin_attention.cu``) and the depthwise
-convolution (``depthwise.py``, ``csrc/depthwise.cu``) and the greedy NMS of
-boxes sorted by score (``nms.py``, ``csrc/nms.cu``).  The op-by-op
+convolution (``depthwise.py``, ``csrc/depthwise.cu``), the greedy NMS of
+boxes sorted by score (``nms.py``, ``csrc/nms.cu``), the int8 product with a
+requantising epilogue (``int8_matmul.py``, ``csrc/int8_matmul.cu``) and the
+int8 attention and MLP sub-blocks (``int8_transformer.py``,
+``csrc/int8_transformer.cu``).  The op-by-op
 functions of ``cpu_vision_tpu_torch.ops`` and the stock-operator routes of
 ``cpu_vision_tpu_torch.models`` are their oracles.
 """
@@ -21,6 +24,14 @@ from .conv_block import (  # noqa: F401
 )
 from .depthwise import depthwise_conv2d, depthwise_conv2d_plain  # noqa: F401
 from .flash_attention import flash_mha, flash_mha_plain  # noqa: F401
+from .int8_matmul import int8_matmul_requant, int8_matmul_requant_plain  # noqa: F401
+from .int8_transformer import (  # noqa: F401
+    attention_block_int8,
+    attention_block_int8_plain,
+    mlp_block_int8,
+    mlp_block_int8_plain,
+    quantize_weight,
+)
 from .nms import nms_sorted, nms_sorted_plain  # noqa: F401
 from .stencil import (  # noqa: F401
     canny_stage1,
@@ -46,7 +57,8 @@ from . import stencil as _stencil
 
 # Every wrapper that launches a kernel; each counts its launches.
 KERNEL_WRAPPERS = (*_stencil.KERNEL_WRAPPERS, fused_conv3x3_relu_pool, flash_mha, attention_block, mlp_block,
-                   cn_mlp_block, window_attention_block, depthwise_conv2d, nms_sorted)
+                   cn_mlp_block, window_attention_block, depthwise_conv2d, nms_sorted, int8_matmul_requant,
+                   mlp_block_int8, attention_block_int8)
 
 
 def launch_counts() -> dict:
@@ -64,3 +76,4 @@ def reset_launch_counts() -> None:
         _build.reset_count(fn)
     attention_block.kernel_launches = 0
     window_attention_block.kernel_launches = 0
+    attention_block_int8.kernel_launches = 0

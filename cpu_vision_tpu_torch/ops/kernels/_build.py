@@ -21,7 +21,8 @@ from typing import Dict
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "SOURCE_FLAGS", "build", "load", "on_card", "launch", "count_launch", "reset_count"]
+__all__ = ["NVCC_FLAGS", "SOURCE_FLAGS", "build", "load", "on_card", "launch", "count_launch", "count_plain_route",
+           "reset_count"]
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -31,10 +32,12 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC",
 ]
 
-# Flags of single sources, by stem.  The stencil and NMS kernels must equal
-# their twins bit for bit, so no a*b+c is contracted there; the convolution is
-# held to a tolerance and keeps the fused multiply-add.
-SOURCE_FLAGS = {"stencil": ["--fmad=false"], "nms": ["--fmad=false"]}
+# Flags of single sources, by stem.  The stencil, NMS and int8 kernels must
+# equal their twins bit for bit, or round their int8 values where the twins
+# do, so no a*b+c is contracted there; the convolution is held to a tolerance
+# and keeps the fused multiply-add.
+SOURCE_FLAGS = {"stencil": ["--fmad=false"], "nms": ["--fmad=false"], "int8_matmul": ["--fmad=false"],
+                "int8_transformer": ["--fmad=false"]}
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -127,6 +130,14 @@ def reset_count(fn) -> None:
     """Set the wrapper ``fn``'s launch counts to 0."""
     fn.launches = 0
     fn.launches_by_shape = {}
+    fn.plain_routes = 0
+
+
+def count_plain_route(fn) -> None:
+    """Add one to ``fn.plain_routes``: a ``None`` route sent an input that the
+    kernel of the wrapper ``fn`` does not take to its plain twin (a decision by
+    shape, made on either device)."""
+    fn.plain_routes += 1
 
 
 def count_launch(fn, x: torch.Tensor) -> None:

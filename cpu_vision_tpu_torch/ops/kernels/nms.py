@@ -35,7 +35,8 @@ import torch
 
 from . import _build
 
-__all__ = ["nms_sorted", "nms_sorted_plain", "require_kernel", "recording", "MAX_BOXES", "MAX_PROBLEMS", "MASK_BITS"]
+__all__ = ["nms_sorted", "nms_sorted_plain", "kernel_takes", "require_kernel", "recording", "MAX_BOXES",
+           "MAX_PROBLEMS", "MASK_BITS"]
 
 MAX_BOXES = 13600     # csrc/nms.cu NMS_MAX_BOXES: a problem's removed bits in shared memory
 MAX_PROBLEMS = 65535  # the mask launch's gridDim.z
@@ -77,6 +78,13 @@ def recording() -> Iterator[List[Tuple[torch.Tensor, float]]]:
         yield calls
     finally:
         _recorders.remove(calls)
+
+
+def kernel_takes(boxes: torch.Tensor) -> bool:
+    """Whether the kernel takes boxes of this shape: at most ``MAX_BOXES`` a
+    problem and ``MAX_PROBLEMS`` problems (whatever the device)."""
+    _check(boxes)
+    return boxes.shape[-2] <= MAX_BOXES and int(np.prod(boxes.shape[:-2], dtype=np.int64)) <= MAX_PROBLEMS
 
 
 def require_kernel(boxes: torch.Tensor) -> None:

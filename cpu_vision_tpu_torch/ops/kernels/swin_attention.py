@@ -45,7 +45,7 @@ from ..._dtype import full_float32
 from . import _build
 from .transformer_block import _check_card, _check_float, _dot_f32, _f32c, _ln_f32
 
-__all__ = ["window_attention_block", "window_attention_block_plain", "HEAD_DIM", "MAX_TOKENS"]
+__all__ = ["window_attention_block", "window_attention_block_plain", "kernel_takes", "HEAD_DIM", "MAX_TOKENS"]
 
 HEAD_DIM = 32     # the instantiation in csrc/swin_attention.cu
 MAX_TOKENS = 64   # tokens of a window the core holds as one tile
@@ -120,6 +120,11 @@ def window_attention_block_plain(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias
     return (x32 + o).to(x.dtype)
 
 
+def kernel_takes(c: int, heads: int, s: int) -> bool:
+    """Whether the kernels take ``c`` channels in ``heads`` heads and windows of ``s`` tokens."""
+    return heads >= 1 and c % heads == 0 and c // heads == HEAD_DIM and s <= MAX_TOKENS and c % 16 == 0
+
+
 def window_attention_block(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask, logit_scale, heads: int,
                            scale: float, eps: float, v2: bool, nw_img: int, ln_count: int = 0) -> torch.Tensor:
     """``x + Proj(WindowMSA(LN(x)))`` over ``x`` (num_windows, S, C); on the
@@ -130,7 +135,7 @@ def window_attention_block(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask
         return window_attention_block_plain(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask, logit_scale,
                                             heads, scale, eps, v2, nw_img, ln_count)
     nw, s, c = x.shape
-    if c // heads != HEAD_DIM or s > MAX_TOKENS or c % 16:
+    if not kernel_takes(c, heads, s):
         raise ValueError(f"the kernel takes head dim {HEAD_DIM}, at most {MAX_TOKENS} tokens a window and C a "
                          f"multiple of 16, got C = {c}, {heads} heads, S = {s}")
     _check_card(x, w_qkv, w_o)

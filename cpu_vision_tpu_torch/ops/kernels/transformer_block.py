@@ -49,13 +49,24 @@ from . import _build
 from .flash_attention import DTYPES, HEAD_DIMS
 
 __all__ = ["mlp_block", "mlp_block_plain", "cn_mlp_block", "cn_mlp_block_plain", "attention_block",
-           "attention_block_plain", "MLP_DIMS"]
+           "attention_block_plain", "mlp_kernel_takes", "attention_kernel_takes", "MLP_DIMS"]
 
 MLP_DIMS = (96, 128, 192, 256, 384, 512, 768, 1024, 1280, 1536)  # instantiations in csrc/transformer_block.cu
 MLP_HIDDEN_STEP = 64       # Dh is a multiple of 256, or of this up to D = MLP_RAGGED_MAX_DIM
 MLP_RAGGED_MAX_DIM = 512
 
 _c_lib: Optional[ctypes.CDLL] = None
+
+
+def mlp_kernel_takes(d: int, dh: int) -> bool:
+    """Whether ``mlp_block``'s and ``cn_mlp_block``'s kernel takes width ``d``
+    and hidden width ``dh``."""
+    return d in MLP_DIMS and dh > 0 and dh % (MLP_HIDDEN_STEP if d <= MLP_RAGGED_MAX_DIM else 256) == 0
+
+
+def attention_kernel_takes(d: int, heads: int) -> bool:
+    """Whether ``attention_block``'s kernels take width ``d`` in ``heads`` heads."""
+    return heads >= 1 and d % heads == 0 and d % 16 == 0 and d // heads in HEAD_DIMS
 
 
 def _lib() -> ctypes.CDLL:
@@ -154,7 +165,7 @@ def _launch_mlp(fn, x, resid, ln_g, ln_b, w1, b1, w2, b2, gamma, eps, post_norm,
     """One launch of ``cvt_mlp_block`` for the wrapper ``fn``; ``gamma`` None for no scale."""
     m, d = x.shape
     dh = w1.shape[1]
-    if d not in MLP_DIMS or dh % (MLP_HIDDEN_STEP if d <= MLP_RAGGED_MAX_DIM else 256):
+    if not mlp_kernel_takes(d, dh):
         raise ValueError(f"the kernel takes D in {MLP_DIMS} and Dh a multiple of 256 (of {MLP_HIDDEN_STEP} up to "
                          f"D = {MLP_RAGGED_MAX_DIM}), got {d} and {dh}")
     if not 0 <= ln_count <= d:
@@ -255,7 +266,7 @@ def attention_block(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads: int, scale: fl
     if not _build.on_card(x):
         return attention_block_plain(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads, scale, eps)
     n, s, d = x.shape
-    if d % 16 or d // heads not in HEAD_DIMS:
+    if not attention_kernel_takes(d, heads):
         raise ValueError(f"the kernel takes D a multiple of 16 and head dims {HEAD_DIMS}, got D = {d}, {heads} heads")
     if n > 65535 or heads > 65535:
         raise ValueError(f"at most 65535 images and heads a launch, got {n} and {heads}")

@@ -21,7 +21,17 @@ taps in the twin's order, with fused multiply-adds: ``1e-5 + 1e-5·|twin|`` in
 float32, ``2e-2·(1 + |twin|)`` in bfloat16.  NMS keep masks must equal the
 twin's bit for bit (the IoUs are the same float32 operations in the same
 order, without FMA contraction), and so must Faster R-CNN's float32
-detections on the kernel route and on the plain one.
+detections on the kernel route and on the plain one.  The int8 product with
+its requantising epilogue (``int8_matmul_requant``) must equal its twin bit for
+bit, int8 or float32 out (exact int32 sums, the same float32 epilogue without
+FMA contraction), and so must the int8 ResNet's logits on its two 1x1 routes.
+The int8 sub-blocks (``mlp_block_int8``, ``attention_block_int8``) take their
+LayerNorm statistics and exponentials in other orders than their twins, so a
+quantised activation near a rounding half may land one step apart: held to
+``2e-2·(1 + |twin|)`` in bfloat16 (one step is 2^-8 of the value) and float32,
+that is to a few int8 steps of the sub-block's output.  The ``None`` routes of
+ViT, Swin and NMS send a shape their kernel does not take to the plain route
+(NMS at 13,601 boxes a problem); explicit routes still raise there.
 """
 
 import numpy as np
@@ -30,8 +40,8 @@ import torch
 
 from cpu_vision_tpu_torch import graft_entry, models, ops
 from cpu_vision_tpu_torch.ops import kernels
-from cpu_vision_tpu_torch.ops.kernels import (conv_block, depthwise, flash_attention, nms, stencil, swin_attention,
-                                              transformer_block)
+from cpu_vision_tpu_torch.ops.kernels import (conv_block, depthwise, flash_attention, int8_matmul, int8_transformer, nms,
+                                              stencil, swin_attention, transformer_block)
 
 pytestmark = pytest.mark.cuda
 
@@ -72,7 +82,8 @@ def test_kernels_match_twins(cuda, rng, shape):
         "canny_stage1": 1, "canny_stage1_in_tile": 0, "hysteresis_sweeps": 3, "fused_blur_sobel": 1,
         "harris_response_fused": 1, "fused_gaussian_blur": 1, "fused_conv3x3_relu_pool": 0,
         "flash_mha": 0, "attention_block": 0, "mlp_block": 0, "cn_mlp_block": 0, "window_attention_block": 0,
-        "depthwise_conv2d": 0, "nms_sorted": 0}
+        "depthwise_conv2d": 0, "nms_sorted": 0, "int8_matmul_requant": 0, "mlp_block_int8": 0,
+        "attention_block_int8": 0}
 
 
 @pytest.mark.parametrize("ks,sigma", [(3, 0.8), (7, 2.0), (9, 3.0)])
@@ -563,3 +574,179 @@ def test_faster_rcnn_kernel_route_equals_plain(cuda, rng):
         assert kernels.launch_counts()["nms_sorted"] == 3
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+# ------------------------------------------------------------ None routes stay in the kernels' domains
+
+
+def test_nms_none_route_past_the_kernels_boxes(cuda, rng):
+    """13,601 boxes in one problem: past MAX_BOXES the None route runs the twin
+    (counted in plain_routes) where it used to raise; "kernel" still raises."""
+    n = nms.MAX_BOXES + 1
+    boxes, scores = _nms_field(rng, 1, n, extent=3000.0), torch.from_numpy(rng.random((1, n), dtype=np.float32))
+    boxes, scores = boxes.to(cuda), scores.to(cuda)
+    got = ops.nms(boxes, scores, 0.5)
+    assert kernels.nms_sorted.plain_routes == 1 and kernels.nms_sorted.launches == 0
+    assert torch.equal(got, ops.nms(boxes, scores, 0.5, backend="plain"))
+    with pytest.raises(ValueError, match="at most"):
+        ops.nms(boxes, scores, 0.5, backend="kernel")
+
+
+@pytest.mark.parametrize("d,heads,mlp_dim", [(640, 10, 2560), (384, 12, 1536)])
+def test_vit_none_routes_run_off_the_kernels_domains(cuda, rng, d, heads, mlp_dim):
+    """D 640 (outside MLP_DIMS) and head dim 32 ran into the kernels' refusals
+    on the None route; now the sub-block that the kernel does not take runs
+    stock operators, and an explicit route still raises."""
+    model = models.VisionTransformer(16, 1, heads, d, mlp_dim, num_classes=10, image_size=32, dtype=torch.bfloat16,
+                                     generator=torch.Generator().manual_seed(0)).to(cuda)
+    x = torch.from_numpy(rng.random((2, 32, 32, 3), dtype=np.float32)).to(cuda)
+    out = model(x)
+    plain = models.VisionTransformer(16, 1, heads, d, mlp_dim, num_classes=10, image_size=32, dtype=torch.bfloat16,
+                                     attention="plain", mlp="plain").to(cuda)
+    plain.load_state_dict(model.state_dict())
+    assert torch.isfinite(out.float()).all() and _scaled_err(out, plain(x)) < 8e-2
+    with pytest.raises(ValueError):
+        models.VisionTransformer(16, 1, heads, d, mlp_dim, num_classes=10, image_size=32, dtype=torch.bfloat16,
+                                 attention="block" if d == 384 else None, mlp="block" if d == 640 else None).to(cuda)(x)
+
+
+def test_swin_none_routes_run_off_the_kernels_domains(cuda, rng):
+    """Windows of 9 x 9 (81 tokens) and C 80 lie outside the window kernel's and the MLP kernel's domains."""
+    model = models.SwinTransformer(40, (2,), (2,), 9, num_classes=5, dtype=torch.bfloat16,
+                                   generator=torch.Generator().manual_seed(0)).to(cuda)
+    x = torch.from_numpy(rng.random((2, 36, 36, 3), dtype=np.float32)).to(cuda)
+    out = model(x)
+    assert torch.isfinite(out.float()).all() and kernels.window_attention_block.launches == 0
+    assert kernels.mlp_block.launches == 0
+
+
+def _scaled_err(a, b):
+    return float(((a.float() - b.float()).abs() / (1 + b.float().abs())).max())
+
+
+# ------------------------------------------------------------ int8 kernels
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 96, 200), (1000, 64, 256), (129, 2048, 1000), (17, 16, 7), (12544, 512, 2048)])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("quantised", [False, True])
+def test_int8_matmul_requant_equals_twin(cuda, rng, m, k, n, relu, quantised):
+    qx = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(cuda)
+    qw = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(cuda)
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-3, n).astype(np.float32)).to(cuda)  # per-channel
+    bias = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(cuda)
+    out_scale = torch.tensor(0.02 * (k / 96) ** 0.5, device=cuda) if quantised else None
+    got = kernels.int8_matmul_requant(qx, qw, scale, bias, out_scale, relu)
+    torch.cuda.synchronize()
+    want = int8_matmul.int8_matmul_requant_plain(qx, qw, scale, bias, out_scale, relu)
+    assert got.dtype == (torch.int8 if quantised else torch.float32) and torch.equal(got, want)
+    assert kernels.int8_matmul_requant.launches == 1
+    # the transposed layout the engine stores costs no copy and gives the same product
+    qwt = qw.t().contiguous()
+    assert torch.equal(kernels.int8_matmul_requant(qx, qwt.t(), scale, bias, out_scale, relu), want)
+
+
+def test_int8_matmul_requant_refuses(cuda):
+    qx, qw = torch.zeros((8, 24), dtype=torch.int8, device=cuda), torch.zeros((24, 8), dtype=torch.int8, device=cuda)
+    v = torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kernels.int8_matmul_requant(qx, qw, v, v)
+    with pytest.raises(ValueError, match="aligned"):
+        big = torch.zeros((9, 32), dtype=torch.int8, device=cuda)
+        kernels.int8_matmul_requant(big.reshape(-1)[1:257].reshape(8, 32), qw[:16].repeat(2, 1), v, v)
+    assert kernels.int8_matmul_requant.launches == 0
+
+
+def _int8_mlp_args(rng, m, d, dh, dtype, device, per_channel=True):
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    x = t(rng.standard_normal((m, d))).to(dtype)
+    g, b = t(rng.uniform(0.5, 1.5, d)), t(rng.standard_normal(d) * 0.1)
+    a1 = t(rng.uniform(0.02, 0.05, d) if per_channel else 0.04)
+    a2 = t(rng.uniform(0.005, 0.02, dh) if per_channel else 0.015)
+    qw1, s1 = int8_transformer.quantize_weight(t(rng.standard_normal((d, dh)) * d ** -0.5) * a1.reshape(-1, 1))
+    qw2, s2 = int8_transformer.quantize_weight(t(rng.standard_normal((dh, d)) * dh ** -0.5) * a2.reshape(-1, 1))
+    return x, g, b, qw1, s1, t(rng.standard_normal(dh) * 0.1), qw2, s2, t(rng.standard_normal(d) * 0.1), a1, a2
+
+
+# the widths of every registered ViT (B: 768/3072, L: 1024/4096, H: 1280/5120), ragged token counts
+@pytest.mark.parametrize("m,d,dh", [(197, 768, 3072), (50, 1024, 4096), (33, 1280, 5120), (70, 256, 512),
+                                    (1, 512, 256)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mlp_block_int8_matches_twin(cuda, rng, m, d, dh, dtype):
+    args = _int8_mlp_args(rng, m, d, dh, dtype, cuda)
+    got = kernels.mlp_block_int8(*args)
+    torch.cuda.synchronize()
+    want = int8_transformer.mlp_block_int8_plain(*args)
+    assert got.dtype == dtype and _scaled_err(got, want) <= 2e-2
+    assert kernels.mlp_block_int8.launches == 1
+
+
+def test_mlp_block_int8_per_tensor_scales(cuda, rng):
+    args = _int8_mlp_args(rng, 100, 768, 3072, torch.bfloat16, cuda, per_channel=False)
+    assert _scaled_err(kernels.mlp_block_int8(*args), int8_transformer.mlp_block_int8_plain(*args)) <= 2e-2
+
+
+def _int8_attn_args(rng, n, s, d, heads, dtype, device, per_channel=True):
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    x = t(rng.standard_normal((n, s, d))).to(dtype)
+    g, b = t(rng.uniform(0.5, 1.5, d)), t(rng.standard_normal(d) * 0.1)
+    a1 = t(rng.uniform(0.02, 0.05, d) if per_channel else 0.04)
+    ao = t(rng.uniform(0.01, 0.03, d) if per_channel else 0.02)
+    qwqkv, sqkv = int8_transformer.quantize_weight(t(rng.standard_normal((d, 3 * d)) * d ** -0.5) * a1.reshape(-1, 1))
+    qwo, so = int8_transformer.quantize_weight(t(rng.standard_normal((d, d)) * d ** -0.5) * ao.reshape(-1, 1))
+    return (x, g, b, qwqkv, sqkv, t(rng.standard_normal(3 * d) * 0.1), qwo, so, t(rng.standard_normal(d) * 0.1), a1,
+            ao, heads, (d // heads) ** -0.5)
+
+
+@pytest.mark.parametrize("n,s,d,heads", [(4, 197, 768, 12), (2, 257, 1280, 16), (3, 50, 1024, 16), (2, 33, 256, 4),
+                                         (1, 5, 64, 4)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_block_int8_matches_twin(cuda, rng, n, s, d, heads, dtype):
+    args = _int8_attn_args(rng, n, s, d, heads, dtype, cuda, per_channel=d != 64)
+    got = kernels.attention_block_int8(*args)
+    torch.cuda.synchronize()
+    want = int8_transformer.attention_block_int8_plain(*args)
+    assert got.dtype == dtype and _scaled_err(got, want) <= 2e-2
+    assert kernels.attention_block_int8.launches == 1 and kernels.attention_block_int8.kernel_launches == 3
+
+
+def test_int8_transformer_kernels_refuse(cuda, rng):
+    args = list(_int8_mlp_args(rng, 8, 256, 256, torch.bfloat16, cuda))
+    with pytest.raises(ValueError, match="the kernel takes D"):
+        kernels.mlp_block_int8(*_int8_mlp_args(rng, 8, 384, 256, torch.bfloat16, cuda))
+    args[0] = args[0].to(torch.float16)
+    with pytest.raises(TypeError):
+        kernels.mlp_block_int8(*args)
+    with pytest.raises(ValueError, match="head dims"):
+        kernels.attention_block_int8(*_int8_attn_args(rng, 2, 9, 256, 8, torch.bfloat16, cuda))  # head dim 32
+    assert kernels.mlp_block_int8.launches == 0 and kernels.attention_block_int8.launches == 0
+
+
+def test_int8_engines_run_their_kernels(cuda, rng):
+    """Int8ViT (2 layers, D 256) and Int8ResNet (resnet18, resnext50_32x4d) on the card: the kernels launch, and
+    the ResNets' logits on the 1x1 kernel route equal the stock route's bit for bit."""
+    x = torch.from_numpy(rng.random((2, 64, 64, 3), dtype=np.float32)).to(cuda)
+    vit = models.VisionTransformer(16, 2, 4, 256, 512, num_classes=10, dtype=torch.bfloat16, image_size=64,
+                                   generator=torch.Generator().manual_seed(0)).to(cuda)
+    eng = models.Int8ViT.from_model(vit).calibrate([x])
+    out = eng(x)
+    plain = models.Int8ViT.from_model(vit, route="plain").set_scales(eng.scales)(x)
+    assert kernels.mlp_block_int8.launches == 2 and kernels.attention_block_int8.launches == 2
+    assert _scaled_err(out, plain) < 2e-2 and bool(torch.isfinite(out).all())
+    for name, launches in (("resnet50", 16 * 2 + 4), ("resnext50_32x4d", 16 * 2 + 4)):
+        model = models.get_model(name, num_classes=10, generator=torch.Generator().manual_seed(0))
+        gen = torch.Generator(device=cuda).manual_seed(1)  # else each block's last scale is 0
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.weight.uniform_(0.5, 1.5, generator=gen)
+        eng = models.Int8ResNet.from_model(model).calibrate([x])
+        kernels.reset_launch_counts()
+        got = eng(x)
+        assert kernels.int8_matmul_requant.launches == launches, (name, kernels.int8_matmul_requant.launches)
+        stock = models.Int8ResNet.from_model(model, conv1x1="stock").set_scales(eng.scales)(x)
+        assert torch.equal(got, stock), name

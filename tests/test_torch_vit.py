@@ -108,7 +108,8 @@ def test_routes_agree_with_jax(rng, images, monkeypatch, attention, mlp):
     sd = _randomised_state(rng, model)
     ref = np.asarray(_jax().apply(torch_weights.vit_from_torch(sd, LAYERS, HEADS), jnp.asarray(images)))
     np.testing.assert_allclose(model(torch.from_numpy(images)).numpy(), ref, atol=1e-4)
-    assert model.routes() == (attention or "block", mlp or "block")
+    # head dim 32 lies outside the attention kernels' HEAD_DIMS, so None takes the plain attention route by shape
+    assert model.routes() == (attention or "plain", mlp or "block")
 
 
 @pytest.mark.parametrize("attention,mlp", [(None, None), ("flash", "block"), ("plain", "plain")])

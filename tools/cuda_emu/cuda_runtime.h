@@ -1,4 +1,4 @@
-// A CPU stand-in for the little of CUDA that csrc/attention.cuh, attention.cu,
+// A CPU stand-in for the little of CUDA that csrc/attention.cuh, attention.cu, the int8 sources,
 // transformer_block.cu and the other covered sources use, so that those sources compile with g++ and
 // their kernels run, slowly, where there is no card and no nvcc: one
 // std::thread per CUDA thread, the blocks of a launch one after another.
@@ -34,6 +34,17 @@ struct dim3 {
 struct alignas(16) float4 {
   float x, y, z, w;
 };
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
+
+// four int8 products of the bytes of a and b, summed into c
+inline int __dp4a(int a, int b, int c) {
+  for (int j = 0; j < 4; ++j) c += (int)(int8_t)(a >> (8 * j)) * (int)(int8_t)(b >> (8 * j));
+  return c;
+}
+inline float __int2float_rn(int v) { return (float)v; }  // to nearest, as the host rounds
 
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };

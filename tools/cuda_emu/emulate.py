@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Run the port's transformer, window attention, depthwise and NMS kernels on
-the CPU, with no card and no ``nvcc``.
+"""Run the port's transformer, window attention, depthwise, NMS and int8
+kernels on the CPU, with no card and no ``nvcc``.
 
 The sources ``cpu_vision_tpu_torch/csrc/attention.cu``, ``transformer_block.cu``,
-``swin_attention.cu``, ``depthwise.cu`` and ``nms.cu`` (with the ``.cuh`` headers) are rewritten a little,
+``swin_attention.cu``, ``depthwise.cu``, ``nms.cu``, ``int8_matmul.cu`` and
+``int8_transformer.cu`` (with the ``.cuh`` headers) are rewritten a little,
 compiled with ``g++ -std=c++20`` against the stand-in headers beside this file,
 and loaded in place of the libraries ``nvcc`` would build.  The kernels then
 run one ``std::thread`` per CUDA thread, block after block, so the wrappers in
@@ -22,7 +23,7 @@ self-check of the kernels against their plain twins.
 Covered: ``__global__`` templates, ``threadIdx``/``blockIdx``, ``__syncthreads``,
 ``__shfl_xor_sync`` on floats, dynamic shared memory declared as
 ``extern __shared__ __align__(16) float smem[];``, static ``__shared__`` arrays,
-``float4``, ``__nv_bfloat16`` with its two conversions, ``cudaFuncSetAttribute``,
+``float4``, ``int4``, ``__dp4a``, ``__int2float_rn``, ``__nv_bfloat16`` with its two conversions, ``cudaFuncSetAttribute``,
 ``blockDim`` and the ``<<<...>>>`` launch.  Not covered: everything else (``stencil.cu`` and
 ``conv_block.cu`` use typed shared arrays and ``__syncthreads_or``); extend the
 headers as a source needs.
@@ -42,7 +43,7 @@ from typing import Iterator
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parents[1]
 CSRC = REPO / "cpu_vision_tpu_torch" / "csrc"
-STEMS = ("attention", "transformer_block", "swin_attention", "depthwise", "nms")
+STEMS = ("attention", "transformer_block", "swin_attention", "depthwise", "nms", "int8_matmul", "int8_transformer")
 
 _LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;(]*>)?)<<<([^;]*?)>>>\(([^;]*?)\);", re.S)
 
@@ -84,12 +85,14 @@ def build(build_dir) -> Path:
 @contextlib.contextmanager
 def kernels_on_cpu(build_dir) -> Iterator[None]:
     """Inside, the wrappers of ``flash_attention``, ``transformer_block``,
-    ``swin_attention``, ``depthwise`` and ``nms`` take CPU tensors through the emulated CUDA sources instead of the twins.
+    ``swin_attention``, ``depthwise``, ``nms``, ``int8_matmul`` and ``int8_transformer`` take CPU tensors through
+    the emulated CUDA sources instead of the twins.
     Builds into ``build_dir`` unless the libraries are there already."""
     sys.path.insert(0, str(REPO))
-    from cpu_vision_tpu_torch.ops.kernels import _build, depthwise, flash_attention, nms, swin_attention, transformer_block
+    from cpu_vision_tpu_torch.ops.kernels import (_build, depthwise, flash_attention, int8_matmul, int8_transformer, nms,
+                                                  swin_attention, transformer_block)
 
-    modules = (flash_attention, transformer_block, swin_attention, depthwise, nms)
+    modules = (flash_attention, transformer_block, swin_attention, depthwise, nms, int8_matmul, int8_transformer)
 
     build_dir = Path(build_dir)
     if not all((build_dir / f"lib{stem}.so").exists() for stem in STEMS):
@@ -179,6 +182,29 @@ def main() -> int:
                     boxes[0, 5:9] = boxes[0, 4]
                     pairs.append((f"nms_sorted {p}x{n} thr {thr}", kernels.nms_sorted(boxes, thr).float(),
                                   kernels.nms_sorted_plain(boxes, thr).float()))
+            if dtype == torch.float32:  # int8: the requantising product, ragged M, N and K off 32; the two sub-blocks
+                for m, k, n in ((300, 96, 200), (130, 16, 7)):
+                    qx = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+                    qw = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+                    sc, bias = torch.rand(n, generator=gen) * 1e-2 + 1e-3, torch.rand(n, generator=gen) - 0.5
+                    for relu, out_scale in ((False, None), (True, torch.tensor(0.05))):
+                        pairs.append((f"int8_matmul_requant {m}x{k}x{n} relu={relu}",
+                                      kernels.int8_matmul_requant(qx, qw, sc, bias, out_scale, relu).float(),
+                                      kernels.int8_matmul_requant_plain(qx, qw, sc, bias, out_scale, relu).float()))
+            d, dh = 256, 512
+            ln = (normal((d,), torch.float32, 0.2, 1.0), normal((d,), torch.float32, 0.1))
+            a1, a2, ao = (torch.rand(w, generator=gen) * 0.02 + 0.01 for w in (d, dh, d))
+            qw1, s1 = kernels.quantize_weight(normal((d, dh), torch.float32, d ** -0.5) * a1[:, None])
+            qw2, s2 = kernels.quantize_weight(normal((dh, d), torch.float32, dh ** -0.5) * a2[:, None])
+            mlp8 = (normal((45, d), dtype), *ln, qw1, s1, normal((dh,), torch.float32, 0.1), qw2, s2,
+                    normal((d,), torch.float32, 0.1), a1, a2)
+            pairs.append(("mlp_block_int8", kernels.mlp_block_int8(*mlp8), kernels.mlp_block_int8_plain(*mlp8)))
+            qwqkv, sqkv = kernels.quantize_weight(normal((d, 3 * d), torch.float32, d ** -0.5) * a1[:, None])
+            qwo, so = kernels.quantize_weight(normal((d, d), torch.float32, d ** -0.5) * ao[:, None])
+            attn8 = (normal((2, 33, d), dtype), *ln, qwqkv, sqkv, normal((3 * d,), torch.float32, 0.1), qwo, so,
+                     normal((d,), torch.float32, 0.1), a1, ao, 4, 0.125)
+            pairs.append(("attention_block_int8", kernels.attention_block_int8(*attn8),
+                          kernels.attention_block_int8_plain(*attn8)))
             for name, out, ref in pairs:
                 err = (out.float() - ref.float()).abs()
                 ok = bool((err <= tol + tol * ref.float().abs()).all())
