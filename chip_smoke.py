@@ -32,8 +32,18 @@ It builds the CUDA kernels from ``cpu_vision_tpu_torch/csrc/``, then:
    ``models.Int8ViT`` over ``vit_b_16`` (bfloat16, ``attention_block_int8`` and
    ``mlp_block_int8`` in each of the 12 layers) and ``models.Int8ResNet`` over
    ``resnet50`` (``int8_matmul_requant`` in its 36 1x1 convolutions), both at
-   batch 256 on 224x224 images; and checks their outputs against the op-by-op
-   paths, stock PyTorch operators and the engines on their twins;
+   batch 256 on 224x224 images; and training: ``vit_b_16`` bfloat16 at batch
+   128 through ``parallel.make_train_step`` (3 SGD steps on the kernel routes,
+   ``attention_block`` + ``mlp_block`` forward and their twins' gradients, and
+   3 on the plain routes, from the same weights), ``resnet50`` bfloat16 at
+   batch 128 with batch statistics (3 steps, and a float32 run of the same
+   weights), ``cnn_forward`` at 28x28x1 batch 256 (3 steps on the conv kernel
+   and 3 on the plain route) and ``ops.PointwiseConv`` at the twelve 1x1
+   shapes of ResNet-50 at batch 128 with at least 16,384 rows, float32 and
+   bfloat16 (``wgrad_matmul`` in each backward); and checks their outputs
+   against the op-by-op paths, stock PyTorch operators, the engines on their
+   twins, the plain routes' gradients, a float32 run, flax's running
+   statistics and ``F.conv2d`` autograd;
 2. holds every kernel against its plain PyTorch twin on the card at every
    shape and dtype those paths handed it (the wrappers count their launches
    by input shape, and the script fails if a Swin or ConvNeXt path ran a
@@ -51,8 +61,10 @@ Any failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA card it exits 1 at once.
 """
 
+import contextlib
 import copy
 import json
+import math
 import subprocess
 import sys
 import time
@@ -104,13 +116,35 @@ INT8_OPS_PER_S = 1979e12  # dense int8 in the tensor cores
 # orders than their twins, so a quantised activation near a rounding half may land one step apart: TOL[dtype] *
 # (1 + |twin|) as the bf16 transformer kernels, and the int8 ViT's logits within VIT_TOL[bfloat16] * (1 + |ref|) of
 # the same engine on its twins.  The int8 engines' distance to their float models is printed only: the weights are
-# random, so it is no accuracy figure.
+# random, so it is no accuracy figure.  Training: the weight gradient wgrad_matmul sums float32 products (exact for
+# bfloat16 inputs) in another order than its twin's product: WGRAD_TOL * max|twin|, and two calls equal bit for bit.
+# conv1x1's output, dx and dW against F.conv2d autograd in float32 (TF32 off) on the same values: WGRAD_TOL *
+# max|ref| in float32, C1_BF16_TOL * max|ref| in bfloat16 (its output, dx and dW are rounded to bfloat16, 2^-9 of
+# the value).  The ViT's first-step gradients on the kernel routes against the plain routes', a parameter at a time:
+# max|a - b| <= GRAD_TOL * max|b| (2.5 bfloat16 steps of its largest entry; the two routes round at other places),
+# and no further from the float32 route's than BF16_SLACK times the plain bfloat16 route.  The ResNet's bfloat16
+# gradients against its float32 run's: ||a - b|| < R50_GRAD_L2 * ||b|| over all parameters together, nearer than a
+# zero gradient would be, and ||a|| within R50_GRAD_NORM of ||b|| (a gradient of half or twice its size reads 0.5 or
+# 1).  The distance is not held tighter: at random weights the batch norms' backward cancels most of each gradient,
+# so bfloat16 gradients stand far from float32 ones in either package (tests/test_torch_train.py holds the port's
+# distance to at most 1.25 times the JAX package's on a small ResNet on the CPU); their norm does not move.
+# Each batch norm's running statistics after the first step against flax's rule computed in float64 from the input
+# and the running statistics that ResNet.recording() shows (biased variance, 0.9 / 0.1): the mean within STAT_TOL *
+# (1 + |ref|), the variance within STAT_TOL * |ref|.  The unbiased variance's rule stands (n - 1)^-1 of the batch
+# term off, 1.6e-5 of 1 at layer 4 (n = 6,272); the phase fails unless it would stand further than STAT_TOL.  The CNN's first-step gradients on
+# the kernel route against the plain route's: CONV_ATOL + CONV_RTOL * |plain|, the conv stage's own rule.
 F32_ATOL, F32_RTOL = 1e-5, 1e-6
 CONV_ATOL, CONV_RTOL = 1e-5, 1e-5
 LOGIT_TOL = 1e-4
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 VIT_TOL = {torch.float32: 1e-3, torch.bfloat16: 8e-2}
 BF16_SLACK = 1.5
+WGRAD_TOL = 1e-5
+C1_BF16_TOL = 1e-2
+GRAD_TOL = 5e-2
+R50_GRAD_L2 = 1.0
+R50_GRAD_NORM = 0.2
+STAT_TOL = 1e-6
 STENCIL = "cpu_vision_tpu_torch/csrc/stencil.cu"
 CONV_BLOCK = "cpu_vision_tpu_torch/csrc/conv_block.cu"
 ATTENTION = "cpu_vision_tpu_torch/csrc/attention.cu"
@@ -120,6 +154,7 @@ DEPTHWISE = "cpu_vision_tpu_torch/csrc/depthwise.cu"
 NMS = "cpu_vision_tpu_torch/csrc/nms.cu"
 INT8_MATMUL = "cpu_vision_tpu_torch/csrc/int8_matmul.cu"
 INT8_TRANSFORMER = "cpu_vision_tpu_torch/csrc/int8_transformer.cu"
+WGRAD = "cpu_vision_tpu_torch/csrc/wgrad_matmul.cu"
 PALLAS = "cpu_vision_tpu/ops/pallas/stencil.py"
 PALLAS_CONV = "cpu_vision_tpu/ops/pallas/conv_block.py"
 PALLAS_FLASH = "cpu_vision_tpu/ops/pallas/flash_attention.py"
@@ -129,6 +164,7 @@ PALLAS_DEPTHWISE = "cpu_vision_tpu/ops/pallas/depthwise.py"
 PALLAS_NMS = "cpu_vision_tpu/ops/pallas/nms.py"
 PALLAS_INT8_MM = "cpu_vision_tpu/ops/pallas/int8_matmul.py"
 PALLAS_INT8_TB = "cpu_vision_tpu/ops/pallas/int8_transformer.py"
+PALLAS_WGRAD = "cpu_vision_tpu/ops/pallas/wgrad_matmul.py"
 # Faster R-CNN at the JAX package's benchmarked settings (bench_all.py:342-344).  At random weights the 91
 # class scores of a proposal are all near 1/91, under the 0.05 score threshold; the class scores' weights are
 # scaled up from their draw (seed 0) so that some, not all, of the 100 detection slots fill
@@ -817,6 +853,239 @@ def main() -> int:
     r50_inputs = [(qx_, qw_, sc_, b_, os_, relu_) for qx_, qw_, sc_, b_, os_, relu_, _ in r50_calls]
     del r50_calls, rstock, rfloat, rlogits, r50, int8_images, reng_stock
 
+    # ------ main paths 20 and 21: ViT-B/16 training, bf16 b128, 3 SGD steps (lr 0.1, momentum 0.9: bench_all.py:497-531)
+    # on the kernel routes (attention_block + mlp_block forward, their twins' gradients) and on the plain routes
+    from cpu_vision_tpu_torch import parallel
+    from cpu_vision_tpu_torch.models import resnet as resnet_module
+
+    train_rng = np.random.default_rng(3)
+    train_images = torch.from_numpy(train_rng.random((128, 224, 224, 3), dtype=np.float32)).to(dev)
+    train_labels = torch.from_numpy(train_rng.integers(0, 1000, 128)).to(dev)
+
+    def xent(model, batch):  # bench_all.py:514: cross entropy of float32 logits with integer labels
+        return F.cross_entropy(model(batch[0], train=True).float(), batch[1]), {}
+
+    def train(model, label, steps, after_first=None):
+        """``steps`` SGD steps of ``model`` on the training batch through ``parallel.make_train_step``, the counts
+        at 0 before them and read after them: (losses, ms a step from the host's clock, the first step's gradients
+        by parameter, counts).  ``after_first()`` runs between the first step and the next."""
+        step = parallel.make_train_step(xent, torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9))
+        kernels.reset_launch_counts()
+        losses, ms, first = [], [], None
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, _ = step(model, (train_images, train_labels))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(loss))
+            if first is None:
+                first = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+                if after_first is not None:
+                    after_first()
+        counts = read_counts(label)
+        require(all(math.isfinite(v) for v in losses) and all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+                f"{label}: a loss or a parameter is not finite")
+        return losses, ms, first, counts
+
+    def worst_param_gap(got, want):
+        """(max over parameters of max|got - want| / max|want|, that parameter)."""
+        return max((float((got[n] - want[n]).abs().max()) / max(float(want[n].abs().max()), 1e-30), n) for n in want)
+
+    def l2_gap(got, want):
+        """||got - want|| / ||want|| over all parameters together."""
+        num = sum(float((got[n].double() - want[n].double()).square().sum()) for n in want)
+        return math.sqrt(num / sum(float(want[n].double().square().sum()) for n in want))
+
+    VIT_TRAIN, VIT_TRAIN_PLAIN, VIT_TRAIN_F32 = ("vit_b_16 train bf16 b128", "vit_b_16 train bf16 b128 plain routes",
+                                                 "vit_b_16 train f32 b128 plain routes")
+    vit_state = models.get_model("vit_b_16", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0)).state_dict()
+    runs = {}
+    for label, dtype, kw, steps in ((VIT_TRAIN, torch.bfloat16, {}, 3),
+                                    (VIT_TRAIN_PLAIN, torch.bfloat16, dict(attention="plain", mlp="plain"), 3),
+                                    (VIT_TRAIN_F32, torch.float32, dict(attention="plain", mlp="plain"), 1)):
+        vit_t = models.get_model("vit_b_16", dtype=dtype, **kw)
+        vit_t.load_state_dict(vit_state)
+        require(vit_t.routes(train=True) == (("block", "block") if not kw else ("plain", "plain")), f"{label}: routes")
+        torch.cuda.reset_peak_memory_stats()
+        runs[label] = train(vit_t, label, steps)
+        runs[label] += (torch.cuda.max_memory_allocated() / 2**30,)
+        del vit_t
+    (k_loss, k_ms, k_grads, k_counts, k_mem), (p_loss, p_ms, p_grads, p_counts, p_mem), (f_loss, f_ms, f_grads, _, _) = (
+        runs[VIT_TRAIN], runs[VIT_TRAIN_PLAIN], runs[VIT_TRAIN_F32])
+    print(f"{VIT_TRAIN} main path launches: {k_counts} over 3 steps")
+    require(launches_at("attention_block", (128, 197, 768), torch.bfloat16).get(VIT_TRAIN) == 36
+            and launches_at("mlp_block", (128 * 197, 768), torch.bfloat16).get(VIT_TRAIN) == 36
+            and k_counts["attention_block"] == 36 and k_counts["mlp_block"] == 36,
+            f"{VIT_TRAIN}: expected 12 attention_block and 12 mlp_block launches a forward")
+    require(all(v == 0 for v in p_counts.values()), f"{VIT_TRAIN_PLAIN}: the plain routes launched a kernel")
+    loss_gap = abs(k_loss[0] - p_loss[0]) / (1 + abs(p_loss[0]))
+    require(loss_gap <= VIT_TOL[torch.bfloat16], f"{VIT_TRAIN}: step-0 loss {k_loss[0]} vs the plain routes' {p_loss[0]}")
+    vit_gap, vit_gap_at = worst_param_gap(k_grads, p_grads)
+    vit_f32_gap, _ = worst_param_gap(k_grads, f_grads)
+    plain_f32_gap, _ = worst_param_gap(p_grads, f_grads)
+    require(vit_gap <= GRAD_TOL, f"{VIT_TRAIN}: {vit_gap_at}'s gradient {vit_gap:.3e} of its largest entry from the "
+                                 f"plain routes'")
+    require(vit_f32_gap <= BF16_SLACK * plain_f32_gap, f"{VIT_TRAIN}: the kernel routes' gradients stray further "
+            f"from float32 ({vit_f32_gap:.3e}) than {BF16_SLACK} times the plain routes' ({plain_f32_gap:.3e})")
+    print(f"{VIT_TRAIN}: {k_ms[1:]} ms a step after the first ({k_ms[0]:.1f}), {128e3 / np.mean(k_ms[1:]):.1f} img/s, "
+          f"peak {k_mem:.2f} GiB; plain routes {p_ms[1:]} ms ({p_ms[0]:.1f}), {128e3 / np.mean(p_ms[1:]):.1f} img/s, "
+          f"peak {p_mem:.2f} GiB; f32 plain routes {f_ms[0]:.1f} ms (one step); losses {k_loss} and {p_loss} (f32 "
+          f"{f_loss[0]:.6f}); first-step gradients, worst parameter max|a - b| / max|b|: kernel vs plain routes "
+          f"{vit_gap:.3e} ({vit_gap_at}), kernel vs f32 {vit_f32_gap:.3e}, plain vs f32 {plain_f32_gap:.3e}; over all "
+          f"parameters ||a - b|| / ||b||: kernel vs plain {l2_gap(k_grads, p_grads):.3e}, kernel vs f32 "
+          f"{l2_gap(k_grads, f_grads):.3e}, plain vs f32 {l2_gap(p_grads, f_grads):.3e} ({card})")
+    vit_train_ms = (float(np.mean(k_ms[1:])), float(np.mean(p_ms[1:])))
+    del runs, k_grads, p_grads, f_grads, vit_state
+
+    # ------ main path 22: ResNet-50 training, bf16 b128 with batch statistics (bench_all.py:533-572), 3 SGD steps;
+    # its first step's gradients against a float32 run of the same weights, its running statistics against flax's rule
+    R50_TRAIN, R50_TRAIN_F32 = "resnet50 train bf16 b128", "resnet50 train f32 b128"
+    r50t = models.get_model("resnet50", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():  # else each block's last batch-norm scale is 0 and its branch gets no gradient
+        for stage in (r50t.layer1, r50t.layer2, r50t.layer3, r50t.layer4):
+            for block in stage:
+                block.last_bn.weight.fill_(0.25)
+    r50_state = {k: v.clone() for k, v in r50t.state_dict().items()}
+    stat_gaps = []  # (worst gap of the running statistics, worst gap the unbiased variance's rule would leave)
+    bn_recording = contextlib.ExitStack()
+    bn_inputs = bn_recording.enter_context(resnet_module.recording())
+
+    def check_stats():
+        """Each batch norm's running statistics after the first step against flax's rule from its recorded input,
+        in float64: mean within STAT_TOL * (1 + |ref|), variance within STAT_TOL * |ref|."""
+        bn_recording.close()
+        require(len(bn_inputs) == 53, f"{R50_TRAIN}: {len(bn_inputs)} batch norms recorded, not 53")
+        worst = unbiased = 0.0
+        for bn, x, mean0, var0 in bn_inputs:
+            x64 = x.double()
+            n = x64.numel() // x64.shape[1]
+            var = x64.var(dim=(0, 2, 3), unbiased=False)
+            m = 0.9 * mean0.double() + 0.1 * x64.mean(dim=(0, 2, 3))
+            v = 0.9 * var0.double() + 0.1 * var
+            worst = max(worst, float(((bn.running_mean.double() - m).abs() / (1 + m.abs())).max()),
+                        float(((bn.running_var.double() - v).abs() / v).max()))
+            unbiased = max(unbiased, float((0.1 * var / (n - 1) / v).max()))
+        bn_inputs.clear()
+        require(worst <= STAT_TOL, f"{R50_TRAIN}: running statistics {worst:.3e} from flax's rule")
+        require(unbiased > STAT_TOL, f"{R50_TRAIN}: the unbiased variance's rule would stand only {unbiased:.3e} off, "
+                                     f"within STAT_TOL = {STAT_TOL}: the check could not tell them apart")
+        stat_gaps.append((worst, unbiased))
+
+    try:
+        r_loss, r_ms, r_grads, r_counts = train(r50t, R50_TRAIN, 3, after_first=check_stats)
+    finally:
+        bn_recording.close()
+    require(all(v == 0 for v in r_counts.values()), f"{R50_TRAIN}: ResNet-50 launched a kernel of the port")
+    r32t = models.get_model("resnet50")
+    r32t.load_state_dict(r50_state)
+    r32_loss, r32_ms, r32_grads, _ = train(r32t, R50_TRAIN_F32, 2)
+    r50_l2 = l2_gap(r_grads, r32_grads)
+    r50_norm = math.sqrt(sum(float(r_grads[n].double().square().sum()) for n in r32_grads)
+                         / sum(float(r32_grads[n].double().square().sum()) for n in r32_grads))
+    r50_worst, r50_worst_at = worst_param_gap(r_grads, r32_grads)
+    require(r50_l2 < R50_GRAD_L2, f"{R50_TRAIN}: first-step gradients {r50_l2:.3e} of the norm from the f32 run's")
+    require(abs(r50_norm - 1) <= R50_GRAD_NORM, f"{R50_TRAIN}: first-step gradients' norm {r50_norm:.4f} times the "
+                                                f"f32 run's")
+    print(f"{R50_TRAIN}: {r_ms[1:]} ms a step after the first ({r_ms[0]:.1f}), {128e3 / np.mean(r_ms[1:]):.1f} img/s; "
+          f"f32 (TF32 off) {r32_ms[1]:.1f} ms a step ({r32_ms[0]:.1f}); losses {r_loss}, f32 {r32_loss}; first-step "
+          f"gradients vs the f32 run: ||a - b|| / ||b|| {r50_l2:.3e}, ||a|| / ||b|| {r50_norm:.4f}, worst parameter "
+          f"max|a - b| / max|b| {r50_worst:.3e} ({r50_worst_at}); 53 running statistics after step 1 within "
+          f"{stat_gaps[0][0]:.3e} of flax's rule (the unbiased variance's rule would stand up to {stat_gaps[0][1]:.3e} "
+          f"off) ({card})")
+    r50_train_ms = (float(np.mean(r_ms[1:])), float(r32_ms[1]))
+    del r50t, r32t, r_grads, r32_grads, r50_state, bn_inputs, train_images, train_labels
+
+    # ------ main paths 23 and 24: the CNN at 28x28x1 b256, 3 SGD steps through cnn_forward on the conv kernel (the
+    # default route on the card) and on the plain route, from the same parameters
+    CNN_TRAIN, CNN_TRAIN_PLAIN = "cnn train 28x28x1 b256", "cnn train 28x28x1 b256 plain route"
+    cnn_params0 = ops.cnn_init(torch.Generator().manual_seed(0), (28, 28), 1, (32, 64), 128, 10)
+    cnn_x = torch.from_numpy(rng.random((256, 28, 28, 1), dtype=np.float32)).to(dev)
+    cnn_y = torch.from_numpy(rng.integers(0, 10, 256)).to(dev)
+
+    def cnn_train(backend, label):
+        tree = {k: {n: t.clone().requires_grad_() for n, t in v.items()} for k, v in cnn_params0.items()}
+        leaves = [t for v in tree.values() for t in v.values()]
+        opt = torch.optim.SGD(leaves, lr=0.01, momentum=0.9)  # the JAX package's default lr; at 0.1 the loss diverges
+        kernels.reset_launch_counts()
+        losses, first, ms = [], None, []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            with _dtype.full_float32():
+                loss = F.cross_entropy(ops.cnn_forward(tree, cnn_x, backend=backend), cnn_y)
+                loss.backward()
+            opt.step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(loss.detach()))
+            require(all(t.grad is not None for t in leaves), f"{label}: a parameter got no gradient")
+            if first is None:
+                first = [t.grad.detach().clone() for t in leaves]
+        return losses, first, read_counts(label), ms
+
+    c_loss, c_grads, c_counts, c_ms = cnn_train(None, CNN_TRAIN)
+    cp_loss, cp_grads, cp_counts, cp_ms = cnn_train("plain", CNN_TRAIN_PLAIN)
+    print(f"{CNN_TRAIN} main path launches: {c_counts} over 3 steps")
+    require(c_counts["fused_conv3x3_relu_pool"] == 6 and cp_counts["fused_conv3x3_relu_pool"] == 0,
+            f"{CNN_TRAIN}: expected the fused stage twice a forward on the kernel route only")
+    cnn_grad_err = max(max_err_f32(a, b, f"{CNN_TRAIN} first-step gradients", CONV_ATOL, CONV_RTOL)
+                       for a, b in zip(c_grads, cp_grads))
+    require(all(abs(a - b) <= LOGIT_TOL * (1 + abs(b)) for a, b in zip(c_loss, cp_loss)), f"{CNN_TRAIN}: losses")
+    print(f"{CNN_TRAIN}: {c_ms[1:]} ms a step after the first; plain route {cp_ms[1:]} ms; losses {c_loss} vs plain "
+          f"{cp_loss}; first-step gradients max |kernel - plain| {cnn_grad_err:.3e} ({card})")
+
+    # ------ main path 25: conv1x1 training at every 1x1 shape of ResNet-50 b128 with at least 16,384 rows: forward,
+    # backward (the weight gradient on wgrad_matmul) and one SGD update of a PointwiseConv, in float32 and bfloat16
+    CONV1X1 = "conv1x1 train, ResNet-50 b128 1x1 shapes"
+    # (input side, Cin, Cout, stride) at batch 128: layer 1 (56x56, M 401,408); layer 2 (28x28, M 100,352, the
+    # downsample from 56x56 with stride 2); layer 3 (14x14, M 25,088, the downsample from 28x28 with stride 2)
+    conv1x1_shapes = [(56, 64, 64, 1), (56, 64, 256, 1), (56, 256, 64, 1), (56, 256, 128, 1),
+                      (28, 128, 512, 1), (28, 512, 128, 1), (56, 256, 512, 2), (28, 512, 256, 1),
+                      (14, 256, 1024, 1), (14, 1024, 256, 1), (28, 512, 1024, 2), (14, 1024, 512, 1)]
+    c1_gen = torch.Generator(device=dev).manual_seed(5)
+    c1_errs = {}
+    kernels.reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        for side, cin, cout, stride in conv1x1_shapes:
+            c1_conv = ops.PointwiseConv(cin, cout, stride, dtype=dtype, generator=torch.Generator().manual_seed(cin + cout))
+            c1_conv = c1_conv.to(dev)
+            c1_x = torch.randn((128, side, side, cin), generator=c1_gen, device=dev).to(dtype).requires_grad_()
+            c1_y = c1_conv(c1_x)
+            c1_g = torch.randn(c1_y.shape, generator=c1_gen, device=dev).to(dtype)
+            c1_y.backward(c1_g)
+            c1_w0 = c1_conv.weight.detach().clone()
+            torch.optim.SGD(c1_conv.parameters(), lr=0.1).step()
+            require(bool(torch.allclose(c1_conv.weight, c1_w0 - 0.1 * c1_conv.weight.grad, rtol=1e-6, atol=1e-7)),
+                    "SGD update")
+            with _dtype.full_float32():  # the same values through F.conv2d autograd in float32
+                c1_xr = c1_x.detach().float().requires_grad_()
+                c1_wr = c1_w0.to(dtype).float().requires_grad_()
+                c1_yr = F.conv2d(c1_xr.permute(0, 3, 1, 2), c1_wr, stride=stride).permute(0, 2, 3, 1)
+                c1_yr.backward(c1_g.float())
+            c1_tol = WGRAD_TOL if dtype == torch.float32 else C1_BF16_TOL
+            c1_errs[(side, cin, cout, stride, str(dtype))] = []
+            for c1_what, c1_got, c1_want in (("y", c1_y, c1_yr), ("dx", c1_x.grad, c1_xr.grad),
+                                             ("dW", c1_conv.weight.grad, c1_wr.grad)):
+                c1_err = float((c1_got.float() - c1_want).abs().max()) / float(c1_want.abs().max())
+                require(c1_err <= c1_tol,
+                        f"conv1x1 {side}x{side}x{cin}->{cout} s{stride} {dtype}: {c1_what} {c1_err:.3e} of max|ref|")
+                c1_errs[(side, cin, cout, stride, str(dtype))].append(c1_err)
+            del c1_conv, c1_x, c1_y, c1_g, c1_xr, c1_wr, c1_yr
+    c1_counts = read_counts(CONV1X1)
+    print(f"{CONV1X1} main path launches: {c1_counts}")
+    c1_expected = {}
+    for side, cin, cout, stride in conv1x1_shapes:
+        rows_ = 128 * (side // stride) ** 2
+        for dtype in (torch.float32, torch.bfloat16):
+            c1_expected[((rows_, cin), dtype)] = c1_expected.get(((rows_, cin), dtype), 0) + 1
+    require(c1_counts["wgrad_matmul"] == 24 and path_shapes[CONV1X1]["wgrad_matmul"] == c1_expected,
+            f"{CONV1X1}: expected one wgrad_matmul launch a backward, got {path_shapes[CONV1X1]['wgrad_matmul']}")
+    print(f"{CONV1X1}: every output, dx and dW against F.conv2d autograd in float32 on the same values, worst "
+          f"max|a - b| / max|ref|: float32 {max(max(e) for k, e in c1_errs.items() if 'float32' in k[4]):.3e}, "
+          f"bfloat16 {max(max(e) for k, e in c1_errs.items() if 'bfloat16' in k[4]):.3e} ({card})")
+
     # ------------------------------------ each kernel against its plain twin
     rows = []
 
@@ -1014,7 +1283,11 @@ def main() -> int:
                     shape=list(x.shape), dtype="bfloat16", kernel_launches=vit_block_kernel_launches,
                     split_bytes_ms=split_bytes / HBM_BYTES_PER_S * 1e3))
     print(f"  under attention_block's load: {clock_under(lambda: kernels.attention_block(*args), 40)}")
-    del x, out, args, w_qkv, w_o
+    args128 = (x[:128].contiguous(), *args[1:])  # the training path's batch
+    hold("attention_block", args128[0].shape, dtype,
+         max_err_f32(kernels.attention_block(*args128), transformer_block.attention_block_plain(*args128),
+                     "attention_block b128", TOL[dtype], TOL[dtype]))
+    del x, out, args, args128, w_qkv, w_o
 
     mlp_rows = []
     for dtype, batch in ((torch.float32, 64), (torch.bfloat16, 256)):
@@ -1042,6 +1315,12 @@ def main() -> int:
                             library_ms=time_ms(mlp_library, 5), source=TRANSFORMER, ops_per_s=rate[dtype],
                             at=(x.shape, dtype), shape=list(x.shape), dtype=str(dtype).replace("torch.", "")))
         print(f"  under mlp_block's load: {clock_under(lambda: kernels.mlp_block(*args), 20 if dtype == torch.bfloat16 else 100)}")
+        if dtype == torch.bfloat16:  # the training path's batch, 128 images
+            args128 = (x[:128 * seq].contiguous(), *args[1:])
+            hold("mlp_block", args128[0].shape, dtype,
+                 max_err_f32(kernels.mlp_block(*args128), transformer_block.mlp_block_plain(*args128), "mlp_block b128",
+                             TOL[dtype], TOL[dtype]))
+            del args128
         del x, out, args, w1, w2
     rows.append(entry(mlp_rows[-1], "vit_b_16 bf16 b256", mlp_rows[:-1]))
 
@@ -1421,6 +1700,56 @@ def main() -> int:
           f"{clock_under(lambda: kernels.attention_block_int8(*vit_attn_args), 20)}")
     del vit_mlp_args, vit_attn_args, xm, xa, veng, reng
 
+    # wgrad_matmul at every shape the conv1x1 path handed it, in both dtypes; bound: x and dy read once, dW written
+    # once, 2 M Cin Cout operations at the f32 or bf16 rate; library_ms: torch.mm(x.t(), dy) in float32 (TF32 off),
+    # for bfloat16 inputs the cast to float32 and that product (a composite)
+    from cpu_vision_tpu_torch.ops.kernels.wgrad_matmul import wgrad_matmul_plain
+
+    wgrad_rows = []
+    w_gen = torch.Generator(device=dev).manual_seed(6)
+    for dtype in (torch.float32, torch.bfloat16):
+        for side, cin, cout, stride in conv1x1_shapes:
+            m_ = 128 * (side // stride) ** 2
+            xw = torch.randn((m_, cin), generator=w_gen, device=dev).to(dtype)
+            dyw = torch.randn((m_, cout), generator=w_gen, device=dev).to(dtype)
+            out = kernels.wgrad_matmul(xw, dyw)
+            ref = wgrad_matmul_plain(xw, dyw)
+            err = float((out - ref).abs().max())
+            require(err <= WGRAD_TOL * float(ref.abs().max()), f"wgrad_matmul {m_}x{cin}x{cout} {dtype}: max |err| {err}")
+            require(torch.equal(kernels.wgrad_matmul(xw, dyw), out), f"wgrad_matmul {m_}x{cin}x{cout}: not deterministic")
+
+            def library():
+                with _dtype.full_float32():
+                    return torch.mm(xw.t(), dyw) if dtype == torch.float32 else torch.mm(xw.t().float(), dyw.float())
+
+            require(float((library() - ref).abs().max()) <= WGRAD_TOL * float(ref.abs().max()), "wgrad library call")
+            wgrad_rows.append(row("wgrad_matmul", f"{PALLAS_WGRAD}:54", CONV1X1, err,
+                                  time_ms(lambda: kernels.wgrad_matmul(xw, dyw), 20),
+                                  time_ms(lambda: wgrad_matmul_plain(xw, dyw), 5),
+                                  m_ * (cin + cout) * xw.element_size() + 4 * cin * cout, 2 * m_ * cin * cout,
+                                  library_ms=time_ms(library, 10), source=WGRAD, ops_per_s=rate[dtype],
+                                  at=(xw.shape, dtype), shape=[m_, cin, cout], dtype=str(dtype).replace("torch.", ""),
+                                  max_abs_ref=float(ref.abs().max()), library_composite=dtype != torch.float32))
+            del xw, dyw, out, ref
+    main = next(r for r in wgrad_rows if r["dtype"] == "bfloat16" and r["shape"] == [401408, 64, 64])
+    rows.append(entry(main, CONV1X1, [r for r in wgrad_rows if r is not main]))
+    ones = torch.ones(401408, 64, device=dev)
+    print(f"  under wgrad_matmul's load: {clock_under(lambda: kernels.wgrad_matmul(ones, ones), 50)}")
+    del ones
+
+    # every shape that a training path handed to a kernel was held above
+    held_at = {(r["name"], tuple(r["shape"]), r["dtype"]) for r in held}
+    for r in rows:
+        held_at |= {(r["name"], tuple(at["shape"]), at.get("dtype")) for at in (r, *r.get("other_shapes", ()))
+                    if "shape" in at and isinstance(at["shape"][0], int)}
+    for path in (VIT_TRAIN,):
+        for name in ("attention_block", "mlp_block"):
+            for shape, dtype in path_shapes[path][name]:
+                require((name, shape, str(dtype).replace("torch.", "")) in held_at,
+                        f"{path}: {name} ran on {shape} {dtype}, which was not held against its twin")
+    require(set(path_shapes[CNN_TRAIN]["fused_conv3x3_relu_pool"]) == set(path_shapes[cnn[28][2]]["fused_conv3x3_relu_pool"]),
+            f"{CNN_TRAIN}: the fused stage ran at shapes that the CNN rows did not hold")
+
     # every shape that a Swin or ConvNeXt main path handed to one of these four wrappers was held above
     new_kernels = ("mlp_block", "cn_mlp_block", "window_attention_block", "depthwise_conv2d")
     checked = {(r["name"], tuple(r["shape"]), r["dtype"]) for r in held}
@@ -1439,8 +1768,10 @@ def main() -> int:
             require(shape in held_nms and dtype == torch.float32,
                     f"{path}: nms_sorted ran on {shape} {dtype}, which was not held against its twin")
 
-    require(len(rows) == 18 and len({r["name"] for r in rows}) == 17 and all(r["launches"] >= 1 for r in rows),
-            "eighteen entries of seventeen wrappers, each launched on a main path")
+    require(len(rows) == 19 and len({r["name"] for r in rows}) == 18 and all(r["launches"] >= 1 for r in rows),
+            "nineteen entries of eighteen wrappers, each launched on a main path")
+    print(f"training, ms a step: vit_b_16 bf16 b128 kernel routes {vit_train_ms[0]:.1f}, plain routes "
+          f"{vit_train_ms[1]:.1f}; resnet50 b128 bf16 {r50_train_ms[0]:.1f}, f32 {r50_train_ms[1]:.1f} ({card})")
     print(json.dumps({"kernels": rows, "held_untimed": held}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -30,6 +30,7 @@ __all__ = [
     "float_kernel",
     "to_dtype",
     "full_float32",
+    "float32_products",
 ]
 
 # Number of value bits for the integer image dtypes we support.
@@ -159,5 +160,23 @@ def full_float32() -> Iterator[None]:
     try:
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+
+
+@contextlib.contextmanager
+def float32_products(dtype: torch.dtype) -> Iterator[None]:
+    """Matrix products inside whose operands hold values of ``dtype``, summed
+    in float32: ``full_float32`` for float32; for bfloat16 or float16 the
+    card's TF32 tensor cores are allowed, which keep 10 mantissa bits and so
+    multiply such values exactly.  Convolutions are left as they are."""
+    if dtype == torch.float32:
+        with full_float32():
+            yield
+        return
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul_tf32

@@ -19,6 +19,7 @@ from ._convert import (  # noqa: F401
     convnext_state_dict_from_numpy,
     faster_rcnn_state_dict_from_numpy,
     int8_scales_from_numpy,
+    pointwise_state_dict_from_numpy,
     resnet_state_dict_from_numpy,
     swin_state_dict_from_numpy,
     vit_state_dict_from_numpy,

@@ -20,6 +20,9 @@ are the inverses of the JAX package's ``models.torch_weights``
 * a dense kernel over a flattened HWC map → torchvision's ``weight`` over
   the CHW flattening (Faster R-CNN's ``fc6``).
 
+``pointwise_state_dict_from_numpy`` carries the flax kernel (1, 1, Cin, Cout)
+of the JAX package's ``ops.PointwiseConv`` into the port's ``PointwiseConv``.
+
 ``int8_scales_from_numpy`` carries the calibrated ``scales`` of the JAX
 package's ``Int8ViT`` or ``Int8ResNet`` into the port's engine of the same
 model (the weights cross as above).
@@ -33,7 +36,8 @@ import numpy as np
 import torch
 
 __all__ = ["vit_state_dict_from_numpy", "resnet_state_dict_from_numpy", "swin_state_dict_from_numpy",
-           "convnext_state_dict_from_numpy", "faster_rcnn_state_dict_from_numpy", "int8_scales_from_numpy"]
+           "convnext_state_dict_from_numpy", "faster_rcnn_state_dict_from_numpy", "int8_scales_from_numpy",
+           "pointwise_state_dict_from_numpy"]
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -88,6 +92,14 @@ def vit_state_dict_from_numpy(params: Mapping[str, Any], num_layers: int, num_he
     _norm(sd, "encoder.ln", p["LayerNorm_0"])
     _dense(sd, "heads.head", p["Dense_0"])
     return sd
+
+
+def pointwise_state_dict_from_numpy(params: Mapping[str, Any]) -> StateDict:
+    """The flax variables of the JAX package's ``PointwiseConv`` (``{"params":
+    {"kernel": ...}}`` or the params tree itself) as a ``state_dict`` of the
+    port's ``ops.PointwiseConv``: the (1, 1, Cin, Cout) kernel as ``weight``
+    (Cout, Cin, 1, 1)."""
+    return {"weight": _conv(params.get("params", params)["kernel"])}
 
 
 def _batch_norm(sd: StateDict, prefix: str, leaf: Mapping[str, Any], stats: Mapping[str, Any]) -> None:

@@ -145,7 +145,8 @@ class ConvNeXt(nn.Module):
     @torch.no_grad()
     def forward(self, x, train: bool = False) -> torch.Tensor:
         if train:
-            raise NotImplementedError("serving only: stochastic depth and the kernels' backward are not ported yet")
+            raise NotImplementedError("serving only: ConvNeXt training (stochastic depth, the backward of cn_mlp_block and "
+                                      "depthwise_conv2d) is ROADMAP queue 1 item 3 with queue 2 item 5")
         x = as_tensor(x)
         with full_float32():
             for i, stage in enumerate(self.features):

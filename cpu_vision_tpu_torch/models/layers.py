@@ -16,7 +16,7 @@ from torch import nn
 
 from ..ops.kernels.depthwise import depthwise_conv2d
 
-__all__ = ["PatchifyDense", "DepthwiseConv", "StochasticDepth", "MaskedLayerNorm", "Packed", "layer_norm",
+__all__ = ["PatchifyDense", "DepthwiseConv", "StochasticDepth", "MaskedLayerNorm", "Packed", "dropout", "layer_norm",
            "lecun_normal_"]
 
 DEPTHWISE_BACKENDS = ("kernel", "stock")
@@ -24,16 +24,22 @@ DEPTHWISE_BACKENDS = ("kernel", "stock")
 
 class Packed:
     """Tensors derived from parameters (transposed copies in the compute
-    dtype, gathered tables), rebuilt only when a parameter was written or
-    moved, not at every call."""
+    dtype, gathered tables).  Serving rebuilds them only when a parameter was
+    written or moved, not at every call.  Under training (grad mode, and a
+    parameter that requires a gradient) they are built inside the graph at
+    every call, so that gradients reach the parameters; an optimizer's step
+    writes the parameters in place between calls anyway."""
 
     def __init__(self):
         self._key = None
         self._value: Tuple = ()
 
     def get(self, build: Callable[[], Tuple], dtype: torch.dtype, *params: torch.Tensor) -> Tuple:
-        """``build()``'s tuple, cached for as long as ``dtype`` and the
-        storage and version of every tensor of ``params`` stay the same."""
+        """``build()``'s tuple: in the graph under training; otherwise cached
+        for as long as ``dtype`` and the storage and version of every tensor of
+        ``params`` stay the same."""
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            return tuple(build())
         key = (dtype, *((p.data_ptr(), p._version) for p in params))
         if key != self._key:
             with torch.no_grad():
@@ -43,7 +49,19 @@ class Packed:
 
     def transposed(self, dtype: torch.dtype, *params: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """(in, out) copies of (out, in) ``params`` in ``dtype``."""
-        return self.get(lambda: (p.detach().to(dtype).t().contiguous() for p in params), dtype, *params)
+        return self.get(lambda: (p.to(dtype).t().contiguous() for p in params), dtype, *params)
+
+
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Zero each element of ``x`` with probability ``p`` and scale the rest by
+    1 / (1 - p), with the mask drawn from ``generator`` (on ``x``'s device;
+    the default generator without one).  ``F.dropout`` takes no generator."""
+    if not 0.0 <= p < 1.0:
+        raise ValueError(f"dropout probability lies in [0, 1), got {p}")
+    if p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep.to(x.dtype) * (1.0 / (1.0 - p))
 
 
 def lecun_normal_(tensor: torch.Tensor, fan_in: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -112,7 +130,8 @@ class StochasticDepth(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train and self.p > 0.0:
-            raise NotImplementedError("serving only: stochastic depth is not ported yet")
+            raise NotImplementedError("serving only: stochastic depth lands with Swin and ConvNeXt training "
+                                      "(ROADMAP queue 1 item 3)")
         return x
 
 

@@ -2,9 +2,13 @@
 ``Bottleneck`` (stride on the 3x3, the "V1.5" variant), ``ResNet`` and its ten
 registered variants, resnet18 to wide_resnet101_2.
 
-Counterpart of the JAX package's ``models/resnet.py``, serving
-(``train=False``) only.  Input and feature maps are NHWC as there; inside,
-the maps are NCHW tensors in channels-last memory, so no copy is made.
+Counterpart of the JAX package's ``models/resnet.py``.  ``forward(x)`` serves
+under ``no_grad`` from the running statistics; ``forward(x, train=True)``
+records the graph and normalises by the batch's statistics, moving the running
+ones as flax's ``BatchNorm`` (momentum 0.9) does; ``recording()`` shows each
+batch norm's input and running statistics on the way.  Input and feature maps are
+NHWC as there; inside, the maps are NCHW tensors in channels-last memory, so
+no copy is made.
 Parameters are float32 under torchvision's ``state_dict`` keys; ``dtype``
 (float32 or bfloat16) is the compute dtype.  Every operator is stock PyTorch
 (``conv2d``, ``batch_norm``, ``max_pool2d``): the JAX model runs no
@@ -14,7 +18,8 @@ TF32 (``_dtype.full_float32``).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Type, Union
+import contextlib
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Type, Union
 
 import torch
 import torch.nn.functional as F
@@ -26,19 +31,65 @@ from ._api import register_model
 from .layers import lecun_normal_
 
 __all__ = ["ResNet", "BasicBlock", "Bottleneck", "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
-           "resnext50_32x4d", "resnext101_32x8d", "resnext101_64x4d", "wide_resnet50_2", "wide_resnet101_2"]
+           "resnext50_32x4d", "resnext101_32x8d", "resnext101_64x4d", "wide_resnet50_2", "wide_resnet101_2",
+           "recording"]
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax's: running = 0.9 · running + 0.1 · batch statistic
 
 
 def _conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding, conv.dilation, conv.groups)
 
 
-def _bn(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """Inference batch norm from the running statistics, in float32."""
+def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False) -> torch.Tensor:
+    """Batch norm in float32: from the running statistics when serving, from
+    the batch's under training (``_bn_train``)."""
+    if train:
+        return _bn_train(x, bn)
     out = F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps)
     return out.to(x.dtype)
+
+
+BnRecord = Tuple[nn.BatchNorm2d, torch.Tensor, torch.Tensor, torch.Tensor]
+_recorders: List[List[BnRecord]] = []
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[List[BnRecord]]:
+    """Within the block, each batch norm that normalises by its batch's
+    statistics appends ``(module, input, running_mean, running_var)`` to the
+    yielded list: its input (detached, not copied) and copies of its running
+    statistics before it moves them."""
+    calls: List[BnRecord] = []
+    _recorders.append(calls)
+    try:
+        yield calls
+    finally:
+        _recorders.remove(calls)
+
+
+def _bn_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Flax's ``BatchNorm`` under training: the float32 mean and *biased*
+    variance over N, H, W, ``(x − mean) · (rsqrt(var + eps) · scale) + bias``,
+    and the running statistics moved to ``0.9 · running + 0.1 · batch``.
+    ``F.batch_norm(training=True)`` would move the running variance by the
+    unbiased one.  The variance is two-pass, the mean of ``(x − mean)²``,
+    where flax's default is the fast ``E[x²] − E[x]²`` floored at 0: the
+    tests' reference is the JAX model in float64, where the two agree, and the
+    two-pass form loses nothing to cancellation in float32."""
+    for calls in _recorders:
+        calls.append((bn, x.detach(), bn.running_mean.clone(), bn.running_var.clone()))
+    x32 = x.float()
+    mean = x32.mean(dim=(0, 2, 3))
+    centred = x32 - mean[:, None, None]
+    var = (centred * centred).mean(dim=(0, 2, 3))
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+        bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+        bn.num_batches_tracked.add_(1)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (centred * mul[:, None, None] + bn.bias[:, None, None]).to(x.dtype)
 
 
 def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
@@ -70,11 +121,11 @@ class BasicBlock(nn.Module):
     def last_bn(self) -> nn.BatchNorm2d:
         return self.bn2
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.relu(_bn(_conv(x, self.conv1), self.bn1))
-        out = _bn(_conv(out, self.conv2), self.bn2)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        out = torch.relu(_bn(_conv(x, self.conv1), self.bn1, train))
+        out = _bn(_conv(out, self.conv2), self.bn2, train)
         if self.downsample is not None:
-            x = _bn(_conv(x, self.downsample[0]), self.downsample[1])
+            x = _bn(_conv(x, self.downsample[0]), self.downsample[1], train)
         return torch.relu(out + x)
 
 
@@ -101,12 +152,12 @@ class Bottleneck(nn.Module):
     def last_bn(self) -> nn.BatchNorm2d:
         return self.bn3
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.relu(_bn(_conv(x, self.conv1), self.bn1))
-        out = torch.relu(_bn(_conv(out, self.conv2), self.bn2))
-        out = _bn(_conv(out, self.conv3), self.bn3)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        out = torch.relu(_bn(_conv(x, self.conv1), self.bn1, train))
+        out = torch.relu(_bn(_conv(out, self.conv2), self.bn2, train))
+        out = _bn(_conv(out, self.conv3), self.bn3, train)
         if self.downsample is not None:
-            x = _bn(_conv(x, self.downsample[0]), self.downsample[1])
+            x = _bn(_conv(x, self.downsample[0]), self.downsample[1], train)
         return torch.relu(out + x)
 
 
@@ -170,17 +221,24 @@ class ResNet(nn.Module):
             if isinstance(m, (BasicBlock, Bottleneck)) and m.zero_init_residual:
                 nn.init.zeros_(m.last_bn.weight)
 
-    @torch.no_grad()
     def forward(self, x, train: bool = False, features_only: bool = False):
-        if train:
-            raise NotImplementedError("serving only: batch statistics and the backward are not ported yet")
+        """Logits (or, with ``features_only``, the four stages' maps) of NHWC
+        images ``x``.  Serving (``train=False``) runs under ``no_grad``;
+        ``train=True`` records the graph and updates the running statistics."""
+        if not train:
+            with torch.no_grad():
+                return self._forward(x, False, features_only)
+        return self._forward(x, True, features_only)
+
+    def _forward(self, x, train: bool, features_only: bool):
         x = as_tensor(x).to(self.dtype).permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels-last
         feats: Dict[str, torch.Tensor] = {}
         with full_float32():
-            x = torch.relu(_bn(_conv(x, self.conv1), self.bn1))
+            x = torch.relu(_bn(_conv(x, self.conv1), self.bn1, train))
             x = F.max_pool2d(x, 3, 2, 1)  # pads with -inf
             for i in range(1, 5):
-                x = getattr(self, f"layer{i}")(x)
+                for block in getattr(self, f"layer{i}"):
+                    x = block(x, train)
                 feats[f"layer{i}"] = x.permute(0, 2, 3, 1)
             if features_only or self.fc is None:
                 return feats

@@ -192,8 +192,10 @@ class WindowAttention(nn.Module):
 
     def constants(self):
         """(w_qkv (C, 3C), b_qkv with v2's key bias zeroed, w_o (C, C),
-        rel_bias (heads, S, S) float32, logit_scale (heads,) or None)."""
-        return self._packed.get(self._build, self.dtype, *self.parameters())
+        rel_bias (heads, S, S) float32, logit_scale (heads,) or None), detached
+        and cached in any grad mode: Swin does not train yet."""
+        with torch.no_grad():
+            return self._packed.get(self._build, self.dtype, *self.parameters())
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, n, c = x.shape  # (windows, ws*ws, C)
@@ -437,7 +439,8 @@ class SwinTransformer(nn.Module):
     @torch.no_grad()
     def forward(self, x, train: bool = False) -> torch.Tensor:
         if train:
-            raise NotImplementedError("serving only: stochastic depth and the kernels' backward are not ported yet")
+            raise NotImplementedError("serving only: Swin training (stochastic depth, the backward of "
+                                      "window_attention_block) is ROADMAP queue 1 item 3 with queue 2 item 5")
         x = as_tensor(x)
         with full_float32():
             stem = self.features[0]

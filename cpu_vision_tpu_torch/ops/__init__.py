@@ -52,6 +52,7 @@ from .filters import (  # noqa: F401
     spatial_gradient,
     unsharp_mask,
 )
+from .pointwise import PointwiseConv, conv1x1  # noqa: F401
 from .poolers import LevelMapper, MultiScaleRoIAlign, multiscale_roi_align  # noqa: F401
 from .quantized import dequantize, qnms, qroi_align, quantize  # noqa: F401
 from .pyramid import (  # noqa: F401

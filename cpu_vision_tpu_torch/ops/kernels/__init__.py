@@ -12,7 +12,8 @@ convolution (``depthwise.py``, ``csrc/depthwise.cu``), the greedy NMS of
 boxes sorted by score (``nms.py``, ``csrc/nms.cu``), the int8 product with a
 requantising epilogue (``int8_matmul.py``, ``csrc/int8_matmul.cu``) and the
 int8 attention and MLP sub-blocks (``int8_transformer.py``,
-``csrc/int8_transformer.cu``).  The op-by-op
+``csrc/int8_transformer.cu``) and the weight gradient of a pointwise
+convolution (``wgrad_matmul.py``, ``csrc/wgrad_matmul.cu``).  The op-by-op
 functions of ``cpu_vision_tpu_torch.ops`` and the stock-operator routes of
 ``cpu_vision_tpu_torch.models`` are their oracles.
 """
@@ -52,13 +53,14 @@ from .transformer_block import (  # noqa: F401
     mlp_block,
     mlp_block_plain,
 )
+from .wgrad_matmul import wgrad_matmul, wgrad_matmul_plain  # noqa: F401
 from . import _build
 from . import stencil as _stencil
 
 # Every wrapper that launches a kernel; each counts its launches.
 KERNEL_WRAPPERS = (*_stencil.KERNEL_WRAPPERS, fused_conv3x3_relu_pool, flash_mha, attention_block, mlp_block,
                    cn_mlp_block, window_attention_block, depthwise_conv2d, nms_sorted, int8_matmul_requant,
-                   mlp_block_int8, attention_block_int8)
+                   mlp_block_int8, attention_block_int8, wgrad_matmul)
 
 
 def launch_counts() -> dict:

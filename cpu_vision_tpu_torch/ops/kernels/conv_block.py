@@ -7,7 +7,9 @@ stage of the small CNN (``ops.cnn``).  ``x`` is (N, H, W, Cin) float32 NHWC,
 (N, H/2, W/2, Cout).  ``fused_conv3x3_relu_pool`` given CUDA tensors launches
 the hand-written kernel, adds one to its ``launches`` count, and raises if
 the launch fails; given CPU tensors it runs the twin.  Nothing falls back
-from one to the other.
+from one to the other.  It is differentiable: the backward recomputes the
+twin from the saved ``(x, w, b)`` and differentiates it (``_grad``), as the
+JAX package's kernels do.
 
 The twin sums nine per-tap (N·H·W, Cin) × (Cin, Cout) products of the
 zero-padded input in (dy, dx) order, as the Pallas kernel does; the CUDA
@@ -25,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..._dtype import full_float32
-from . import _build
+from . import _build, _grad
 
 __all__ = ["fused_conv3x3_relu_pool", "fused_conv3x3_relu_pool_plain", "conv3x3_relu_pool"]
 
@@ -78,10 +80,8 @@ def fused_conv3x3_relu_pool_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Ten
     return acts.reshape(n, h // 2, 2, wd // 2, 2, cout).amax(dim=(2, 4))
 
 
-def fused_conv3x3_relu_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """SAME conv3x3 + bias + ReLU + maxpool2x2 in one pass: x (N,H,W,Cin)
-    f32 → (N,H/2,W/2,Cout).  H and W must be even (pad first otherwise)."""
-    _check(x, w, b)
+def _kernel(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One launch of ``cvt_conv3x3_relu_pool`` on CUDA tensors, the twin on CPU tensors."""
     if not _build.on_card(x):
         return fused_conv3x3_relu_pool_plain(x, w, b)
     n, h, wd, cin = x.shape
@@ -94,6 +94,14 @@ def fused_conv3x3_relu_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -
                   out.data_ptr(), n, h, wd, cin, cout)
     _build.count_launch(fused_conv3x3_relu_pool, x)
     return out
+
+
+def fused_conv3x3_relu_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """SAME conv3x3 + bias + ReLU + maxpool2x2 in one pass: x (N,H,W,Cin)
+    f32 → (N,H/2,W/2,Cout).  H and W must be even (pad first otherwise).
+    Gradients reach ``x``, ``w`` and ``b`` through the twin's recompute."""
+    _check(x, w, b)
+    return _grad.recompute_backward(_kernel, fused_conv3x3_relu_pool_plain, x, w, b, dtype=torch.float32)
 
 
 _build.reset_count(fused_conv3x3_relu_pool)

@@ -9,7 +9,9 @@ and softmax are float32; the probabilities are cast to ``q``'s dtype before
 the product with ``v``, which sums in float32.  ``flash_mha`` given CUDA
 tensors launches the hand-written kernel, adds one to its ``launches`` count
 and raises if the launch fails; given CPU tensors it runs the twin.  Nothing
-falls back from one to the other.
+falls back from one to the other.  It is differentiable: the backward
+differentiates the twin, recomputed from the saved ``q``, ``k``, ``v``
+(``_grad``; the JAX package writes the same softmax backward out by hand).
 
 The kernel streams key tiles with an online softmax and divides by the row
 sum at the end; the twin normalises before the cast, as the Pallas kernel
@@ -25,8 +27,8 @@ from typing import Optional
 
 import torch
 
-from ..._dtype import full_float32
-from . import _build
+from ..._dtype import float32_products
+from . import _build, _grad
 
 __all__ = ["flash_mha", "flash_mha_plain", "HEAD_DIMS"]
 
@@ -61,17 +63,14 @@ def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     """Twin of ``cvt_flash_mha``: float32 scores and softmax, probabilities
     cast to ``q``'s dtype, float32 sums; (N, S, H, hd) → (N, H, S, hd)."""
     _check(q, k, v)
-    with full_float32():
+    with float32_products(q.dtype):
         scores = torch.einsum("nqhd,nkhd->nhqk", q.float(), k.float()) * scale
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
         return torch.einsum("nhqk,nkhd->nhqd", probs.float(), v.float()).to(q.dtype)
 
 
-def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """``softmax(q kᵀ · scale) v`` per head: (N, S, H, hd) in, (N, H, S, hd)
-    out in ``q``'s dtype.  On the card the head dim must be one of
-    ``HEAD_DIMS`` and the tensors contiguous."""
-    _check(q, k, v)
+def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """One launch of ``cvt_flash_mha`` on CUDA tensors, the twin on CPU tensors."""
     if not _build.on_card(q):
         return flash_mha_plain(q, k, v, scale)
     n, s, h, hd = q.shape
@@ -86,6 +85,14 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -
                   n, s, h, hd, float(scale), int(q.dtype == torch.bfloat16))
     _build.count_launch(flash_mha, q)
     return out
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """``softmax(q kᵀ · scale) v`` per head: (N, S, H, hd) in, (N, H, S, hd)
+    out in ``q``'s dtype.  On the card the head dim must be one of
+    ``HEAD_DIMS`` and the tensors contiguous."""
+    _check(q, k, v)
+    return _grad.recompute_backward(_kernel, flash_mha_plain, q, k, v, scale, dtype=q.dtype)
 
 
 _build.reset_count(flash_mha)

@@ -26,7 +26,11 @@ functions' ``block_m`` and ``interpret`` arguments have no counterpart here.
 A wrapper given CUDA tensors launches its hand-written kernel, adds one to its
 ``launches`` count and raises if the launch fails or the kernel does not take
 the arguments; given CPU tensors it runs the twin.  Nothing falls back from
-one to the other.  ``attention_block`` is three kernel launches a call (LN +
+one to the other.  ``mlp_block`` and ``attention_block`` are differentiable:
+their backward recomputes the twin from the saved inputs and differentiates it
+(``_grad``), the counterpart of the JAX functions' ``custom_vjp``s, which take
+``jax.grad`` of the same math; ``cn_mlp_block`` has no backward yet (ConvNeXt
+training).  ``attention_block`` is three kernel launches a call (LN +
 QKV product, attention core, output projection + residual), counted in
 ``attention_block.kernel_launches``; its QKV product and joined heads pass
 through device memory once, which the Pallas kernel kept in VMEM.  On the
@@ -44,8 +48,8 @@ from typing import Optional
 
 import torch
 
-from ..._dtype import full_float32
-from . import _build
+from ..._dtype import float32_products
+from . import _build, _grad
 from .flash_attention import DTYPES, HEAD_DIMS
 
 __all__ = ["mlp_block", "mlp_block_plain", "cn_mlp_block", "cn_mlp_block_plain", "attention_block",
@@ -135,7 +139,7 @@ def mlp_block_plain(x, ln_g, ln_b, w1, b1, w2, b2, eps: float = 1e-6, post_norm:
     _check_mlp(x, ln_g, ln_b, w1, b1, w2, b2)
     dtype = w1.dtype
     x32, g32, b32 = x.float(), ln_g.float(), ln_b.float()
-    with full_float32():
+    with float32_products(dtype):
         h = x32.to(dtype) if post_norm else _ln_f32(x32, g32, b32, eps, ln_count).to(dtype)
         h = _gelu_f32(_dot_f32(h, w1) + b1.float()).to(dtype)
         h = _dot_f32(h, w2) + b2.float()
@@ -182,14 +186,20 @@ def _launch_mlp(fn, x, resid, ln_g, ln_b, w1, b1, w2, b2, gamma, eps, post_norm,
     return out
 
 
+def _mlp_kernel(x, ln_g, ln_b, w1, b1, w2, b2, eps, post_norm, ln_count) -> torch.Tensor:
+    """One launch of ``cvt_mlp_block`` on CUDA tensors, the twin on CPU tensors."""
+    if not _build.on_card(x):
+        return mlp_block_plain(x, ln_g, ln_b, w1, b1, w2, b2, eps, post_norm, ln_count)
+    return _launch_mlp(mlp_block, x, x, ln_g, ln_b, w1, b1, w2, b2, None, eps, post_norm, ln_count)
+
+
 def mlp_block(x, ln_g, ln_b, w1, b1, w2, b2, eps: float = 1e-6, post_norm: bool = False,
               ln_count: int = 0) -> torch.Tensor:
     """``x + Dense2(gelu(Dense1(LN(x))))`` for 2-D ``x`` (tokens, D), in one
     kernel on the card: the (tokens, Dh) activations never reach device memory."""
     _check_mlp(x, ln_g, ln_b, w1, b1, w2, b2)
-    if not _build.on_card(x):
-        return mlp_block_plain(x, ln_g, ln_b, w1, b1, w2, b2, eps, post_norm, ln_count)
-    return _launch_mlp(mlp_block, x, x, ln_g, ln_b, w1, b1, w2, b2, None, eps, post_norm, ln_count)
+    return _grad.recompute_backward(_mlp_kernel, mlp_block_plain, x, ln_g, ln_b, w1, b1, w2, b2, eps, post_norm,
+                                    ln_count, dtype=w1.dtype)
 
 
 _build.reset_count(mlp_block)
@@ -207,7 +217,7 @@ def cn_mlp_block_plain(y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale, eps: flo
     plain PyTorch operators (bias first, then the scale)."""
     _check_cn(y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale)
     dtype = w1.dtype
-    with full_float32():
+    with float32_products(dtype):
         h = _ln_f32(y.float(), ln_g.float(), ln_b.float(), eps).to(dtype)
         h = _gelu_f32(_dot_f32(h, w1) + b1.float()).to(dtype)
         h = (_dot_f32(h, w2) + b2.float()) * layer_scale.float()
@@ -247,7 +257,7 @@ def attention_block_plain(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads: int, sca
     n, s, d = x.shape
     dtype = w_qkv.dtype
     x32 = x.float()
-    with full_float32():
+    with float32_products(dtype):
         h = _ln_f32(x32, ln_g.float(), ln_b.float(), eps).to(dtype)
         qkv = (_dot_f32(h, w_qkv) + b_qkv.float()).to(dtype)
         q, k, v = (a.reshape(n, s, heads, d // heads).float() for a in qkv.split(d, dim=-1))
@@ -258,11 +268,8 @@ def attention_block_plain(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads: int, sca
     return (x32 + o + b_o.float()).to(x.dtype)
 
 
-def attention_block(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads: int, scale: float,
-                    eps: float = 1e-6) -> torch.Tensor:
-    """``x + Out(MHA(LN(x)))`` for 3-D ``x`` (N, S, D); on the card three
-    hand-written launches with no transposed copy of q, k, v or the heads."""
-    _check_attn(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads)
+def _attention_kernel(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads, scale, eps) -> torch.Tensor:
+    """The three launches of ``cvt_attention_block`` on CUDA tensors, the twin on CPU tensors."""
     if not _build.on_card(x):
         return attention_block_plain(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads, scale, eps)
     n, s, d = x.shape
@@ -282,6 +289,15 @@ def attention_block(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads: int, scale: fl
     _build.count_launch(attention_block, x)
     attention_block.kernel_launches += 3
     return out
+
+
+def attention_block(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads: int, scale: float,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """``x + Out(MHA(LN(x)))`` for 3-D ``x`` (N, S, D); on the card three
+    hand-written launches with no transposed copy of q, k, v or the heads."""
+    _check_attn(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads)
+    return _grad.recompute_backward(_attention_kernel, attention_block_plain, x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o,
+                                    heads, scale, eps, dtype=w_qkv.dtype)
 
 
 _build.reset_count(attention_block)

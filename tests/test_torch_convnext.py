@@ -135,10 +135,11 @@ def test_packed_weights_follow_the_parameters(rng, images):
     x = torch.from_numpy(images)
     first = model(x)
     block = model.blocks()[1]
-    w1, w2 = block._packed.transposed(torch.float32, block.block[3].weight, block.block[5].weight)
-    assert w1.shape == (16, 64) and w2.shape == (64, 16) and torch.equal(w1, block.block[3].weight.t())
-    model(x)
-    assert block._packed.transposed(torch.float32, block.block[3].weight, block.block[5].weight)[0] is w1
+    with torch.no_grad():  # serving: the copies are cached (under grad mode they are built in the graph)
+        w1, w2 = block._packed.transposed(torch.float32, block.block[3].weight, block.block[5].weight)
+        assert w1.shape == (16, 64) and w2.shape == (64, 16) and torch.equal(w1, block.block[3].weight.t())
+        model(x)
+        assert block._packed.transposed(torch.float32, block.block[3].weight, block.block[5].weight)[0] is w1
     sd = _randomised_state(rng, model)
     assert not torch.equal(model(x), first)
     other = _port(depthwise="kernel")

@@ -29,7 +29,12 @@ The int8 sub-blocks (``mlp_block_int8``, ``attention_block_int8``) take their
 LayerNorm statistics and exponentials in other orders than their twins, so a
 quantised activation near a rounding half may land one step apart: held to
 ``2e-2·(1 + |twin|)`` in bfloat16 (one step is 2^-8 of the value) and float32,
-that is to a few int8 steps of the sub-block's output.  The ``None`` routes of
+that is to a few int8 steps of the sub-block's output.  The weight gradient
+``wgrad_matmul`` sums float32 products (exact for bfloat16 inputs) in another
+order than its twin's float32 product: held to ``1e-5·max|twin|``, and two
+calls must give the same bits.  The gradients of the kernels' routes
+(recomputed through the twins) are held to the plain routes' within
+``1e-5 + 1e-5·|plain|`` in float32.  The ``None`` routes of
 ViT, Swin and NMS send a shape their kernel does not take to the plain route
 (NMS at 13,601 boxes a problem); explicit routes still raise there.
 """
@@ -38,8 +43,8 @@ import numpy as np
 import pytest
 import torch
 
-from cpu_vision_tpu_torch import graft_entry, models, ops
-from cpu_vision_tpu_torch.ops import kernels
+from cpu_vision_tpu_torch import _dtype, graft_entry, models, ops, parallel
+from cpu_vision_tpu_torch.ops import kernels, pointwise
 from cpu_vision_tpu_torch.ops.kernels import (conv_block, depthwise, flash_attention, int8_matmul, int8_transformer, nms,
                                               stencil, swin_attention, transformer_block)
 
@@ -83,7 +88,7 @@ def test_kernels_match_twins(cuda, rng, shape):
         "harris_response_fused": 1, "fused_gaussian_blur": 1, "fused_conv3x3_relu_pool": 0,
         "flash_mha": 0, "attention_block": 0, "mlp_block": 0, "cn_mlp_block": 0, "window_attention_block": 0,
         "depthwise_conv2d": 0, "nms_sorted": 0, "int8_matmul_requant": 0, "mlp_block_int8": 0,
-        "attention_block_int8": 0}
+        "attention_block_int8": 0, "wgrad_matmul": 0}
 
 
 @pytest.mark.parametrize("ks,sigma", [(3, 0.8), (7, 2.0), (9, 3.0)])
@@ -750,3 +755,163 @@ def test_int8_engines_run_their_kernels(cuda, rng):
         assert kernels.int8_matmul_requant.launches == launches, (name, kernels.int8_matmul_requant.launches)
         stock = models.Int8ResNet.from_model(model, conv1x1="stock").set_scales(eng.scales)(x)
         assert torch.equal(got, stock), name
+
+
+RESNET50_1X1 = [(401408, 64, 64), (401408, 64, 256), (401408, 256, 64), (401408, 256, 128),
+                (100352, 128, 512), (100352, 512, 128), (100352, 256, 512), (100352, 512, 256),
+                (25088, 256, 1024), (25088, 1024, 256), (25088, 512, 1024), (25088, 1024, 512)]
+
+
+@pytest.mark.parametrize("m,cin,cout", RESNET50_1X1 + [(1, 3, 5), (31, 1, 1), (16383, 65, 129), (50000, 100, 60)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wgrad_matmul_matches_twin(cuda, m, cin, cout, dtype):
+    from cpu_vision_tpu_torch.ops.kernels.wgrad_matmul import wgrad_matmul_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(m + cin + cout)
+    x = torch.randn((m, cin), generator=gen, device=cuda).to(dtype)
+    dy = torch.randn((m, cout), generator=gen, device=cuda).to(dtype)
+    out = kernels.wgrad_matmul(x, dy)
+    ref = wgrad_matmul_plain(x, dy)
+    assert out.shape == (cin, cout) and out.dtype == torch.float32
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(kernels.wgrad_matmul(x, dy), out)  # deterministic: the same bits twice
+    assert kernels.wgrad_matmul.launches_by_shape == {((m, cin), dtype): 2}
+
+
+def _grads(fn, args):
+    args = [a.detach().requires_grad_(a.dtype.is_floating_point) for a in args]
+    out = fn(*args)
+    gen = torch.Generator(device=out.device).manual_seed(7)
+    out.backward(torch.randn(out.shape, generator=gen, device=out.device).to(out.dtype))
+    return [a.grad for a in args]
+
+
+def _assert_grads_equal(got, want, tol):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert bool(((g.float() - w.float()).abs() <= tol * (1 + w.float().abs())).all()), float((g - w).abs().max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernel_routes_give_the_plain_routes_gradients(cuda, rng, dtype):
+    """Rows 7, 9, 10, 11: the kernel forward, then the twin's gradient; the plain route is the twin under autograd,
+    its backward's products taken as the kernels' backward takes them (``float32_products``: in bfloat16, TF32
+    rounds a float32 cotangent to 10 mantissa bits).  In bfloat16 each gradient also stands no further from the
+    float32 function's than 1.5 times the twin's with a full-float32 backward does (norms over the tensor)."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def normal(shape, dt=torch.float32, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=gen, device=cuda) * std + mean).to(dt)
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+
+    def check(kernel, plain, args):
+        got = _grads(kernel, args)
+        with _dtype.float32_products(dtype):
+            _assert_grads_equal(got, _grads(plain, args), tol)
+        if dtype == torch.bfloat16:
+            with _dtype.full_float32():
+                full = _grads(plain, args)
+                truth = _grads(plain, [a.float() for a in args])
+            for g, f, t in zip(got, full, truth):
+                t = t.double()
+                assert float((g.double() - t).norm()) <= 1.5 * float((f.double() - t).norm()) + 1e-6 * float(t.norm())
+
+    q, k, v = (normal((2, 197, 12, 64), dtype) for _ in range(3))
+    check(lambda *a: kernels.flash_mha(*a, 0.125), lambda *a: flash_attention.flash_mha_plain(*a, 0.125), (q, k, v))
+    d = 768
+    attn = (normal((2, 197, d), dtype), normal(d, std=0.2, mean=1.0), normal(d, std=0.1),
+            normal((d, 3 * d), dtype, d ** -0.5), normal(3 * d, std=0.1), normal((d, d), dtype, d ** -0.5),
+            normal(d, std=0.1))
+    check(lambda *a: kernels.attention_block(*a, 12, 0.125),
+          lambda *a: transformer_block.attention_block_plain(*a, 12, 0.125), attn)
+    mlp = (normal((394, d), dtype), normal(d, std=0.2, mean=1.0), normal(d, std=0.1),
+           normal((d, 3072), dtype, d ** -0.5), normal(3072, std=0.1), normal((3072, d), dtype, 3072 ** -0.5),
+           normal(d, std=0.1))
+    check(kernels.mlp_block, transformer_block.mlp_block_plain, mlp)
+    conv = (normal((4, 28, 28, 8)), normal((3, 3, 8, 16), std=0.1), normal(16, std=0.1))
+    _assert_grads_equal(_grads(kernels.fused_conv3x3_relu_pool, conv),
+                        _grads(conv_block.fused_conv3x3_relu_pool_plain, conv), 1e-5)
+    assert {name: kernels.launch_counts()[name] for name in
+            ("flash_mha", "attention_block", "mlp_block", "fused_conv3x3_relu_pool")} == {
+        "flash_mha": 1, "attention_block": 1, "mlp_block": 1,
+        "fused_conv3x3_relu_pool": 1}
+
+
+def test_cnn_forward_kernel_route_trains(cuda, rng):
+    """Repair of the conv stage: on the card ``cnn_forward`` takes the fused kernel, and its gradients equal the
+    plain route's (before, the kernel's output had no ``grad_fn``, and the conv weights got no gradient)."""
+    params = ops.cnn_init(torch.Generator().manual_seed(0), (28, 28), 1, (32, 64), 128, 10)
+    images = torch.from_numpy(rng.random((64, 28, 28, 1), dtype=np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, 10, 64)).to(cuda)
+    grads = {}
+    for backend in ("kernel", "plain"):
+        leaves = {f"{k}.{n}": t.detach().clone().requires_grad_() for k, v in params.items() for n, t in v.items()}
+        tree = {k: {n: leaves[f"{k}.{n}"] for n in v} for k, v in params.items()}
+        loss = torch.nn.functional.cross_entropy(ops.cnn_forward(tree, images, backend=backend), labels)
+        loss.backward()
+        grads[backend] = {name: t.grad for name, t in leaves.items()}
+    assert kernels.launch_counts()["fused_conv3x3_relu_pool"] == 2
+    for name, g in grads["kernel"].items():
+        assert g is not None, name
+        ref = grads["plain"][name]
+        assert bool(((g - ref).abs() <= 1e-4 * (1 + ref.abs())).all()), (name, float((g - ref).abs().max()))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv1x1_weight_gradient_switches_to_the_kernel_at_16384_rows(cuda, rng, dtype):
+    for rows, launches in ((pointwise.MIN_ROWS_FOR_KERNEL - 1, 0), (pointwise.MIN_ROWS_FOR_KERNEL, 1)):
+        kernels.reset_launch_counts()
+        gen = torch.Generator(device=cuda).manual_seed(rows)
+        x = torch.randn((1, 1, rows, 64), generator=gen, device=cuda).to(dtype).requires_grad_()
+        conv = ops.PointwiseConv(64, 96, dtype=dtype, generator=torch.Generator().manual_seed(0)).to(cuda)
+        y = conv(x)
+        g = torch.randn(y.shape, generator=gen, device=cuda).to(dtype)
+        y.backward(g)
+        assert kernels.wgrad_matmul.launches == launches, rows
+        want = kernels.wgrad_matmul_plain(x.detach().reshape(-1, 64), g.reshape(-1, 96)).t()[:, :, None, None]
+        got = conv.weight.grad
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()) + (0 if dtype == torch.float32 else
+                                                                                    2 ** -8 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_vit_train_step_on_the_kernels(cuda, rng, dtype):
+    """A small ViT (D 256, head dim 64, 2 layers) takes a training step on attention_block and mlp_block; its
+    gradients are the plain routes' within 1e-4·(1 + |plain|) in float32, 5e-2·max|plain| a parameter in bfloat16."""
+    images = torch.from_numpy(rng.random((4, 64, 64, 3), dtype=np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, 10, 4)).to(cuda)
+    grads = {}
+    for route in ("block", "plain"):
+        model = models.VisionTransformer(16, 2, 4, 256, 512, num_classes=10, dtype=dtype, image_size=64,
+                                         attention=route, mlp=route, generator=torch.Generator().manual_seed(0))
+        model = model.to(cuda)
+        step = parallel.make_train_step(
+            lambda m, b: (torch.nn.functional.cross_entropy(m(b[0], train=True).float(), b[1]), {}))
+        kernels.reset_launch_counts()
+        loss, _ = step(model, (images, labels))
+        assert bool(torch.isfinite(loss))
+        grads[route] = {n: p.grad for n, p in model.named_parameters()}
+        if route == "block":
+            assert kernels.launch_counts()["attention_block"] == 2 and kernels.launch_counts()["mlp_block"] == 2
+    for name, g in grads["block"].items():
+        ref = grads["plain"][name]
+        if dtype == torch.float32:
+            assert bool(((g - ref).abs() <= 1e-4 * (1 + ref.abs())).all()), (name, float((g - ref).abs().max()))
+        else:
+            assert float((g - ref).abs().max()) <= 5e-2 * float(ref.abs().max()), name
+
+
+def test_resnet_train_step_on_the_card(cuda, rng):
+    """ResNet-18 in float32 (no TF32) trains with batch statistics; the running statistics move as flax's do."""
+    model = models.get_model("resnet18", num_classes=10, generator=torch.Generator().manual_seed(0))
+    images = torch.from_numpy(rng.random((8, 64, 64, 3), dtype=np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, 10, 8)).to(cuda)
+    with torch.no_grad(), _dtype.full_float32():
+        conv1 = torch.nn.functional.conv2d(images.permute(0, 3, 1, 2), model.conv1.weight, stride=2, padding=3)
+    mean, var = conv1.mean(dim=(0, 2, 3)), conv1.var(dim=(0, 2, 3), unbiased=False)
+    step = parallel.make_train_step(lambda m, b: (torch.nn.functional.cross_entropy(m(b[0], train=True), b[1]), {}))
+    loss, _ = step(model, (images, labels))
+    assert bool(torch.isfinite(loss)) and all(p.grad is not None for p in model.parameters())
+    torch.testing.assert_close(model.bn1.running_mean, 0.1 * mean, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(model.bn1.running_var, 0.9 + 0.1 * var, rtol=1e-4, atol=1e-5)

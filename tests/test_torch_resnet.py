@@ -134,8 +134,8 @@ def test_registry():
         models.register_model("resnet50")(lambda: None)
     with pytest.raises(TypeError):
         models.resnet18(device="cpu", dtype=torch.float16)
-    with pytest.raises(NotImplementedError):
-        models.resnet18(device="cpu", num_classes=2)(torch.zeros(1, 32, 32, 3), train=True)
+    # training is no bad argument any more: it records the graph (tests/test_torch_train.py holds its numbers)
+    assert models.resnet18(device="cpu", num_classes=2)(torch.zeros(1, 32, 32, 3), train=True).grad_fn is not None
 
 
 @pytest.mark.parametrize("kwargs,error", [({"groups": 2}, ValueError), ({"width_per_group": 128}, ValueError),

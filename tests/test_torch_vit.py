@@ -147,13 +147,19 @@ def test_packed_weights_are_built_once_and_follow_the_parameters(rng, images):
     x = torch.from_numpy(images)
     block = model.encoder.layers[0]
     first = model(x)
-    w_qkv, w_o = block.self_attention.packed()
-    assert w_qkv.shape == (128, 384) and w_o.shape == (128, 128) and w_qkv.is_contiguous()
-    assert torch.equal(w_qkv, block.self_attention.in_proj_weight.t())
-    model(x)
-    assert block.self_attention.packed()[0] is w_qkv  # not rebuilt at every forward
-    sd = _randomised_state(rng, model)  # in-place writes, as load_state_dict makes them
-    assert block.self_attention.packed()[0] is not w_qkv
+    with torch.no_grad():  # serving: the copies are cached
+        w_qkv, w_o = block.self_attention.packed()
+        assert w_qkv.shape == (128, 384) and w_o.shape == (128, 128) and w_qkv.is_contiguous()
+        assert torch.equal(w_qkv, block.self_attention.in_proj_weight.t())
+        model(x)
+        assert block.self_attention.packed()[0] is w_qkv  # not rebuilt at every forward
+        sd = _randomised_state(rng, model)  # in-place writes, as load_state_dict makes them
+        assert block.self_attention.packed()[0] is not w_qkv
+    # under training (grad mode) they are built in the graph at every call, so gradients reach the parameters
+    trained = block.self_attention.packed()[0]
+    assert trained is not block.self_attention.packed()[0] and trained.grad_fn is not None
+    trained.sum().backward()
+    assert torch.equal(block.self_attention.in_proj_weight.grad, torch.ones(384, 128))
     assert not torch.equal(model(x), first)
     other = _port()
     other.load_state_dict(sd)
@@ -186,5 +192,5 @@ def test_registry_and_bad_arguments():
         _port(torch.float16)
     with pytest.raises(ValueError):
         _port()(torch.zeros(1, 40, 40, 3))
-    with pytest.raises(NotImplementedError):
-        _port()(torch.zeros(1, 32, 32, 3), train=True)
+    # training is no bad argument any more: it records the graph (tests/test_torch_train.py holds its numbers)
+    assert _port()(torch.zeros(1, 32, 32, 3), train=True).grad_fn is not None

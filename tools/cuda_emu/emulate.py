@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Run the port's transformer, window attention, depthwise, NMS and int8
-kernels on the CPU, with no card and no ``nvcc``.
+"""Run the port's transformer, window attention, depthwise, NMS, int8 and
+weight-gradient kernels on the CPU, with no card and no ``nvcc``.
 
 The sources ``cpu_vision_tpu_torch/csrc/attention.cu``, ``transformer_block.cu``,
-``swin_attention.cu``, ``depthwise.cu``, ``nms.cu``, ``int8_matmul.cu`` and
-``int8_transformer.cu`` (with the ``.cuh`` headers) are rewritten a little,
+``swin_attention.cu``, ``depthwise.cu``, ``nms.cu``, ``int8_matmul.cu``,
+``int8_transformer.cu`` and ``wgrad_matmul.cu`` (with the ``.cuh`` headers) are rewritten a little,
 compiled with ``g++ -std=c++20`` against the stand-in headers beside this file,
 and loaded in place of the libraries ``nvcc`` would build.  The kernels then
 run one ``std::thread`` per CUDA thread, block after block, so the wrappers in
@@ -43,7 +43,9 @@ from typing import Iterator
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parents[1]
 CSRC = REPO / "cpu_vision_tpu_torch" / "csrc"
-STEMS = ("attention", "transformer_block", "swin_attention", "depthwise", "nms", "int8_matmul", "int8_transformer")
+STEMS = ("attention", "transformer_block", "swin_attention", "depthwise", "nms", "int8_matmul", "int8_transformer",
+         "wgrad_matmul")
+EMU_SMS = 132  # the SM count the wrappers read, as an H100's
 
 _LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;(]*>)?)<<<([^;]*?)>>>\(([^;]*?)\);", re.S)
 
@@ -85,14 +87,19 @@ def build(build_dir) -> Path:
 @contextlib.contextmanager
 def kernels_on_cpu(build_dir) -> Iterator[None]:
     """Inside, the wrappers of ``flash_attention``, ``transformer_block``,
-    ``swin_attention``, ``depthwise``, ``nms``, ``int8_matmul`` and ``int8_transformer`` take CPU tensors through
-    the emulated CUDA sources instead of the twins.
+    ``swin_attention``, ``depthwise``, ``nms``, ``int8_matmul``, ``int8_transformer`` and ``wgrad_matmul`` take CPU
+    tensors through the emulated CUDA sources instead of the twins.
     Builds into ``build_dir`` unless the libraries are there already."""
     sys.path.insert(0, str(REPO))
+    import importlib
+    import types
+
+    import torch
     from cpu_vision_tpu_torch.ops.kernels import (_build, depthwise, flash_attention, int8_matmul, int8_transformer, nms,
                                                   swin_attention, transformer_block)
 
-    modules = (flash_attention, transformer_block, swin_attention, depthwise, nms, int8_matmul, int8_transformer)
+    wgrad = importlib.import_module("cpu_vision_tpu_torch.ops.kernels.wgrad_matmul")  # the package exports its function
+    modules = (flash_attention, transformer_block, swin_attention, depthwise, nms, int8_matmul, int8_transformer, wgrad)
 
     build_dir = Path(build_dir)
     if not all((build_dir / f"lib{stem}.so").exists() for stem in STEMS):
@@ -103,16 +110,17 @@ def kernels_on_cpu(build_dir) -> Iterator[None]:
         if err != 0:
             raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
 
-    saved = (_build.load, _build.on_card, _build.launch)
+    saved = (_build.load, _build.on_card, _build.launch, torch.cuda.get_device_properties)
     _build.load = lambda stem: ctypes.CDLL(str(build_dir / f"lib{stem}.so"))
     _build.on_card = lambda x: True
     _build.launch = launch
+    torch.cuda.get_device_properties = lambda device: types.SimpleNamespace(multi_processor_count=EMU_SMS)
     for module in modules:
         module._c_lib = None
     try:
         yield
     finally:
-        _build.load, _build.on_card, _build.launch = saved
+        _build.load, _build.on_card, _build.launch, torch.cuda.get_device_properties = saved
         for module in modules:
             module._c_lib = None
 
@@ -205,6 +213,10 @@ def main() -> int:
                      normal((d,), torch.float32, 0.1), a1, ao, 4, 0.125)
             pairs.append(("attention_block_int8", kernels.attention_block_int8(*attn8),
                           kernels.attention_block_int8_plain(*attn8)))
+            for m, cin, cout in ((1000, 70, 65), (300, 3, 5), (40, 64, 64)):  # slabs, ragged tiles, one slab
+                x, dy = normal((m, cin), dtype), normal((m, cout), dtype)
+                pairs.append((f"wgrad_matmul {m}x{cin}x{cout}", kernels.wgrad_matmul(x, dy),
+                              kernels.wgrad_matmul_plain(x, dy)))
             for name, out, ref in pairs:
                 err = (out.float() - ref.float()).abs()
                 ok = bool((err <= tol + tol * ref.float().abs()).all())
