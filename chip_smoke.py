@@ -2,7 +2,11 @@
 """Drive the PyTorch/CUDA port (``cpu_vision_tpu_torch``) on one NVIDIA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It builds the CUDA kernels from ``cpu_vision_tpu_torch/csrc/``, then:
+It builds the CUDA kernels from ``cpu_vision_tpu_torch/csrc/`` (printing
+each kernel's registers and spills, and the ``HGMMA`` instructions that the
+SASS of the bf16 tensor-core product holds, from ``cuobjdump``; it fails if a
+product has none or a bf16 instantiation of the scalar kernels it replaced is
+left), then:
 
 1. drives the main paths through the public entry points, each with the
    kernels' launch counts set to 0 just before it and read just after:
@@ -54,8 +58,12 @@ It builds the CUDA kernels from ``cpu_vision_tpu_torch/csrc/``, then:
    own shape under ``launches_at_shape``); ``bound_ms``
    counts the function's own inputs and output, and ``split_bytes_ms`` is the
    time at the memory rate of the intermediates that a kernel split into
-   several launches passes through device memory; ``held_untimed`` lists the
-   checks that were not timed), then, last, ``{"ok": true, "device": {...}}``.
+   several launches passes through device memory; ``kernel_launches`` counts
+   those launches and ``launch_ms`` times each of them apart on the bf16 rows
+   of the transformer blocks, from ``torch.profiler``'s kernel intervals
+   (null where five profiler windows saw no kernel);
+   ``held_untimed`` lists the checks that were not timed), then, last,
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA card it exits 1 at once.
@@ -325,6 +333,17 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  {stem}: {line.strip()}")
+    # the bf16 products of rows 10-13 run on the tensor cores: HGMMA (wgmma) in every instantiation of the product,
+    # and no bf16 instantiation of the scalar kernels it replaced is left in the libraries
+    hgmma = {}
+    for stem in ("transformer_block", "swin_attention"):
+        counts_by_fn = _build.sass_counts(stem, "HGMMA")
+        products = {fn: c for fn, c in counts_by_fn.items() if "tc_gemm_kernel" in fn}
+        print(f"  {stem}: HGMMA instructions in SASS (cuobjdump): {products}")
+        require(len(products) >= 2 and all(c > 0 for c in products.values()), f"{stem}: a product without HGMMA")
+        require(not any(("mlp_block_kernel" in fn or "ln_gemm_kernel" in fn) and "bfloat16" in fn for fn in counts_by_fn),
+                f"{stem}: a bf16 instantiation of a scalar kernel is left")
+        hgmma[stem] = sum(products.values())
 
     # Every main path is driven with the counts at 0 and read just after: the wrappers' counts, and their counts
     # by input shape and dtype, from which each per-shape row of the kernels' line takes its launches.
@@ -512,7 +531,8 @@ def main() -> int:
         logits = model(vit_images[:batch])  # numpy in: runs on the card
         counts = read_counts(f"vit_b_16 {name} b{batch}")
         print(f"vit_b_16 {name} b{batch} main path launches: {counts} (routes {model.routes()}, "
-              f"{kernels.attention_block.kernel_launches} kernel launches in attention_block)")
+              f"{kernels.attention_block.kernel_launches} kernel launches in attention_block, "
+              f"{kernels.mlp_block.kernel_launches} in mlp_block)")
         require({k: counts[k] for k in expected} == expected, f"vit_b_16 {name}: expected launches {expected}")
         require(logits.device.type == "cuda" and logits.shape == (batch, 1000) and logits.dtype == dtype,
                 "vit logits shape/dtype/device")
@@ -522,6 +542,9 @@ def main() -> int:
         top1 = float((logits.argmax(dim=1) == ref.argmax(dim=1)).float().mean())
         if dtype == torch.bfloat16:
             vit_block_kernel_launches = kernels.attention_block.kernel_launches
+            vit_mlp_kernel_launches = kernels.mlp_block.kernel_launches
+            require(vit_block_kernel_launches == 48 and vit_mlp_kernel_launches == 36,
+                    "vit_b_16 bf16: four launches an attention_block, three an mlp_block")
             exact32 = models.get_model("vit_b_16", attention="plain", mlp="plain")
             exact32.load_state_dict(vit_state)
             truth = exact32(xv)
@@ -599,7 +622,9 @@ def main() -> int:
         logits = model(images)  # numpy in: runs on the card
         counts = read_counts(label)
         window_launches = kernels.window_attention_block.kernel_launches
-        print(f"{label} main path launches: {counts} ({window_launches} kernel launches in window_attention_block)")
+        mlp_launches = kernels.mlp_block.kernel_launches + kernels.cn_mlp_block.kernel_launches
+        print(f"{label} main path launches: {counts} ({window_launches} kernel launches in window_attention_block, "
+              f"{mlp_launches} in mlp_block and cn_mlp_block)")
         require({k: counts[k] for k in expected} == expected, f"{label}: expected launches {expected}")
         require(logits.device.type == "cuda" and logits.shape == (batch, 1000) and logits.dtype == dtype,
                 f"{label}: logits shape/dtype/device")
@@ -626,7 +651,8 @@ def main() -> int:
               f"{batch / plain_ms * 1e3:.1f} img/s; logits max |err| vs the plain routes {err:.3e} (max |logit| "
               f"{float(ref.abs().max()):.3f}), top-1 agreement {top1:.4f}{against_f32} ({card}); under this path's "
               f"load: {clock_under(lambda: model(xv), 3)}")
-        served[label] = dict(counts=counts, window_launches=window_launches, ms=ms, logits=logits, state=native_state)
+        served[label] = dict(counts=counts, window_launches=window_launches, mlp_launches=mlp_launches, ms=ms,
+                             logits=logits, state=native_state)
         del model, plain, ref, xv
 
     SWIN, SWIN_V2, SWIN_PADDED, SWIN_F32 = ("swin_t bf16 b256", "swin_v2_t 256x256 bf16 b64", "swin_t_padded bf16 b64",
@@ -664,6 +690,9 @@ def main() -> int:
     serve(CN_STOCK, "convnext_tiny", torch.bfloat16, 256, 224, {}, plain_cn, dict(cn_expected, depthwise_conv2d=0),
           prepare=visible_layer_scale)
     window_kernel_launches = {label: path["window_launches"] for label, path in served.items() if path["window_launches"]}
+    mlp_kernel_launches = {label: path["mlp_launches"] for label, path in served.items() if path["mlp_launches"]}
+    require(mlp_kernel_launches[SWIN] == 36 and mlp_kernel_launches[CN] == 54 and window_kernel_launches[SWIN] == 48,
+            "bf16 Swin-T and ConvNeXt-T: three launches an MLP block, four a v1 window block")
     del serve_images, swin_state, native64
     served.clear()
 
@@ -1116,6 +1145,42 @@ def main() -> int:
         return dict(main, launches=by_path.get(path, 0), launches_on=path, launches_by_path=by_path,
                     other_shapes=others, **extra)
 
+    def launch_split(fn, chain, calls=3, tries=5):
+        """[(kernel, device ms)] of each of the ``chain`` launches of one call of ``fn``, in launch order: the
+        profiler's kernel intervals over ``calls`` calls, averaged by position in the chain.  One more call leads
+        the window, since the profiler may miss the first kernels after it starts; the last ``calls`` chains are
+        read, and each position must hold one kernel in every call.  A window may also see no kernel at all:
+        up to ``tries`` windows are profiled, then None (not measured)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(1 + calls):
+                    fn()
+                torch.cuda.synchronize()
+            spans = sorted((e.time_range.start, e.time_range.end, e.name[:e.name.rfind("(")].replace("void ", ""))
+                           for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+            if len(spans) >= calls * chain:
+                break
+        else:
+            print(f"  the profiler saw {len(spans)} kernels in {1 + calls} calls of {chain}, {tries} times: "
+                  f"launches apart not measured")
+            return None
+        spans = spans[-calls * chain:]
+        require(all(spans[c * chain + i][2] == spans[i][2] for c in range(calls) for i in range(chain)),
+                f"the profiler's kernels do not repeat by call: {[sp[2] for sp in spans]}")
+        return [(spans[i][2], sum(spans[c * chain + i][1] - spans[c * chain + i][0] for c in range(calls)) / calls / 1e3)
+                for i in range(chain)]
+
+    def mlp_split_bytes(tokens, d, dh, size, post_norm=False):
+        """Bytes the bf16 MLP blocks pass through device memory between their launches, each written once and read
+        once: the LN rows (not with post_norm), the (tokens, Dh) activations, post_norm's float32 branch."""
+        if size == 4:
+            return 0  # float32: one fused kernel, all on chip
+        return 2 * tokens * (dh * size + (d * 4 if post_norm else d * size))
+
     held = []  # checks of kernel against twin that are not timed: what was held, the error, the main paths' counts there
 
     def hold(name, shape, dtype, err, **options):
@@ -1274,14 +1339,17 @@ def main() -> int:
     # (N*S, D) joined heads, written and read once each between the three launches of a call (the TPU kernel
     # keeps them on chip), are this split's own traffic: their time at the memory rate is split_bytes_ms
     block_bytes = 2 * x.numel() * 2 + (w_qkv.numel() + w_o.numel()) * 2 + 4 * (6 * d_model)
-    split_bytes = 2 * 4 * x.numel() * 2
+    split_bytes = 2 * 5 * x.numel() * 2  # the LN rows (D), the QKV product (3 D), the joined heads (D)
+    split = launch_split(lambda: kernels.attention_block(*args), vit_block_kernel_launches // 12)
+    print(f"  attention_block's launches apart (device ms): {split}")
     rows.append(row("attention_block", f"{PALLAS_BLOCK}:237", vit[dtype]["attention_block"], err,
                     time_ms(lambda: kernels.attention_block(*args), 5),
                     time_ms(lambda: transformer_block.attention_block_plain(*args), 3),
                     block_bytes, tokens * (8 * d_model * d_model + 8 * d_model) + attention_ops(256),
                     library_ms=time_ms(attention_library, 5), source=TRANSFORMER, ops_per_s=rate[dtype],
                     shape=list(x.shape), dtype="bfloat16", kernel_launches=vit_block_kernel_launches,
-                    split_bytes_ms=split_bytes / HBM_BYTES_PER_S * 1e3))
+                    split_bytes_ms=split_bytes / HBM_BYTES_PER_S * 1e3, launch_ms=split,
+                    hgmma_in_sass=hgmma["transformer_block"]))
     print(f"  under attention_block's load: {clock_under(lambda: kernels.attention_block(*args), 40)}")
     args128 = (x[:128].contiguous(), *args[1:])  # the training path's batch
     hold("attention_block", args128[0].shape, dtype,
@@ -1307,13 +1375,20 @@ def main() -> int:
         max_err_f32(out, mlp_library(), f"mlp_block {dtype} vs the stock composite",
                     5e-2 if dtype == torch.bfloat16 else 1e-3, 5e-2 if dtype == torch.bfloat16 else 1e-3)
         size = x.element_size()
+        bf16_extra = {}
+        if dtype == torch.bfloat16:
+            bf16_extra = dict(launch_ms=launch_split(lambda: kernels.mlp_block(*args), vit_mlp_kernel_launches // 12),
+                              kernel_launches=vit_mlp_kernel_launches, hgmma_in_sass=hgmma["transformer_block"])
+            print(f"  mlp_block's launches apart (device ms): {bf16_extra['launch_ms']}")
         mlp_rows.append(row("mlp_block", f"{PALLAS_BLOCK}:125", f"vit_b_16 {'bf16' if dtype == torch.bfloat16 else 'f32'} b{batch}", err,
                             time_ms(lambda: kernels.mlp_block(*args), 5),
                             time_ms(lambda: transformer_block.mlp_block_plain(*args), 3),
                             2 * x.numel() * size + (w1.numel() + w2.numel()) * size + 4 * (4 * d_model + d_hidden),
                             tokens * (4 * d_model * d_hidden + 20 * d_hidden + 8 * d_model),
                             library_ms=time_ms(mlp_library, 5), source=TRANSFORMER, ops_per_s=rate[dtype],
-                            at=(x.shape, dtype), shape=list(x.shape), dtype=str(dtype).replace("torch.", "")))
+                            at=(x.shape, dtype), shape=list(x.shape), dtype=str(dtype).replace("torch.", ""),
+                            split_bytes_ms=mlp_split_bytes(tokens, d_model, d_hidden, size) / HBM_BYTES_PER_S * 1e3,
+                            **bf16_extra))
         print(f"  under mlp_block's load: {clock_under(lambda: kernels.mlp_block(*args), 20 if dtype == torch.bfloat16 else 100)}")
         if dtype == torch.bfloat16:  # the training path's batch, 128 images
             args128 = (x[:128 * seq].contiguous(), *args[1:])
@@ -1346,11 +1421,13 @@ def main() -> int:
         else:
             args = (x, ln_g, ln_b, w1, b1, w2, b2, eps, post_norm, ln_count)
             fn, twin, name, line = kernels.mlp_block, transformer_block.mlp_block_plain, "mlp_block", 125
+        kernel_launches = fn.kernel_launches
         out = fn(*args)
+        kernel_launches = fn.kernel_launches - kernel_launches  # of this one call, as counted
         what = f"{name} {tokens}x{d} {dtype} post_norm={post_norm} ln_count={ln_count}"
         err = max_err_f32(out, twin(*args), what, TOL[dtype], TOL[dtype])
         if path is None:
-            hold(name, x.shape, dtype, err, post_norm=post_norm, ln_count=ln_count)
+            hold(name, x.shape, dtype, err, post_norm=post_norm, ln_count=ln_count, kernel_launches=kernel_launches)
             return None
 
         def library():
@@ -1361,11 +1438,16 @@ def main() -> int:
             return res + h * gamma.to(dtype) if cn else x + h
 
         size = x.element_size()
+        extra = {}
+        if dtype == torch.bfloat16:
+            extra = dict(launch_ms=launch_split(lambda: fn(*args), kernel_launches), hgmma_in_sass=hgmma["transformer_block"])
         return row(name, f"{PALLAS_BLOCK}:{line}", path, err, time_ms(lambda: fn(*args), 5),
                    time_ms(lambda: twin(*args), 3),
                    (3 if cn else 2) * x.numel() * size + (w1.numel() + w2.numel()) * size + 4 * (4 * d + dh),
                    tokens * (4 * d * dh + 20 * dh + 8 * d), library_ms=time_ms(library, 5), source=TRANSFORMER,
-                   ops_per_s=rate[dtype], at=(x.shape, dtype), shape=[tokens, d], dtype=str(dtype).replace("torch.", ""))
+                   ops_per_s=rate[dtype], at=(x.shape, dtype), shape=[tokens, d], dtype=str(dtype).replace("torch.", ""),
+                   split_bytes_ms=mlp_split_bytes(tokens, d, dh, size, post_norm) / HBM_BYTES_PER_S * 1e3,
+                   kernel_launches=kernel_launches, **extra)
 
     widths = (96, 192, 384, 768)
     sides = (56, 28, 14, 7)      # Swin-T's and ConvNeXt-T's maps at 224x224
@@ -1389,8 +1471,10 @@ def main() -> int:
     mlp_case(48 * 28 * 28, 256, torch.bfloat16, post_norm=True, ln_count=192)
     # mlp_block has two entries: the one above on the ViT paths (D 768, Dh a multiple of 256), this one on the
     # Swin paths, which run the widths, post_norm and ln_count that the kernel gained for them
-    rows.append(entry(swin_mlp_rows[4], SWIN, swin_mlp_rows[:4] + swin_mlp_rows[5:]))
-    rows.append(entry(cn_rows[-1], CN, cn_rows[:-1]))
+    rows.append(entry(swin_mlp_rows[4], SWIN, swin_mlp_rows[:4] + swin_mlp_rows[5:],
+                      kernel_launches_a_forward={k: v for k, v in mlp_kernel_launches.items() if "convnext" not in k}))
+    rows.append(entry(cn_rows[-1], CN, cn_rows[:-1],
+                      kernel_launches_a_forward={k: v for k, v in mlp_kernel_launches.items() if "convnext" in k}))
 
     # window_attention_block at every shape the Swin paths hand it
     def window_case(nw, s, c, nw_img, dtype, path=None, v2=False, masked=True, ln_count=0, spread=False):
@@ -1474,14 +1558,20 @@ def main() -> int:
         # (the TPU kernels keep them on chip): their time at the memory rate is split_bytes_ms
         nbytes = (2 * x.numel() * size + (w_qkv.numel() + w_o.numel()) * size + 4 * (6 * c + rel_bias.numel())
                   + (4 * mask.numel() if masked else 0) + (4 * n_heads if v2 else 0))
-        split_bytes = 2 * tokens * 3 * c * 4 + 2 * tokens * c * size + (2 * tokens * c * 4 if v2 else 0)
+        # (+ the bf16 LN rows of v1, written by a row pass and read by the QKV product)
+        split_bytes = (2 * tokens * 3 * c * 4 + 2 * tokens * c * size + (2 * tokens * c * 4 if v2 else 0)
+                       + (2 * tokens * c * size if dtype == torch.bfloat16 and not v2 else 0))
+        extra = {}
+        if dtype == torch.bfloat16:
+            extra = dict(launch_ms=launch_split(lambda: kernels.window_attention_block(*args), kernel_launches),
+                         hgmma_in_sass=hgmma["swin_attention"])
         nops = tokens * (8 * c * c + 8 * c) + nw * n_heads * s * s * (4 * 32 + 5)
         return row("window_attention_block", f"{PALLAS_SWIN}:234", path, err,
                    time_ms(lambda: kernels.window_attention_block(*args), 5),
                    time_ms(lambda: swin_attention.window_attention_block_plain(*args), 3), nbytes, nops,
                    library_ms=library_ms, source=SWIN_ATTENTION, ops_per_s=rate[dtype], at=(x.shape, dtype),
                    shape=[nw, s, c], dtype=str(dtype).replace("torch.", ""), v2=v2, kernel_launches=kernel_launches,
-                   split_bytes_ms=split_bytes / HBM_BYTES_PER_S * 1e3)
+                   split_bytes_ms=split_bytes / HBM_BYTES_PER_S * 1e3, **extra)
 
     window_rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -1511,6 +1601,7 @@ def main() -> int:
     main = next(r for r in window_rows if r["dtype"] == "bfloat16" and r["shape"] == [256 * 64, 49, 96] and not r["v2"])
     rows.append(entry(main, SWIN, [r for r in window_rows if r is not main],
                       kernel_launches_a_forward=window_kernel_launches))
+    print(f"  window_attention_block's launches apart at {main['shape']} (device ms): {main['launch_ms']}")
 
     # depthwise_conv2d 7x7 at ConvNeXt-T's stage shapes (batch 256), and 3x3 and 5x5
     def depthwise_case(shape, ks, dtype, path=None, use_bias=True):

@@ -1,18 +1,51 @@
-// The tiled product with an optional LayerNorm prologue that the fused
-// sub-blocks share: transformer_block.cu (attention_block) and
-// swin_attention.cu (window_attention_block) both instantiate it for their
-// QKV and output projections.
+// The tiled products with an optional LayerNorm prologue that the fused
+// sub-blocks share: transformer_block.cu (mlp_block, cn_mlp_block,
+// attention_block) and swin_attention.cu (window_attention_block) launch them
+// for their projections, and the int8 sources take row_stats and gelu_erf
+// from here.
+//
+// float32: ln_gemm_kernel, scalar f32 FMAs from shared memory,
 //
 //   out[m, n] = A'[m, :] . w[:, n] + bias[n]   (+ resid[m, n] first, with RESID)
 //
-// A' = LN(a) rounded through T with LN, else a.  a is (m, k) of T, w (k, n) of
-// T, k a multiple of 16; out is (m, n) of OutT, which is T or float (a float
-// output keeps the f32 sums for a later kernel that the TPU kernels kept in
-// VMEM).  128 x 128 outputs a block of 256 threads, 8 x 8 a thread, K in steps
-// of 16 with the next tiles fetched into registers during the current step;
-// with LN the block first takes the mean and variance of its 128 rows and
-// normalises A as it is staged.  Scalar f32 FMAs from shared memory for both
-// types: no mma, no cp.async, no TMA.
+// A' = LN(a) with LN, else a.  a is (m, k), w (k, n), out (m, n), all f32, k a
+// multiple of 16.  128 x 128 outputs a block of 256 threads, 8 x 8 a thread, K
+// in steps of 16 with the next tiles fetched into registers during the current
+// step; with LN the block first takes the mean and variance of its 128 rows
+// and normalises A as it is staged.  No mma: tensor cores would multiply f32
+// in TF32, which rounds the operands.
+//
+// bfloat16: tc_gemm_kernel, the tensor cores through wgmma (hopper.cuh),
+//
+//   out[m, n] = Epi(a[m, :] . w[:, n])   a (m, k), w (k, n) bf16, f32 sums
+//
+// with the epilogues, on the f32 sum before one rounding to OutT (bf16, or
+// f32 for a later kernel that the TPU kernels kept in VMEM):
+//   TC_BIAS    acc + bias[n]
+//   TC_GELU    gelu_erf(acc + bias[n])
+//   TC_RESID   resid[m, n] + (acc + bias[n]) (* gamma[n] first, where given)
+// A LayerNorm before the product is its own pass, ln_rows_kernel, a warp a
+// row: LN(x) rounded to bf16 into an (m, k) buffer, the bits the scalar
+// kernel staged as A; each row's statistics are taken once, not once for
+// each column tile.
+//
+// Bound and design.  The products of the transformer blocks do 2 k flops a
+// byte and more (ViT-B/16's MLP 476 GFLOP on 155 MB), so the tensor cores
+// bind them.  A block of 256 threads (two warpgroups) owns 128 x 128 outputs,
+// each warpgroup 64 rows of them in 64 f32 registers a thread.  K runs in
+// tiles of 64: the A tile (128 x 64) and the B tile (64 x 128) of a step are
+// copied by all threads with cp.async into a ring of TC_STAGES stages of
+// shared memory, in the 128-byte swizzle, TC_AHEAD tiles ahead of the
+// products; each warpgroup then starts four wgmma m64n128k16 on the stage and
+// waits for them (TC_INFLIGHT 0) while the next steps' copies land.  The ring
+// of 3 stages (97 KB) lets two blocks share an SM, so one block's copies,
+// products and epilogue hide behind the other's: 1.4-1.6x faster than 4
+// stages and one block an SM, with one product left in flight or none
+// (tools/torch_tc_product_ab.py).  Outputs are stored in pairs of adjacent
+// columns.  Rows past m,
+// columns past n and k past the end are copied as zeros (cp.async's zero
+// fill) and not stored; k is a multiple of 16 (steps of 16 past k are
+// skipped) and n of 8.  No atomics: every call gives the same bits.
 //
 // LayerNorm statistics: two passes (mean, then centred squares) over all k
 // channels, or, with ln_count > 0, sums of x and x^2 over all k lanes divided
@@ -23,6 +56,7 @@
 #pragma once
 
 #include "attention.cuh"
+#include "hopper.cuh"
 
 namespace cvt {
 
@@ -72,11 +106,11 @@ constexpr int G_BK = 16;
 constexpr int G_THREADS = 256;
 constexpr int G_LDA = G_BM + 4;
 
-template <typename T, typename OutT, bool LN, bool RESID>
+template <bool LN, bool RESID>
 __global__ void __launch_bounds__(G_THREADS, 2)
-ln_gemm_kernel(const T* __restrict__ a, const float* __restrict__ ln_g, const float* __restrict__ ln_b,
-               const T* __restrict__ w, const float* __restrict__ bias, const T* __restrict__ resid,
-               OutT* __restrict__ out, int m, int k, int n, float eps, int ln_count) {
+ln_gemm_kernel(const float* __restrict__ a, const float* __restrict__ ln_g, const float* __restrict__ ln_b,
+               const float* __restrict__ w, const float* __restrict__ bias, const float* __restrict__ resid,
+               float* __restrict__ out, int m, int k, int n, float eps, int ln_count) {
   __shared__ __align__(16) float s_a[G_BK * G_LDA];  // [k][row]
   __shared__ __align__(16) float s_b[G_BK * G_BN];   // [k][col]
   __shared__ float s_mean[G_BM];
@@ -89,7 +123,7 @@ ln_gemm_kernel(const T* __restrict__ a, const float* __restrict__ ln_g, const fl
     const int warp = tid >> 5, lane = tid & 31;
     for (int r = warp; r < G_BM; r += G_THREADS / 32) {
       float mean = 0.0f, rstd = 0.0f;
-      if (m0 + r < m) row_stats<T>(a + (size_t)(m0 + r) * k, k, eps, ln_count, lane, mean, rstd);
+      if (m0 + r < m) row_stats<float>(a + (size_t)(m0 + r) * k, k, eps, ln_count, lane, mean, rstd);
       if (lane == 0) {
         s_mean[r] = mean;
         s_rstd[r] = rstd;
@@ -101,7 +135,7 @@ ln_gemm_kernel(const T* __restrict__ a, const float* __restrict__ ln_g, const fl
   // a thread stages 8 consecutive k of one row of A and 8 strided words of B
   const int a_row = tid >> 1, a_k = (tid & 1) * 8;
   const bool a_in = m0 + a_row < m;
-  const T* a_ptr = a + (size_t)(a_in ? m0 + a_row : 0) * k + a_k;
+  const float* a_ptr = a + (size_t)(a_in ? m0 + a_row : 0) * k + a_k;
   float a_mean = 0.0f, a_rstd = 0.0f;
   if (LN) {
     a_mean = s_mean[a_row];
@@ -112,10 +146,10 @@ ln_gemm_kernel(const T* __restrict__ a, const float* __restrict__ ln_g, const fl
   auto fetch = [&](int k0) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      float val = a_in ? to_f32<T>(a_ptr[k0 + j]) : 0.0f;
+      float val = a_in ? a_ptr[k0 + j] : 0.0f;
       if (LN && a_in) {
         const int kk = k0 + a_k + j;
-        val = round_to<T>((val - a_mean) * a_rstd * ln_g[kk] + ln_b[kk]);
+        val = (val - a_mean) * a_rstd * ln_g[kk] + ln_b[kk];
       }
       ra[j] = val;
     }
@@ -123,7 +157,7 @@ ln_gemm_kernel(const T* __restrict__ a, const float* __restrict__ ln_g, const fl
     for (int j = 0; j < 8; ++j) {
       const int e = tid + G_THREADS * j;
       const int br = e >> 7, col = n0 + (e & 127);
-      rb[j] = col < n ? to_f32<T>(w[(size_t)(k0 + br) * n + col]) : 0.0f;
+      rb[j] = col < n ? w[(size_t)(k0 + br) * n + col] : 0.0f;
     }
   };
 
@@ -168,20 +202,267 @@ ln_gemm_kernel(const T* __restrict__ a, const float* __restrict__ ln_g, const fl
       if (col >= n) continue;
       const size_t at = (size_t)row * n + col;
       float val = acc[i][j];
-      if (RESID) val += to_f32<T>(resid[at]);
-      out[at] = from_f32<OutT>(val + bias[col]);
+      if (RESID) val += resid[at];
+      out[at] = val + bias[col];
     }
   }
 }
 
-template <typename T, typename OutT, bool LN, bool RESID>
-cudaError_t launch_ln_gemm(const T* a, const float* ln_g, const float* ln_b, const T* w, const float* bias,
-                           const T* resid, OutT* out, int m, int k, int n, float eps, int ln_count,
+template <bool LN, bool RESID>
+cudaError_t launch_ln_gemm(const float* a, const float* ln_g, const float* ln_b, const float* w, const float* bias,
+                           const float* resid, float* out, int m, int k, int n, float eps, int ln_count,
                            cudaStream_t stream) {
   const int rows = (m + G_BM - 1) / G_BM, cols = (n + G_BN - 1) / G_BN;
   if (m < 1 || n < 1 || k < G_BK || k % G_BK || rows > 65535) return cudaErrorInvalidValue;
-  ln_gemm_kernel<T, OutT, LN, RESID><<<dim3(cols, rows), G_THREADS, 0, stream>>>(a, ln_g, ln_b, w, bias, resid,
-                                                                                out, m, k, n, eps, ln_count);
+  ln_gemm_kernel<LN, RESID><<<dim3(cols, rows), G_THREADS, 0, stream>>>(a, ln_g, ln_b, w, bias, resid, out, m, k,
+                                                                         n, eps, ln_count);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ row passes
+
+constexpr int ROW_THREADS = 256;  // a warp a row
+
+// LN of a row of at most 32 HELD values, read once into HELD registers a lane:
+// the sums of row_stats in its order (trailing zeros add nothing), with one
+// trip to device memory instead of three
+template <typename T, int HELD>
+__device__ __forceinline__ void ln_row_held(const T* __restrict__ p, const float* __restrict__ ln_g,
+                                            const float* __restrict__ ln_b, T* __restrict__ o, int d, float eps,
+                                            int ln_count, int lane) {
+  float v[HELD], s = 0.0f, ss = 0.0f;
+#pragma unroll
+  for (int j = 0; j < HELD; ++j) {
+    const int c = lane + 32 * j;
+    v[j] = c < d ? to_f32<T>(p[c]) : 0.0f;
+    s += v[j];
+    ss += v[j] * v[j];
+  }
+  float mean, rstd;
+  if (ln_count > 0) {
+    mean = warp_sum(s) / (float)ln_count;
+    rstd = rsqrtf(warp_sum(ss) / (float)ln_count - mean * mean + eps);
+  } else {
+    mean = warp_sum(s) / (float)d;
+    float var = 0.0f;
+#pragma unroll
+    for (int j = 0; j < HELD; ++j) {
+      const float dv = v[j] - mean;
+      if (lane + 32 * j < d) var += dv * dv;
+    }
+    rstd = rsqrtf(warp_sum(var) / (float)d + eps);
+  }
+#pragma unroll
+  for (int j = 0; j < HELD; ++j) {
+    const int c = lane + 32 * j;
+    if (c < d) o[c] = from_f32<T>((v[j] - mean) * rstd * ln_g[c] + ln_b[c]);
+  }
+}
+
+// rows up to 32 LN_HELD_MAX wide are held in registers (0: none); a warp
+// then waits on one read of its row, not three, which is what a narrow row's
+// pass waits on (Swin's and ConvNeXt's first stages, D 96 to 256)
+constexpr int LN_HELD_MAX = 8;
+
+// out[r, :] = LN(x[r, :]) rounded to T
+template <typename T>
+__global__ void __launch_bounds__(ROW_THREADS)
+ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ ln_g, const float* __restrict__ ln_b,
+               T* __restrict__ out, int m, int d, float eps, int ln_count) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (ROW_THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= m) return;
+  const T* p = x + (size_t)row * d;
+  T* o = out + (size_t)row * d;
+  if (d <= 32 * 4 && LN_HELD_MAX >= 4) return ln_row_held<T, 4>(p, ln_g, ln_b, o, d, eps, ln_count, lane);
+  if (d <= 32 * 8 && LN_HELD_MAX >= 8) return ln_row_held<T, 8>(p, ln_g, ln_b, o, d, eps, ln_count, lane);
+  float mean, rstd;
+  row_stats<T>(p, d, eps, ln_count, lane, mean, rstd);
+  for (int c = lane; c < d; c += 32) o[c] = from_f32<T>((to_f32<T>(p[c]) - mean) * rstd * ln_g[c] + ln_b[c]);
+}
+
+// out[r, :] = x[r, :] + LN(branch[r, :]) (Swin v2's post-norm)
+template <typename T>
+__global__ void __launch_bounds__(ROW_THREADS)
+ln_residual_kernel(const float* __restrict__ branch, const T* __restrict__ x, const float* __restrict__ ln_g,
+                   const float* __restrict__ ln_b, T* __restrict__ out, int m, int c, float eps, int ln_count) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (ROW_THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= m) return;
+  const float* p = branch + (size_t)row * c;
+  float mean, rstd;
+  row_stats<float>(p, c, eps, ln_count, lane, mean, rstd);
+  for (int col = lane; col < c; col += 32) {
+    const size_t at = (size_t)row * c + col;
+    out[at] = from_f32<T>(to_f32<T>(x[at]) + ((p[col] - mean) * rstd * ln_g[col] + ln_b[col]));
+  }
+}
+
+template <typename T>
+cudaError_t launch_ln_rows(const T* x, const float* ln_g, const float* ln_b, T* out, int m, int d, float eps,
+                           int ln_count, cudaStream_t stream) {
+  if (m < 1 || d < 1) return cudaErrorInvalidValue;
+  constexpr int rows = ROW_THREADS / 32;
+  ln_rows_kernel<T><<<(m + rows - 1) / rows, ROW_THREADS, 0, stream>>>(x, ln_g, ln_b, out, m, d, eps, ln_count);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_ln_residual(const float* branch, const T* x, const float* ln_g, const float* ln_b, T* out, int m,
+                               int c, float eps, int ln_count, cudaStream_t stream) {
+  if (m < 1 || c < 1) return cudaErrorInvalidValue;
+  constexpr int rows = ROW_THREADS / 32;
+  ln_residual_kernel<T><<<(m + rows - 1) / rows, ROW_THREADS, 0, stream>>>(branch, x, ln_g, ln_b, out, m, c, eps,
+                                                                          ln_count);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------- the bf16 tensor-core product
+
+using bf16 = __nv_bfloat16;
+
+enum { TC_BIAS = 0, TC_GELU = 1, TC_RESID = 2 };
+
+constexpr int TC_BM = 128;  // two warpgroups of 64 rows
+constexpr int TC_BN = 128;
+constexpr int TC_BK = 64;   // one 128-byte swizzled row of bf16
+constexpr int TC_STAGES = 3;
+constexpr int TC_INFLIGHT = 0;                               // wgmma groups left in flight at a step's end
+constexpr int TC_AHEAD = TC_STAGES - 1 - TC_INFLIGHT;         // tiles copied ahead of the products
+constexpr int TC_THREADS = 256;
+constexpr int TC_A_BYTES = TC_BM * TC_BK * 2;
+constexpr int TC_B_BYTES = TC_BK * TC_BN * 2;
+constexpr int TC_STAGE_BYTES = TC_A_BYTES + TC_B_BYTES;
+constexpr size_t TC_SMEM = (size_t)TC_STAGES * TC_STAGE_BYTES + 1024;  // + room to align to 1024
+constexpr int TC_BLOCKS_PER_SM = TC_SMEM <= 113 * 1024 ? 2 : 1;
+constexpr int TC_CHUNKS = TC_A_BYTES / 16 / TC_THREADS;                 // 16-byte copies a thread a tile
+static_assert(TC_A_BYTES == TC_B_BYTES && TC_CHUNKS == 4 && TC_AHEAD >= 1, "tiles");
+
+// two adjacent outputs, one 4- or 8-byte store
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  float2 v;
+  v.x = v0;
+  v.y = v1;
+  *reinterpret_cast<float2*>(p) = v;
+}
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  __nv_bfloat162 v;
+  v.x = from_f32<bf16>(v0);
+  v.y = from_f32<bf16>(v1);
+  *reinterpret_cast<__nv_bfloat162*>(p) = v;
+}
+
+template <int EPI, typename OutT>
+__global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_PER_SM)
+tc_gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w, const float* __restrict__ bias,
+               const bf16* __restrict__ resid, const float* __restrict__ gamma, OutT* __restrict__ out, int m, int k,
+               int n) {
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t base = (smem_addr(smem) + 1023u) & ~1023u;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int m0 = blockIdx.y * TC_BM, n0 = blockIdx.x * TC_BN;
+  const int k_tiles = (k + TC_BK - 1) / TC_BK;
+
+  // A tile: row r, chunk c of 8 k at r * 128 + (c ^ r % 8) * 16.  B tile: two
+  // 64-column halves of 64 k rows each, half h at h * 8192, k row r, chunk c
+  // of 8 columns at r * 128 + (c ^ r % 8) * 16.
+  auto load = [&](int stage, int kt) {
+    const int k0 = kt * TC_BK;
+    const uint32_t sa = base + stage * TC_STAGE_BYTES, sb = sa + TC_A_BYTES;
+#pragma unroll
+    for (int i = 0; i < TC_CHUNKS; ++i) {
+      const int e = tid + i * TC_THREADS;
+      const int r = e >> 3, c = e & 7;
+      const int row = m0 + r, kk = k0 + c * 8;
+      const bool ok = row < m && kk < k;
+      cp_async16(sa + r * 128 + ((c ^ (r & 7)) << 4), a + (ok ? (size_t)row * k + kk : 0), ok);
+    }
+#pragma unroll
+    for (int i = 0; i < TC_CHUNKS; ++i) {
+      const int e = tid + i * TC_THREADS;
+      const int r = e >> 4, c = e & 15;
+      const int kk = k0 + r, col = n0 + c * 8;
+      const bool ok = kk < k && col < n;
+      cp_async16(sb + (c >> 3) * (TC_BK * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4),
+                 w + (ok ? (size_t)kk * n + col : 0), ok);
+    }
+  };
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+  // TC_AHEAD tiles ahead: the stage a step refills last held the tile of
+  // TC_INFLIGHT + 1 steps before, whose products the wait that closed the
+  // step before has retired in both warpgroups (the barrier orders them)
+#pragma unroll
+  for (int s = 0; s < TC_AHEAD; ++s) {
+    if (s < k_tiles) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_async_wait<TC_AHEAD - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    const int next = kt + TC_AHEAD;
+    if (next < k_tiles) load(next % TC_STAGES, next);
+    cp_async_commit();
+    const uint32_t sa = base + (kt % TC_STAGES) * TC_STAGE_BYTES, sb = sa + TC_A_BYTES;
+    const int steps = min(TC_BK, k - kt * TC_BK) / 16;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < TC_BK / 16; ++s) {
+      if (s < steps)
+        wgmma_m64n128k16_bf16(acc, sw128_desc(sa + wg * (64 * 128) + s * 32, 16, 1024),
+                              sw128_desc(sb + s * 2048, TC_BK * 128, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<TC_INFLIGHT>();
+  }
+  wgmma_wait<0>();
+  fence_sums(acc);
+
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < TC_BN / 8; ++j) {
+    const int col = n0 + j * 8 + (lane & 3) * 2;  // n is a multiple of 8: col + 1 < n with col
+    if (col >= n) continue;
+    const float b0 = bias[col], b1 = bias[col + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      if (row >= m) continue;
+      const size_t at = (size_t)row * n + col;
+      float v0 = acc[4 * j + 2 * h] + b0, v1 = acc[4 * j + 2 * h + 1] + b1;
+      if (EPI == TC_GELU) {
+        v0 = gelu_erf(v0);
+        v1 = gelu_erf(v1);
+      } else if (EPI == TC_RESID) {
+        if (gamma != nullptr) {
+          v0 *= gamma[col];
+          v1 *= gamma[col + 1];
+        }
+        const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(resid + at);
+        v0 = to_f32<bf16>(r.x) + v0;
+        v1 = to_f32<bf16>(r.y) + v1;
+      }
+      store2(out + at, v0, v1);
+    }
+  }
+}
+
+// resid (TC_RESID) is (m, n) of bf16, gamma (TC_RESID) may be null
+template <int EPI, typename OutT>
+cudaError_t launch_tc_gemm(const bf16* a, const bf16* w, const float* bias, const bf16* resid, const float* gamma,
+                           OutT* out, int m, int k, int n, cudaStream_t stream) {
+  const int rows = (m + TC_BM - 1) / TC_BM, cols = (n + TC_BN - 1) / TC_BN;
+  if (m < 1 || n < 8 || n % 8 || k < 16 || k % 16 || rows > 65535) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(tc_gemm_kernel<EPI, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TC_SMEM);
+  if (err != cudaSuccess) return err;
+  tc_gemm_kernel<EPI, OutT><<<dim3(cols, rows), TC_THREADS, TC_SMEM, stream>>>(a, w, bias, resid, gamma, out, m, k,
+                                                                               n);
   return cudaGetLastError();
 }
 

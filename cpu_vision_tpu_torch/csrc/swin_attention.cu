@@ -30,8 +30,11 @@
 // 227 KB, and the output projection sums over heads; so, like
 // attention_block, it is a chain of launches, all written here or in
 // ln_gemm.cuh:
-//   (1) LN (v1 only) + QKV product + bias into an (nw S, 3 C) buffer of f32
-//       (f32, not T: v1 scales q and v2 normalises q and k before the cast);
+//   (0) bf16 v1: LN(x) rounded to bf16, a warp a row (ln_rows_kernel);
+//   (1) QKV product + bias into an (nw S, 3 C) buffer of f32 (f32, not T:
+//       v1 scales q and v2 normalises q and k before the cast); float32 v1
+//       takes the LayerNorm as it stages A (ln_gemm_kernel), bf16 reads (0)'s
+//       rows (tc_gemm_kernel, wgmma);
 //   (2) the window core, one block a (window, head), the windows on
 //       gridDim.x: it stages the head's q, k, v (S x 32 each) in shared
 //       memory by strides out of that buffer, computes all S x S scores as
@@ -40,29 +43,35 @@
 //       and writes the joined heads as (nw S, C) of T;
 //   (3) v1: output projection + bias + residual into out.
 //       v2: output projection + bias into an (nw S, C) buffer of f32, then
-//   (4) v2: LayerNorm of each branch row + residual, a warp a row.
-// Three launches for v1, four for v2.  The QKV buffer (12 C bytes a token),
-// the joined heads and v2's branch rows are the intermediates that now touch
-// device memory, each written once and read once; the TPU kernels keep them
-// in VMEM.  The mask holds -100, not -inf: a fully masked row is still a
-// softmax over its keys.
+//   (4) v2: LayerNorm of each branch row + residual, a warp a row
+//       (ln_residual_kernel of ln_gemm.cuh).
+// Three launches for float32 v1, four for bf16 v1 and for v2.  The QKV buffer
+// (12 C bytes a token), the joined heads, v2's branch rows and the LN rows
+// are the intermediates that now touch device memory, each written once and
+// read once; the TPU kernels keep them in VMEM.  The mask holds -100, not
+// -inf: a fully masked row is still a softmax over its keys.
 //
 // Bound.  Operations: 8 C^2 a token for the two projections and
 // S (4 hd + 5) a token and head for the core; at Swin-T's first stage
 // (802,816 tokens, C 96) 59 GFLOP + 30 GFLOP against 308 MB of x and out in
 // bf16.  The intermediates add 2.16 GB there: traffic of this split into
-// launches, not of the function, so no part of its bound.  Scalar f32 FMAs
-// for both types: no mma.
+// launches, not of the function, so no part of its bound.  The products run
+// on the tensor cores in bf16 and as scalar f32 FMAs in float32; the core is
+// scalar f32 FMAs for both types.
 
 #include "ln_gemm.cuh"
 
 namespace {
 
+using cvt::bf16;
 using cvt::from_f32;
 using cvt::launch_ln_gemm;
+using cvt::launch_ln_residual;
+using cvt::launch_ln_rows;
+using cvt::launch_tc_gemm;
 using cvt::round_to;
-using cvt::row_stats;
-using cvt::to_f32;
+using cvt::TC_BIAS;
+using cvt::TC_RESID;
 
 constexpr int W_S = 64;  // most tokens a window
 constexpr int W_THREADS = 256;
@@ -220,52 +229,57 @@ window_core_kernel(const float* __restrict__ qkv, const float* __restrict__ rel_
   }
 }
 
-// out[r, :] = x[r, :] + LN(branch[r, :]), a warp a row (v2's post-norm)
-template <typename T>
-__global__ void __launch_bounds__(W_THREADS)
-ln_residual_kernel(const float* __restrict__ branch, const T* __restrict__ x, const float* __restrict__ ln_g,
-                   const float* __restrict__ ln_b, T* __restrict__ out, int m, int c, float eps, int ln_count) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (W_THREADS / 32) + (threadIdx.x >> 5);
-  if (row >= m) return;
-  const float* p = branch + (size_t)row * c;
-  float mean, rstd;
-  row_stats<float>(p, c, eps, ln_count, lane, mean, rstd);
-  for (int col = lane; col < c; col += 32) {
-    const size_t at = (size_t)row * c + col;
-    out[at] = from_f32<T>(to_f32<T>(x[at]) + ((p[col] - mean) * rstd * ln_g[col] + ln_b[col]));
+// The products of window_attention_block in T: QKV (f32 out, with LN for
+// v1) and the output projection (+ residual into out for v1, f32 branch for
+// v2).  ln_buf: scratch of m c bf16 values (bf16 v1 only).
+cudaError_t qkv_product(const float* x, const float* ln_g, const float* ln_b, const float* w_qkv, const float* b_qkv,
+                        float* qkv, float*, int m, int c, float eps, int v2, int ln_count, cudaStream_t stream) {
+  return v2 ? launch_ln_gemm<false, false>(x, nullptr, nullptr, w_qkv, b_qkv, nullptr, qkv, m, c, 3 * c, eps, 0, stream)
+            : launch_ln_gemm<true, false>(x, ln_g, ln_b, w_qkv, b_qkv, nullptr, qkv, m, c, 3 * c, eps, ln_count,
+                                          stream);
+}
+
+cudaError_t qkv_product(const bf16* x, const float* ln_g, const float* ln_b, const bf16* w_qkv, const float* b_qkv,
+                        float* qkv, bf16* ln_buf, int m, int c, float eps, int v2, int ln_count, cudaStream_t stream) {
+  if (!v2) {
+    cudaError_t err = launch_ln_rows<bf16>(x, ln_g, ln_b, ln_buf, m, c, eps, ln_count, stream);
+    if (err != cudaSuccess) return err;
   }
+  return launch_tc_gemm<TC_BIAS, float>(v2 ? x : ln_buf, w_qkv, b_qkv, nullptr, nullptr, qkv, m, c, 3 * c, stream);
+}
+
+cudaError_t out_product(const float* joined, const float* w_o, const float* b_o, const float* x, float* out,
+                        float* branch, int m, int c, float eps, int v2, cudaStream_t stream) {
+  return v2 ? launch_ln_gemm<false, false>(joined, nullptr, nullptr, w_o, b_o, nullptr, branch, m, c, c, eps, 0, stream)
+            : launch_ln_gemm<false, true>(joined, nullptr, nullptr, w_o, b_o, x, out, m, c, c, eps, 0, stream);
+}
+
+cudaError_t out_product(const bf16* joined, const bf16* w_o, const float* b_o, const bf16* x, bf16* out,
+                        float* branch, int m, int c, float, int v2, cudaStream_t stream) {
+  return v2 ? launch_tc_gemm<TC_BIAS, float>(joined, w_o, b_o, nullptr, nullptr, branch, m, c, c, stream)
+            : launch_tc_gemm<TC_RESID, bf16>(joined, w_o, b_o, x, nullptr, out, m, c, c, stream);
 }
 
 template <typename T>
 cudaError_t window_attention_block(const T* x, const float* ln_g, const float* ln_b, const T* w_qkv,
                                    const float* b_qkv, const T* w_o, const float* b_o, const float* rel_bias,
                                    const float* mask, const float* logit_scale, float* qkv, T* joined,
-                                   float* branch, T* out, int nw, int s_len, int c, int heads, int nw_img,
+                                   float* branch, T* ln_buf, T* out, int nw, int s_len, int c, int heads, int nw_img,
                                    float scale, float eps, int v2, int ln_count, cudaStream_t stream) {
   constexpr int HD = 32;
   if (nw < 1 || s_len < 1 || s_len > W_S || heads < 1 || c != heads * HD || nw_img < 1 ||
       (long long)nw * heads > 2147483647LL || (long long)nw * s_len > 2147483647LL)
     return cudaErrorInvalidValue;
   const int m = nw * s_len;
-  cudaError_t err =
-      v2 ? launch_ln_gemm<T, float, false, false>(x, nullptr, nullptr, w_qkv, b_qkv, nullptr, qkv, m, c, 3 * c,
-                                                  eps, 0, stream)
-         : launch_ln_gemm<T, float, true, false>(x, ln_g, ln_b, w_qkv, b_qkv, nullptr, qkv, m, c, 3 * c, eps,
-                                                 ln_count, stream);
+  cudaError_t err = qkv_product(x, ln_g, ln_b, w_qkv, b_qkv, qkv, ln_buf, m, c, eps, v2, ln_count, stream);
   if (err != cudaSuccess) return err;
   window_core_kernel<T, HD><<<nw * heads, W_THREADS, window_smem_bytes<HD>(), stream>>>(
       qkv, rel_bias, mask, logit_scale, joined, s_len, c, heads, nw_img, scale, v2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (!v2) return launch_ln_gemm<T, T, false, true>(joined, nullptr, nullptr, w_o, b_o, x, out, m, c, c, eps, 0, stream);
-  err = launch_ln_gemm<T, float, false, false>(joined, nullptr, nullptr, w_o, b_o, nullptr, branch, m, c, c, eps,
-                                               0, stream);
-  if (err != cudaSuccess) return err;
-  const int rows_a_block = W_THREADS / 32;
-  ln_residual_kernel<T><<<(m + rows_a_block - 1) / rows_a_block, W_THREADS, 0, stream>>>(branch, x, ln_g, ln_b, out,
-                                                                                       m, c, eps, ln_count);
-  return cudaGetLastError();
+  err = out_product(joined, w_o, b_o, x, out, branch, m, c, eps, v2, stream);
+  if (err != cudaSuccess || !v2) return err;
+  return launch_ln_residual<T>(branch, x, ln_g, ln_b, out, m, c, eps, ln_count, stream);
 }
 
 }  // namespace
@@ -274,25 +288,26 @@ extern "C" {
 
 // x and out are (nw, s_len, c) of T; qkv is scratch of nw * s_len * 3 c
 // floats, joined of nw * s_len * c values of T, branch (v2 only, else unused)
-// of nw * s_len * c floats.  mask (nw_img, s, s) and logit_scale (heads) may
+// of nw * s_len * c floats, ln_buf (bf16 v1 only, else unused) of
+// nw * s_len * c bf16 values.  mask (nw_img, s, s) and logit_scale (heads) may
 // be null (logit_scale only for v1).  Launches on `stream` and returns the
 // first failed launch's cudaError_t (0 on success); does not synchronise.
 int cvt_window_attention_block(const void* x, const float* ln_g, const float* ln_b, const void* w_qkv,
                                const float* b_qkv, const void* w_o, const float* b_o, const float* rel_bias,
                                const float* mask, const float* logit_scale, float* qkv, void* joined,
-                               float* branch, void* out, int nw, int s_len, int c, int heads, int nw_img,
-                               float scale, float eps, int v2, int ln_count, int is_bf16, void* stream) {
+                               float* branch, void* ln_buf, void* out, int nw, int s_len, int c, int heads,
+                               int nw_img, float scale, float eps, int v2, int ln_count, int is_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (v2 && logit_scale == nullptr) return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    return (int)window_attention_block<__nv_bfloat16>(
-        (const __nv_bfloat16*)x, ln_g, ln_b, (const __nv_bfloat16*)w_qkv, b_qkv, (const __nv_bfloat16*)w_o, b_o,
-        rel_bias, mask, logit_scale, qkv, (__nv_bfloat16*)joined, branch, (__nv_bfloat16*)out, nw, s_len, c, heads,
-        nw_img, scale, eps, v2, ln_count, st);
+    return (int)window_attention_block<bf16>((const bf16*)x, ln_g, ln_b, (const bf16*)w_qkv, b_qkv,
+                                             (const bf16*)w_o, b_o, rel_bias, mask, logit_scale, qkv, (bf16*)joined,
+                                             branch, (bf16*)ln_buf, (bf16*)out, nw, s_len, c, heads, nw_img, scale,
+                                             eps, v2, ln_count, st);
   return (int)window_attention_block<float>((const float*)x, ln_g, ln_b, (const float*)w_qkv, b_qkv,
-                                            (const float*)w_o, b_o, rel_bias, mask, logit_scale, qkv,
-                                            (float*)joined, branch, (float*)out, nw, s_len, c, heads, nw_img,
-                                            scale, eps, v2, ln_count, st);
+                                            (const float*)w_o, b_o, rel_bias, mask, logit_scale, qkv, (float*)joined,
+                                            branch, (float*)ln_buf, (float*)out, nw, s_len, c, heads, nw_img, scale,
+                                            eps, v2, ln_count, st);
 }
 
 }  // extern "C"

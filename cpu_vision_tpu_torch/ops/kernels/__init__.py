@@ -48,6 +48,8 @@ from .swin_attention import window_attention_block, window_attention_block_plain
 from .transformer_block import (  # noqa: F401
     attention_block,
     attention_block_plain,
+    bf16_product,
+    bf16_product_plain,
     cn_mlp_block,
     cn_mlp_block_plain,
     mlp_block,
@@ -76,6 +78,9 @@ def launch_counts_by_shape() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         _build.reset_count(fn)
+    _build.reset_count(bf16_product)  # the product alone: a test entry, on no main path
     attention_block.kernel_launches = 0
+    mlp_block.kernel_launches = 0
+    cn_mlp_block.kernel_launches = 0
     window_attention_block.kernel_launches = 0
     attention_block_int8.kernel_launches = 0

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -21,8 +22,8 @@ from typing import Dict
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "SOURCE_FLAGS", "build", "load", "on_card", "launch", "count_launch", "count_plain_route",
-           "reset_count"]
+__all__ = ["NVCC_FLAGS", "SOURCE_FLAGS", "build", "load", "sass_counts", "on_card", "launch", "count_launch",
+           "count_plain_route", "reset_count"]
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -104,6 +105,26 @@ def load(stem: str) -> ctypes.CDLL:
     if not path.exists():
         build()
     return ctypes.CDLL(str(path))
+
+
+def sass_counts(stem: str, opcode: str) -> Dict[str, int]:
+    """``{mangled kernel name: instructions of ``opcode``}`` in the machine code
+    (SASS) of ``lib<stem>.so``, from ``cuobjdump --dump-sass`` (built first if
+    needed); ``opcode`` ``"HGMMA"`` counts the tensor-core products of wgmma."""
+    path = _build_dir() / f"lib{stem}.so"
+    if not path.exists():
+        build()
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and re.search(rf"\b{re.escape(opcode)}\b", line):
+            counts[name] += 1
+    return counts
 
 
 def on_card(x: torch.Tensor) -> bool:

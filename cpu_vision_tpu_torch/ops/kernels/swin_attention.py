@@ -23,14 +23,17 @@ taken per head: the JAX package's head-packed kernel and its per-head one are
 one function here.
 
 Given CUDA tensors the wrapper launches its kernels, adds one to ``launches``
-and the number of kernel launches (3 for v1, 4 for v2: LN + QKV product, the
-window core, the output projection, v2's LayerNorm + residual) to
-``kernel_launches``, and raises if a launch fails or the kernels do not take
+and the number of kernel launches (v1: 3 in float32, LN + QKV product, the
+window core, the output projection + residual; 4 in bfloat16, whose LN is a
+row pass before the tensor-core QKV product; v2: 4, QKV product, core,
+output projection, LayerNorm + residual) to ``kernel_launches``, and raises if a launch fails or the kernels do not take
 the arguments (head dim ``HEAD_DIM``, S ≤ ``MAX_TOKENS``, C a multiple of 16,
 ``x`` in the weights' dtype); given CPU tensors it runs the twin.  Nothing
 falls back from one to the other.  On the card the float32 QKV product
-(12·C bytes a token), the joined heads and v2's branch rows pass through
-device memory once each, which the Pallas kernels keep in VMEM.
+(12·C bytes a token), the joined heads, v2's branch rows and bf16 v1's LN
+rows pass through device memory once each, which the Pallas kernels keep in
+VMEM.  In bfloat16 both projections run on the tensor cores (the product of
+``transformer_block.bf16_product``).
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ import torch
 
 from ..._dtype import full_float32
 from . import _build
-from .transformer_block import _check_card, _check_float, _dot_f32, _f32c, _ln_f32
+from .transformer_block import _check_card, _check_float, _dot_f32, _f32c, _ln_f32, _ptr
 
 __all__ = ["window_attention_block", "window_attention_block_plain", "kernel_takes", "HEAD_DIM", "MAX_TOKENS"]
 
@@ -58,7 +61,7 @@ def _lib() -> ctypes.CDLL:
     if _c_lib is None:
         lib = _build.load("swin_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.cvt_window_attention_block.argtypes = [p] * 14 + [i, i, i, i, i, f, f, i, i, i, p]
+        lib.cvt_window_attention_block.argtypes = [p] * 15 + [i, i, i, i, i, f, f, i, i, i, p]
         lib.cvt_window_attention_block.restype = ctypes.c_int
         _c_lib = lib
     return _c_lib
@@ -128,7 +131,7 @@ def kernel_takes(c: int, heads: int, s: int) -> bool:
 def window_attention_block(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask, logit_scale, heads: int,
                            scale: float, eps: float, v2: bool, nw_img: int, ln_count: int = 0) -> torch.Tensor:
     """``x + Proj(WindowMSA(LN(x)))`` over ``x`` (num_windows, S, C); on the
-    card three (v1) or four (v2) hand-written launches with no transposed
+    card three (float32 v1) or four hand-written launches with no transposed
     copy of q, k, v or the heads."""
     _check(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask, logit_scale, heads, v2, nw_img, ln_count)
     if not _build.on_card(x):
@@ -140,21 +143,21 @@ def window_attention_block(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask
                          f"multiple of 16, got C = {c}, {heads} heads, S = {s}")
     _check_card(x, w_qkv, w_o)
     tokens = nw * s
+    bf16 = x.dtype == torch.bfloat16
     qkv = torch.empty((tokens, 3 * c), dtype=torch.float32, device=x.device)
     joined = torch.empty_like(x)
     branch = torch.empty((tokens, c), dtype=torch.float32, device=x.device) if v2 else None
+    ln_rows = torch.empty_like(x) if bf16 and not v2 else None
     out = torch.empty_like(x)
     ln_g, ln_b, b_qkv, b_o, rel_bias = _f32c(ln_g), _f32c(ln_b), _f32c(b_qkv), _f32c(b_o), _f32c(rel_bias)
     mask = None if mask is None else _f32c(mask)
     logit_scale = None if logit_scale is None else _f32c(logit_scale)
     _build.launch(_lib(), "cvt_window_attention_block", x, x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(),
-                  w_qkv.data_ptr(), b_qkv.data_ptr(), w_o.data_ptr(), b_o.data_ptr(), rel_bias.data_ptr(),
-                  None if mask is None else mask.data_ptr(),
-                  None if logit_scale is None else logit_scale.data_ptr(), qkv.data_ptr(), joined.data_ptr(),
-                  None if branch is None else branch.data_ptr(), out.data_ptr(), nw, s, c, heads, nw_img,
-                  float(scale), float(eps), int(bool(v2)), int(ln_count), int(x.dtype == torch.bfloat16))
+                  w_qkv.data_ptr(), b_qkv.data_ptr(), w_o.data_ptr(), b_o.data_ptr(), rel_bias.data_ptr(), _ptr(mask),
+                  _ptr(logit_scale), qkv.data_ptr(), joined.data_ptr(), _ptr(branch), _ptr(ln_rows), out.data_ptr(),
+                  nw, s, c, heads, nw_img, float(scale), float(eps), int(bool(v2)), int(ln_count), int(bf16))
     _build.count_launch(window_attention_block, x)
-    window_attention_block.kernel_launches += 4 if v2 else 3
+    window_attention_block.kernel_launches += 4 if v2 or bf16 else 3
     return out
 
 

@@ -13,7 +13,8 @@ order, without FMA contraction.  The fused convolution sums over input
 channels in another order than its twin's matrix products, and with fused
 multiply-adds: it is held to ``1e-5 + 1e-5·|twin|``.  The transformer
 kernels (``flash_mha``, ``attention_block``, ``mlp_block``, ``cn_mlp_block``,
-``window_attention_block``) sum their products in other orders than the twins'
+``window_attention_block``, and in bfloat16 their tensor-core product
+``bf16_product`` alone) sum their products in other orders than the twins'
 matrix products, with fused multiply-adds: float32 is held to
 ``2e-4 + 2e-4·|twin|``, bfloat16 (compared in bfloat16, where one step is 2^-8
 of the value) to ``2e-2 + 2e-2·|twin|``.  The depthwise convolution sums its
@@ -235,11 +236,13 @@ def _attention_args(rng, n, s, d, heads, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,s,d,heads", [(2, 197, 768, 12), (3, 50, 128, 2), (1, 17, 64, 4), (1, 130, 1280, 16)])
+@pytest.mark.parametrize("n,s,d,heads", [(2, 197, 768, 12), (3, 50, 128, 2), (1, 17, 64, 4), (1, 130, 1280, 16),
+                                         (1, 33, 2048, 32)])  # D 2048: a LayerNorm row wider than the pass holds
 def test_attention_block_matches_twin(cuda, rng, n, s, d, heads, dtype):
     args = _attention_args(rng, n, s, d, heads, dtype, cuda)
     out = kernels.attention_block(*args)
-    assert kernels.launch_counts()["attention_block"] == 1 and kernels.attention_block.kernel_launches == 3
+    assert kernels.launch_counts()["attention_block"] == 1
+    assert kernels.attention_block.kernel_launches == (4 if dtype == torch.bfloat16 else 3)  # bf16: LN pass apart
     _close(out, kernels.attention_block_plain(*args), dtype)
 
 
@@ -251,11 +254,15 @@ def _mlp_args(rng, m, d, dh, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("m,d,dh", [(394, 768, 3072), (37, 256, 512), (1, 1280, 256), (65, 1024, 512), (32, 256, 256)])
+@pytest.mark.parametrize("m,d,dh", [(394, 768, 3072), (37, 256, 512), (1, 1280, 256), (65, 1024, 512), (32, 256, 256),
+                                    # hidden dims a multiple of 64, not of 256 (taken up to D 512): ragged last tiles
+                                    (75, 96, 448), (75, 128, 320), (75, 192, 704), (75, 256, 64), (75, 384, 1600),
+                                    (75, 512, 2112)])
 def test_mlp_block_matches_twin(cuda, rng, m, d, dh, dtype):
     args = _mlp_args(rng, m, d, dh, dtype, cuda)
     out = kernels.mlp_block(*args)
     assert kernels.launch_counts()["mlp_block"] == 1
+    assert kernels.mlp_block.kernel_launches == (3 if dtype == torch.bfloat16 else 1)
     _close(out, kernels.mlp_block_plain(*args), dtype)
 
 
@@ -331,6 +338,47 @@ def test_cn_mlp_block_matches_twin(cuda, rng, m, d, dtype):
     _close(out, kernels.cn_mlp_block_plain(*args), dtype)
     with pytest.raises(TypeError):  # the residual in another dtype than the weights
         kernels.cn_mlp_block(args[0], args[1].double(), *args[2:])
+    assert kernels.cn_mlp_block.kernel_launches == (3 if dtype == torch.bfloat16 else 1)
+
+
+
+def _product_args(rng, m, k, n, epilogue, device):
+    a = _normal(rng, (m, k), torch.bfloat16, device)
+    w = _normal(rng, (k, n), torch.bfloat16, device, k ** -0.5)
+    bias = _normal(rng, (n,), torch.float32, device, 0.1)
+    resid = _normal(rng, (m, n), torch.bfloat16, device) if epilogue.startswith("residual") else None
+    gamma = _normal(rng, (n,), torch.float32, device, 0.5) if epilogue == "residual_gamma" else None
+    out_dtype = torch.float32 if epilogue == "bias_f32" else torch.bfloat16
+    return (a, w, bias, epilogue.split("_")[0] if epilogue != "residual_gamma" else "residual", resid, gamma,
+            out_dtype)
+
+
+@pytest.mark.parametrize("epilogue", ["bias", "bias_f32", "gelu", "residual", "residual_gamma"])
+@pytest.mark.parametrize("n", [96, 288, 3072])
+@pytest.mark.parametrize("k", [96, 3072])
+@pytest.mark.parametrize("m", [1, 127, 129, 50432])
+def test_bf16_product_matches_twin(cuda, rng, m, k, n, epilogue):
+    """The tensor-core product of the bf16 blocks against its twin, ragged in m (a last tile of 1 row), n (96 and
+    288 of 128-column tiles) and k (96 is one and a half 64-wide steps); two calls give the same bits (no atomics)."""
+    args = _product_args(rng, m, k, n, epilogue, cuda)
+    out = kernels.bf16_product(*args)
+    assert kernels.bf16_product.launches == 1
+    ref = kernels.bf16_product_plain(*args)
+    assert out.shape == ref.shape and out.dtype == ref.dtype == args[-1] and bool(torch.isfinite(out).all())
+    err = (out.float() - ref.float()).abs()  # a float32 output too is held to the bf16 rule: bf16 operands
+    assert bool((err <= TOL[torch.bfloat16] * (1 + ref.float().abs())).all()), float(err.max())
+    assert torch.equal(kernels.bf16_product(*args), out)
+
+
+def test_bf16_product_refuses_what_it_does_not_take(cuda, rng):
+    """What only the card refuses (the arguments' own checks run on the CPU too: test_torch_bf16_product.py)."""
+    a, w = _normal(rng, (8, 40), torch.bfloat16, cuda), _normal(rng, (40, 16), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):  # k = 40
+        kernels.bf16_product(a, w, _normal(rng, (16,), torch.float32, cuda))
+    a, w = _normal(rng, (8, 32), torch.bfloat16, cuda), _normal(rng, (32, 12), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):  # n = 12
+        kernels.bf16_product(a, w, _normal(rng, (12,), torch.float32, cuda))
+    assert kernels.bf16_product.launches == 0
 
 
 def _window_args(rng, nw, s, c, v2, masked, nw_img, dtype, device, ln_count=0):
@@ -361,7 +409,7 @@ def test_window_attention_block_matches_twin(cuda, rng, nw, s, c, masked, nw_img
     args = _window_args(rng, nw, s, c, v2, masked, nw_img, dtype, cuda, ln_count)
     out = kernels.window_attention_block(*args)
     assert kernels.launch_counts()["window_attention_block"] == 1
-    assert kernels.window_attention_block.kernel_launches == (4 if v2 else 3)
+    assert kernels.window_attention_block.kernel_launches == (4 if v2 or dtype == torch.bfloat16 else 3)
     _close(out, kernels.window_attention_block_plain(*args), dtype)
     if ln_count:
         assert bool((out[..., ln_count:] == 0).all())

@@ -1,5 +1,5 @@
-// bfloat16 for tools/cuda_emu: storage and the two conversions the kernels
-// use, rounding to nearest even as the card does.
+// bfloat16 for tools/cuda_emu: storage (one value, or a pair) and the two
+// conversions the kernels use, rounding to nearest even as the card does.
 
 #pragma once
 
@@ -8,6 +8,9 @@
 
 struct __nv_bfloat16 {
   uint16_t bits;
+};
+struct alignas(4) __nv_bfloat162 {
+  __nv_bfloat16 x, y;
 };
 
 inline float __bfloat162float(__nv_bfloat16 v) {

@@ -34,6 +34,9 @@ struct dim3 {
 struct alignas(16) float4 {
   float x, y, z, w;
 };
+struct alignas(8) float2 {
+  float x, y;
+};
 struct alignas(16) int4 {
   int x, y, z, w;
 };
@@ -62,7 +65,7 @@ inline thread_local dim3 threadIdx, blockIdx, blockDim;
 inline std::barrier<>* emu_block_barrier;
 inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
 inline float emu_shuffle[1024];
-alignas(16) inline float emu_shared[EMU_MAX_SHARED / sizeof(float)];  // dynamic shared memory of the running block
+alignas(1024) inline float emu_shared[EMU_MAX_SHARED / sizeof(float)];  // dynamic shared memory of the running block
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
 
@@ -83,7 +86,8 @@ inline int min(int a, int b) { return a < b ? a : b; }
 // kernel<<<grid, block, shared, stream>>>(args) becomes
 // emu_launch(grid, block, shared, stream, [=] { kernel(args); }).  The block
 // size must be a multiple of 32.  Dynamic shared memory is filled with NaN
-// before each block, so a read of a word that was never written shows.
+// before each block (a word whose two bf16 halves are NaN as well), so a read
+// of a word or half-word that was never written shows.
 inline void emu_launch(dim3 grid, int block, size_t shared_bytes, cudaStream_t, std::function<void()> kernel) {
   if (shared_bytes > EMU_MAX_SHARED || block % 32 != 0) abort();
   for (unsigned z = 0; z < grid.z; ++z)
@@ -93,7 +97,8 @@ inline void emu_launch(dim3 grid, int block, size_t shared_bytes, cudaStream_t, 
         emu_block_barrier = &block_barrier;
         emu_warp_barriers.clear();
         for (int w = 0; w < block / 32; ++w) emu_warp_barriers.emplace_back(new std::barrier<>(32));
-        for (size_t i = 0; i < shared_bytes / sizeof(float); ++i) emu_shared[i] = NAN;
+        const uint32_t poison = 0x7FC07FC0u;
+        for (size_t i = 0; i < shared_bytes / sizeof(float); ++i) memcpy(&emu_shared[i], &poison, 4);
         std::vector<std::thread> threads;
         for (int t = 0; t < block; ++t)
           threads.emplace_back([=] {

@@ -6,11 +6,13 @@
 Each TREE is the root of a checkout of this repository (``.`` for the one the
 script lies in; an older commit unpacked with ``git archive`` under ``build/``).
 For each, in the order given, a fresh process builds that tree's kernels,
-prints the registers and spills ``ptxas`` reports for the ``mlp_block_kernel``
-instantiations at D 768, holds the kernel against its twin, and reads the
-kernel's time on (50,432, 768) bfloat16 tokens with a hidden dim of 3072 and on
-(12,608, 768) float32 tokens: READINGS readings of CALLS calls each, from CUDA
-events.  Name a tree more than once (parent, change, change, parent) to see
+prints the registers and spills ``ptxas`` reports for the kernels that
+``mlp_block`` launches (the fused ``mlp_block_kernel`` at D 768, in every type
+an older tree instantiates it for; since the bf16 products moved to the tensor
+cores also ``tc_gemm_kernel``, ``ln_rows_kernel`` and ``ln_residual_kernel``),
+holds ``mlp_block`` against its twin, and reads its time on (50,432, 768)
+bfloat16 tokens with a hidden dim of 3072 and on (12,608, 768) float32 tokens:
+READINGS readings of CALLS calls each, from CUDA events.  Name a tree more than once (parent, change, change, parent) to see
 the spread between readings of one build beside the difference between builds.
 Only positional arguments that every version of ``mlp_block`` takes are passed.
 """
@@ -22,6 +24,7 @@ import subprocess
 import sys
 
 READINGS, CALLS = 5, 5
+BF16_KERNELS = ("tc_gemm_kernel", "ln_rows_kernel", "ln_residual_kernel")
 
 
 def worker() -> int:
@@ -37,10 +40,12 @@ def worker() -> int:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             name = entry.group(1)
-        # D is a template argument (Li768E), or the number of 256-column groups in the first version (Li3E)
-        if "mlp_block_kernel" in name and re.search(r"Li768E|mlp_block_kernelI\w+?Li3EE", name):
-            if "spill" in line or "Used" in line:
-                found.append(f"{name[name.index('mlp_block_kernel'):]}: {line.strip()}")
+        # D is a template argument (Li768E), or the number of 256-column groups in the first version (Li3E);
+        # the bf16 route's kernels since the tensor-core product, whatever their template arguments
+        fused = "mlp_block_kernel" in name and re.search(r"Li768E|mlp_block_kernelI\w+?Li3EE", name)
+        kernel = next((k for k in ("mlp_block_kernel", *BF16_KERNELS) if k in name), None)
+        if (fused or (kernel in BF16_KERNELS)) and ("spill" in line or "Used" in line):
+            found.append(f"{name[name.index(kernel):]}: {line.strip()}")
     print("\n".join(found) or "(kernels were built before: no compiler output)")
 
     dev = torch.device("cuda", 0)
