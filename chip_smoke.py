@@ -4,9 +4,11 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the CUDA kernels from ``cpu_vision_tpu_torch/csrc/`` (printing
 each kernel's registers and spills, and the ``HGMMA`` instructions that the
-SASS of the bf16 tensor-core product holds, from ``cuobjdump``; it fails if a
-product has none or a bf16 instantiation of the scalar kernels it replaced is
-left), then:
+SASS of the bf16 tensor-core product and of the bf16 attention cores holds,
+from ``cuobjdump``; it fails if a product or a core has none or a bf16
+instantiation of the scalar kernels they replaced is left: a bf16
+``attention_core_kernel`` at head dim 64, a bf16 ``window_core_kernel``),
+then:
 
 1. drives the main paths through the public entry points, each with the
    kernels' launch counts set to 0 just before it and read just after:
@@ -60,8 +62,16 @@ left), then:
    time at the memory rate of the intermediates that a kernel split into
    several launches passes through device memory; ``kernel_launches`` counts
    those launches and ``launch_ms`` times each of them apart on the bf16 rows
-   of the transformer blocks, from ``torch.profiler``'s kernel intervals
-   (null where five profiler windows saw no kernel);
+   of the transformer blocks and on every window attention row, from
+   ``torch.profiler``'s kernel intervals (null where five profiler windows saw
+   no kernel); the rows of ``attention_block``, ``attention_block_int8`` and
+   ``window_attention_block`` carry their attention core's own launch apart:
+   ``core_ms`` from those intervals, ``core_bound_ms`` over the core's own
+   inputs and output, and ``core_library_ms``, one call of
+   ``F.scaled_dot_product_attention`` on q, k and v of the same shapes (the
+   window rows' bias and mask as its additive mask); ``flash_mha`` is also
+   held and timed in bfloat16 at ViT-B/16 b256's (256, 197, 12, 64), beside
+   SDPA;
    ``held_untimed`` lists the checks that were not timed), then, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -331,19 +341,28 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(logs) or 'cached'})")
     for stem, log in logs.items():
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or ("wgmma" in line.lower() and "warning" in line.lower()):
                 print(f"  {stem}: {line.strip()}")
-    # the bf16 products of rows 10-13 run on the tensor cores: HGMMA (wgmma) in every instantiation of the product,
-    # and no bf16 instantiation of the scalar kernels it replaced is left in the libraries
-    hgmma = {}
-    for stem in ("transformer_block", "swin_attention"):
+    # the bf16 products of rows 10-13 and the bf16 attention cores of rows 9, 11, 13 and 16 run on the tensor cores:
+    # HGMMA (wgmma) in every instantiation of the product and of the cores, and no bf16 instantiation of the scalar
+    # kernels they replaced is left in the libraries (the scalar attention core stays for float32 and for bf16 at
+    # head dims 16 and 80, the scalar window core for float32)
+    hgmma, core_hgmma = {}, {}
+    for stem in ("attention", "transformer_block", "int8_transformer", "swin_attention"):
         counts_by_fn = _build.sass_counts(stem, "HGMMA")
         products = {fn: c for fn, c in counts_by_fn.items() if "tc_gemm_kernel" in fn}
-        print(f"  {stem}: HGMMA instructions in SASS (cuobjdump): {products}")
-        require(len(products) >= 2 and all(c > 0 for c in products.values()), f"{stem}: a product without HGMMA")
+        cores = {fn: c for fn, c in counts_by_fn.items() if "attention_tc_kernel" in fn or "window_tc_kernel" in fn}
+        print(f"  {stem}: HGMMA instructions in SASS (cuobjdump): {products} {cores}")
+        if stem in ("transformer_block", "swin_attention"):
+            require(len(products) >= 2 and all(c > 0 for c in products.values()), f"{stem}: a product without HGMMA")
+        require(len(cores) >= 1 and all(c > 0 for c in cores.values()), f"{stem}: an attention core without HGMMA")
         require(not any(("mlp_block_kernel" in fn or "ln_gemm_kernel" in fn) and "bfloat16" in fn for fn in counts_by_fn),
                 f"{stem}: a bf16 instantiation of a scalar kernel is left")
+        require(not any("bfloat16" in fn and (("attention_core_kernel" in fn and "Li64E" in fn)
+                                              or "window_core_kernel" in fn) for fn in counts_by_fn),
+                f"{stem}: a bf16 head-dim-64 attention_core_kernel or a bf16 window_core_kernel is left")
         hgmma[stem] = sum(products.values())
+        core_hgmma[stem] = sum(cores.values())
 
     # Every main path is driven with the counts at 0 and read just after: the wrappers' counts, and their counts
     # by input shape and dtype, from which each per-shape row of the kernels' line takes its launches.
@@ -1145,12 +1164,13 @@ def main() -> int:
         return dict(main, launches=by_path.get(path, 0), launches_on=path, launches_by_path=by_path,
                     other_shapes=others, **extra)
 
-    def launch_split(fn, chain, calls=3, tries=5):
+    def launch_split(fn, chain, calls=3, tries=5, keep=None):
         """[(kernel, device ms)] of each of the ``chain`` launches of one call of ``fn``, in launch order: the
         profiler's kernel intervals over ``calls`` calls, averaged by position in the chain.  One more call leads
         the window, since the profiler may miss the first kernels after it starts; the last ``calls`` chains are
         read, and each position must hold one kernel in every call.  A window may also see no kernel at all:
-        up to ``tries`` windows are profiled, then None (not measured)."""
+        up to ``tries`` windows are profiled, then None (not measured).  ``keep(name)``, where given, picks the
+        chain's kernels out of others that a call launches (the stock operators of a wrapper's set-up)."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
@@ -1162,6 +1182,7 @@ def main() -> int:
                 torch.cuda.synchronize()
             spans = sorted((e.time_range.start, e.time_range.end, e.name[:e.name.rfind("(")].replace("void ", ""))
                            for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+            spans = [sp for sp in spans if keep is None or keep(sp[2])]
             if len(spans) >= calls * chain:
                 break
         else:
@@ -1299,20 +1320,48 @@ def main() -> int:
     def attention_ops(n):  # QK^T and PV, plus scale, max, exp, sum and divide per score
         return n * heads * seq * seq * (4 * hd + 5)
 
-    q, k, v = (normal((64, seq, heads, hd), torch.float32) for _ in range(3))
+    def core_fields(split, nbytes, nops, ops_per_s, library_ms):
+        """The attention core's own launch in a block's chain of launches: its device ms (``split``'s entry of the
+        core, None where the profiler saw no kernel), its bound (its own inputs and output once, its operations at
+        ``ops_per_s``) and ``library_ms``, one PyTorch call of the same function (SDPA)."""
+        core = None if split is None else next(ms for name, ms in split if "core_kernel" in name or "_tc_kernel" in name)
+        b_ms, b_by = bound(nbytes, nops, ops_per_s)
+        return dict(core_ms=core, core_bound_ms=b_ms, core_bound_by=b_by, core_library_ms=library_ms)
+
+    def sdpa_ms(n, s, n_heads, head_dim, dtype, scale, mask=None):
+        """ms of F.scaled_dot_product_attention on q, k and v read as strided views of an (n, s, 3 n_heads head_dim)
+        QKV buffer of ``dtype``, as the cores read them (the yardstick, never on a path)."""
+        buf = normal((n, s, 3 * n_heads * head_dim), dtype)
+        qs, ks, vs = (a.reshape(n, s, n_heads, head_dim).permute(0, 2, 1, 3)
+                      for a in buf.split(n_heads * head_dim, dim=-1))
+        return time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=scale), 10)
+
+    # flash_mha: float32 at ViT-B/16 b64 (the f32 path's shape), and bf16 at b256 (the tensor-core core of the bf16
+    # blocks alone; no main path runs flash_mha in bf16)
     scale = hd ** -0.5
-    out = kernels.flash_mha(q, k, v, scale)
-    err = max_err_f32(out, flash_attention.flash_mha_plain(q, k, v, scale), "flash_mha", TOL[torch.float32],
-                      TOL[torch.float32])
-    qh, kh, vh = (a.permute(0, 2, 1, 3) for a in (q, k, v))
-    max_err_f32(out, F.scaled_dot_product_attention(qh, kh, vh, scale=scale), "flash_mha vs SDPA", 1e-3, 1e-3)
-    rows.append(row("flash_mha", f"{PALLAS_FLASH}:56", vit[torch.float32]["flash_mha"], err,
-                    time_ms(lambda: kernels.flash_mha(q, k, v, scale), 20),
-                    time_ms(lambda: flash_attention.flash_mha_plain(q, k, v, scale), 5),
-                    4 * q.numel() * q.element_size(), attention_ops(64),
-                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), 20),
-                    source=ATTENTION, shape=list(q.shape), dtype="float32"))
-    del q, k, v, qh, kh, vh, out
+    flash_rows = []
+    for dtype, batch in ((torch.float32, 64), (torch.bfloat16, 256)):
+        q, k, v = (normal((batch, seq, heads, hd), dtype) for _ in range(3))
+        out = kernels.flash_mha(q, k, v, scale)
+        err = max_err_f32(out, flash_attention.flash_mha_plain(q, k, v, scale), f"flash_mha {dtype}", TOL[dtype],
+                          TOL[dtype])
+        require(torch.equal(kernels.flash_mha(q, k, v, scale), out), f"flash_mha {dtype}: two calls differ")
+        qh, kh, vh = (a.permute(0, 2, 1, 3) for a in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+        if dtype == torch.float32:
+            max_err_f32(out, sdpa, "flash_mha vs SDPA", 1e-3, 1e-3)
+        else:
+            max_err_f32(out, sdpa, "flash_mha bf16 vs SDPA", 5e-2, 5e-2)
+            print(f"flash_mha bf16 vs SDPA: max |err| {float((out.float() - sdpa.float()).abs().max()):.3e}")
+        flash_rows.append(row("flash_mha", f"{PALLAS_FLASH}:56", "vit_b_16 f32 b64", err,
+                              time_ms(lambda: kernels.flash_mha(q, k, v, scale), 20),
+                              time_ms(lambda: flash_attention.flash_mha_plain(q, k, v, scale), 5),
+                              4 * q.numel() * q.element_size(), attention_ops(batch),
+                              library_ms=time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), 20),
+                              source=ATTENTION, ops_per_s=rate[dtype], at=(q.shape, dtype), shape=list(q.shape),
+                              dtype=str(dtype).replace("torch.", "")))
+        del q, k, v, qh, kh, vh, out, sdpa
+    rows.append(entry(flash_rows[0], "vit_b_16 f32 b64", flash_rows[1:], core_hgmma_in_sass=core_hgmma["attention"]))
 
     def ln_params():
         return normal((d_model,), torch.float32, 0.2, 1.0), normal((d_model,), torch.float32, 0.1)
@@ -1342,6 +1391,10 @@ def main() -> int:
     split_bytes = 2 * 5 * x.numel() * 2  # the LN rows (D), the QKV product (3 D), the joined heads (D)
     split = launch_split(lambda: kernels.attention_block(*args), vit_block_kernel_launches // 12)
     print(f"  attention_block's launches apart (device ms): {split}")
+    require(torch.equal(kernels.attention_block(*args), out), "attention_block bf16: two calls differ")
+    # the core alone: q, k and v read once out of the (N*S, 3D) buffer, the joined heads written once
+    core = core_fields(split, 4 * x.numel() * 2, attention_ops(256), BF16_OPS_PER_S,
+                       sdpa_ms(256, seq, heads, hd, dtype, scale))
     rows.append(row("attention_block", f"{PALLAS_BLOCK}:237", vit[dtype]["attention_block"], err,
                     time_ms(lambda: kernels.attention_block(*args), 5),
                     time_ms(lambda: transformer_block.attention_block_plain(*args), 3),
@@ -1349,7 +1402,8 @@ def main() -> int:
                     library_ms=time_ms(attention_library, 5), source=TRANSFORMER, ops_per_s=rate[dtype],
                     shape=list(x.shape), dtype="bfloat16", kernel_launches=vit_block_kernel_launches,
                     split_bytes_ms=split_bytes / HBM_BYTES_PER_S * 1e3, launch_ms=split,
-                    hgmma_in_sass=hgmma["transformer_block"]))
+                    hgmma_in_sass=hgmma["transformer_block"], core_hgmma_in_sass=core_hgmma["transformer_block"],
+                    **core))
     print(f"  under attention_block's load: {clock_under(lambda: kernels.attention_block(*args), 40)}")
     args128 = (x[:128].contiguous(), *args[1:])  # the training path's batch
     hold("attention_block", args128[0].shape, dtype,
@@ -1561,11 +1615,18 @@ def main() -> int:
         # (+ the bf16 LN rows of v1, written by a row pass and read by the QKV product)
         split_bytes = (2 * tokens * 3 * c * 4 + 2 * tokens * c * size + (2 * tokens * c * 4 if v2 else 0)
                        + (2 * tokens * c * size if dtype == torch.bfloat16 and not v2 else 0))
-        extra = {}
+        extra = dict(launch_ms=launch_split(lambda: kernels.window_attention_block(*args), kernel_launches))
         if dtype == torch.bfloat16:
-            extra = dict(launch_ms=launch_split(lambda: kernels.window_attention_block(*args), kernel_launches),
-                         hgmma_in_sass=hgmma["swin_attention"])
-        nops = tokens * (8 * c * c + 8 * c) + nw * n_heads * s * s * (4 * 32 + 5)
+            extra.update(hgmma_in_sass=hgmma["swin_attention"], core_hgmma_in_sass=core_hgmma["swin_attention"])
+            require(torch.equal(kernels.window_attention_block(*args), out), what + ": two calls differ")
+        # the core alone: the float32 QKV rows, position bias, mask and logit scale read once, the joined heads
+        # written once; SDPA on q, k and v of the compute dtype with the bias and mask as its additive mask
+        core_ops = nw * n_heads * s * s * (4 * 32 + 5)
+        extra.update(core_fields(extra["launch_ms"], tokens * 3 * c * 4 + 4 * rel_bias.numel()
+                                 + (4 * mask.numel() if masked else 0) + (4 * n_heads if v2 else 0) + tokens * c * size,
+                                 core_ops, rate[dtype],
+                                 sdpa_ms(nw, s, n_heads, 32, dtype, scale, add if dtype == torch.bfloat16 else add32)))
+        nops = tokens * (8 * c * c + 8 * c) + core_ops
         return row("window_attention_block", f"{PALLAS_SWIN}:234", path, err,
                    time_ms(lambda: kernels.window_attention_block(*args), 5),
                    time_ms(lambda: swin_attention.window_attention_block_plain(*args), 3), nbytes, nops,
@@ -1777,6 +1838,14 @@ def main() -> int:
                 "attention_block_int8 composite", 5e-2, 5e-2)
     tok = xa.shape[0] * xa.shape[1]
     attn_core_ops = 256 * 12 * 197 * 197 * (4 * 64 + 5)
+    require(torch.equal(kernels.attention_block_int8(*vit_attn_args), kernels.attention_block_int8(*vit_attn_args)),
+            "attention_block_int8: two calls differ")
+    split = launch_split(lambda: kernels.attention_block_int8(*vit_attn_args), vit_i8_kernel_launches // 12,
+                         keep=lambda name: name.startswith("cvt::"))  # not the wrapper's two inverse-scale passes
+    print(f"  attention_block_int8's launches apart (device ms): {split}")
+    # the core alone: bf16 q, k and v read once out of the (N*S, 3D) buffer, the int8 joined heads written once
+    core = core_fields(split, tok * 3 * 768 * 2 + tok * 768 + 4 * 768, attn_core_ops, BF16_OPS_PER_S,
+                       sdpa_ms(256, 197, 12, 64, torch.bfloat16, vit_attn_args[12]))
     rows.append(entry(row("attention_block_int8", f"{PALLAS_INT8_TB}:163", INT8_VIT, err,
                           time_ms(lambda: kernels.attention_block_int8(*vit_attn_args), 5),
                           time_ms(lambda: int8_transformer.attention_block_int8_plain(*vit_attn_args), 3),
@@ -1785,7 +1854,8 @@ def main() -> int:
                           library_ms=time_ms(attention_i8_library, 5), source=INT8_TRANSFORMER,
                           ops_per_s=INT8_OPS_PER_S, at=(xa.shape, xa.dtype), shape=list(xa.shape), dtype="bfloat16",
                           kernel_launches=vit_i8_kernel_launches,
-                          split_bytes_ms=(tok * 3 * 768 * 2 * 2 + tok * 768 * 2) / HBM_BYTES_PER_S * 1e3),
+                          split_bytes_ms=(tok * 3 * 768 * 2 * 2 + tok * 768 * 2) / HBM_BYTES_PER_S * 1e3,
+                          launch_ms=split, core_hgmma_in_sass=core_hgmma["int8_transformer"], **core),
                       INT8_VIT, []))
     print(f"  under attention_block_int8's load: "
           f"{clock_under(lambda: kernels.attention_block_int8(*vit_attn_args), 20)}")

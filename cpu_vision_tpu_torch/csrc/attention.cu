@@ -14,8 +14,9 @@
 //
 // Bound.  ViT-B/16 in f32 at batch 64 (S 197, 12 heads of 64): 4 S^2 hd
 // operations a head, 7.6 GFLOP in all, against 155 MB of q, k, v and o:
-// operations bind at the f32 rate outside the tensor cores.  This first
-// version is scalar FMAs from shared memory, no mma, no cp.async, no TMA.
+// operations bind at the f32 rate outside the tensor cores, where float32
+// runs as scalar FMAs from shared memory.  bf16 at head dim 64 runs on the
+// tensor cores (tc_attention.cuh); bytes bind it there.
 
 #include "attention.cuh"
 

@@ -1,6 +1,11 @@
 // Shared pieces of the transformer kernels for Hopper (sm_90a): the storage
 // type helpers and the softmax(scale * Q K^T) V core that attention.cu
-// (flash_mha) and transformer_block.cu (attention_block) both instantiate.
+// (flash_mha), transformer_block.cu (attention_block) and int8_transformer.cu
+// (attention_block_int8) instantiate.  attention_core() routes by type and
+// head dim: bf16 at head dim 64 (ViT-B/16's width, every measured bf16 path)
+// runs the tensor-core core of tc_attention.cuh; float32 at every head dim,
+// and bf16 at 16 and 80, run the scalar attention_core_kernel below (TF32
+// would round the f32 operands; bf16 at 16 and 80 is on no measured path).
 //
 // Types.  A kernel is a template over its storage type T, float or
 // __nv_bfloat16.  Every operand is widened to f32 when it is staged in shared
@@ -9,7 +14,7 @@
 // P V, the head outputs) is rounded through T with round_to<T>, to nearest
 // even, at the same place.
 //
-// The attention core.  One block owns ATT_BQ = 64 query rows of one head of
+// The scalar core.  One block owns ATT_BQ = 64 query rows of one head of
 // one image and streams the keys in tiles of ATT_BK = 64 with an online
 // softmax (running row maximum and sum), so the (S, S) scores never exist in
 // any memory: a tile of them lives in registers, its probabilities in shared
@@ -37,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cvt {
 
@@ -229,8 +236,16 @@ cudaError_t launch_attention_core(const T* q, const T* k, const T* v, OutT* o, i
   return cudaGetLastError();
 }
 
+}  // namespace cvt
+
+#include "tc_attention.cuh"
+
+namespace cvt {
+
 // Head dims with an instantiation; any other is refused.  o_inv: the int8
-// output's inverse scales, one a joined channel (OutT = int8_t only).
+// output's inverse scales, one a joined channel (OutT = int8_t only).  bf16 at
+// head dim 64 takes the tensor-core core, which needs q, k, v and their
+// strides 16-byte aligned and refuses them otherwise.
 template <typename T, typename OutT>
 cudaError_t attention_core(const T* q, const T* k, const T* v, OutT* o, int n, int s_len, int heads, int hd,
                            float scale, long long in_n, long long in_s, long long in_h, long long o_n,
@@ -242,7 +257,13 @@ cudaError_t attention_core(const T* q, const T* k, const T* v, OutT* o, int n, i
                                               o_s, o_h, stream, o_inv)
   switch (hd) {
     CVT_ATT_CASE(16);
-    CVT_ATT_CASE(64);
+    case 64:
+      if constexpr (std::is_same<T, __nv_bfloat16>::value)
+        return launch_attention_tc<OutT>(q, k, v, o, n, s_len, heads, scale, in_n, in_s, in_h, o_n, o_s, o_h, stream,
+                                         o_inv);
+      else
+        return launch_attention_core<T, 64, OutT>(q, k, v, o, n, s_len, heads, scale, in_n, in_s, in_h, o_n, o_s, o_h,
+                                                  stream, o_inv);
     CVT_ATT_CASE(80);
     default:
       return cudaErrorInvalidValue;

@@ -40,7 +40,8 @@
 //       memory by strides out of that buffer, computes all S x S scores as
 //       one tile (64 keys at most, so no streaming softmax), adds bias and
 //       mask, masks keys >= S with -inf, takes the softmax, multiplies by v
-//       and writes the joined heads as (nw S, C) of T;
+//       and writes the joined heads as (nw S, C) of T: window_core_kernel,
+//       scalar f32 FMAs, in float32; window_tc_kernel, wgmma, in bf16 (below);
 //   (3) v1: output projection + bias + residual into out.
 //       v2: output projection + bias into an (nw S, C) buffer of f32, then
 //   (4) v2: LayerNorm of each branch row + residual, a warp a row
@@ -56,8 +57,30 @@
 // (802,816 tokens, C 96) 59 GFLOP + 30 GFLOP against 308 MB of x and out in
 // bf16.  The intermediates add 2.16 GB there: traffic of this split into
 // launches, not of the function, so no part of its bound.  The products run
-// on the tensor cores in bf16 and as scalar f32 FMAs in float32; the core is
-// scalar f32 FMAs for both types.
+// on the tensor cores in bf16 and as scalar f32 FMAs in float32, and so does
+// the core.
+//
+// The bf16 core (window_tc_kernel).  At Swin-T's first stage it reads 925 MB
+// of the f32 QKV buffer and writes 154 MB of joined heads, 0.32 ms at the
+// memory rate, against 15.7 GFLOP: bytes bind it, and with 49,152 (window,
+// head) pairs of 49 tokens each pair's fixed cost, not its arithmetic, sets
+// the pace.  One warpgroup (128 threads) a pair; thread t stages half a row
+// (16 head dims) of q, k and v of token t / 2 with float4 reads, rounds them
+// as the scalar core does (v1: q * scale and k; v2: q / |q| and k / |k|, the
+// norm's sum over the thread pair by one shuffle; v), and stores them as bf16
+// in the 64-byte swizzle (hd 32 makes 64-byte rows), rows >= S as zeros.
+// S = Q K^T is two wgmma m64n64k16 (A = Q, B = K, both K-major); v2 scales,
+// bias and mask are added in the accumulator layout (thread 32 w + l: rows
+// 16 w + l / 4 and + 8, keys 8 j + 2 (l % 4) + e), keys >= S set to -inf,
+// and the softmax normalises before it rounds to bf16, by one reciprocal of
+// each row's sum and a product (within an f32 step of the quotient): the
+// shift mask's -100 leaves probabilities near e^-100, f32 denormals, on
+// which each IEEE division took its slow path, 1.38x the core's time at
+// Swin-T's first stage (tools/torch_attention_core_ab.py).  P V is four
+// wgmma m64n32k16 with the probabilities as A from registers and V as B,
+// MN-major.  Rows < S of the joined heads are stored in pairs.  One pair a
+// block: several a block, the next pair's rows copied with cp.async while
+// one is computed, ran slower (fewer pairs in flight an SM).
 
 #include "ln_gemm.cuh"
 
@@ -229,6 +252,177 @@ window_core_kernel(const float* __restrict__ qkv, const float* __restrict__ rel_
   }
 }
 
+constexpr int WT_THREADS = 128;  // one warpgroup a (window, head)
+constexpr int WT_TILE = W_S * 64;   // bytes of a 64 x 32 bf16 tile
+constexpr size_t WT_SMEM = 3 * WT_TILE + 1024;  // Q, K, V; + room to align
+
+// 16 values rounded to bf16 as two 16-byte chunks of row r of a 64-byte swizzled tile at generic address tile:
+// chunk c of row r at r * 64 + (c ^ r / 2 % 4) * 16
+__device__ __forceinline__ void store_half_row(char* tile, int r, int half, const float (&x)[16]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = 2 * half + i;
+    uint4 u;
+    u.x = cvt::pack_bf16(x[8 * i + 0], x[8 * i + 1]);
+    u.y = cvt::pack_bf16(x[8 * i + 2], x[8 * i + 3]);
+    u.z = cvt::pack_bf16(x[8 * i + 4], x[8 * i + 5]);
+    u.w = cvt::pack_bf16(x[8 * i + 6], x[8 * i + 7]);
+    *reinterpret_cast<uint4*>(tile + r * 64 + ((c ^ ((r >> 1) & 3)) << 4)) = u;
+  }
+}
+
+__global__ void __launch_bounds__(WT_THREADS)
+window_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ rel_bias, const float* __restrict__ mask,
+                 const float* __restrict__ logit_scale, bf16* __restrict__ joined, int s_len, int c, int heads,
+                 int nw_img, float scale, int v2) {
+  constexpr int HD = 32;
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t s_q = (cvt::smem_addr(smem) + 1023u) & ~1023u, s_k = s_q + WT_TILE, s_v = s_k + WT_TILE;
+  char* tiles = reinterpret_cast<char*>(smem) + (s_q - cvt::smem_addr(smem));  // s_q as a generic address
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int win = blockIdx.x / heads, head = blockIdx.x - win * heads;
+  const size_t row_words = (size_t)3 * c;
+
+  // staging: thread t owns head dims 16 (t % 2) .. + 15 of token t / 2 in q, k and v
+  {
+    const int r = tid >> 1, half = tid & 1;
+    float qv[16], kv[16], vv[16];
+    if (r < s_len) {
+      const float* p = qkv + ((size_t)win * s_len + r) * row_words + head * HD + 16 * half;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(p + 4 * i);
+        const float4 b = *reinterpret_cast<const float4*>(p + c + 4 * i);
+        const float4 d = *reinterpret_cast<const float4*>(p + 2 * c + 4 * i);
+        qv[4 * i] = a.x, qv[4 * i + 1] = a.y, qv[4 * i + 2] = a.z, qv[4 * i + 3] = a.w;
+        kv[4 * i] = b.x, kv[4 * i + 1] = b.y, kv[4 * i + 2] = b.z, kv[4 * i + 3] = b.w;
+        vv[4 * i] = d.x, vv[4 * i + 1] = d.y, vv[4 * i + 2] = d.z, vv[4 * i + 3] = d.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) qv[i] = kv[i] = vv[i] = 0.0f;
+    }
+    float q_mul = scale, k_mul = 1.0f;
+    if (v2) {  // cosine attention: the row's sum of squares over the thread pair
+      float qs = 0.0f, ks = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        qs += qv[i] * qv[i];
+        ks += kv[i] * kv[i];
+      }
+      qs += __shfl_xor_sync(0xffffffffu, qs, 1);
+      ks += __shfl_xor_sync(0xffffffffu, ks, 1);
+      q_mul = rsqrtf(fmaxf(qs, 1e-12f));
+      k_mul = rsqrtf(fmaxf(ks, 1e-12f));
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      qv[i] *= q_mul;
+      kv[i] *= k_mul;
+    }
+    store_half_row(tiles, r, half, qv);
+    store_half_row(tiles + WT_TILE, r, half, kv);
+    store_half_row(tiles + 2 * WT_TILE, r, half, vv);
+  }
+  cvt::fence_proxy_async();  // the generic stores before wgmma's reads
+  __syncthreads();
+
+  float sc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+  cvt::wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < HD / 16; ++s)
+    cvt::wgmma_m64n64k16_ss_kk(sc, cvt::sw64_desc(s_q + s * 32, 16, 512), cvt::sw64_desc(s_k + s * 32, 16, 512));
+  cvt::wgmma_commit();
+  cvt::wgmma_wait<0>();
+  cvt::fence_sums(sc);
+
+  const float ls = v2 ? expf(fminf(logit_scale[head], 4.605170185988092f)) : 1.0f;  // ln 100
+  const float* bias_h = rel_bias + (size_t)head * s_len * s_len;
+  const float* mask_w = mask != nullptr ? mask + (size_t)(win % nw_img) * s_len * s_len : nullptr;
+  const int key0 = 2 * (lane & 3);
+  uint32_t pa[16];  // pa[i] = bf16 (p[2 i], p[2 i + 1]): the A fragment of k16 step s is pa[4 s .. 4 s + 3]
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = 16 * warp + (lane >> 2) + 8 * h;
+    const bool row_in = row < s_len;  // rows past S are computed on zeros and not stored
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = key0 + 8 * j + e;
+        float& val = sc[4 * j + 2 * h + e];
+        if (key < s_len) {
+          if (v2) val *= ls;
+          if (row_in) {
+            val += bias_h[row * s_len + key];
+            if (mask_w != nullptr) val += mask_w[row * s_len + key];
+          }
+        } else {
+          val = -INFINITY;
+        }
+        mx = fmaxf(mx, val);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // key 0 is always real, so mx is finite
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& val = sc[4 * j + 2 * h + e];
+        val = expf(val - mx);
+        sum += val;
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = 1.0f / sum;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) pa[2 * j + h] = cvt::pack_bf16(sc[4 * j + 2 * h] * inv, sc[4 * j + 2 * h + 1] * inv);
+  }
+
+  float o_acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) o_acc[i] = 0.0f;
+  cvt::wgmma_fence();  // after writing pa, before the products read it
+#pragma unroll
+  for (int s = 0; s < W_S / 16; ++s) cvt::wgmma_m64n32k16_rs(o_acc, pa + 4 * s, cvt::sw64_desc(s_v + s * 1024, 4096, 512));
+  cvt::wgmma_commit();
+  cvt::wgmma_wait<0>();
+  cvt::fence_sums(o_acc);
+
+  bf16* ob = joined + (size_t)win * s_len * c + head * HD;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = 16 * warp + (lane >> 2) + 8 * h;
+    if (row >= s_len) continue;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      cvt::store2(ob + (size_t)row * c + 8 * j + 2 * (lane & 3), o_acc[4 * j + 2 * h], o_acc[4 * j + 2 * h + 1]);
+  }
+}
+
+// the window core: wgmma in bf16, scalar f32 FMAs in float32
+cudaError_t window_core(const float* qkv, const float* rel_bias, const float* mask, const float* logit_scale,
+                        float* joined, int nw, int s_len, int c, int heads, int nw_img, float scale, int v2,
+                        cudaStream_t stream) {
+  window_core_kernel<float, 32><<<nw * heads, W_THREADS, window_smem_bytes<32>(), stream>>>(
+      qkv, rel_bias, mask, logit_scale, joined, s_len, c, heads, nw_img, scale, v2);
+  return cudaGetLastError();
+}
+
+cudaError_t window_core(const float* qkv, const float* rel_bias, const float* mask, const float* logit_scale,
+                        bf16* joined, int nw, int s_len, int c, int heads, int nw_img, float scale, int v2,
+                        cudaStream_t stream) {
+  window_tc_kernel<<<nw * heads, WT_THREADS, WT_SMEM, stream>>>(qkv, rel_bias, mask, logit_scale, joined, s_len, c,
+                                                               heads, nw_img, scale, v2);
+  return cudaGetLastError();
+}
+
 // The products of window_attention_block in T: QKV (f32 out, with LN for
 // v1) and the output projection (+ residual into out for v1, f32 branch for
 // v2).  ln_buf: scratch of m c bf16 values (bf16 v1 only).
@@ -273,9 +467,7 @@ cudaError_t window_attention_block(const T* x, const float* ln_g, const float* l
   const int m = nw * s_len;
   cudaError_t err = qkv_product(x, ln_g, ln_b, w_qkv, b_qkv, qkv, ln_buf, m, c, eps, v2, ln_count, stream);
   if (err != cudaSuccess) return err;
-  window_core_kernel<T, HD><<<nw * heads, W_THREADS, window_smem_bytes<HD>(), stream>>>(
-      qkv, rel_bias, mask, logit_scale, joined, s_len, c, heads, nw_img, scale, v2);
-  err = cudaGetLastError();
+  err = window_core(qkv, rel_bias, mask, logit_scale, joined, nw, s_len, c, heads, nw_img, scale, v2, stream);
   if (err != cudaSuccess) return err;
   err = out_product(joined, w_o, b_o, x, out, branch, m, c, eps, v2, stream);
   if (err != cudaSuccess || !v2) return err;

@@ -15,7 +15,8 @@ differentiates the twin, recomputed from the saved ``q``, ``k``, ``v``
 
 The kernel streams key tiles with an online softmax and divides by the row
 sum at the end; the twin normalises before the cast, as the Pallas kernel
-does.  In float32 the two differ by the order of sums; in bfloat16 also by
+does.  In bfloat16 at head dim 64 the kernel runs on the tensor cores
+(``wgmma``); float32, and bfloat16 at head dims 16 and 80, run scalar FMAs.  In float32 the two differ by the order of sums; in bfloat16 also by
 where the probabilities are rounded (before or after the division), both
 within the bfloat16 step.
 """
@@ -33,6 +34,7 @@ from . import _build, _grad
 __all__ = ["flash_mha", "flash_mha_plain", "HEAD_DIMS"]
 
 HEAD_DIMS = (16, 64, 80)  # instantiations in csrc/attention.cuh
+TC_HEAD_DIM = 64  # bfloat16 at this head dim runs the tensor-core core of csrc/tc_attention.cuh
 DTYPES = (torch.float32, torch.bfloat16)
 
 _c_lib: Optional[ctypes.CDLL] = None
@@ -80,6 +82,9 @@ def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
         raise ValueError(f"at most 65535 images and heads a launch, got {n} and {h}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
+    if q.dtype == torch.bfloat16 and hd == TC_HEAD_DIM and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("bfloat16 q, k and v of head dim 64 must start on 16-byte boundaries (the tensor-core "
+                         "core copies 16 bytes at a time)")
     out = torch.empty((n, h, s, hd), dtype=q.dtype, device=q.device)
     _build.launch(_lib(), "cvt_flash_mha", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   n, s, h, hd, float(scale), int(q.dtype == torch.bfloat16))

@@ -33,7 +33,8 @@ quantised activation near a rounding half may land one step apart: held to
 that is to a few int8 steps of the sub-block's output.  The weight gradient
 ``wgrad_matmul`` sums float32 products (exact for bfloat16 inputs) in another
 order than its twin's float32 product: held to ``1e-5·max|twin|``, and two
-calls must give the same bits.  The gradients of the kernels' routes
+calls must give the same bits, as must two calls of each wrapper that runs a
+bfloat16 attention core on the tensor cores.  The gradients of the kernels' routes
 (recomputed through the twins) are held to the plain routes' within
 ``1e-5 + 1e-5·|plain|`` in float32.  The ``None`` routes of
 ViT, Swin and NMS send a shape their kernel does not take to the plain route
@@ -218,7 +219,8 @@ def _close(out, ref, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(2, 197, 12, 64), (1, 257, 2, 80), (3, 17, 2, 16), (2, 64, 4, 64)])
+@pytest.mark.parametrize("shape", [(2, 197, 12, 64), (1, 257, 2, 80), (3, 17, 2, 16), (2, 64, 4, 64),
+                                   (2, 65, 4, 64), (3, 1, 2, 64)])  # one real key in the second tile; one key
 def test_flash_mha_matches_twin(cuda, rng, shape, dtype):
     q, k, v = (_normal(rng, shape, dtype, cuda) for _ in range(3))
     scale = shape[-1] ** -0.5
@@ -237,7 +239,8 @@ def _attention_args(rng, n, s, d, heads, dtype, device):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,s,d,heads", [(2, 197, 768, 12), (3, 50, 128, 2), (1, 17, 64, 4), (1, 130, 1280, 16),
-                                         (1, 33, 2048, 32)])  # D 2048: a LayerNorm row wider than the pass holds
+                                         (1, 33, 2048, 32),  # D 2048: a LayerNorm row wider than the pass holds
+                                         (2, 65, 256, 4), (3, 1, 128, 2)])
 def test_attention_block_matches_twin(cuda, rng, n, s, d, heads, dtype):
     args = _attention_args(rng, n, s, d, heads, dtype, cuda)
     out = kernels.attention_block(*args)
@@ -275,6 +278,9 @@ def test_transformer_kernels_refuse_what_they_do_not_take(cuda, rng):
         kernels.flash_mha(wide, wide, wide, 0.2)
     with pytest.raises(TypeError):
         kernels.flash_mha(q.double(), q.double(), q.double(), 0.2)
+    odd = _normal(rng, (1 + 9 * 2 * 64,), torch.bfloat16, cuda)[1:].view(1, 9, 2, 64)  # contiguous, 2 bytes off
+    with pytest.raises(ValueError):  # the tensor-core core copies 16-byte chunks
+        kernels.flash_mha(odd, odd, odd, 0.2)
     mlp = _mlp_args(rng, 8, 256, 256, torch.float32, cuda)
     with pytest.raises(ValueError):  # ln_count past D
         kernels.mlp_block(*mlp, ln_count=257)
@@ -404,7 +410,8 @@ def _window_args(rng, nw, s, c, v2, masked, nw_img, dtype, device, ln_count=0):
 @pytest.mark.parametrize("v2", [False, True], ids=["v1", "v2"])
 @pytest.mark.parametrize("nw,s,c,masked,nw_img,ln_count", [
     (128, 49, 96, True, 64, 0), (8, 49, 192, False, 4, 0), (6, 49, 384, True, 2, 0), (2, 49, 768, True, 1, 0),
-    (12, 64, 96, True, 4, 0), (5, 16, 64, False, 1, 0), (9, 1, 32, False, 3, 0), (8, 49, 128, True, 4, 96)])
+    (12, 64, 96, True, 4, 0), (5, 16, 64, False, 1, 0), (9, 1, 32, False, 3, 0), (8, 49, 128, True, 4, 96),
+    (64, 49, 96, True, 64, 0), (16, 64, 96, False, 16, 0)])  # Swin-T S1's widths, one image; Swin-v2-T's, unmasked
 def test_window_attention_block_matches_twin(cuda, rng, nw, s, c, masked, nw_img, ln_count, v2, dtype):
     args = _window_args(rng, nw, s, c, v2, masked, nw_img, dtype, cuda, ln_count)
     out = kernels.window_attention_block(*args)
@@ -413,6 +420,30 @@ def test_window_attention_block_matches_twin(cuda, rng, nw, s, c, masked, nw_img
     _close(out, kernels.window_attention_block_plain(*args), dtype)
     if ln_count:
         assert bool((out[..., ln_count:] == 0).all())
+
+
+def _core_calls(rng, device):
+    """{name: call} of each wrapper that runs a bf16 tensor-core attention core, at a ragged shape."""
+    bf16 = torch.bfloat16
+    qkv = [_normal(rng, (2, 197, 12, 64), bf16, device) for _ in range(3)]
+    attn = _attention_args(rng, 2, 197, 768, 12, bf16, device)
+    attn8 = _int8_attn_args(rng, 2, 197, 768, 12, bf16, device)
+    v1 = _window_args(rng, 64, 49, 96, False, True, 64, bf16, device)
+    v2 = _window_args(rng, 16, 64, 96, True, False, 16, bf16, device)
+    return {"flash_mha": lambda: kernels.flash_mha(*qkv, 0.125),
+            "attention_block": lambda: kernels.attention_block(*attn),
+            "attention_block_int8": lambda: kernels.attention_block_int8(*attn8),
+            "window_attention_block v1": lambda: kernels.window_attention_block(*v1),
+            "window_attention_block v2": lambda: kernels.window_attention_block(*v2)}
+
+
+@pytest.mark.parametrize("name", ["flash_mha", "attention_block", "attention_block_int8", "window_attention_block v1",
+                                  "window_attention_block v2"])
+def test_bf16_attention_cores_give_the_same_bits_twice(cuda, rng, name):
+    """The cores sum in a fixed order without atomics: two calls on the same inputs are equal bit for bit."""
+    call = _core_calls(rng, cuda)[name]
+    first = call()
+    assert torch.equal(call(), first)
 
 
 def test_window_attention_block_keeps_a_row_maximum_per_head(cuda, rng):

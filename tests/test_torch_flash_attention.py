@@ -35,7 +35,7 @@ def test_twin_matches_pallas_interpret(rng, s, hd):
     assert kernels.launch_counts()["flash_mha"] == 0  # CPU tensors launch nothing
 
 
-@pytest.mark.parametrize("s,hd", [(17, 16), (50, 64)])
+@pytest.mark.parametrize("s,hd", [(17, 16), (50, 64), (197, 64)])  # (197, 64): ViT-B/16's, the tensor-core core's
 def test_twin_matches_pallas_interpret_bfloat16(rng, s, hd):
     qkv = _qkv(rng, (1, s, 2, hd))
     ref = jfa.flash_mha(*(jnp.asarray(a).astype(jnp.bfloat16) for a in qkv), 0.3, True)

@@ -127,7 +127,7 @@ def test_ln_count_matches_pallas_interpret(v2):
     assert bool((out[..., real:] == 0).all())  # the padded lanes stay zero
 
 
-@pytest.mark.parametrize("v2,masked", [(False, True), (True, False)])
+@pytest.mark.parametrize("v2,masked", [(False, True), (True, False), (False, False), (True, True)])
 def test_bfloat16_matches_pallas_interpret(v2, masked):
     rng = np.random.default_rng(1)
     nw, s, c, heads, nw_img = 16, 49, 192, 6, 16

@@ -1,4 +1,4 @@
-// bfloat16 for tools/cuda_emu: storage (one value, or a pair) and the two
+// bfloat16 for tools/cuda_emu: storage (one value, or a pair) and the
 // conversions the kernels use, rounding to nearest even as the card does.
 
 #pragma once
@@ -27,3 +27,5 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   u += 0x7fffu + ((u >> 16) & 1u);
   return {(uint16_t)(u >> 16)};
 }
+
+inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) { return {__float2bfloat16_rn(lo), __float2bfloat16_rn(hi)}; }

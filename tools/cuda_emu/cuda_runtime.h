@@ -41,6 +41,9 @@ struct alignas(16) int4 {
   int x, y, z, w;
 };
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
 
 // four int8 products of the bytes of a and b, summed into c
 inline int __dp4a(int a, int b, int c) {

@@ -23,7 +23,8 @@ self-check of the kernels against their plain twins.
 Covered: ``__global__`` templates, ``threadIdx``/``blockIdx``, ``__syncthreads``,
 ``__shfl_xor_sync`` on floats, dynamic shared memory declared as
 ``extern __shared__ __align__(16) float smem[];``, static ``__shared__`` arrays,
-``float4``, ``int4``, ``__dp4a``, ``__int2float_rn``, ``__nv_bfloat16`` with its two conversions, ``cudaFuncSetAttribute``,
+``float4``, ``int4``, ``uint4``, ``__dp4a``, ``__int2float_rn``, ``__nv_bfloat16`` with its conversions (a pair too),
+``cudaFuncSetAttribute``,
 ``blockDim``, the ``<<<...>>>`` launch, and the functions of ``csrc/hopper.cuh`` (``cp.async``, ``wgmma``; the
 stand-in ``hopper.cuh`` here replaces that header).  Not covered: everything else (``stencil.cu`` and
 ``conv_block.cu`` use typed shared arrays and ``__syncthreads_or``); extend the
@@ -143,8 +144,11 @@ def main() -> int:
     worst = 0.0
     with tempfile.TemporaryDirectory() as tmp, kernels_on_cpu(tmp):
         for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-            q, k, v = (normal((1, 70, 2, 16), dtype) for _ in range(3))
-            pairs = [("flash_mha", kernels.flash_mha(q, k, v, 0.25), kernels.flash_mha_plain(q, k, v, 0.25))]
+            pairs = []
+            for hd in (16, 64):  # bf16 at head dim 64: the tensor-core core, two key tiles, the second with 6 keys
+                q, k, v = (normal((1, 70, 2, hd), dtype) for _ in range(3))
+                pairs.append((f"flash_mha hd {hd}", kernels.flash_mha(q, k, v, 0.25),
+                              kernels.flash_mha_plain(q, k, v, 0.25)))
             d, dh = 256, 512  # four heads of 64
             ln = (normal((d,), torch.float32, 0.2, 1.0), normal((d,), torch.float32, 0.1))
             attn = (normal((2, 37, d), dtype), *ln, normal((d, 3 * d), dtype, d ** -0.5), normal((3 * d,), torch.float32, 0.1),
@@ -168,19 +172,19 @@ def main() -> int:
                    normal((d, dh), dtype, d ** -0.5), normal((dh,), torch.float32, 0.1),
                    normal((dh, d), dtype, dh ** -0.5), normal((d,), torch.float32, 0.1))
             pairs.append(("mlp_block D 1536", kernels.mlp_block(*mlp), kernels.mlp_block_plain(*mlp)))
-            # window attention: 2 heads of 32, 49 tokens, 2 images of 2 windows; v1/v2, with and without mask
-            c, heads, s_len, nw, nw_img = 64, 2, 49, 4, 2
-            for v2 in (False, True):
-                for masked in (False, True):
-                    mask = (normal((nw_img, s_len, s_len), torch.float32) > 0.5).float() * -100.0 if masked else None
-                    swin = (normal((nw, s_len, c), dtype), normal((c,), torch.float32, 0.2, 1.0),
-                            normal((c,), torch.float32, 0.1), normal((c, 3 * c), dtype, c ** -0.5),
-                            normal((3 * c,), torch.float32, 0.1), normal((c, c), dtype, c ** -0.5),
-                            normal((c,), torch.float32, 0.1), normal((heads, s_len, s_len), torch.float32, 0.3), mask,
-                            torch.tensor([4.7, -1.0]) if v2 else None, heads, 32 ** -0.5, 1e-5, v2, nw_img,
-                            48 if masked else 0)
-                    pairs.append((f"window_attention_block v2={v2} masked={masked}",
-                                  kernels.window_attention_block(*swin), kernels.window_attention_block_plain(*swin)))
+            # window attention: 2 heads of 32, 49 tokens (2 images of 2 windows) or 64; v1/v2, with and without mask
+            c, heads, nw_img = 64, 2, 2
+            for v2, masked, s_len, nw in ((False, False, 49, 4), (False, True, 49, 4), (True, False, 49, 4),
+                                          (True, True, 49, 4), (True, False, 64, 2)):
+                mask = (normal((nw_img, s_len, s_len), torch.float32) > 0.5).float() * -100.0 if masked else None
+                swin = (normal((nw, s_len, c), dtype), normal((c,), torch.float32, 0.2, 1.0),
+                        normal((c,), torch.float32, 0.1), normal((c, 3 * c), dtype, c ** -0.5),
+                        normal((3 * c,), torch.float32, 0.1), normal((c, c), dtype, c ** -0.5),
+                        normal((c,), torch.float32, 0.1), normal((heads, s_len, s_len), torch.float32, 0.3), mask,
+                        torch.tensor([4.7, -1.0]) if v2 else None, heads, 32 ** -0.5, 1e-5, v2, nw_img,
+                        48 if masked else 0)
+                pairs.append((f"window_attention_block S {s_len} v2={v2} masked={masked}",
+                              kernels.window_attention_block(*swin), kernels.window_attention_block_plain(*swin)))
             for ks in (3, 5, 7):
                 dw = (normal((2, 9, 19, 40), dtype), normal((ks, ks, 40), dtype, 1.0 / ks), normal((40,), torch.float32))
                 pairs.append((f"depthwise_conv2d {ks}x{ks}", kernels.depthwise_conv2d(*dw, use_bias=ks != 5),

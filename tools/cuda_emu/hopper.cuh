@@ -3,15 +3,18 @@
 // place of the real one, whose bodies are inline PTX.
 //
 // Shared addresses are byte offsets into emu_shared (1024-byte aligned, as
-// the card's shared window).  A copy (cp_async16) and a product
-// (wgmma_m64n128k16_bf16) are queued by the thread that starts them and run
-// when its wait retires their group, the latest moment the card may run
-// them: a missing wait or barrier reads or overwrites a stage too early and
-// shows as a NaN of the poisoned shared memory or a wrong sum.  The product
-// reads its operands through the descriptors' fields and the 128-byte
-// swizzle as hopper.cuh describes them, and sums the 16 products of an
-// output in order, so it checks the kernel's tiling against that reading of
-// the hardware, not the hardware itself.
+// the card's shared window).  A copy (cp_async16) and a product (the wgmma
+// functions) are queued by the thread that starts them and run when its wait
+// retires their group, the latest moment the card may run them: a missing
+// wait or barrier reads or overwrites a stage too early and shows as a NaN of
+// the poisoned shared memory or a wrong sum.  The products read their shared
+// operands through the descriptors' fields and the 128- or 64-byte swizzle
+// as hopper.cuh describes them, K-major or MN-major by the instruction's
+// transpose flag, and A from registers out of the four registers of each
+// thread of the warp that holds the output's row (read at the wait too, so a
+// register changed before its product retired shows as a wrong sum); each
+// output sums its 16 products in order.  It checks a kernel's tiling against
+// that reading of the hardware, not the hardware itself.
 
 #pragma once
 
@@ -63,46 +66,100 @@ inline void fence_proxy_async() {}
 
 inline void wgmma_fence() {}
 inline void wgmma_commit() { emu_products.commit(); }
-template <int N> inline void wgmma_wait() { emu_products.wait(N); }
+template <int N> inline void wgmma_wait() {
+  emu_products.wait(N);
+  emu_warp_barriers[threadIdx.x >> 5]->arrive_and_wait();  // see emu_wgmma_rs
+}
 template <int N> inline void fence_sums(float (&)[N]) {}
 
-inline uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+inline uint64_t emu_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint64_t layout) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
+}
+inline uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) { return emu_desc(addr, lbo, sbo, 1); }
+inline uint64_t sw64_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) { return emu_desc(addr, lbo, sbo, 2); }
+
+inline uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  return u;
 }
 
-// the bf16 at byte address addr of the 128-byte swizzled layout
-inline float emu_sw128(uint32_t addr) {
-  addr ^= ((addr >> 7) & 7) << 4;
+// Element (mn, k) of a shared operand: K-major (rows of mn, k along the row)
+// or MN-major (rows of k, mn along the row), in the descriptor's swizzle.
+inline float emu_operand(uint64_t desc, int mn, int k, bool k_major) {
+  const uint64_t layout = desc >> 62;
+  if (layout != 1 && layout != 2) abort();  // the 128- and the 64-byte swizzle only
+  const uint32_t row_bytes = layout == 1 ? 128 : 64;
+  const uint32_t start = (uint32_t)(desc & 0x3FFF) << 4, lbo = (uint32_t)((desc >> 16) & 0x3FFF) << 4,
+                 sbo = (uint32_t)((desc >> 32) & 0x3FFF) << 4;
+  uint32_t addr;
+  if (k_major) {  // rows of mn, groups of 8 rows SBO apart; a step of k moves the start inside the row
+    addr = start + (mn / 8) * sbo + (mn % 8) * row_bytes + k * 2;
+  } else {  // rows of k, groups of 8 k SBO apart; blocks of row_bytes / 2 columns of mn LBO apart
+    const int width = (int)row_bytes / 2;
+    addr = start + (mn / width) * lbo + (k / 8) * sbo + (k % 8) * row_bytes + (mn % width) * 2;
+  }
+  addr ^= ((addr >> 7) & (layout == 1 ? 7 : 3)) << 4;
   if (addr + 2 > EMU_MAX_SHARED) abort();
   __nv_bfloat16 v;
   memcpy(&v, (const char*)emu_shared + addr, 2);
   return __bfloat162float(v);
 }
 
-inline void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t a, uint64_t b) {
-  if ((a >> 62) != 1 || (b >> 62) != 1) abort();  // only the 128-byte swizzle
+// Queues d[4 j + 2 h + e] += sum over k < 16 of A(16 w + l / 4 + 8 h, k) B(k, 8 j + 2 (l % 4) + e), j < N / 8, for
+// this thread (32 w + l of its warpgroup); a(row, k) and b(k, col) read the operands when the product runs.
+template <int N, typename FA, typename FB> inline void emu_wgmma(float* d, FA a, FB b) {
   const int t = threadIdx.x & 127, w = t >> 5, l = t & 31;
-  float* out = d;
   emu_products.open.push_back([=] {
-    const uint32_t a0 = (uint32_t)(a & 0x3FFF) << 4, a_sbo = (uint32_t)((a >> 32) & 0x3FFF) << 4;
-    const uint32_t b0 = (uint32_t)(b & 0x3FFF) << 4, b_lbo = (uint32_t)((b >> 16) & 0x3FFF) << 4,
-                   b_sbo = (uint32_t)((b >> 32) & 0x3FFF) << 4;
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < N / 8; ++j)
       for (int h = 0; h < 2; ++h)
         for (int e = 0; e < 2; ++e) {
           const int row = 16 * w + l / 4 + 8 * h, col = 8 * j + 2 * (l % 4) + e;
           float sum = 0.0f;
-          for (int k = 0; k < 16; ++k) {
-            // A K-major: rows of 128 bytes, groups of 8 rows SBO apart
-            const float av = emu_sw128(a0 + (row / 8) * a_sbo + (row % 8) * 128 + k * 2);
-            // B MN-major: k rows of 128 bytes (64 columns), groups of 8 k SBO apart, 64-column blocks LBO apart
-            const float bv = emu_sw128(b0 + (col / 64) * b_lbo + (k / 8) * b_sbo + (k % 8) * 128 + (col % 64) * 2);
-            sum += av * bv;
-          }
-          out[4 * j + 2 * h + e] += sum;
+          for (int k = 0; k < 16; ++k) sum += a(row, k) * b(k, col);
+          d[4 * j + 2 * h + e] += sum;
         }
   });
 }
+
+inline void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t a, uint64_t b) {
+  emu_wgmma<128>(d, [=](int row, int k) { return emu_operand(a, row, k, true); },
+                 [=](int k, int col) { return emu_operand(b, col, k, false); });
+}
+
+inline void wgmma_m64n64k16_ss_kk(float (&d)[32], uint64_t a, uint64_t b) {
+  emu_wgmma<64>(d, [=](int row, int k) { return emu_operand(a, row, k, true); },
+                [=](int k, int col) { return emu_operand(b, col, k, true); });
+}
+
+// A from registers: each thread publishes where its four registers live; a product reads, for its two rows, the
+// registers of the four threads of its warp that hold them (lanes 4 (l / 4) .. + 3), when it runs.  The wait
+// that runs it ends with a barrier of the warp (emu_rs_wait), so no thread writes its registers again before
+// every product that reads them has run.
+inline const uint32_t* emu_a_regs[1024];
+
+template <int N> inline void emu_wgmma_rs(float* d, const uint32_t* a, uint64_t b) {
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  emu_a_regs[t] = a;
+  emu_warp_barriers[warp]->arrive_and_wait();
+  const uint32_t* quad[4];
+  for (int i = 0; i < 4; ++i) quad[i] = emu_a_regs[32 * warp + 4 * (lane / 4) + i];
+  emu_warp_barriers[warp]->arrive_and_wait();
+  emu_wgmma<N>(d,
+               [=](int row, int k) {
+                 // register r of lane 4 g + i: rows g (r even) or g + 8 (r odd), columns 2 i + 8 (r >= 2) and + 1
+                 const int reg = ((row % 16) >= 8 ? 1 : 0) + (k >= 8 ? 2 : 0), i = (k % 8) / 2;
+                 const uint32_t u = quad[i][reg];
+                 __nv_bfloat16 v;
+                 v.bits = (uint16_t)(k % 2 ? u >> 16 : u & 0xFFFF);
+                 return __bfloat162float(v);
+               },
+               [=](int k, int col) { return emu_operand(b, col, k, false); });
+}
+
+inline void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t* a, uint64_t b) { emu_wgmma_rs<64>(d, a, b); }
+inline void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t* a, uint64_t b) { emu_wgmma_rs<32>(d, a, b); }
 
 }  // namespace cvt
