@@ -7,8 +7,12 @@ each kernel's registers and spills, and the ``HGMMA`` instructions that the
 SASS of the bf16 tensor-core product and of the bf16 attention cores holds,
 from ``cuobjdump``; it fails if a product or a core has none or a bf16
 instantiation of the scalar kernels they replaced is left: a bf16
-``attention_core_kernel`` at head dim 64, a bf16 ``window_core_kernel``),
-then:
+``attention_core_kernel`` at head dim 64, a bf16 ``window_core_kernel``; and
+if a split-TF32 product (``csrc/tf32x3.cuh:x3_gemm_kernel``,
+behind the float32 ``mlp_block`` / ``cn_mlp_block`` and ``wgrad_matmul``) lacks
+``HGMMA ... .TF32``, a bf16 ``wgrad_bf16_kernel`` lacks ``HGMMA ... .BF16``,
+either spills, or the scalar ``mlp_block_kernel`` or ``wgrad_partial_kernel``
+is left), then:
 
 1. drives the main paths through the public entry points, each with the
    kernels' launch counts set to 0 just before it and read just after:
@@ -71,7 +75,15 @@ then:
    ``F.scaled_dot_product_attention`` on q, k and v of the same shapes (the
    window rows' bias and mask as its additive mask); ``flash_mha`` is also
    held and timed in bfloat16 at ViT-B/16 b256's (256, 197, 12, 64), beside
-   SDPA;
+   SDPA; the float32 MLP blocks are three launches too (LN, two
+   split-TF32 products), timed apart and bounded at three tf32 products a
+   product (``TF32X3_OPS_PER_S``), with ``split_bytes_ms`` for their f32
+   hidden, their float64 error at ViT-B/16 b64 beside the twin's
+   (``f64_err``, ``twin_f64_err``: ``max|out - f64| / max|f64|``, held to twice
+   the twin's), and the same bits twice; every ``wgrad_matmul`` row carries its
+   float64 error beside ``torch.mm``'s (``library_f64_err``, held to twice it);
+   ``attention_block`` is also held and timed in float32 at (64, 197, 768),
+   on no main path, beside its composite;
    ``held_untimed`` lists the checks that were not timed), then, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -83,6 +95,7 @@ import contextlib
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -98,6 +111,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12  # dense int8 in the tensor cores
+# float32 products by split TF32 (csrc/tf32x3.cuh): three tf32 products each at 495 TFLOP/s dense, so the bound of
+# such a kernel is max(bytes / 3.35 TB/s, 3 ops / 495 TFLOP/s); on F32_OPS_PER_S a fast one would beat its bound
+TF32X3_OPS_PER_S = 495e12 / 3
 
 # Kernel vs twin: class maps must be equal; f32 stencil maps must agree
 # within F32_ATOL + F32_RTOL * |twin| (both run the same f32 operations in
@@ -340,9 +356,17 @@ def main() -> int:
     logs = _build.build(ptxas_verbose=True)
     print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(logs) or 'cached'})")
     for stem, log in logs.items():
+        fn = ""
         for line in log.splitlines():
+            named = re.search(r"Compiling entry function '(\S+)'", line)
+            fn = named.group(1) if named else fn
             if "Used" in line or "spill" in line or ("wgmma" in line.lower() and "warning" in line.lower()):
                 print(f"  {stem}: {line.strip()}")
+            # the split-TF32 products and the bf16 weight gradient: no spill, and no wgmma that ptxas serialises
+            if ("x3_gemm_kernel" in fn or "wgrad_bf16_kernel" in fn) and "spill" in line:
+                require(" 0 bytes spill stores, 0 bytes spill loads" in line, f"{stem}: {fn} spills: {line.strip()}")
+            if ("x3_gemm_kernel" in line or "wgrad_bf16_kernel" in line) and "serialized" in line:
+                raise AssertionError(f"{stem}: {line.strip()}")
     # the bf16 products of rows 10-13 and the bf16 attention cores of rows 9, 11, 13 and 16 run on the tensor cores:
     # HGMMA (wgmma) in every instantiation of the product and of the cores, and no bf16 instantiation of the scalar
     # kernels they replaced is left in the libraries (the scalar attention core stays for float32 and for bf16 at
@@ -363,6 +387,20 @@ def main() -> int:
                 f"{stem}: a bf16 head-dim-64 attention_core_kernel or a bf16 window_core_kernel is left")
         hgmma[stem] = sum(products.values())
         core_hgmma[stem] = sum(cores.values())
+    # the float32 products of mlp_block / cn_mlp_block and both dtypes of wgrad_matmul run on the tensor
+    # cores: HGMMA ... .TF32 in every split-TF32 instantiation (x3_gemm_kernel), HGMMA ... .BF16 in every bf16 weight
+    # gradient one, and neither the scalar f32 mlp_block_kernel nor the scalar wgrad_partial_kernel is left
+    tf32_hgmma = {}
+    for stem, scalar in (("transformer_block", "mlp_block_kernel"), ("wgrad_matmul", "wgrad_partial_kernel")):
+        tf32 = {fn: c for fn, c in _build.sass_counts(stem, "HGMMA", ".TF32").items() if "x3_gemm_kernel" in fn}
+        bf16 = {fn: c for fn, c in _build.sass_counts(stem, "HGMMA", ".BF16").items() if "wgrad_bf16_kernel" in fn}
+        print(f"  {stem}: HGMMA .TF32 in SASS {tf32}, .BF16 {bf16}")
+        require(len(tf32) >= (2 if stem == "transformer_block" else 4) and all(tf32.values()),
+                f"{stem}: a split-TF32 product without HGMMA .TF32")
+        require(stem == "transformer_block" or (len(bf16) == 4 and all(bf16.values())),
+                f"{stem}: a bf16 weight-gradient instantiation without HGMMA .BF16")
+        require(not any(scalar in fn for fn in _build.sass_counts(stem, "HGMMA")), f"{stem}: {scalar} is left")
+        tf32_hgmma[stem] = sum(tf32.values()) + sum(bf16.values())
 
     # Every main path is driven with the counts at 0 and read just after: the wrappers' counts, and their counts
     # by input shape and dtype, from which each per-shape row of the kernels' line takes its launches.
@@ -559,6 +597,9 @@ def main() -> int:
         ref = plain(xv)
         err = max_err_f32(logits, ref, f"vit_b_16 {name} vs the stock-operator route", VIT_TOL[dtype], VIT_TOL[dtype])
         top1 = float((logits.argmax(dim=1) == ref.argmax(dim=1)).float().mean())
+        if dtype == torch.float32:
+            vit_f32_mlp_kernel_launches = kernels.mlp_block.kernel_launches
+            require(vit_f32_mlp_kernel_launches == 36, "vit_b_16 f32: three launches an mlp_block (LN, two products)")
         if dtype == torch.bfloat16:
             vit_block_kernel_launches = kernels.attention_block.kernel_launches
             vit_mlp_kernel_launches = kernels.mlp_block.kernel_launches
@@ -712,6 +753,7 @@ def main() -> int:
     mlp_kernel_launches = {label: path["mlp_launches"] for label, path in served.items() if path["mlp_launches"]}
     require(mlp_kernel_launches[SWIN] == 36 and mlp_kernel_launches[CN] == 54 and window_kernel_launches[SWIN] == 48,
             "bf16 Swin-T and ConvNeXt-T: three launches an MLP block, four a v1 window block")
+    require(mlp_kernel_launches[SWIN_F32] == 36, "f32 Swin-T: three launches an MLP block (LN, two products)")
     del serve_images, swin_state, native64
     served.clear()
 
@@ -1196,10 +1238,9 @@ def main() -> int:
                 for i in range(chain)]
 
     def mlp_split_bytes(tokens, d, dh, size, post_norm=False):
-        """Bytes the bf16 MLP blocks pass through device memory between their launches, each written once and read
-        once: the LN rows (not with post_norm), the (tokens, Dh) activations, post_norm's float32 branch."""
-        if size == 4:
-            return 0  # float32: one fused kernel, all on chip
+        """Bytes the MLP blocks pass through device memory between their launches, each written once and read
+        once: the LN rows (not with post_norm), the (tokens, Dh) activations, post_norm's float32 branch; in the
+        weights' dtype (bf16 or f32)."""
         return 2 * tokens * (dh * size + (d * 4 if post_norm else d * size))
 
     held = []  # checks of kernel against twin that are not timed: what was held, the error, the main paths' counts there
@@ -1313,6 +1354,12 @@ def main() -> int:
     d_model, heads, d_hidden, seq = 768, 12, 3072, 197
     hd = d_model // heads
     rate = {torch.float32: F32_OPS_PER_S, torch.bfloat16: BF16_OPS_PER_S}
+    # the products of the MLP blocks and of wgrad_matmul: float32 by split TF32
+    x3_rate = {torch.float32: TF32X3_OPS_PER_S, torch.bfloat16: BF16_OPS_PER_S}
+
+    def f64_err(out, ref64):
+        """max |out - ref64| / max |ref64|, in float64: a product's distance to the same function in float64."""
+        return float((out.double() - ref64).abs().max() / ref64.abs().max())
 
     def normal(shape, dtype, std=1.0, mean=0.0):
         return (torch.randn(shape, generator=gen, device=dev) * std + mean).to(dtype)
@@ -1395,7 +1442,7 @@ def main() -> int:
     # the core alone: q, k and v read once out of the (N*S, 3D) buffer, the joined heads written once
     core = core_fields(split, 4 * x.numel() * 2, attention_ops(256), BF16_OPS_PER_S,
                        sdpa_ms(256, seq, heads, hd, dtype, scale))
-    rows.append(row("attention_block", f"{PALLAS_BLOCK}:237", vit[dtype]["attention_block"], err,
+    attn_main = (row("attention_block", f"{PALLAS_BLOCK}:237", vit[dtype]["attention_block"], err,
                     time_ms(lambda: kernels.attention_block(*args), 5),
                     time_ms(lambda: transformer_block.attention_block_plain(*args), 3),
                     block_bytes, tokens * (8 * d_model * d_model + 8 * d_model) + attention_ops(256),
@@ -1410,6 +1457,44 @@ def main() -> int:
          max_err_f32(kernels.attention_block(*args128), transformer_block.attention_block_plain(*args128),
                      "attention_block b128", TOL[dtype], TOL[dtype]))
     del x, out, args, args128, w_qkv, w_o
+
+    # attention_block in float32 at ViT-B/16 b64's shape: on no measured path (the f32 None route takes flash_mha),
+    # timed beside its composite (TF32 off); three launches, scalar f32 products (ln_gemm_kernel) and the scalar core
+    x = normal((64, seq, d_model), torch.float32)
+    ln_g, ln_b = ln_params()
+    w_qkv = normal((d_model, 3 * d_model), torch.float32, d_model ** -0.5)
+    b_qkv = normal((3 * d_model,), torch.float32, 0.1)
+    w_o, b_o = normal((d_model, d_model), torch.float32, d_model ** -0.5), normal((d_model,), torch.float32, 0.1)
+    args = (x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads, scale, 1e-6)
+    chain = kernels.attention_block.kernel_launches
+    out = kernels.attention_block(*args)
+    chain = kernels.attention_block.kernel_launches - chain
+    err = max_err_f32(out, transformer_block.attention_block_plain(*args), "attention_block f32", TOL[torch.float32],
+                      TOL[torch.float32])
+
+    def attention_library_f32():
+        h = F.layer_norm(x, (d_model,), ln_g, ln_b, 1e-6)
+        a, b, c = (t.reshape(64, seq, heads, hd).permute(0, 2, 1, 3)
+                   for t in F.linear(h, w_qkv.t(), b_qkv).split(d_model, dim=-1))
+        o = F.scaled_dot_product_attention(a, b, c, scale=scale).permute(0, 2, 1, 3).reshape(64, seq, d_model)
+        return x + F.linear(o, w_o.t(), b_o)
+
+    max_err_f32(out, attention_library_f32(), "attention_block f32 vs the stock composite", 1e-3, 1e-3)
+    require(torch.equal(kernels.attention_block(*args), out), "attention_block f32: two calls differ")
+    split = launch_split(lambda: kernels.attention_block(*args), chain)
+    print(f"  attention_block f32's launches apart (device ms): {split}")
+    core = core_fields(split, 4 * x.numel() * 4, attention_ops(64), F32_OPS_PER_S,
+                       sdpa_ms(64, seq, heads, hd, torch.float32, scale))
+    attn_f32 = row("attention_block", f"{PALLAS_BLOCK}:237", "vit_b_16 f32 b64", err,
+                   time_ms(lambda: kernels.attention_block(*args), 5),
+                   time_ms(lambda: transformer_block.attention_block_plain(*args), 3),
+                   2 * x.numel() * 4 + (w_qkv.numel() + w_o.numel()) * 4 + 4 * (6 * d_model),
+                   64 * seq * (8 * d_model * d_model + 8 * d_model) + attention_ops(64),
+                   library_ms=time_ms(attention_library_f32, 5), source=TRANSFORMER, at=(x.shape, torch.float32),
+                   shape=list(x.shape), dtype="float32", kernel_launches=chain,
+                   split_bytes_ms=2 * 4 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3, launch_ms=split, **core)
+    rows.append(entry(attn_main, "vit_b_16 bf16 b256", [attn_f32]))
+    del x, out, args, w_qkv, w_o
 
     mlp_rows = []
     for dtype, batch in ((torch.float32, 64), (torch.bfloat16, 256)):
@@ -1429,20 +1514,32 @@ def main() -> int:
         max_err_f32(out, mlp_library(), f"mlp_block {dtype} vs the stock composite",
                     5e-2 if dtype == torch.bfloat16 else 1e-3, 5e-2 if dtype == torch.bfloat16 else 1e-3)
         size = x.element_size()
-        bf16_extra = {}
-        if dtype == torch.bfloat16:
-            bf16_extra = dict(launch_ms=launch_split(lambda: kernels.mlp_block(*args), vit_mlp_kernel_launches // 12),
-                              kernel_launches=vit_mlp_kernel_launches, hgmma_in_sass=hgmma["transformer_block"])
-            print(f"  mlp_block's launches apart (device ms): {bf16_extra['launch_ms']}")
+        chain = vit_mlp_kernel_launches if dtype == torch.bfloat16 else vit_f32_mlp_kernel_launches
+        products = hgmma if dtype == torch.bfloat16 else tf32_hgmma
+        extra = dict(launch_ms=launch_split(lambda: kernels.mlp_block(*args), chain // 12), kernel_launches=chain,
+                     hgmma_in_sass=products["transformer_block"])
+        print(f"  mlp_block's launches apart (device ms): {extra['launch_ms']}")
+        require(torch.equal(kernels.mlp_block(*args), out), f"mlp_block {dtype}: two calls differ")
+        if dtype == torch.float32:  # the split-TF32 products against the block in float64 (the twins' LN and erf)
+            h64 = transformer_block._ln_f32(x.double(), ln_g.double(), ln_b.double(), 1e-6)
+            h64 = transformer_block._gelu_f32(h64 @ w1.double() + b1.double())
+            ref64 = x.double() + h64 @ w2.double() + b2.double()
+            del h64
+            extra.update(f64_err=f64_err(out, ref64),
+                         twin_f64_err=f64_err(transformer_block.mlp_block_plain(*args), ref64))
+            del ref64
+            print(f"  mlp_block f32, max|a - f64| / max|f64|: kernel {extra['f64_err']:.3e}, twin (TF32 off) "
+                  f"{extra['twin_f64_err']:.3e}")
+            require(extra["f64_err"] <= 2 * extra["twin_f64_err"], "mlp_block f32 strays from float64 past twice the twin")
         mlp_rows.append(row("mlp_block", f"{PALLAS_BLOCK}:125", f"vit_b_16 {'bf16' if dtype == torch.bfloat16 else 'f32'} b{batch}", err,
                             time_ms(lambda: kernels.mlp_block(*args), 5),
                             time_ms(lambda: transformer_block.mlp_block_plain(*args), 3),
                             2 * x.numel() * size + (w1.numel() + w2.numel()) * size + 4 * (4 * d_model + d_hidden),
                             tokens * (4 * d_model * d_hidden + 20 * d_hidden + 8 * d_model),
-                            library_ms=time_ms(mlp_library, 5), source=TRANSFORMER, ops_per_s=rate[dtype],
+                            library_ms=time_ms(mlp_library, 5), source=TRANSFORMER, ops_per_s=x3_rate[dtype],
                             at=(x.shape, dtype), shape=list(x.shape), dtype=str(dtype).replace("torch.", ""),
                             split_bytes_ms=mlp_split_bytes(tokens, d_model, d_hidden, size) / HBM_BYTES_PER_S * 1e3,
-                            **bf16_extra))
+                            **extra))
         print(f"  under mlp_block's load: {clock_under(lambda: kernels.mlp_block(*args), 20 if dtype == torch.bfloat16 else 100)}")
         if dtype == torch.bfloat16:  # the training path's batch, 128 images
             args128 = (x[:128 * seq].contiguous(), *args[1:])
@@ -1492,14 +1589,14 @@ def main() -> int:
             return res + h * gamma.to(dtype) if cn else x + h
 
         size = x.element_size()
-        extra = {}
-        if dtype == torch.bfloat16:
-            extra = dict(launch_ms=launch_split(lambda: fn(*args), kernel_launches), hgmma_in_sass=hgmma["transformer_block"])
+        products = hgmma if dtype == torch.bfloat16 else tf32_hgmma
+        extra = dict(launch_ms=launch_split(lambda: fn(*args), kernel_launches),
+                     hgmma_in_sass=products["transformer_block"])
         return row(name, f"{PALLAS_BLOCK}:{line}", path, err, time_ms(lambda: fn(*args), 5),
                    time_ms(lambda: twin(*args), 3),
                    (3 if cn else 2) * x.numel() * size + (w1.numel() + w2.numel()) * size + 4 * (4 * d + dh),
                    tokens * (4 * d * dh + 20 * dh + 8 * d), library_ms=time_ms(library, 5), source=TRANSFORMER,
-                   ops_per_s=rate[dtype], at=(x.shape, dtype), shape=[tokens, d], dtype=str(dtype).replace("torch.", ""),
+                   ops_per_s=x3_rate[dtype], at=(x.shape, dtype), shape=[tokens, d], dtype=str(dtype).replace("torch.", ""),
                    split_bytes_ms=mlp_split_bytes(tokens, d, dh, size, post_norm) / HBM_BYTES_PER_S * 1e3,
                    kernel_launches=kernel_launches, **extra)
 
@@ -1513,8 +1610,8 @@ def main() -> int:
             swin_mlp_rows.append(mlp_case(256 * side * side, c, dtype, SWIN))
             cn_rows.append(mlp_case(256 * side * side, c, dtype, CN, cn=True))
         mlp_case(4 * 49, 1536, dtype)  # ConvNeXt-L's last width
-    for c, side in zip(widths, sides):  # the float32 path's shapes, batch 32
-        mlp_case(32 * side * side, c, torch.float32)
+    swin_f32_rows = [mlp_case(32 * side * side, c, torch.float32, SWIN_F32)  # the float32 path's shapes, batch 32
+                     for c, side in zip(widths, sides)]
     for c, side in zip(widths, sides_v2):  # Swin-v2-T's, batch 64: post_norm at every width
         mlp_case(64 * side * side, c, torch.bfloat16, post_norm=True)
     for c, real, side in ((128, 96, 56), (256, 192, 28), (384, 0, 14), (768, 0, 7)):  # the padded Swin-T's, batch 64
@@ -1525,7 +1622,7 @@ def main() -> int:
     mlp_case(48 * 28 * 28, 256, torch.bfloat16, post_norm=True, ln_count=192)
     # mlp_block has two entries: the one above on the ViT paths (D 768, Dh a multiple of 256), this one on the
     # Swin paths, which run the widths, post_norm and ln_count that the kernel gained for them
-    rows.append(entry(swin_mlp_rows[4], SWIN, swin_mlp_rows[:4] + swin_mlp_rows[5:],
+    rows.append(entry(swin_mlp_rows[4], SWIN, swin_mlp_rows[:4] + swin_mlp_rows[5:] + swin_f32_rows,
                       kernel_launches_a_forward={k: v for k, v in mlp_kernel_launches.items() if "convnext" not in k}))
     rows.append(entry(cn_rows[-1], CN, cn_rows[:-1],
                       kernel_launches_a_forward={k: v for k, v in mlp_kernel_launches.items() if "convnext" in k}))
@@ -1862,8 +1959,10 @@ def main() -> int:
     del vit_mlp_args, vit_attn_args, xm, xa, veng, reng
 
     # wgrad_matmul at every shape the conv1x1 path handed it, in both dtypes; bound: x and dy read once, dW written
-    # once, 2 M Cin Cout operations at the f32 or bf16 rate; library_ms: torch.mm(x.t(), dy) in float32 (TF32 off),
-    # for bfloat16 inputs the cast to float32 and that product (a composite)
+    # once, 2 M Cin Cout operations at the split-TF32 rate (float32) or the bf16 rate; library_ms: torch.mm(x.t(), dy)
+    # in float32 (TF32 off), for bfloat16 inputs the cast to float32 and that product (a composite).  The
+    # products run on the tensor cores: f64_err is max |out - f64| / max |f64| against the product of the same inputs
+    # in float64 on the card, held to at most twice library_f64_err, that of the library call
     from cpu_vision_tpu_torch.ops.kernels.wgrad_matmul import wgrad_matmul_plain
 
     wgrad_rows = []
@@ -1883,15 +1982,23 @@ def main() -> int:
                 with _dtype.full_float32():
                     return torch.mm(xw.t(), dyw) if dtype == torch.float32 else torch.mm(xw.t().float(), dyw.float())
 
-            require(float((library() - ref).abs().max()) <= WGRAD_TOL * float(ref.abs().max()), "wgrad library call")
+            lib_out = library()
+            require(float((lib_out - ref).abs().max()) <= WGRAD_TOL * float(ref.abs().max()), "wgrad library call")
+            ref64 = xw.t().double() @ dyw.double()
+            figures = dict(f64_err=f64_err(out, ref64), library_f64_err=f64_err(lib_out, ref64))
+            require(figures["f64_err"] <= 2 * figures["library_f64_err"],
+                    f"wgrad_matmul {m_}x{cin}x{cout} {dtype}: float64 error {figures} past twice the library's")
             wgrad_rows.append(row("wgrad_matmul", f"{PALLAS_WGRAD}:54", CONV1X1, err,
                                   time_ms(lambda: kernels.wgrad_matmul(xw, dyw), 20),
                                   time_ms(lambda: wgrad_matmul_plain(xw, dyw), 5),
                                   m_ * (cin + cout) * xw.element_size() + 4 * cin * cout, 2 * m_ * cin * cout,
-                                  library_ms=time_ms(library, 10), source=WGRAD, ops_per_s=rate[dtype],
+                                  library_ms=time_ms(library, 10), source=WGRAD, ops_per_s=x3_rate[dtype],
                                   at=(xw.shape, dtype), shape=[m_, cin, cout], dtype=str(dtype).replace("torch.", ""),
-                                  max_abs_ref=float(ref.abs().max()), library_composite=dtype != torch.float32))
-            del xw, dyw, out, ref
+                                  max_abs_ref=float(ref.abs().max()), library_composite=dtype != torch.float32,
+                                  hgmma_in_sass=tf32_hgmma["wgrad_matmul"], **figures))
+            print(f"  float64 error, max|a - f64| / max|f64|: kernel {figures['f64_err']:.3e}, library "
+                  f"{figures['library_f64_err']:.3e}")
+            del xw, dyw, out, ref, ref64, lib_out
     main = next(r for r in wgrad_rows if r["dtype"] == "bfloat16" and r["shape"] == [401408, 64, 64])
     rows.append(entry(main, CONV1X1, [r for r in wgrad_rows if r is not main]))
     ones = torch.ones(401408, 64, device=dev)

@@ -1,12 +1,19 @@
 // The few Hopper (sm_90a) instructions the tensor-core kernels are built
 // from, each behind one small function: cp.async with zero fill, the
 // async-proxy fence, wgmma's fence, commit and wait, the shared-memory matrix
-// descriptors of the 128- and 64-byte swizzles, and four forms of
-// wgmma.mma_async of bf16 into f32 sums: the product's 64 x 128 x 16 tile of
-// ln_gemm.cuh (A K-major, B MN-major, both in shared memory), and the
-// attention cores' tiles of tc_attention.cuh and swin_attention.cu, 64 x 64
-// x 16 with A and B both K-major in shared memory (S = Q K^T), and 64 x 64 x
-// 16 and 64 x 32 x 16 with A from registers and B MN-major (O += P V).
+// descriptors of the 128- and 64-byte swizzles, and these forms of
+// wgmma.mma_async into f32 sums:
+//   bf16, 64 x 128 x 16, A K-major, B MN-major: the product of ln_gemm.cuh;
+//   bf16, 64 x 64 x 16, A and B K-major: S = Q K^T of the attention cores
+//     (tc_attention.cuh, swin_attention.cu);
+//   bf16, 64 x 64 x 16 and 64 x 32 x 16, A from registers, B MN-major: O += P V;
+//   bf16, 64 x {64, 128} x 16, A and B both MN-major: the weight gradient
+//     x^T dy of wgrad_matmul.cu, both operands as their rows lie;
+//   tf32, 64 x {32, 64, 128} x 8, A from registers, B K-major (the only
+//     layout PTX gives tf32 in shared memory): the split-TF32 products of
+//     tf32x3.cuh.
+// The last two take scale_d: 0 overwrites the sums with the product, 1 adds
+// to them.
 //
 // tools/cuda_emu carries a CPU stand-in of this header with the same
 // functions (the copies and the products deferred to their waits, the
@@ -26,7 +33,9 @@
 //   MN-major operand (rows of n):  SBO = the next group of 8 k rows;
 //                                  LBO = the next 64 (32) columns of n.
 // A step of 16 k moves a K-major start address by 32 bytes inside the
-// swizzled row, an MN-major one by 16 rows.  B is K-major when the
+// swizzled row, an MN-major one by 16 rows.  A tf32 value is 4 bytes: a
+// 128-byte K-major row holds 32 of them, and a step of 8 k moves the start
+// by the same 32 bytes.  B is K-major when the
 // instruction's transpose flag is 0 (the K tile of S = Q K^T: keys are B's
 // columns, each key's head dims one row), MN-major when it is 1 (the
 // weights of the product, V of O += P V).
@@ -40,6 +49,15 @@
 // operand of P V where they were computed.  The registers are read
 // asynchronously: they stay unchanged until the wait that retires the
 // product, and wgmma_fence() comes between writing them and the product.
+//
+// TF32.  The tensor cores read a tf32 operand as the f32 word it is stored
+// in and ignore its 13 low mantissa bits (they truncate).  tf32_rna rounds a
+// float to the nearest tf32 (ties away from zero: cvt.rna) with those bits
+// zero, so that what the hardware reads is the rounded value.  A tf32 A from
+// registers (64 x 8) is one value a register, as the bf16 pairs above with
+// the columns halved: thread t = 32 w + l holds
+//   a[0] = A[16 w + l / 4][l % 4],      a[1] = A[16 w + l / 4 + 8][l % 4],
+//   a[2] = A[16 w + l / 4][4 + l % 4],  a[3] = A[16 w + l / 4 + 8][4 + l % 4].
 
 #pragma once
 
@@ -177,6 +195,112 @@ __device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// the tf32 value nearest to x (ties away from zero), its 13 low bits zero
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// d[64] (+)= A (64 x 16, MN-major, desc a) . B (16 x 128, MN-major, desc b); d as above
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_tt(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[32] (+)= A (64 x 16, MN-major, desc a) . B (16 x 64, MN-major, desc b); d as above with j < 8
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_tt(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[64] (+)= A (64 x 8, tf32 registers a[0..3], laid out as above) . B (8 x 128, K-major, desc b); d as above
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const uint32_t* a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d[32] (+)= A (64 x 8, tf32 registers a[0..3]) . B (8 x 64, K-major, desc b); d as above with j < 8
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t* a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d[16] (+)= A (64 x 8, tf32 registers a[0..3]) . B (8 x 32, K-major, desc b); d as above with j < 4
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t* a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 }  // namespace cvt

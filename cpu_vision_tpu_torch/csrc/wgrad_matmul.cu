@@ -6,145 +6,223 @@
 // streams M = N*H*W rows through VMEM in tiles on a sequential grid and keeps
 // the whole (Cin, Cout) float32 sum resident on chip.  The TPU's 128-lane
 // padding and the shrinking of block_m (:66-79) are Mosaic matters and are
-// not copied: no padding exists here, ragged edges are masked.
+// not copied here.
 //
-// Layouts.  x (M, Cin) and dy (M, Cout), row-major, both float32 or both
-// bfloat16; dW (Cin, Cout) float32.  Products and sums are float32 (a product
-// of two bfloat16 values is exact in float32).
+// Layouts.  x (M, Cin) and dy (M, Cout), row-major with row strides ldx and
+// ldd (multiples of 8: the wrapper pads columns with zeros where Cin or Cout
+// is not), both float32 or both bfloat16; dW (Cin, Cout) float32.  Products
+// and sums are float32 (a product of two bfloat16 values is exact in
+// float32).
 //
-// Design.  The shape is a huge contraction into a tiny output: at ResNet-50
+// Design.  The shape is a huge contraction into a small output: at ResNet-50
 // b128 layer 1, M = 401,408 and (Cin, Cout) = (64, 64), one output tile.  One
 // block per output tile would leave 131 of 132 SMs idle, and the grid of a
 // card runs blocks in no order, so nothing can carry a sum from one block to
 // the next as the TPU's grid does.  So the grid is (Cout tiles, Cin tiles, M
-// slabs): a block owns a 64x64 output tile and one slab of rows.  It walks its
-// slab in chunks of 32 rows, staging the chunk's x and dy columns in shared
-// memory as float32; each of its 256 threads keeps a 4x4 sum in registers and
-// adds 32 outer products of a float4 of x and a float4 of dy per chunk.  Each
-// block writes its 64x64 partial sum to a float32 scratch (slab, Cin, Cout);
-// a second launch adds the slabs' partials of each output in slab order.
-// Every sum runs in a fixed order, so two calls give the same bits: no
-// float atomicAdd, whose order changes from run to run.  With one slab the
-// first launch writes dW itself.  The wrapper sizes the slabs so that the
-// grid holds about four blocks per SM.
+// slabs): a block owns a (64 WGS) x BN output tile (WGS 1 or 2 warpgroups, 1
+// where Cin <= 64; BN 64 where Cout <= 64, else 128) and one slab of rows,
+// and sums it on the tensor cores (wgmma):
+//   bfloat16: both operands as they lie, MN-major (A = x^T is Cin x M with Cin
+//     contiguous, B = dy is M x Cout with Cout contiguous), which the bf16
+//     wgmma reads with its transpose flags: cp.async copies 64 rows of x and
+//     of dy a stage into a ring of three stages in the 128-byte swizzle, two
+//     stages ahead of the products, and each warpgroup runs four m64nBNk16
+//     products a stage;
+//   float32: split TF32 (tf32x3.cuh), both operands staged through registers,
+//     split into tf32 halves and stored K-major.
+// Both start each stage's products from a zero wgmma sum and add it into a
+// second f32 sum in registers when they retire (tf32x3.cuh: no chain of the
+// tensor cores' own roundings is longer than a stage).  Each block writes its
+// partial tile to a float32 scratch (slab, Cin, Cout); a second launch adds
+// the slabs' partials of each output in slab order.  Every sum runs in a
+// fixed order, so two calls give the same bits: no float atomicAdd, whose
+// order changes from run to run.  With one slab the first launch writes dW
+// itself.  The wrapper sizes the slabs so that the grid holds about four
+// blocks per SM (ops/kernels/wgrad_matmul.py:slab_rows).
 //
 // Bound.  At (401,408, 64, 64) the function moves 103 MB in bfloat16 (205 MB
-// in float32) and does 3.3 GFLOP: bytes bound it.  At (25,088, 1024, 512) it
-// does 26 GFLOP on 77 MB: float32 operations bound this kernel, which uses
-// scalar FMAs and no tensor core (no wgmma, no TMA, no cp.async, one stage).
+// in float32) and does 3.3 GFLOP (bf16) or 3 x 3.3 tf32 GFLOP (float32):
+// bytes bound it.  At (25,088, 1024, 512) it does 26 GFLOP on 77 MB (bf16) or
+// 3 x 26 tf32 GFLOP on 154 MB: operations bound it in float32, at
+// 3 x 2 M Cin Cout / 495 TFLOP/s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int TILE_I = 64;   // Cin per block
-constexpr int TILE_J = 64;   // Cout per block
-constexpr int CHUNK = 32;    // rows staged at once
-constexpr int THREADS = 256; // 16 x 16 threads, each a 4 x 4 sum
-constexpr int PER_T = 4;
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr int BF16_BK = 64;  // rows of x and dy a bf16 stage: one 128-byte swizzled row of 64 Cin (Cout)
+constexpr int BF16_STAGES = 3;
+constexpr int BF16_AHEAD = BF16_STAGES - 1;
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* __restrict__ partial, int m,
-                         int cin, int cout, int slab_rows) {
-  __shared__ __align__(16) float xs[CHUNK][TILE_I];
-  __shared__ __align__(16) float ds[CHUNK][TILE_J];
-
-  const int j0 = blockIdx.x * TILE_J, i0 = blockIdx.y * TILE_I;
-  const int m0 = blockIdx.z * slab_rows;
-  const int m1 = min(m, m0 + slab_rows);
-  const int t = threadIdx.x;
-  const int ty = t / 16, tx = t % 16;  // this thread's rows i0 + 4 ty.., columns j0 + 4 tx..
-  const int lc = t % TILE_I, lr = t / TILE_I;  // load pattern: a column, rows lr, lr + 4, ...
-  const bool x_col = i0 + lc < cin, d_col = j0 + lc < cout;
-
-  float acc[PER_T][PER_T];
-#pragma unroll
-  for (int a = 0; a < PER_T; ++a)
-#pragma unroll
-    for (int b = 0; b < PER_T; ++b) acc[a][b] = 0.0f;
-
-  for (int base = m0; base < m1; base += CHUNK) {
-#pragma unroll
-    for (int r = lr; r < CHUNK; r += THREADS / TILE_I) {
-      const int row = base + r;
-      const bool in = row < m1;
-      xs[r][lc] = in && x_col ? to_f32(x[(size_t)row * cin + i0 + lc]) : 0.0f;
-      ds[r][lc] = in && d_col ? to_f32(dy[(size_t)row * cout + j0 + lc]) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < CHUNK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[k][ty * PER_T]);
-      const float4 b = *reinterpret_cast<const float4*>(&ds[k][tx * PER_T]);
-      const float av[PER_T] = {a.x, a.y, a.z, a.w};
-      const float bv[PER_T] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int p = 0; p < PER_T; ++p)
-#pragma unroll
-        for (int q = 0; q < PER_T; ++q) acc[p][q] = fmaf(av[p], bv[q], acc[p][q]);
-    }
-    __syncthreads();
+// The partial tile of slab blockIdx.z: out + z * plane holds a (Cin, Cout) sum
+struct PartialEpi {
+  float* out;
+  int cout;
+  size_t plane;
+  __device__ __forceinline__ void store(int row, int col, float v0, float v1) const {
+    float* p = out + blockIdx.z * plane + (size_t)row * cout + col;
+    p[0] = v0;
+    if (col + 1 < cout) p[1] = v1;
   }
+};
 
-  float* dst = partial + (size_t)blockIdx.z * cin * cout;
-#pragma unroll
-  for (int p = 0; p < PER_T; ++p) {
-    const int i = i0 + ty * PER_T + p;
-    if (i >= cin) break;
-#pragma unroll
-    for (int q = 0; q < PER_T; ++q) {
-      const int j = j0 + tx * PER_T + q;
-      if (j < cout) dst[(size_t)i * cout + j] = acc[p][q];
-    }
-  }
+template <int NACC>
+__device__ __forceinline__ void wgmma_bf16_tt(float (&d)[NACC], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (NACC == 64)
+    cvt::wgmma_m64n128k16_bf16_tt(d, a, b, scale_d);
+  else
+    cvt::wgmma_m64n64k16_bf16_tt(d, a, b, scale_d);
 }
 
-// out[e] = sum over slabs s = 0, 1, ... of partial[s][e], in that order.
+// The bf16 partial sums.  A stage holds 64 rows of x's (64 WGS) columns and of
+// dy's BN columns, each in 64-column halves of 64 x 128 bytes: half h at h *
+// 8192, row r (of M), chunk c of 8 columns at r * 128 + (c ^ r % 8) * 16.
+template <int WGS, int BN>
+__global__ void __launch_bounds__(128 * WGS, 1)
+    wgrad_bf16_kernel(const bf16* __restrict__ x, int ldx, const bf16* __restrict__ dy, int ldd,
+                      int m, int cin, int cout, int slab_rows, PartialEpi epi) {
+  constexpr int THREADS = 128 * WGS, BM = 64 * WGS;
+  constexpr int A_BYTES = BM * 128, B_BYTES = BN * 128, STAGE_BYTES = A_BYTES + B_BYTES;
+  constexpr int A_CHUNKS = BM * 8 / THREADS, B_CHUNKS = BN * 8 / THREADS;  // 16-byte copies a thread a stage
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t base = (cvt::smem_addr(smem) + 1023u) & ~1023u;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int j0 = blockIdx.x * BN, i0 = blockIdx.y * BM;
+  const int k_begin = blockIdx.z * slab_rows, k_end = min(m, k_begin + slab_rows);
+  const int tiles = (k_end - k_begin + BF16_BK - 1) / BF16_BK;
+
+  auto load = [&](int stage, int t) {
+    const int k0 = k_begin + t * BF16_BK;
+    const uint32_t sa = base + stage * STAGE_BYTES, sb = sa + A_BYTES;
+#pragma unroll
+    for (int i = 0; i < A_CHUNKS; ++i) {
+      const int e = tid + i * THREADS, r = e / (BM / 8), c = e % (BM / 8);
+      const int row = k0 + r, col = i0 + c * 8;
+      const bool ok = row < k_end && col < cin;
+      cvt::cp_async16(sa + (c >> 3) * 8192 + r * 128 + (((c & 7) ^ (r & 7)) << 4),
+                      x + (ok ? (size_t)row * ldx + col : 0), ok);
+    }
+#pragma unroll
+    for (int i = 0; i < B_CHUNKS; ++i) {
+      const int e = tid + i * THREADS, r = e / (BN / 8), c = e % (BN / 8);
+      const int row = k0 + r, col = j0 + c * 8;
+      const bool ok = row < k_end && col < cout;
+      cvt::cp_async16(sb + (c >> 3) * 8192 + r * 128 + (((c & 7) ^ (r & 7)) << 4),
+                      dy + (ok ? (size_t)row * ldd + col : 0), ok);
+    }
+  };
+
+  float acc[BN / 2], sum[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = sum[i] = 0.0f;
+
+  // the stage a step refills held the tile of the step before, whose products
+  // the wait that closed that step retired in both warpgroups (the barrier orders them)
+#pragma unroll
+  for (int s = 0; s < BF16_AHEAD; ++s) {
+    if (s < tiles) load(s, s);
+    cvt::cp_async_commit();
+  }
+  for (int t = 0; t < tiles; ++t) {
+    cvt::cp_async_wait<BF16_AHEAD - 1>();
+    cvt::fence_proxy_async();
+    __syncthreads();
+    const int next = t + BF16_AHEAD;
+    if (next < tiles) load(next % BF16_STAGES, next);
+    cvt::cp_async_commit();
+    const uint32_t sa = base + (t % BF16_STAGES) * STAGE_BYTES, sb = sa + A_BYTES;
+    cvt::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < BF16_BK / 16; ++s)  // a step of 16 rows: 16 rows of 128 bytes of either operand
+      wgmma_bf16_tt(acc, cvt::sw128_desc(sa + wg * 8192 + s * 2048, 8192, 1024),
+                    cvt::sw128_desc(sb + s * 2048, 8192, 1024), s > 0);
+    cvt::wgmma_commit();
+    cvt::wgmma_wait<0>();
+    cvt::fence_sums(acc);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sum[i] += acc[i];
+  }
+  cvt::store_tile(sum, i0 + wg * 64, j0, cin, cout, epi);
+}
+
+constexpr int REDUCE_GROUP = 16;  // slabs summed apart before their sum joins the total
+
+// out[e] = the sum over slabs of partial[s][e] in a fixed order: groups of
+// REDUCE_GROUP consecutive slabs summed apart, the groups' sums added in order
+// (a chain of a few hundred slabs into one float would round more than
+// torch.mm's sums do)
 __global__ void wgrad_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out, int slabs,
                                     size_t count) {
   const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= count) return;
   float s = 0.0f;
-  for (int k = 0; k < slabs; ++k) s += partial[(size_t)k * count + e];
+  for (int g = 0; g < slabs; g += REDUCE_GROUP) {
+    float part = 0.0f;
+    for (int k = g; k < min(slabs, g + REDUCE_GROUP); ++k) part += partial[(size_t)k * count + e];
+    s += part;
+  }
   out[e] = s;
 }
 
-template <typename T>
-int launch(const T* x, const T* dy, float* partial, float* out, int m, int cin, int cout, int slab_rows,
-           cudaStream_t stream) {
-  if (m < 1 || cin < 1 || cout < 1 || slab_rows < CHUNK || slab_rows % CHUNK) return (int)cudaErrorInvalidValue;
-  const int slabs = (m + slab_rows - 1) / slab_rows;
-  const int tiles_j = (cout + TILE_J - 1) / TILE_J, tiles_i = (cin + TILE_I - 1) / TILE_I;
-  if (slabs > 65535 || tiles_i > 65535) return (int)cudaErrorInvalidValue;
-  wgrad_partial_kernel<T><<<dim3(tiles_j, tiles_i, slabs), THREADS, 0, stream>>>(
-      x, dy, slabs == 1 ? out : partial, m, cin, cout, slab_rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || slabs == 1) return (int)err;
-  const size_t count = (size_t)cin * cout;
-  wgrad_reduce_kernel<<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(partial, out, slabs, count);
-  return (int)cudaGetLastError();
+template <int WGS, int BN>
+cudaError_t launch_bf16(const bf16* x, int ldx, const bf16* dy, int ldd, int m, int cin, int cout, int slab_rows,
+                        int slabs, PartialEpi epi, cudaStream_t stream) {
+  constexpr size_t smem = (size_t)BF16_STAGES * (64 * WGS + BN) * 128 + 1024;  // + room to align to 1024
+  cudaError_t err =
+      cudaFuncSetAttribute(wgrad_bf16_kernel<WGS, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_j = (cout + BN - 1) / BN, tiles_i = (cin + 64 * WGS - 1) / (64 * WGS);
+  wgrad_bf16_kernel<WGS, BN><<<dim3(tiles_j, tiles_i, slabs), 128 * WGS, smem, stream>>>(x, ldx, dy, ldd, m, cin,
+                                                                                       cout, slab_rows, epi);
+  return cudaGetLastError();
+}
+
+template <int WGS, int BN>
+cudaError_t launch_partials(const void* x, int ldx, const void* dy, int ldd, int m, int cin, int cout, int slab_rows,
+                            int slabs, int is_bf16, PartialEpi epi, cudaStream_t stream) {
+  if (is_bf16)
+    return launch_bf16<WGS, BN>(static_cast<const bf16*>(x), ldx, static_cast<const bf16*>(dy), ldd, m, cin, cout,
+                                slab_rows, slabs, epi, stream);
+  return cvt::launch_x3_gemm<false, WGS, BN>(static_cast<const float*>(x), ldx, static_cast<const float*>(dy), ldd,
+                                             cin, cout, m, slab_rows, epi, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dW (cin, cout) f32 = x^T dy for x (m, cin) and dy (m, cout), float32
-// (bf16 = 0) or bfloat16 (bf16 = 1); `partial` holds ceil(m / slab_rows) *
-// cin * cout floats (unused with one slab).  Launches on `stream` and returns
-// the launches' cudaError_t (0 on success); never synchronises.
-int cvt_wgrad_matmul(const void* x, const void* dy, float* partial, float* out, int m, int cin, int cout,
-                     int slab_rows, int bf16, void* stream) {
-  if (bf16)
-    return launch(static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy), partial, out, m,
-                  cin, cout, slab_rows, (cudaStream_t)stream);
-  return launch(static_cast<const float*>(x), static_cast<const float*>(dy), partial, out, m, cin, cout, slab_rows,
-                (cudaStream_t)stream);
+// dW (cin, cout) f32 = x^T dy for x (m, cin) and dy (m, cout) with row strides
+// ldx and ldd (multiples of 8, at least cin and cout; the columns past cin and
+// cout are read and must hold zeros), float32 (is_bf16 = 0) or bfloat16
+// (is_bf16 = 1); slab_rows a multiple of 64; `partial` holds ceil(m / slab_rows) * cin *
+// cout floats (unused with one slab).  The tile: 64 Cin rows where cin <= 64,
+// else 128; 64 Cout columns where cout <= 64, else 128.  Launches on `stream`
+// and returns the launches' cudaError_t (0 on success); never synchronises.
+int cvt_wgrad_matmul(const void* x, const void* dy, float* partial, float* out, int m, int cin, int cout, int ldx,
+                     int ldd, int slab_rows, int is_bf16, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (m < 1 || cin < 1 || cout < 1 || ldx < cin || ldd < cout || ldx % 8 || ldd % 8 || slab_rows < BF16_BK ||
+      slab_rows % BF16_BK)
+    return (int)cudaErrorInvalidValue;
+  const int slabs = (m + slab_rows - 1) / slab_rows;
+  if (slabs > 65535 || (cin + 63) / 64 > 65535) return (int)cudaErrorInvalidValue;
+  const PartialEpi epi{slabs == 1 ? out : partial, cout, (size_t)cin * cout};
+  cudaError_t err;
+  if (cin <= 64)
+    err = cout <= 64 ? launch_partials<1, 64>(x, ldx, dy, ldd, m, cin, cout, slab_rows, slabs, is_bf16, epi, st)
+                     : launch_partials<1, 128>(x, ldx, dy, ldd, m, cin, cout, slab_rows, slabs, is_bf16, epi, st);
+  else
+    err = cout <= 64 ? launch_partials<2, 64>(x, ldx, dy, ldd, m, cin, cout, slab_rows, slabs, is_bf16, epi, st)
+                     : launch_partials<2, 128>(x, ldx, dy, ldd, m, cin, cout, slab_rows, slabs, is_bf16, epi, st);
+  if (err != cudaSuccess || slabs == 1) return (int)err;
+  const size_t count = (size_t)cin * cout;
+  wgrad_reduce_kernel<<<(unsigned)((count + 255) / 256), 256, 0, st>>>(partial, out, slabs, count);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -107,10 +107,12 @@ def load(stem: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(path))
 
 
-def sass_counts(stem: str, opcode: str) -> Dict[str, int]:
+def sass_counts(stem: str, opcode: str, suffix: str = "") -> Dict[str, int]:
     """``{mangled kernel name: instructions of ``opcode``}`` in the machine code
     (SASS) of ``lib<stem>.so``, from ``cuobjdump --dump-sass`` (built first if
-    needed); ``opcode`` ``"HGMMA"`` counts the tensor-core products of wgmma."""
+    needed); ``opcode`` ``"HGMMA"`` counts the tensor-core products of wgmma,
+    and a ``suffix`` keeps those whose modifiers hold it (``".TF32"``,
+    ``".BF16"``: ``HGMMA.64x128x8.F32.TF32``)."""
     path = _build_dir() / f"lib{stem}.so"
     if not path.exists():
         build()
@@ -122,7 +124,7 @@ def sass_counts(stem: str, opcode: str) -> Dict[str, int]:
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
             counts[name] = 0
-        elif name is not None and re.search(rf"\b{re.escape(opcode)}\b", line):
+        elif name is not None and re.search(rf"\b{re.escape(opcode)}(\.\S*)?{re.escape(suffix)}\b", line):
             counts[name] += 1
     return counts
 

@@ -33,19 +33,19 @@ their backward recomputes the twin from the saved inputs and differentiates it
 training).
 
 On the card each wrapper is a chain of launches, counted in its
-``kernel_launches``.  In float32 ``mlp_block`` and ``cn_mlp_block`` are one
-launch of a fused scalar kernel whose (tokens, Dh) activations stay on chip,
-and ``attention_block`` three (LN + QKV product, attention core, output
-projection + residual).  In bfloat16 every product runs on the tensor cores
-(``bf16_product``'s kernel, ``csrc/ln_gemm.cuh``) and a LayerNorm before a
-product is a row pass of its own: ``mlp_block`` and ``cn_mlp_block`` are three
-launches (LN, up-projection + gelu, down-projection + residual; with
-``post_norm`` up, down into a float32 branch, LN + residual), and the
-(tokens, Dh) bf16 activations make one round trip through device memory;
-``attention_block`` is four (LN, QKV product, attention core, output
-projection + residual).  The QKV product and the joined heads pass through
-device memory once in either type; the Pallas kernels keep all of these in
-VMEM.  On the card ``x`` (and ``res``) must have the weights' dtype,
+``kernel_launches``.  ``mlp_block`` and ``cn_mlp_block`` are three launches in
+either dtype (LN, up-projection + gelu, down-projection + residual; with
+``post_norm`` up, down into a float32 branch, LN + residual), all products on
+the tensor cores: bfloat16 ``wgmma`` (``bf16_product``'s kernel,
+``csrc/ln_gemm.cuh``), float32 split TF32, three tf32 products a product
+with float32 sums (``csrc/tf32x3.cuh``); the (tokens, Dh) activations make
+one round trip through device memory in the weights' dtype.  In float32
+``attention_block`` is three launches (LN + QKV product, attention core,
+output projection + residual; scalar float32 products), in bfloat16 four (LN,
+QKV product, attention core, output projection + residual).  The QKV product
+and the joined heads pass through device memory once in either type; the
+Pallas kernels keep all of these in VMEM.  On the card ``x`` (and ``res``)
+must have the weights' dtype,
 ``mlp_block`` and ``cn_mlp_block`` need D in ``MLP_DIMS`` and Dh a multiple of
 256, or of ``MLP_HIDDEN_STEP`` up to D = ``MLP_RAGGED_MAX_DIM``, and
 ``attention_block`` needs D a multiple of 16 and a head dim of
@@ -73,7 +73,7 @@ __all__ = ["mlp_block", "mlp_block_plain", "cn_mlp_block", "cn_mlp_block_plain",
            "attention_block_plain", "bf16_product", "bf16_product_plain", "mlp_kernel_takes", "attention_kernel_takes",
            "MLP_DIMS", "PRODUCT_EPILOGUES"]
 
-MLP_DIMS = (96, 128, 192, 256, 384, 512, 768, 1024, 1280, 1536)  # instantiations in csrc/transformer_block.cu
+MLP_DIMS = (96, 128, 192, 256, 384, 512, 768, 1024, 1280, 1536)  # the widths held on the card (csrc takes D % 32 == 0)
 MLP_HIDDEN_STEP = 64       # Dh is a multiple of 256, or of this up to D = MLP_RAGGED_MAX_DIM
 MLP_RAGGED_MAX_DIM = 512
 PRODUCT_EPILOGUES = ("bias", "gelu", "residual")  # bf16_product's, in the order of csrc's TC_BIAS, TC_GELU, TC_RESID
@@ -200,16 +200,16 @@ def _launch_mlp(fn, x, resid, ln_g, ln_b, w1, b1, w2, b2, gamma, eps, post_norm,
     ln_g, ln_b, b1, b2 = _f32c(ln_g), _f32c(ln_b), _f32c(b1), _f32c(b2)
     gamma = None if gamma is None else _f32c(gamma)
     bf16 = x.dtype == torch.bfloat16
-    # bf16 scratch: LN(x) rows, the gelu activations, post_norm's float32 branch
-    ln_rows = torch.empty_like(x) if bf16 and not post_norm else None
-    hidden = torch.empty((m, dh), dtype=x.dtype, device=x.device) if bf16 else None
-    branch = torch.empty((m, d), dtype=torch.float32, device=x.device) if bf16 and post_norm else None
+    # scratch: LN(x) rows, the gelu activations, post_norm's float32 branch
+    ln_rows = None if post_norm else torch.empty_like(x)
+    hidden = torch.empty((m, dh), dtype=x.dtype, device=x.device)
+    branch = torch.empty((m, d), dtype=torch.float32, device=x.device) if post_norm else None
     _build.launch(_lib(), "cvt_mlp_block", x, x.data_ptr(), resid.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(),
                   w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), _ptr(gamma), out.data_ptr(),
                   _ptr(ln_rows), _ptr(hidden), _ptr(branch), m, d, dh, float(eps), int(bool(post_norm)),
                   int(ln_count), int(bf16))
     _build.count_launch(fn, x)
-    fn.kernel_launches += 3 if bf16 else 1
+    fn.kernel_launches += 3
     return out
 
 
@@ -227,9 +227,9 @@ def _mlp_kernel(x, ln_g, ln_b, w1, b1, w2, b2, eps, post_norm, ln_count) -> torc
 def mlp_block(x, ln_g, ln_b, w1, b1, w2, b2, eps: float = 1e-6, post_norm: bool = False,
               ln_count: int = 0) -> torch.Tensor:
     """``x + Dense2(gelu(Dense1(LN(x))))`` for 2-D ``x`` (tokens, D).  On the
-    card one fused kernel in float32, whose (tokens, Dh) activations never
-    reach device memory; three launches in bfloat16 (LN, two tensor-core
-    products), whose bf16 activations make one round trip through it."""
+    card three launches (LN, two tensor-core products: bfloat16 ``wgmma``, or
+    split TF32 in float32), whose activations make one round trip through
+    device memory."""
     _check_mlp(x, ln_g, ln_b, w1, b1, w2, b2)
     return _grad.recompute_backward(_mlp_kernel, mlp_block_plain, x, ln_g, ln_b, w1, b1, w2, b2, eps, post_norm,
                                     ln_count, dtype=w1.dtype)

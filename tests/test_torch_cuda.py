@@ -34,7 +34,11 @@ that is to a few int8 steps of the sub-block's output.  The weight gradient
 ``wgrad_matmul`` sums float32 products (exact for bfloat16 inputs) in another
 order than its twin's float32 product: held to ``1e-5·max|twin|``, and two
 calls must give the same bits, as must two calls of each wrapper that runs a
-bfloat16 attention core on the tensor cores.  The gradients of the kernels' routes
+bfloat16 attention core on the tensor cores, and of the float32 MLP blocks.
+The weight gradient (both dtypes) and the float32 MLP block, whose float32
+products run on the tensor cores by split TF32, stand no further from the
+float64 result on the same inputs than twice a float32 product with TF32 off
+(``max|out - f64| / max|f64|``).  The gradients of the kernels' routes
 (recomputed through the twins) are held to the plain routes' within
 ``1e-5 + 1e-5·|plain|`` in float32.  The ``None`` routes of
 ViT, Swin and NMS send a shape their kernel does not take to the plain route
@@ -265,7 +269,7 @@ def test_mlp_block_matches_twin(cuda, rng, m, d, dh, dtype):
     args = _mlp_args(rng, m, d, dh, dtype, cuda)
     out = kernels.mlp_block(*args)
     assert kernels.launch_counts()["mlp_block"] == 1
-    assert kernels.mlp_block.kernel_launches == (3 if dtype == torch.bfloat16 else 1)
+    assert kernels.mlp_block.kernel_launches == 3  # LN, two tensor-core products (split TF32 in float32)
     _close(out, kernels.mlp_block_plain(*args), dtype)
 
 
@@ -284,7 +288,7 @@ def test_transformer_kernels_refuse_what_they_do_not_take(cuda, rng):
     mlp = _mlp_args(rng, 8, 256, 256, torch.float32, cuda)
     with pytest.raises(ValueError):  # ln_count past D
         kernels.mlp_block(*mlp, ln_count=257)
-    with pytest.raises(ValueError):  # D = 320 has no instantiation
+    with pytest.raises(ValueError):  # D = 320 is not in MLP_DIMS
         kernels.mlp_block(*_mlp_args(rng, 8, 320, 256, torch.float32, cuda))
     with pytest.raises(ValueError):  # the hidden dim is no multiple of 64
         kernels.mlp_block(*_mlp_args(rng, 8, 256, 96, torch.float32, cuda))
@@ -344,7 +348,7 @@ def test_cn_mlp_block_matches_twin(cuda, rng, m, d, dtype):
     _close(out, kernels.cn_mlp_block_plain(*args), dtype)
     with pytest.raises(TypeError):  # the residual in another dtype than the weights
         kernels.cn_mlp_block(args[0], args[1].double(), *args[2:])
-    assert kernels.cn_mlp_block.kernel_launches == (3 if dtype == torch.bfloat16 else 1)
+    assert kernels.cn_mlp_block.kernel_launches == 3
 
 
 
@@ -855,6 +859,44 @@ def test_wgrad_matmul_matches_twin(cuda, m, cin, cout, dtype):
     assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
     assert torch.equal(kernels.wgrad_matmul(x, dy), out)  # deterministic: the same bits twice
     assert kernels.wgrad_matmul.launches_by_shape == {((m, cin), dtype): 2}
+
+
+@pytest.mark.parametrize("name", ["mlp_block", "mlp_block post_norm", "cn_mlp_block"])
+def test_f32_mlp_blocks_give_the_same_bits_twice(cuda, rng, name):
+    """The split-TF32 products sum in a fixed order without atomics: two calls are equal bit for bit."""
+    mlp = _mlp_args(rng, 300, 192, 768, torch.float32, cuda)
+    call = {"mlp_block": lambda: kernels.mlp_block(*mlp),
+            "mlp_block post_norm": lambda: kernels.mlp_block(*mlp, True),
+            "cn_mlp_block": lambda: kernels.cn_mlp_block(mlp[0], mlp[0] * 0.5, *mlp[1:7], mlp[6], 1e-6)}[name]
+    first = call()
+    assert torch.equal(call(), first)
+
+
+def _f64_err(out, ref64):
+    return float((out.double() - ref64).abs().max() / ref64.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wgrad_matmul_stands_near_float64(cuda, dtype):
+    """Split TF32 (float32) and bf16 wgmma (bfloat16), each stage's sums added into a float32 register sum: no
+    further from the float64 product of the same inputs than twice torch.mm's float32 product (TF32 off)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((100352, 256), generator=gen, device=cuda).to(dtype)
+    dy = torch.randn((100352, 512), generator=gen, device=cuda).to(dtype)
+    ref64 = x.t().double() @ dy.double()
+    with _dtype.full_float32():
+        library = torch.mm(x.t().float(), dy.float())
+    assert _f64_err(kernels.wgrad_matmul(x, dy), ref64) <= 2 * _f64_err(library, ref64)
+
+
+def test_f32_mlp_block_stands_near_float64(cuda, rng):
+    """The float32 MLP's split-TF32 products, at ViT-B/16's width: no further from the block in float64 (the
+    twin's LayerNorm and erf polynomial) than twice the twin's float32 products (TF32 off)."""
+    args = _mlp_args(rng, 4096, 768, 3072, torch.float32, cuda)
+    x, ln_g, ln_b, w1, b1, w2, b2, eps = args
+    h = transformer_block._ln_f32(x.double(), ln_g.double(), ln_b.double(), eps)
+    ref64 = x.double() + transformer_block._gelu_f32(h @ w1.double() + b1.double()) @ w2.double() + b2.double()
+    assert _f64_err(kernels.mlp_block(*args), ref64) <= 2 * _f64_err(kernels.mlp_block_plain(*args), ref64)
 
 
 def _grads(fn, args):

@@ -34,6 +34,7 @@ struct dim3 {
 struct alignas(16) float4 {
   float x, y, z, w;
 };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct alignas(8) float2 {
   float x, y;
 };
@@ -51,6 +52,11 @@ inline int __dp4a(int a, int b, int c) {
   return c;
 }
 inline float __int2float_rn(int v) { return (float)v; }  // to nearest, as the host rounds
+inline unsigned __float_as_uint(float v) {
+  unsigned u;
+  memcpy(&u, &v, 4);
+  return u;
+}
 
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };

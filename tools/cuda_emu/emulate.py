@@ -25,8 +25,8 @@ Covered: ``__global__`` templates, ``threadIdx``/``blockIdx``, ``__syncthreads``
 ``extern __shared__ __align__(16) float smem[];``, static ``__shared__`` arrays,
 ``float4``, ``int4``, ``uint4``, ``__dp4a``, ``__int2float_rn``, ``__nv_bfloat16`` with its conversions (a pair too),
 ``cudaFuncSetAttribute``,
-``blockDim``, the ``<<<...>>>`` launch, and the functions of ``csrc/hopper.cuh`` (``cp.async``, ``wgmma``; the
-stand-in ``hopper.cuh`` here replaces that header).  Not covered: everything else (``stencil.cu`` and
+``blockDim``, the ``<<<...>>>`` launch, ``make_float4``, and the functions of ``csrc/hopper.cuh`` (``cp.async``,
+``wgmma`` of bf16 and of tf32, ``cvt.rna.tf32.f32``; the stand-in ``hopper.cuh`` here replaces that header).  Not covered: everything else (``stencil.cu`` and
 ``conv_block.cu`` use typed shared arrays and ``__syncthreads_or``); extend the
 headers as a source needs.
 """
@@ -225,7 +225,10 @@ def main() -> int:
                               kernels.wgrad_matmul_plain(x, dy)))
             for name, out, ref in pairs:
                 err = (out.float() - ref.float()).abs()
-                ok = bool((err <= tol + tol * ref.float().abs()).all())
+                if name.startswith("wgrad_matmul"):  # the weight gradient's rule on the card: 1e-5 max |twin|
+                    ok = float(err.max()) <= 1e-5 * float(ref.abs().max())
+                else:
+                    ok = bool((err <= tol + tol * ref.float().abs()).all())
                 print(f"{name} {dtype}: max |err| {float(err.max()):.3e} {'ok' if ok else 'FAILED'}")
                 worst = max(worst, 0.0 if ok else 1.0)
     return int(worst)

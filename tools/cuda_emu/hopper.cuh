@@ -10,11 +10,16 @@
 // the poisoned shared memory or a wrong sum.  The products read their shared
 // operands through the descriptors' fields and the 128- or 64-byte swizzle
 // as hopper.cuh describes them, K-major or MN-major by the instruction's
-// transpose flag, and A from registers out of the four registers of each
+// transpose flags, and A from registers out of the four registers of each
 // thread of the warp that holds the output's row (read at the wait too, so a
 // register changed before its product retired shows as a wrong sum); each
-// output sums its 16 products in order.  It checks a kernel's tiling against
-// that reading of the hardware, not the hardware itself.
+// output sums its 16 (tf32: 8) products in order, and scale_d 0 drops the sum
+// it held.  A tf32 operand is read as the f32 word it is stored in with its 13
+// low mantissa bits dropped, as the hardware truncates them, so a hi half
+// that was not rounded before it was stored shows as a wrong sum;
+// tf32_rna rounds to nearest, ties away from zero, as cvt.rna.  It checks a
+// kernel's tiling against that reading of the hardware, not the hardware
+// itself.
 
 #pragma once
 
@@ -86,31 +91,53 @@ inline uint32_t pack_bf16(float lo, float hi) {
   return u;
 }
 
+inline float emu_bits_float(uint32_t u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+
+inline float tf32_rna(float x) {
+  uint32_t u;
+  memcpy(&u, &x, 4);
+  if ((u & 0x7f800000u) != 0x7f800000u) u = (u + 0x1000u) & 0xffffe000u;  // to nearest, ties away; inf, NaN kept
+  return emu_bits_float(u);
+}
+
 // Element (mn, k) of a shared operand: K-major (rows of mn, k along the row)
-// or MN-major (rows of k, mn along the row), in the descriptor's swizzle.
-inline float emu_operand(uint64_t desc, int mn, int k, bool k_major) {
+// or MN-major (rows of k, mn along the row), in the descriptor's swizzle; bf16,
+// or tf32 (4 bytes, the 13 low mantissa bits dropped).
+inline float emu_operand(uint64_t desc, int mn, int k, bool k_major, bool tf32 = false) {
   const uint64_t layout = desc >> 62;
   if (layout != 1 && layout != 2) abort();  // the 128- and the 64-byte swizzle only
   const uint32_t row_bytes = layout == 1 ? 128 : 64;
   const uint32_t start = (uint32_t)(desc & 0x3FFF) << 4, lbo = (uint32_t)((desc >> 16) & 0x3FFF) << 4,
                  sbo = (uint32_t)((desc >> 32) & 0x3FFF) << 4;
+  const uint32_t size = tf32 ? 4 : 2;
   uint32_t addr;
   if (k_major) {  // rows of mn, groups of 8 rows SBO apart; a step of k moves the start inside the row
-    addr = start + (mn / 8) * sbo + (mn % 8) * row_bytes + k * 2;
-  } else {  // rows of k, groups of 8 k SBO apart; blocks of row_bytes / 2 columns of mn LBO apart
+    addr = start + (mn / 8) * sbo + (mn % 8) * row_bytes + k * size;
+  } else {  // rows of k, groups of 8 k SBO apart; blocks of row_bytes / size columns of mn LBO apart
+    if (tf32) abort();  // PTX has no MN-major tf32 operand
     const int width = (int)row_bytes / 2;
     addr = start + (mn / width) * lbo + (k / 8) * sbo + (k % 8) * row_bytes + (mn % width) * 2;
   }
   addr ^= ((addr >> 7) & (layout == 1 ? 7 : 3)) << 4;
-  if (addr + 2 > EMU_MAX_SHARED) abort();
+  if (addr + size > EMU_MAX_SHARED) abort();
+  if (tf32) {
+    uint32_t u;
+    memcpy(&u, (const char*)emu_shared + addr, 4);
+    return emu_bits_float(u & 0xffffe000u);
+  }
   __nv_bfloat16 v;
   memcpy(&v, (const char*)emu_shared + addr, 2);
   return __bfloat162float(v);
 }
 
-// Queues d[4 j + 2 h + e] += sum over k < 16 of A(16 w + l / 4 + 8 h, k) B(k, 8 j + 2 (l % 4) + e), j < N / 8, for
-// this thread (32 w + l of its warpgroup); a(row, k) and b(k, col) read the operands when the product runs.
-template <int N, typename FA, typename FB> inline void emu_wgmma(float* d, FA a, FB b) {
+// Queues d[4 j + 2 h + e] (+)= sum over k < K of A(16 w + l / 4 + 8 h, k) B(k, 8 j + 2 (l % 4) + e), j < N / 8, for
+// this thread (32 w + l of its warpgroup); a(row, k) and b(k, col) read the operands when the product runs, and
+// scale_d 0 overwrites d then.
+template <int N, int K = 16, typename FA, typename FB> inline void emu_wgmma(float* d, FA a, FB b, int scale_d = 1) {
   const int t = threadIdx.x & 127, w = t >> 5, l = t & 31;
   emu_products.open.push_back([=] {
     for (int j = 0; j < N / 8; ++j)
@@ -118,8 +145,8 @@ template <int N, typename FA, typename FB> inline void emu_wgmma(float* d, FA a,
         for (int e = 0; e < 2; ++e) {
           const int row = 16 * w + l / 4 + 8 * h, col = 8 * j + 2 * (l % 4) + e;
           float sum = 0.0f;
-          for (int k = 0; k < 16; ++k) sum += a(row, k) * b(k, col);
-          d[4 * j + 2 * h + e] += sum;
+          for (int k = 0; k < K; ++k) sum += a(row, k) * b(k, col);
+          d[4 * j + 2 * h + e] = (scale_d ? d[4 * j + 2 * h + e] : 0.0f) + sum;
         }
   });
 }
@@ -132,6 +159,16 @@ inline void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t a, uint64_t b) {
 inline void wgmma_m64n64k16_ss_kk(float (&d)[32], uint64_t a, uint64_t b) {
   emu_wgmma<64>(d, [=](int row, int k) { return emu_operand(a, row, k, true); },
                 [=](int k, int col) { return emu_operand(b, col, k, true); });
+}
+
+// A and B both MN-major (the transpose flags of the 16-bit types)
+inline void wgmma_m64n128k16_bf16_tt(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  emu_wgmma<128>(d, [=](int row, int k) { return emu_operand(a, row, k, false); },
+                 [=](int k, int col) { return emu_operand(b, col, k, false); }, scale_d);
+}
+inline void wgmma_m64n64k16_bf16_tt(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  emu_wgmma<64>(d, [=](int row, int k) { return emu_operand(a, row, k, false); },
+                [=](int k, int col) { return emu_operand(b, col, k, false); }, scale_d);
 }
 
 // A from registers: each thread publishes where its four registers live; a product reads, for its two rows, the
@@ -159,7 +196,33 @@ template <int N> inline void emu_wgmma_rs(float* d, const uint32_t* a, uint64_t 
                [=](int k, int col) { return emu_operand(b, col, k, false); });
 }
 
+// tf32 A from registers: register r of lane 4 g + i holds row g (+ 8 where r is odd), column i (+ 4 where r >= 2),
+// one f32 word, read with its 13 low mantissa bits dropped
+template <int N> inline void emu_wgmma_rs_tf32(float* d, const uint32_t* a, uint64_t b, int scale_d) {
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  emu_a_regs[t] = a;
+  emu_warp_barriers[warp]->arrive_and_wait();
+  const uint32_t* quad[4];
+  for (int i = 0; i < 4; ++i) quad[i] = emu_a_regs[32 * warp + 4 * (lane / 4) + i];
+  emu_warp_barriers[warp]->arrive_and_wait();
+  emu_wgmma<N, 8>(d,
+                  [=](int row, int k) {
+                    const int reg = ((row % 16) >= 8 ? 1 : 0) + (k >= 4 ? 2 : 0);
+                    return emu_bits_float(quad[k % 4][reg] & 0xffffe000u);
+                  },
+                  [=](int k, int col) { return emu_operand(b, col, k, true, true); }, scale_d);
+}
+
 inline void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t* a, uint64_t b) { emu_wgmma_rs<64>(d, a, b); }
+inline void wgmma_m64n128k8_tf32_rs(float (&d)[64], const uint32_t* a, uint64_t b, int scale_d) {
+  emu_wgmma_rs_tf32<128>(d, a, b, scale_d);
+}
+inline void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t* a, uint64_t b, int scale_d) {
+  emu_wgmma_rs_tf32<64>(d, a, b, scale_d);
+}
+inline void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t* a, uint64_t b, int scale_d) {
+  emu_wgmma_rs_tf32<32>(d, a, b, scale_d);
+}
 inline void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t* a, uint64_t b) { emu_wgmma_rs<32>(d, a, b); }
 
 }  // namespace cvt
