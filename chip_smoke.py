@@ -44,8 +44,12 @@ is left), then:
    ``resnet50`` (``int8_matmul_requant`` in its 36 1x1 convolutions), both at
    batch 256 on 224x224 images; and training: ``vit_b_16`` bfloat16 at batch
    128 through ``parallel.make_train_step`` (3 SGD steps on the kernel routes,
-   ``attention_block`` + ``mlp_block`` forward and their twins' gradients, and
-   3 on the plain routes, from the same weights), ``resnet50`` bfloat16 at
+   ``attention_block`` + ``mlp_block`` forward and their backward on the
+   card's kernels: ``attention_core_backward``, ``mlp_gelu_backward``,
+   ``ln_backward_rows``, ``bf16_product`` and ``wgrad_matmul``, counted, with
+   no twin called; then one more step split into forward, backward and
+   optimizer on the card's clock and profiled: busy share and kernels by
+   name; and 3 on the plain routes, from the same weights), ``resnet50`` bfloat16 at
    batch 128 with batch statistics (3 steps, and a float32 run of the same
    weights), ``cnn_forward`` at 28x28x1 batch 256 (3 steps on the conv kernel
    and 3 on the plain route) and ``ops.PointwiseConv`` at the twelve 1x1
@@ -83,7 +87,12 @@ is left), then:
    the twin's), and the same bits twice; every ``wgrad_matmul`` row carries its
    float64 error beside ``torch.mm``'s (``library_f64_err``, held to twice it);
    ``attention_block`` is also held and timed in float32 at (64, 197, 768),
-   on no main path, beside its composite;
+   on no main path, beside its composite; the bf16 blocks' backward kernels
+   and ``bf16_product`` and ``wgrad_matmul`` at the ViT training path's
+   shapes, each beside its bound and one PyTorch call (SDPA's backward,
+   ``aten.gelu_backward``, ``aten.native_layer_norm_backward``, ``torch.mm``);
+   and the gradients of ``cn_mlp_block``, ``window_attention_block`` and
+   ``depthwise_conv2d`` (rows 12-14) against their twins' on the card;
    ``held_untimed`` lists the checks that were not timed), then, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -387,6 +396,10 @@ def main() -> int:
                 f"{stem}: a bf16 head-dim-64 attention_core_kernel or a bf16 window_core_kernel is left")
         hgmma[stem] = sum(products.values())
         core_hgmma[stem] = sum(cores.values())
+    # the attention core's backward (Kernel B) runs on the tensor cores in both its instantiations
+    bwd_hgmma = {fn: c for fn, c in _build.sass_counts("attention", "HGMMA").items() if "attention_bwd_kernel" in fn}
+    print(f"  attention: HGMMA in the core's backward {bwd_hgmma}")
+    require(len(bwd_hgmma) == 2 and all(bwd_hgmma.values()), "attention: a core backward without HGMMA")
     # the float32 products of mlp_block / cn_mlp_block and both dtypes of wgrad_matmul run on the tensor
     # cores: HGMMA ... .TF32 in every split-TF32 instantiation (x3_gemm_kernel), HGMMA ... .BF16 in every bf16 weight
     # gradient one, and neither the scalar f32 mlp_block_kernel nor the scalar wgrad_partial_kernel is left
@@ -955,11 +968,58 @@ def main() -> int:
     def xent(model, batch):  # bench_all.py:514: cross entropy of float32 logits with integer labels
         return F.cross_entropy(model(batch[0], train=True).float(), batch[1]), {}
 
-    def train(model, label, steps, after_first=None):
+    def busy_ms(events):
+        """Length of the union of the profiler's kernel intervals, in ms."""
+        spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        total, cur = 0.0, None
+        for start, end in spans:
+            if cur is None or start > cur[1]:
+                total += 0 if cur is None else cur[1] - cur[0]
+                cur = [start, end]
+            else:
+                cur[1] = max(cur[1], end)
+        return (total + (0 if cur is None else cur[1] - cur[0])) / 1e3
+
+    def profile_step(model, optimizer, top=8):
+        """One more step of ``model`` as ``parallel.make_train_step`` takes it, with CUDA events between its phases
+        (forward, backward, optimizer update: ms on the card's clock), and one under ``torch.profiler``: the card's
+        busy share and the kernels with the most device time, by name."""
+        from torch.profiler import ProfilerActivity, profile
+
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        model.zero_grad(set_to_none=True)
+        ev[0].record()
+        with _dtype.full_float32():
+            loss = xent(model, (train_images, train_labels))[0]
+            ev[1].record()
+            loss.backward()
+        ev[2].record()
+        optimizer.step()
+        ev[3].record()
+        ev[3].synchronize()
+        split = {"forward": ev[0].elapsed_time(ev[1]), "backward": ev[1].elapsed_time(ev[2]),
+                 "optimizer": ev[2].elapsed_time(ev[3])}
+        step = parallel.make_train_step(xent, optimizer)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ev[0].record()
+            step(model, (train_images, train_labels))
+            ev[1].record()
+            ev[1].synchronize()
+        wall, busy = ev[0].elapsed_time(ev[1]), busy_ms(prof.events())
+        by_kernel = sorted(((e.key[:70], round(e.device_time_total / 1e3, 4), e.count) for e in prof.key_averages()
+                            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0),
+                           key=lambda r: -r[1])
+        return dict(phases_ms=split, backward_share=split["backward"] / sum(split.values()), wall_ms=wall,
+                    busy_ms=busy, busy_share=busy / wall, top_kernels=by_kernel[:top])
+
+    def train(model, label, steps, after_first=None, profiled=None):
         """``steps`` SGD steps of ``model`` on the training batch through ``parallel.make_train_step``, the counts
         at 0 before them and read after them: (losses, ms a step from the host's clock, the first step's gradients
-        by parameter, counts).  ``after_first()`` runs between the first step and the next."""
-        step = parallel.make_train_step(xent, torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9))
+        by parameter, counts).  ``after_first()`` runs between the first step and the next; with a dict
+        ``profiled``, one more step is profiled after the counts are read (``profile_step``) into it."""
+        optimizer = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+        step = parallel.make_train_step(xent, optimizer)
         kernels.reset_launch_counts()
         losses, ms, first = [], [], None
         for _ in range(steps):
@@ -976,6 +1036,8 @@ def main() -> int:
         counts = read_counts(label)
         require(all(math.isfinite(v) for v in losses) and all(bool(torch.isfinite(p).all()) for p in model.parameters()),
                 f"{label}: a loss or a parameter is not finite")
+        if profiled is not None:
+            profiled.update(profile_step(model, optimizer))
         return losses, ms, first, counts
 
     def worst_param_gap(got, want):
@@ -990,7 +1052,13 @@ def main() -> int:
     VIT_TRAIN, VIT_TRAIN_PLAIN, VIT_TRAIN_F32 = ("vit_b_16 train bf16 b128", "vit_b_16 train bf16 b128 plain routes",
                                                  "vit_b_16 train f32 b128 plain routes")
     vit_state = models.get_model("vit_b_16", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0)).state_dict()
-    runs = {}
+    runs, profiles = {}, {VIT_TRAIN: {}, VIT_TRAIN_PLAIN: {}}
+    # the bf16 kernel routes' backward must not recompute a twin: every call of one is counted during that path
+    twin_calls, twins = [], {name: getattr(transformer_block, name) for name in ("mlp_block_plain",
+                                                                                "attention_block_plain")}
+    for twin_name, twin in twins.items():
+        setattr(transformer_block, twin_name,
+                lambda *a, twin=twin, twin_name=twin_name, **kw: twin_calls.append(twin_name) or twin(*a, **kw))
     for label, dtype, kw, steps in ((VIT_TRAIN, torch.bfloat16, {}, 3),
                                     (VIT_TRAIN_PLAIN, torch.bfloat16, dict(attention="plain", mlp="plain"), 3),
                                     (VIT_TRAIN_F32, torch.float32, dict(attention="plain", mlp="plain"), 1)):
@@ -998,16 +1066,36 @@ def main() -> int:
         vit_t.load_state_dict(vit_state)
         require(vit_t.routes(train=True) == (("block", "block") if not kw else ("plain", "plain")), f"{label}: routes")
         torch.cuda.reset_peak_memory_stats()
-        runs[label] = train(vit_t, label, steps)
+        runs[label] = train(vit_t, label, steps, profiled=profiles.get(label))
         runs[label] += (torch.cuda.max_memory_allocated() / 2**30,)
+        if label == VIT_TRAIN:
+            require(not twin_calls, f"{VIT_TRAIN}: the backward recomputed a twin {len(twin_calls)} times")
         del vit_t
+    for twin_name, twin in twins.items():
+        setattr(transformer_block, twin_name, twin)
     (k_loss, k_ms, k_grads, k_counts, k_mem), (p_loss, p_ms, p_grads, p_counts, p_mem), (f_loss, f_ms, f_grads, _, _) = (
         runs[VIT_TRAIN], runs[VIT_TRAIN_PLAIN], runs[VIT_TRAIN_F32])
     print(f"{VIT_TRAIN} main path launches: {k_counts} over 3 steps")
+    print(f"backward taken: {VIT_TRAIN}: attention_block and mlp_block the card's own (Kernel B "
+          f"attention_core_backward, Kernel A mlp_gelu_backward, ln_backward_rows, bf16_product, wgrad_matmul; "
+          f"transformer_block.attention_backward_takes / mlp_backward_takes); {VIT_TRAIN_PLAIN} and "
+          f"{VIT_TRAIN_F32}: autograd of stock operators; resnet50: autograd of stock operators; the CNN's conv "
+          f"stage: its twin recomputed (fused_conv3x3_relu_pool); conv1x1: wgrad_matmul from 16,384 rows")
     require(launches_at("attention_block", (128, 197, 768), torch.bfloat16).get(VIT_TRAIN) == 36
             and launches_at("mlp_block", (128 * 197, 768), torch.bfloat16).get(VIT_TRAIN) == 36
             and k_counts["attention_block"] == 36 and k_counts["mlp_block"] == 36,
             f"{VIT_TRAIN}: expected 12 attention_block and 12 mlp_block launches a forward")
+    # the backward of every block on the card's kernels: one Kernel A an MLP, one Kernel B an attention block, two
+    # LayerNorm backward rows a layer, three activation-gradient products and four weight gradients a layer
+    require((k_counts["mlp_gelu_backward"], k_counts["attention_core_backward"], k_counts["ln_backward_rows"],
+             k_counts["bf16_product"], k_counts["wgrad_matmul"]) == (36, 36, 72, 108, 144),
+            f"{VIT_TRAIN}: expected 36 Kernel A, 36 Kernel B, 72 ln_backward_rows, 108 bf16_product and 144 "
+            f"wgrad_matmul launches over 3 steps")
+    for label, prof in profiles.items():
+        print(f"{label}: one more step, on the card's clock {prof['phases_ms']} (backward "
+              f"{100 * prof['backward_share']:.1f}%), profiled wall {prof['wall_ms']:.4f} ms, busy "
+              f"{prof['busy_ms']:.4f} ms ({100 * prof['busy_share']:.1f}%); top kernels (name, ms, launches): "
+              f"{prof['top_kernels']} ({card})")
     require(all(v == 0 for v in p_counts.values()), f"{VIT_TRAIN_PLAIN}: the plain routes launched a kernel")
     loss_gap = abs(k_loss[0] - p_loss[0]) / (1 + abs(p_loss[0]))
     require(loss_gap <= VIT_TOL[torch.bfloat16], f"{VIT_TRAIN}: step-0 loss {k_loss[0]} vs the plain routes' {p_loss[0]}")
@@ -1999,11 +2087,180 @@ def main() -> int:
             print(f"  float64 error, max|a - f64| / max|f64|: kernel {figures['f64_err']:.3e}, library "
                   f"{figures['library_f64_err']:.3e}")
             del xw, dyw, out, ref, ref64, lib_out
+    # and in bfloat16 at the ViT-B/16 b128 training path's four shapes (M 25,216): dW2 = aᵀ·g, dW1 = hᵀ·[du hi | lo],
+    # dW_o = joinedᵀ·g and dW_qkv = hᵀ·dqkv; printed beside torch.mm in bfloat16 (no cast), which they should beat
+    for cin, cout in ((3072, 768), (768, 6144), (768, 768), (768, 2304)):
+        xw = torch.randn((128 * 197, cin), generator=w_gen, device=dev).to(torch.bfloat16)
+        dyw = torch.randn((128 * 197, cout), generator=w_gen, device=dev).to(torch.bfloat16)
+        out, ref = kernels.wgrad_matmul(xw, dyw), wgrad_matmul_plain(xw, dyw)
+        err = float((out - ref).abs().max())
+        require(err <= WGRAD_TOL * float(ref.abs().max()), f"wgrad_matmul 25216x{cin}x{cout}: max |err| {err}")
+        ms = time_ms(lambda: kernels.wgrad_matmul(xw, dyw), 10)
+        mm_bf16 = time_ms(lambda: torch.mm(xw.t(), dyw), 10)
+        wgrad_rows.append(row("wgrad_matmul", f"{PALLAS_WGRAD}:54", VIT_TRAIN, err, ms,
+                              time_ms(lambda: wgrad_matmul_plain(xw, dyw), 3),
+                              xw.numel() * 2 + dyw.numel() * 2 + 4 * cin * cout, 2 * xw.shape[0] * cin * cout,
+                              library_ms=time_ms(lambda: torch.mm(xw.t().float(), dyw.float()), 5), source=WGRAD,
+                              ops_per_s=BF16_OPS_PER_S, at=(xw.shape, torch.bfloat16),
+                              shape=[xw.shape[0], cin, cout], dtype="bfloat16", library_composite=True,
+                              torch_mm_bf16_ms=mm_bf16))
+        hold("wgrad_matmul", xw.shape, torch.bfloat16, err, cout=cout)
+        print(f"  wgrad_matmul 25216x{cin}x{cout}: {ms:.4f} ms against torch.mm in bf16 {mm_bf16:.4f} "
+              f"({'ahead' if ms <= mm_bf16 else 'behind'})")
+        del xw, dyw, out, ref
     main = next(r for r in wgrad_rows if r["dtype"] == "bfloat16" and r["shape"] == [401408, 64, 64])
     rows.append(entry(main, CONV1X1, [r for r in wgrad_rows if r is not main]))
     ones = torch.ones(401408, 64, device=dev)
     print(f"  under wgrad_matmul's load: {clock_under(lambda: kernels.wgrad_matmul(ones, ones), 50)}")
     del ones
+
+    # ---- the bf16 blocks' backward at ViT-B/16 b128's training shapes (rows 9-12's backward, since PR 11): Kernel B,
+    # Kernel A, ln_backward_rows and the activation-gradient products against their plain versions, and four more
+    # wgrad_matmul shapes.  Bounds count the function's inputs and outputs once; library_ms is one PyTorch call of
+    # the same function: the backward of F.scaled_dot_product_attention (its forward and backward less its forward),
+    # aten.gelu_backward (exact erf, on u and the rounded da), aten.native_layer_norm_backward, torch.mm in bf16
+    from cpu_vision_tpu_torch.ops.kernels.transformer_block import (bf16_product_plain, ln_backward_plain,
+                                                                    mlp_gelu_backward_plain)
+
+    bf = torch.bfloat16
+    tb_tokens = 128 * seq
+    bgen = torch.Generator(device=dev).manual_seed(11)
+
+    def bnormal(shape, dtype, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=bgen, device=dev) * std + mean).to(dtype)
+
+    qb, kb, vb = (bnormal((128, seq, heads, hd), bf) for _ in range(3))
+    dob = bnormal((128, heads, seq, hd), bf)
+    ob = torch.empty_like(qb)
+    got = kernels.attention_core_backward(qb, kb, vb, dob, scale, o=ob)
+    with _dtype.float32_products(bf):
+        ref = flash_attention.attention_core_backward_plain(qb, kb, vb, dob, scale)
+        joined = flash_attention.flash_mha_plain(qb, kb, vb, scale).transpose(1, 2).contiguous()
+    err = max(max_err_f32(a, b, f"attention_core_backward {name}", TOL[bf], TOL[bf])
+              for a, b, name in zip((*got, ob), (*ref, joined), ("dq", "dk", "dv", "o")))
+    require(all(torch.equal(a, b) for a, b in zip(got, kernels.attention_core_backward(qb, kb, vb, dob, scale))),
+            "attention_core_backward: two calls differ")
+    qh, kh, vh = (t.permute(0, 2, 1, 3).detach().requires_grad_() for t in (qb, kb, vb))
+
+    def sdpa_forward():
+        return F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+
+    def sdpa_backward():
+        torch.autograd.grad(sdpa_forward(), (qh, kh, vh), dob)
+
+    core_b = row("attention_core_backward", f"{PALLAS_FLASH}:83", VIT_TRAIN, err,
+                 time_ms(lambda: kernels.attention_core_backward(qb, kb, vb, dob, scale, o=ob), 20),
+                 time_ms(lambda: flash_attention.attention_core_backward_plain(qb, kb, vb, dob, scale), 3),
+                 8 * qb.numel() * 2, 6 * 2 * 128 * heads * seq * seq * hd,
+                 library_ms=max(time_ms(sdpa_backward, 10) - time_ms(sdpa_forward, 10), 0.0), source=ATTENTION,
+                 ops_per_s=BF16_OPS_PER_S, at=(qb.shape, bf), shape=list(qb.shape), dtype="bfloat16",
+                 writes_joined_heads=True,
+                 hgmma_in_sass=sum(c for fn, c in _build.sass_counts("attention", "HGMMA").items() if "bwd" in fn))
+    rows.append(entry(core_b, VIT_TRAIN, []))
+    del qb, kb, vb, dob, ob, got, ref, joined, qh, kh, vh
+
+    da32, hw = bnormal((tb_tokens, d_hidden), torch.float32), bnormal((tb_tokens, d_hidden), torch.float32, 2.0)
+    b1 = bnormal((d_hidden,), torch.float32, 0.3)
+    du2, a_out, db1 = kernels.mlp_gelu_backward(da32, hw, b1)
+    ref_du2, ref_a, ref_db1 = mlp_gelu_backward_plain(da32, hw, b1)
+    # the activations and du's two halves are the plain version's bits (its operators, in order, none contracted);
+    # db1 sums 25,216 rows in another order: within 1e-5·(1 + |plain|) and 1e-5 of its largest
+    exact(a_out, ref_a, "mlp_gelu_backward: the activations")
+    exact(du2, ref_du2, "mlp_gelu_backward: du")
+    err = max_err_f32(db1, ref_db1, "mlp_gelu_backward db1", 1e-5 * (1 + float(ref_db1.abs().max())), 1e-5)
+    u_lib, da_lib = (hw + b1), da32.to(bf).float()
+    gelu_a = row("mlp_gelu_backward", f"{PALLAS_BLOCK}:335", VIT_TRAIN, err,
+                 time_ms(lambda: kernels.mlp_gelu_backward(da32, hw, b1), 20),
+                 time_ms(lambda: mlp_gelu_backward_plain(da32, hw, b1), 3),
+                 da32.numel() * (4 + 4 + 2 * 2 + 2) + 4 * d_hidden, 40 * da32.numel(),
+                 library_ms=time_ms(lambda: torch.ops.aten.gelu_backward(da_lib, u_lib), 10), source=TRANSFORMER,
+                 at=(da32.shape, torch.float32), shape=list(da32.shape), dtype="float32")
+    rows.append(entry(gelu_a, VIT_TRAIN, []))
+    del da32, hw, du2, a_out, ref_du2, ref_a, u_lib, da_lib
+
+    xl, dhl, rl = (bnormal((tb_tokens, d_model), bf) for _ in range(3))
+    gl = bnormal((d_model,), torch.float32, 0.2, 1.0)
+    got = kernels.ln_backward_rows(xl, gl, dhl, rl)
+    ref = ln_backward_plain(xl, gl, dhl, rl)
+    err = max(max_err_f32(got[0], ref[0], "ln_backward_rows dx", TOL[bf], TOL[bf]),
+              *(max_err_f32(a, b, "ln_backward_rows d ln_g / d ln_b", 1e-5 * (1 + float(b.abs().max())), 1e-5)
+                for a, b in zip(got[1:], ref[1:])))  # sums over 25,216 rows in another order
+    require(all(torch.equal(a, b) for a, b in zip(got, kernels.ln_backward_rows(xl, gl, dhl, rl))),
+            "ln_backward_rows: two calls differ")
+    _, mean_l, rstd_l = torch.ops.aten.native_layer_norm(xl, [d_model], gl.to(bf), None, 1e-6)
+    ln_rows = row("ln_backward_rows", f"{PALLAS_BLOCK}:299", VIT_TRAIN, err,
+                  time_ms(lambda: kernels.ln_backward_rows(xl, gl, dhl, rl), 20),
+                  time_ms(lambda: ln_backward_plain(xl, gl, dhl, rl), 5), 4 * xl.numel() * 2, 10 * xl.numel(),
+                  library_ms=time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                      dhl, xl, [d_model], mean_l, rstd_l, gl.to(bf), None, [True, True, False]), 10),
+                  source=TRANSFORMER, at=(xl.shape, bf), shape=list(xl.shape), dtype="bfloat16")
+    rows.append(entry(ln_rows, VIT_TRAIN, []))
+    del xl, dhl, rl, got, ref, mean_l, rstd_l
+
+    product_rows = []  # the activation gradients: du·[w1ᵀ; w1ᵀ] on du's two halves, g·w_oᵀ, dqkv·w_qkvᵀ
+    for k_dim in (2 * d_hidden, d_model, 3 * d_model):
+        ap, wp = bnormal((tb_tokens, k_dim), bf), bnormal((k_dim, d_model), bf, k_dim ** -0.5)
+        zeros = torch.zeros(d_model, device=dev)
+        out = kernels.bf16_product(ap, wp, zeros)
+        err = max_err_f32(out, bf16_product_plain(ap, wp, zeros), f"bf16_product K {k_dim}", TOL[bf], TOL[bf])
+        product_rows.append(row("bf16_product", f"{PALLAS_BLOCK}:335", VIT_TRAIN, err,
+                                time_ms(lambda: kernels.bf16_product(ap, wp, zeros), 10),
+                                time_ms(lambda: bf16_product_plain(ap, wp, zeros), 3),
+                                (ap.numel() + wp.numel() + out.numel()) * 2, 2 * tb_tokens * k_dim * d_model,
+                                library_ms=time_ms(lambda: torch.mm(ap, wp), 10), source=TRANSFORMER,
+                                ops_per_s=BF16_OPS_PER_S, at=(ap.shape, bf), shape=list(ap.shape), n=d_model,
+                                dtype="bfloat16"))
+        del ap, wp, out
+    rows.append(entry(product_rows[0], VIT_TRAIN, product_rows[1:]))
+
+    # rows 12-14's gradients on the card (their kernels' routes against their twins' under autograd, at Swin-T's and
+    # ConvNeXt-T's first stage, 2 and 4 images): float32 within 1e-5·(1 + |twin|); bfloat16 within 1e-2·(1 + |twin|),
+    # the twin's products under float32_products, and no further from the float32 function's gradient than 1.5
+    # times the twin's with full float32 products
+    def grads_of(fn, args, seed=7):
+        args = [a.detach().requires_grad_(a.dtype.is_floating_point) for a in args]
+        out = fn(*args)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        out.backward(torch.randn(out.shape, generator=g, device=dev).to(out.dtype))
+        return [a.grad for a in args]
+
+    def grad_rules(name, kernel_fn, twin_fn, args, dtype):
+        got = grads_of(kernel_fn, args)
+        with _dtype.float32_products(dtype):
+            ref = grads_of(twin_fn, args)
+        worst = max(scaled_err(a, b) for a, b in zip(got, ref))
+        require(all(a.dtype == b.dtype and a.shape == b.shape for a, b in zip(got, ref)), f"{name}: gradient dtypes")
+        require(worst <= (1e-5 if dtype == torch.float32 else 1e-2), f"{name} {dtype}: gradients {worst:.3e} off")
+        ratio = None
+        if dtype == torch.bfloat16:
+            with _dtype.full_float32():
+                full = grads_of(twin_fn, args)
+                truth = grads_of(twin_fn, [a.float() for a in args])
+            ratio = max(float((a.double() - t.double()).norm()) / max(float((f.double() - t.double()).norm()), 1e-30)
+                        for a, f, t in zip(got, full, truth))
+            require(ratio <= 1.5, f"{name}: gradients stray {ratio:.3f} times as far from float32 as the twin's")
+        print(f"{name} {dtype} gradients: max |a - twin| / (1 + |twin|) {worst:.3e}"
+              + ("" if ratio is None else f", distance from float32 {ratio:.3f} of the twin's"))
+
+    for dtype in (torch.float32, bf):
+        cn_args = [bnormal((2 * 56 * 56, 96), dtype), bnormal((2 * 56 * 56, 96), dtype),
+                   bnormal((96,), torch.float32, 0.2, 1.0), bnormal((96,), torch.float32, 0.1),
+                   bnormal((96, 384), dtype, 96 ** -0.5), bnormal((384,), torch.float32, 0.1),
+                   bnormal((384, 96), dtype, 384 ** -0.5), bnormal((96,), torch.float32, 0.1),
+                   bnormal((96,), torch.float32, 0.5)]
+        grad_rules("cn_mlp_block (row 12)", kernels.cn_mlp_block, transformer_block.cn_mlp_block_plain, cn_args, dtype)
+        win_mask = torch.where(torch.rand((64, 49, 49), generator=bgen, device=dev) < 0.3, -100.0, 0.0)
+        win = [bnormal((128, 49, 96), dtype), bnormal((96,), torch.float32, 0.2, 1.0), bnormal((96,), torch.float32, 0.1),
+               bnormal((96, 288), dtype, 96 ** -0.5), bnormal((288,), torch.float32, 0.1), bnormal((96, 96), dtype, 96 ** -0.5),
+               bnormal((96,), torch.float32, 0.1), bnormal((3, 49, 49), torch.float32, 0.3)]
+        grad_rules("window_attention_block v1 masked (row 13)",
+                   lambda *a: kernels.window_attention_block(*a, win_mask, None, 3, 32 ** -0.5, 1e-5, False, 64),
+                   lambda *a: swin_attention.window_attention_block_plain(*a, win_mask, None, 3, 32 ** -0.5, 1e-5, False, 64),
+                   win, dtype)
+        dw_args = [bnormal((4, 56, 56, 96), dtype), bnormal((7, 7, 96), dtype, 1.0 / 7), bnormal((96,), torch.float32)]
+        grad_rules("depthwise_conv2d 7x7 (row 14)", kernels.depthwise_conv2d, depthwise.depthwise_conv2d_plain, dw_args,
+                   dtype)
+        del cn_args, win, dw_args, win_mask
 
     # every shape that a training path handed to a kernel was held above
     held_at = {(r["name"], tuple(r["shape"]), r["dtype"]) for r in held}
@@ -2011,7 +2268,8 @@ def main() -> int:
         held_at |= {(r["name"], tuple(at["shape"]), at.get("dtype")) for at in (r, *r.get("other_shapes", ()))
                     if "shape" in at and isinstance(at["shape"][0], int)}
     for path in (VIT_TRAIN,):
-        for name in ("attention_block", "mlp_block"):
+        for name in ("attention_block", "mlp_block", "attention_core_backward", "mlp_gelu_backward", "ln_backward_rows",
+                     "bf16_product", "wgrad_matmul"):
             for shape, dtype in path_shapes[path][name]:
                 require((name, shape, str(dtype).replace("torch.", "")) in held_at,
                         f"{path}: {name} ran on {shape} {dtype}, which was not held against its twin")
@@ -2036,8 +2294,8 @@ def main() -> int:
             require(shape in held_nms and dtype == torch.float32,
                     f"{path}: nms_sorted ran on {shape} {dtype}, which was not held against its twin")
 
-    require(len(rows) == 19 and len({r["name"] for r in rows}) == 18 and all(r["launches"] >= 1 for r in rows),
-            "nineteen entries of eighteen wrappers, each launched on a main path")
+    require(len(rows) == 23 and len({r["name"] for r in rows}) == 22 and all(r["launches"] >= 1 for r in rows),
+            "twenty-three entries of twenty-two wrappers, each launched on a main path")
     print(f"training, ms a step: vit_b_16 bf16 b128 kernel routes {vit_train_ms[0]:.1f}, plain routes "
           f"{vit_train_ms[1]:.1f}; resnet50 b128 bf16 {r50_train_ms[0]:.1f}, f32 {r50_train_ms[1]:.1f} ({card})")
     print(json.dumps({"kernels": rows, "held_untimed": held}))

@@ -17,8 +17,13 @@
 // operations bind at the f32 rate outside the tensor cores, where float32
 // runs as scalar FMAs from shared memory.  bf16 at head dim 64 runs on the
 // tensor cores (tc_attention.cuh); bytes bind it there.
+//
+// cvt_attention_core_backward is the backward of the bf16 core at head dim 64
+// (tc_attention_bwd.cuh, Kernel B), for flash_mha's and attention_block's
+// gradients.
 
 #include "attention.cuh"
+#include "tc_attention_bwd.cuh"
 
 extern "C" {
 
@@ -35,6 +40,19 @@ int cvt_flash_mha(const void* q, const void* k, const void* v, void* o, int n, i
         s_len, heads, hd, scale, in_n, in_s, hd, o_n, hd, o_h, st);
   return (int)cvt::attention_core<float>((const float*)q, (const float*)k, (const float*)v, (float*)o, n,
                                          s_len, heads, hd, scale, in_n, in_s, hd, o_n, hd, o_h, st);
+}
+
+// dq, dk, dv of softmax(scale q k^T) v given dout, bf16 at head dim 64, S <= 256: q, k, v and the gradients share
+// the strides in_* (element (n, s, h, d) at n in_n + s in_s + h in_h + d), dout has o_*; o (null: not written) gets
+// the output again, bf16(bf16(p) v), at the strides p_*.
+int cvt_attention_core_backward(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
+                                void* dv, void* o, int n, int s_len, int heads, float scale, long long in_n,
+                                long long in_s, long long in_h, long long o_n, long long o_s, long long o_h,
+                                long long p_n, long long p_s, long long p_h, void* stream) {
+  using bf = __nv_bfloat16;
+  return (int)cvt::launch_attention_bwd((const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, (bf*)dq, (bf*)dk,
+                                        (bf*)dv, (bf*)o, n, s_len, heads, scale, in_n, in_s, in_h, o_n, o_s, o_h, p_n,
+                                        p_s, p_h, (cudaStream_t)stream);
 }
 
 }  // extern "C"

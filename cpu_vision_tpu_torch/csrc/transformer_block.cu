@@ -69,6 +69,17 @@
 // Bound.  At ViT-B/16 batch 256 (50,432 tokens, D 768) mlp_block does 476
 // GFLOP on 155 MB (bf16) and attention_block 268 GFLOP: operations bind both,
 // in either type (the f32 MLP at 3 x 476 tf32 GFLOP / 495 TFLOP/s).
+//
+// Backward, bfloat16 (ops/kernels/transformer_block.py: the gradients of
+// mlp_block, cn_mlp_block and attention_block in place of the JAX package's
+// custom_vjp _bwd :335-343, _cn_bwd :453, _attn_bwd :299-307, which take
+// jax.grad of the same math).  Besides the port's bf16_product, wgrad_matmul
+// and the attention core's backward (attention.cu), two kernels here:
+//   cvt_mlp_gelu_backward  Kernel A, the MLP's elementwise backward through
+//                          its gelu, fused (gelu_backward_kernel)
+//   cvt_ln_backward        the LayerNorm backward rows of all three blocks
+//                          (ln_backward_kernel of ln_gemm.cuh), with the
+//                          partial sums of dgamma and dbeta
 
 #include "ln_gemm.cuh"
 #include "tf32x3.cuh"
@@ -200,6 +211,99 @@ cudaError_t mlp_block_bf16(const bf16* x, const bf16* resid, const float* ln_g, 
   return launch_ln_residual<bf16>(branch, resid, ln_g, ln_b, out, m, d, eps, ln_count, stream);
 }
 
+// ------------------------------------------------------------ Kernel A
+
+// The MLP's elementwise backward through its gelu (Kernel A), for the bf16
+// backward of mlp_block and cn_mlp_block.  The TPU kernel has no backward of
+// its own: the JAX custom_vjp differentiates the same math with XLA, which
+// fuses these elementwise chains; the port's plain twin under autograd ran
+// them as ~50 launches of f32 elementwise kernels over the (m, Dh) hidden.
+// From the float32 products of the recompute, h W1 and g W2^T, one pass:
+//   u   = h W1 + b1 and da = bf16(g W2^T), rounded as the twin's operators
+//         round them (an f32 add, a cast to nearest even);
+//   a   = gelu(u) rounded to bf16: the twin's activations bit for bit, the
+//         polynomial erf evaluated as its operators do, one rounding an
+//         operation (__fmul_rn and friends: nothing is contracted into an FMA),
+//         so that the weight gradient a^T g sees the twin's roundings;
+//   du  = da gelu'(u) (the derivative of that polynomial, as the plain
+//         version writes it out, evaluated the same way: its bits), rounded
+//         to tf32 as the twin's TF32 products round it and
+//         stored exactly as two bf16 halves [hi | lo] for the bf16 products
+//         dW1 = h^T du and du W1^T;
+//   each block's column sums of the unrounded du over its GB_ROWS rows (the
+//         bias gradient, added in block order by the wrapper).
+// A thread two adjacent columns, a block 2 GB_THREADS columns of GB_ROWS rows.
+// Bound: bytes, both products (f32) read once, du2 and a written once: 1085 MB
+// at ViT-B/16 b128, 0.32 ms.
+constexpr int GB_THREADS = 256;
+constexpr int GB_ROWS = 64;
+
+// _gelu_f32 of the twin (transformer_block.py), one rounding an operator
+__device__ __forceinline__ float gelu_twin(float h) {
+  const float z = __fmul_rn(h, 0.70710678118654752f), a = fabsf(z);
+  const float t = __fdiv_rn(1.0f, __fadd_rn(1.0f, __fmul_rn(0.3275911f, a)));
+  float p = __fadd_rn(-1.453152027f, __fmul_rn(t, 1.061405429f));
+  p = __fadd_rn(1.421413741f, __fmul_rn(t, p));
+  p = __fadd_rn(-0.284496736f, __fmul_rn(t, p));
+  p = __fadd_rn(0.254829592f, __fmul_rn(t, p));
+  p = __fmul_rn(t, p);
+  const float e = expf(__fmul_rn(-a, a));
+  const float sign = z > 0.0f ? 1.0f : (z < 0.0f ? -1.0f : 0.0f);
+  const float erf = __fmul_rn(sign, __fsub_rn(1.0f, __fmul_rn(p, e)));
+  return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.0f, erf));
+}
+
+// _gelu_grad_f32 of the plain version (transformer_block.py): d gelu / dh, the derivative of the polynomial erf as
+// autograd takes it, one rounding an operator in its order
+__device__ __forceinline__ float gelu_grad_twin(float h) {
+  const float z = __fmul_rn(h, 0.70710678118654752f), a = fabsf(z);
+  const float t = __fdiv_rn(1.0f, __fadd_rn(1.0f, __fmul_rn(0.3275911f, a)));
+  float p = __fadd_rn(-1.453152027f, __fmul_rn(t, 1.061405429f));
+  p = __fadd_rn(1.421413741f, __fmul_rn(t, p));
+  p = __fadd_rn(-0.284496736f, __fmul_rn(t, p));
+  p = __fadd_rn(0.254829592f, __fmul_rn(t, p));
+  p = __fmul_rn(t, p);
+  float dp = __fadd_rn((float)(4.0 * -1.453152027), __fmul_rn(__fmul_rn(t, 5.0f), 1.061405429f));
+  dp = __fadd_rn((float)(3.0 * 1.421413741), __fmul_rn(t, dp));
+  dp = __fadd_rn((float)(2.0 * -0.284496736), __fmul_rn(t, dp));
+  dp = __fadd_rn(0.254829592f, __fmul_rn(t, dp));
+  const float e = expf(__fmul_rn(-a, a));
+  const float sign = z > 0.0f ? 1.0f : (z < 0.0f ? -1.0f : 0.0f);
+  const float erf = __fmul_rn(sign, __fsub_rn(1.0f, __fmul_rn(p, e)));
+  const float derf = __fmul_rn(__fadd_rn(__fmul_rn(__fmul_rn(__fmul_rn(dp, 0.3275911f), t), t),
+                                         __fmul_rn(__fmul_rn(2.0f, a), p)), e);
+  return __fadd_rn(__fmul_rn(0.5f, __fadd_rn(1.0f, erf)),
+                   __fmul_rn(__fmul_rn(__fmul_rn(0.5f, h), derf), 0.70710678118654752f));
+}
+
+__global__ void __launch_bounds__(GB_THREADS)
+gelu_backward_kernel(const float* __restrict__ da32, const float* __restrict__ hw, const float* __restrict__ b1,
+                     bf16* __restrict__ du2, bf16* __restrict__ a, float* __restrict__ partial, int m, int n) {
+  const int col = 2 * (blockIdx.x * GB_THREADS + threadIdx.x);
+  if (col >= n) return;
+  const int r0 = blockIdx.y * GB_ROWS, r1 = min(r0 + GB_ROWS, m);
+  const float bias0 = b1[col], bias1 = b1[col + 1];
+  float s0 = 0.0f, s1 = 0.0f;
+  for (int r = r0; r < r1; ++r) {
+    const size_t at = (size_t)r * n + col;
+    const float2 p = *reinterpret_cast<const float2*>(hw + at), q = *reinterpret_cast<const float2*>(da32 + at);
+    float2 uu;
+    uu.x = __fadd_rn(p.x, bias0);
+    uu.y = __fadd_rn(p.y, bias1);
+    const float d0 = __fmul_rn(cvt::round_to<bf16>(q.x), gelu_grad_twin(uu.x));
+    const float d1 = __fmul_rn(cvt::round_to<bf16>(q.y), gelu_grad_twin(uu.y));
+    s0 += d0;
+    s1 += d1;
+    const float t0 = cvt::tf32_rna(d0), t1 = cvt::tf32_rna(d1);
+    const float h0 = cvt::round_to<bf16>(t0), h1 = cvt::round_to<bf16>(t1);
+    cvt::store2(du2 + (size_t)r * 2 * n + col, h0, h1);
+    cvt::store2(du2 + (size_t)r * 2 * n + n + col, t0 - h0, t1 - h1);
+    cvt::store2(a + at, gelu_twin(uu.x), gelu_twin(uu.y));
+  }
+  partial[(size_t)blockIdx.y * n + col] = s0;
+  partial[(size_t)blockIdx.y * n + col + 1] = s1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -238,6 +342,29 @@ int cvt_attention_block(const void* x, const float* ln_g, const float* ln_b, con
                                      scale, eps, st);
   return (int)attention_block_f32((const float*)x, ln_g, ln_b, (const float*)w_qkv, b_qkv, (const float*)w_o, b_o,
                                   (float*)qkv, (float*)heads_out, (float*)out, n, s_len, d, heads, scale, eps, st);
+}
+
+// Kernel A: from da32 = g W2^T and hw = h W1, (m, n) of f32, and b1 (n,): with u = hw + b1 and da = bf16(da32),
+// du2 (m, 2 n) = [hi | lo] of du = tf32(da gelu'(u)), a (m, n) = gelu(u) of bf16 and partial (ceil(m / GB_ROWS), n) of
+// f32, each block's column sums of the unrounded du.
+int cvt_mlp_gelu_backward(const float* da32, const float* hw, const float* b1, void* du2, void* a, float* partial,
+                          int m, int n, void* stream) {
+  if (m < 1 || n < 2 || n % 2) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n / 2 + GB_THREADS - 1) / GB_THREADS, (m + GB_ROWS - 1) / GB_ROWS);
+  gelu_backward_kernel<<<grid, GB_THREADS, 0, (cudaStream_t)stream>>>(da32, hw, b1, (bf16*)du2, (bf16*)a, partial,
+                                                                       m, n);
+  return (int)cudaGetLastError();
+}
+
+// The LayerNorm backward rows: dx = resid + LN'(x) dh of T (resid null for none), partial (blocks, 2, d) of f32.
+int cvt_ln_backward(const void* x, const float* ln_g, const void* dh, const void* resid, void* dx, float* partial,
+                    int m, int d, float eps, int blocks, int is_bf16, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16)
+    return (int)cvt::launch_ln_backward<bf16>((const bf16*)x, ln_g, (const bf16*)dh, (const bf16*)resid, (bf16*)dx,
+                                              partial, m, d, eps, blocks, st);
+  return (int)cvt::launch_ln_backward<float>((const float*)x, ln_g, (const float*)dh, (const float*)resid,
+                                             (float*)dx, partial, m, d, eps, blocks, st);
 }
 
 // The bf16 tensor-core product alone: out = Epi(a w), a (m, k), w (k, n) of

@@ -145,8 +145,9 @@ class ConvNeXt(nn.Module):
     @torch.no_grad()
     def forward(self, x, train: bool = False) -> torch.Tensor:
         if train:
-            raise NotImplementedError("serving only: ConvNeXt training (stochastic depth, the backward of cn_mlp_block and "
-                                      "depthwise_conv2d) is ROADMAP queue 1 item 3 with queue 2 item 5")
+            raise NotImplementedError("serving only: ConvNeXt training (stochastic depth, the training forward of the "
+                                      "model) is ROADMAP queue 1 item 2; cn_mlp_block and depthwise_conv2d are "
+                                      "differentiable")
         x = as_tensor(x)
         with full_float32():
             for i, stage in enumerate(self.features):

@@ -439,8 +439,9 @@ class SwinTransformer(nn.Module):
     @torch.no_grad()
     def forward(self, x, train: bool = False) -> torch.Tensor:
         if train:
-            raise NotImplementedError("serving only: Swin training (stochastic depth, the backward of "
-                                      "window_attention_block) is ROADMAP queue 1 item 3 with queue 2 item 5")
+            raise NotImplementedError("serving only: Swin training (stochastic depth, the training forward of the "
+                                      "model) is ROADMAP queue 1 item 2; window_attention_block and mlp_block are "
+                                      "differentiable")
         x = as_tensor(x)
         with full_float32():
             stem = self.features[0]

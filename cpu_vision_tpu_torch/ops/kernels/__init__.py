@@ -13,7 +13,12 @@ boxes sorted by score (``nms.py``, ``csrc/nms.cu``), the int8 product with a
 requantising epilogue (``int8_matmul.py``, ``csrc/int8_matmul.cu``) and the
 int8 attention and MLP sub-blocks (``int8_transformer.py``,
 ``csrc/int8_transformer.cu``) and the weight gradient of a pointwise
-convolution (``wgrad_matmul.py``, ``csrc/wgrad_matmul.cu``).  The op-by-op
+convolution (``wgrad_matmul.py``, ``csrc/wgrad_matmul.cu``); and, for the
+bfloat16 transformer blocks' backward, the attention core's backward
+(``flash_attention.attention_core_backward``, ``csrc/tc_attention_bwd.cuh``),
+the MLP's gelu backward as a product epilogue
+(``transformer_block.mlp_gelu_backward``) and the LayerNorm backward rows
+(``transformer_block.ln_backward_rows``, both ``csrc/ln_gemm.cuh``).  The op-by-op
 functions of ``cpu_vision_tpu_torch.ops`` and the stock-operator routes of
 ``cpu_vision_tpu_torch.models`` are their oracles.
 """
@@ -24,7 +29,12 @@ from .conv_block import (  # noqa: F401
     fused_conv3x3_relu_pool_plain,
 )
 from .depthwise import depthwise_conv2d, depthwise_conv2d_plain  # noqa: F401
-from .flash_attention import flash_mha, flash_mha_plain  # noqa: F401
+from .flash_attention import (  # noqa: F401
+    attention_core_backward,
+    attention_core_backward_plain,
+    flash_mha,
+    flash_mha_plain,
+)
 from .int8_matmul import int8_matmul_requant, int8_matmul_requant_plain  # noqa: F401
 from .int8_transformer import (  # noqa: F401
     attention_block_int8,
@@ -50,19 +60,27 @@ from .transformer_block import (  # noqa: F401
     attention_block_plain,
     bf16_product,
     bf16_product_plain,
+    attention_block_backward_plain,
     cn_mlp_block,
     cn_mlp_block_plain,
+    ln_backward_plain,
+    ln_backward_rows,
     mlp_block,
+    mlp_block_backward_plain,
     mlp_block_plain,
+    mlp_gelu_backward,
+    mlp_gelu_backward_plain,
 )
 from .wgrad_matmul import wgrad_matmul, wgrad_matmul_plain  # noqa: F401
 from . import _build
 from . import stencil as _stencil
 
-# Every wrapper that launches a kernel; each counts its launches.
+# Every wrapper that launches a kernel; each counts its launches.  bf16_product, alone a test entry, runs the
+# activation gradients of the bf16 blocks' backward.
 KERNEL_WRAPPERS = (*_stencil.KERNEL_WRAPPERS, fused_conv3x3_relu_pool, flash_mha, attention_block, mlp_block,
                    cn_mlp_block, window_attention_block, depthwise_conv2d, nms_sorted, int8_matmul_requant,
-                   mlp_block_int8, attention_block_int8, wgrad_matmul)
+                   mlp_block_int8, attention_block_int8, wgrad_matmul, bf16_product, mlp_gelu_backward,
+                   attention_core_backward, ln_backward_rows)
 
 
 def launch_counts() -> dict:
@@ -78,7 +96,6 @@ def launch_counts_by_shape() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         _build.reset_count(fn)
-    _build.reset_count(bf16_product)  # the product alone: a test entry, on no main path
     attention_block.kernel_launches = 0
     mlp_block.kernel_launches = 0
     cn_mlp_block.kernel_launches = 0

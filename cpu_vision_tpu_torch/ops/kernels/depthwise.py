@@ -14,6 +14,13 @@ given CPU tensors it runs the twin.  Nothing falls back from one to the
 other.  The kernel sums with fused multiply-adds and the twin with separate
 products and sums, so float32 agrees within ``1e-5 + 1e-5·|twin|``, bfloat16
 within one rounding step of the output.
+
+It is differentiable, from the saved ``x`` and taps, as the JAX function's
+``custom_vjp`` (``depthwise.py:_bwd``): ``dx`` is the same convolution of the
+gradient with the taps flipped (on the card the forward kernel, one more
+launch), the taps' gradient the per-channel correlations of ``x`` with the
+gradient at each tap offset and the bias's the gradient's sum, both summed in
+float32 in plain operators, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _grad
 from .flash_attention import DTYPES
 
 __all__ = ["depthwise_conv2d", "depthwise_conv2d_plain", "KERNEL_SIZES"]
@@ -81,12 +88,35 @@ def depthwise_conv2d_plain(x: torch.Tensor, kernel: torch.Tensor, bias: Optional
     return acc.to(x.dtype)
 
 
+def _backward(args, grad, needs):
+    """The gradients of ``x``, the taps and the bias (JAX ``depthwise.py:_bwd``)."""
+    x, kernel, bias = args
+    n, h, w, c = x.shape
+    kh, kw = kernel.shape[:2]
+    grad = grad.contiguous()
+    dx = _kernel(grad, kernel.flip(0, 1), None) if needs[0] else None
+    dk = db = None
+    if needs[1]:
+        padded = F.pad(x.float(), (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
+        g32 = grad.float()
+        dk = torch.stack([torch.stack([(padded[:, i:i + h, j:j + w, :] * g32).sum(dim=(0, 1, 2)) for j in range(kw)])
+                          for i in range(kh)])
+    if bias is not None and needs[2]:
+        db = grad.float().sum(dim=(0, 1, 2))
+    return dx, dk, db
+
+
 def depthwise_conv2d(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
                      use_bias: bool = True) -> torch.Tensor:
     """Depthwise convolution, stride 1, SAME, odd K×K, in one pass over ``x``
     with no padded copy.  ``bias`` is ignored with ``use_bias=False``."""
     bias = bias if use_bias else None
     _check(x, kernel, bias)
+    return _grad.explicit_backward(_kernel, _backward, x, kernel, bias)
+
+
+def _kernel(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of ``cvt_depthwise_conv2d`` on CUDA tensors, the twin on CPU tensors."""
     if not _build.on_card(x):
         return depthwise_conv2d_plain(x, kernel, bias)
     n, h, w, c = x.shape

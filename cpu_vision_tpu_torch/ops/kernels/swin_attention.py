@@ -29,7 +29,10 @@ row pass before the tensor-core QKV product; v2: 4, QKV product, core,
 output projection, LayerNorm + residual) to ``kernel_launches``, and raises if a launch fails or the kernels do not take
 the arguments (head dim ``HEAD_DIM``, S ≤ ``MAX_TOKENS``, C a multiple of 16,
 ``x`` in the weights' dtype); given CPU tensors it runs the twin.  Nothing
-falls back from one to the other.  On the card the float32 QKV product
+falls back from one to the other.  It is differentiable as the JAX
+function's ``custom_vjp`` (``swin_attention.py:_bwd``): the backward recomputes
+the twin from the saved inputs and differentiates it (``_grad``); the mask is
+a constant there and gets no gradient.  On the card the float32 QKV product
 (12·C bytes a token), the joined heads, v2's branch rows and bf16 v1's LN
 rows pass through device memory once each, which the Pallas kernels keep in
 VMEM.  In bfloat16 both projections run on the tensor cores (the product of
@@ -45,7 +48,7 @@ from typing import Optional
 import torch
 
 from ..._dtype import full_float32
-from . import _build
+from . import _build, _grad
 from .transformer_block import _check_card, _check_float, _dot_f32, _f32c, _ln_f32, _ptr
 
 __all__ = ["window_attention_block", "window_attention_block_plain", "kernel_takes", "HEAD_DIM", "MAX_TOKENS"]
@@ -132,8 +135,18 @@ def window_attention_block(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask
                            scale: float, eps: float, v2: bool, nw_img: int, ln_count: int = 0) -> torch.Tensor:
     """``x + Proj(WindowMSA(LN(x)))`` over ``x`` (num_windows, S, C); on the
     card three (float32 v1) or four hand-written launches with no transposed
-    copy of q, k, v or the heads."""
+    copy of q, k, v or the heads.  The backward is the twin's, recomputed;
+    ``mask`` gets no gradient."""
     _check(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask, logit_scale, heads, v2, nw_img, ln_count)
+    mask = None if mask is None else mask.detach()
+    return _grad.recompute_backward(_kernel, window_attention_block_plain, x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o,
+                                    rel_bias, mask, logit_scale, heads, scale, eps, v2, nw_img, ln_count,
+                                    dtype=w_qkv.dtype)
+
+
+def _kernel(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask, logit_scale, heads, scale, eps, v2, nw_img,
+            ln_count) -> torch.Tensor:
+    """The launches of ``cvt_window_attention_block`` on CUDA tensors, the twin on CPU tensors."""
     if not _build.on_card(x):
         return window_attention_block_plain(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask, logit_scale,
                                             heads, scale, eps, v2, nw_img, ln_count)

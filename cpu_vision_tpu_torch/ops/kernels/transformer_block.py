@@ -26,11 +26,37 @@ functions' ``block_m`` and ``interpret`` arguments have no counterpart here.
 A wrapper given CUDA tensors launches its hand-written kernels, adds one to its
 ``launches`` count and raises if a launch fails or the kernels do not take
 the arguments; given CPU tensors it runs the twin.  Nothing falls back from
-one to the other.  ``mlp_block`` and ``attention_block`` are differentiable:
-their backward recomputes the twin from the saved inputs and differentiates it
-(``_grad``), the counterpart of the JAX functions' ``custom_vjp``s, which take
-``jax.grad`` of the same math; ``cn_mlp_block`` has no backward yet (ConvNeXt
-training).
+one to the other.  All three are differentiable from their saved inputs, the
+counterpart of the JAX functions' ``custom_vjp``s, which take ``jax.grad`` of
+the same math.  Which backward a call takes is decided by its arguments
+(``mlp_backward_takes``, ``attention_backward_takes``), never after a failure:
+
+* bfloat16 (``post_norm=False``, ``ln_count=0``; attention at head dim 64 and
+  S ≤ 256): a backward written for the card, bfloat16 with float32 sums, that
+  rounds where the twin rounds and gives the twin's gradient to its
+  rounding (``_mlp_backward``, ``_attention_backward``): the kernels
+  ``mlp_gelu_backward`` (Kernel A, the gelu's elementwise backward),
+  ``flash_attention.attention_core_backward`` (Kernel B, which also gives the
+  joined heads again) and ``ln_backward_rows``; ``bf16_product`` for the
+  activation gradients ``du·w1ᵀ``, ``g·w_oᵀ`` and ``dqkv·w_qkvᵀ``;
+  ``wgrad_matmul`` for every weight gradient; float32 sums for the biases and
+  ``cn_mlp_block``'s layer scale (``Σ w2 ∘ (aᵀ·g) + b2 Σ g``).  Three
+  products stay ``torch.matmul`` in the twin's own operators, with LayerNorm:
+  the recompute of LN(x)·w1 (``u``, float32) and of LN(x)·w_qkv, and the MLP's
+  ``g·w2ᵀ``.  Their bfloat16 roundings feed row sums against large
+  activations, and a product of another summation order flips ~0.02-0.1% of
+  them, each flip moving a weight-gradient entry by up to several times the
+  card test's ``1e-2·(1 + |ref|)`` from the twin's
+  (``tools/torch_backward_rounding.py``).  ``du``
+  and the core's ``ds`` are float32 in the twin and its TF32 products round
+  them: here they are rounded to TF32 (to nearest) and every product that
+  takes them runs on their two exact bfloat16 halves ([hi | lo]: the twin's
+  products term for term).  On CPU tensors the same chain runs the kernels'
+  plain versions (``mlp_block_backward_plain``,
+  ``attention_block_backward_plain``);
+* any other call (float32, ``post_norm``, ``ln_count``, other head dims, longer
+  sequences): the twin, recomputed from the saved inputs and differentiated
+  (``_grad.recompute_backward``).
 
 On the card each wrapper is a chain of launches, counted in its
 ``kernel_launches``.  ``mlp_block`` and ``cn_mlp_block`` are three launches in
@@ -67,16 +93,22 @@ import torch
 
 from ..._dtype import float32_products
 from . import _build, _grad
+from . import flash_attention
 from .flash_attention import DTYPES, HEAD_DIMS
+from .wgrad_matmul import wgrad_matmul, wgrad_matmul_plain
 
 __all__ = ["mlp_block", "mlp_block_plain", "cn_mlp_block", "cn_mlp_block_plain", "attention_block",
            "attention_block_plain", "bf16_product", "bf16_product_plain", "mlp_kernel_takes", "attention_kernel_takes",
+           "mlp_backward_takes", "attention_backward_takes", "mlp_gelu_backward", "mlp_gelu_backward_plain",
+           "ln_backward_rows", "ln_backward_plain", "mlp_block_backward_plain", "attention_block_backward_plain",
            "MLP_DIMS", "PRODUCT_EPILOGUES"]
 
 MLP_DIMS = (96, 128, 192, 256, 384, 512, 768, 1024, 1280, 1536)  # the widths held on the card (csrc takes D % 32 == 0)
 MLP_HIDDEN_STEP = 64       # Dh is a multiple of 256, or of this up to D = MLP_RAGGED_MAX_DIM
 MLP_RAGGED_MAX_DIM = 512
 PRODUCT_EPILOGUES = ("bias", "gelu", "residual")  # bf16_product's, in the order of csrc's TC_BIAS, TC_GELU, TC_RESID
+LN_BACKWARD_ROWS_A_BLOCK = 4     # ln_backward_kernel: a warp a row, four warps a block (csrc/ln_gemm.cuh)
+LN_BACKWARD_MAX_BLOCKS = 528     # four blocks an SM of an H100; the partial sums are added in block order
 
 _c_lib: Optional[ctypes.CDLL] = None
 
@@ -103,6 +135,10 @@ def _lib() -> ctypes.CDLL:
         lib.cvt_attention_block.restype = ctypes.c_int
         lib.cvt_bf16_product.argtypes = [p] * 6 + [i, i, i, i, i, p]
         lib.cvt_bf16_product.restype = ctypes.c_int
+        lib.cvt_mlp_gelu_backward.argtypes = [p] * 6 + [i, i, p]
+        lib.cvt_mlp_gelu_backward.restype = ctypes.c_int
+        lib.cvt_ln_backward.argtypes = [p] * 6 + [i, i, f, i, i, p]
+        lib.cvt_ln_backward.restype = ctypes.c_int
         _c_lib = lib
     return _c_lib
 
@@ -117,6 +153,19 @@ def _erf_f32(x: torch.Tensor) -> torch.Tensor:
 
 def _gelu_f32(h: torch.Tensor) -> torch.Tensor:
     return 0.5 * h * (1.0 + _erf_f32(h * (1.0 / math.sqrt(2.0))))
+
+
+def _gelu_grad_f32(h: torch.Tensor) -> torch.Tensor:
+    """d ``_gelu_f32`` / dh written out: the derivative of the polynomial erf, as autograd takes it."""
+    z = h * (1.0 / math.sqrt(2.0))
+    a = z.abs()
+    t = 1.0 / (1.0 + 0.3275911 * a)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    dpoly = 0.254829592 + t * (2 * -0.284496736 + t * (3 * 1.421413741 + t * (4 * -1.453152027 + t * 5 * 1.061405429)))
+    e = torch.exp(-a * a)
+    erf = torch.sign(z) * (1.0 - poly * e)
+    derf = (dpoly * 0.3275911 * t * t + 2.0 * a * poly) * e
+    return 0.5 * (1.0 + erf) + 0.5 * h * derf * (1.0 / math.sqrt(2.0))
 
 
 def _ln_f32(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float, count: int = 0) -> torch.Tensor:
@@ -224,13 +273,30 @@ def _mlp_kernel(x, ln_g, ln_b, w1, b1, w2, b2, eps, post_norm, ln_count) -> torc
     return _launch_mlp(mlp_block, x, x, ln_g, ln_b, w1, b1, w2, b2, None, eps, post_norm, ln_count)
 
 
+def mlp_backward_takes(x: torch.Tensor, w1: torch.Tensor, post_norm: bool = False, ln_count: int = 0) -> bool:
+    """Whether an MLP block (``mlp_block``, ``cn_mlp_block``) of these arguments takes the backward written for the
+    card (bfloat16 ``x`` and weights, LayerNorm before the branch over all channels); else the recomputed twin's."""
+    return x.dtype == w1.dtype == torch.bfloat16 and not post_norm and not ln_count
+
+
+def _mlp_block_backward(args, grad, needs):
+    x, ln_g, ln_b, w1, b1, w2, b2, eps, _, _ = args
+    dx, dg, db, dw1, db1, dw2, db2, _ = _mlp_backward(x, ln_g, ln_b, w1, b1, w2, b2, None, grad, eps, True, False)
+    return dx, dg, db, dw1, db1, dw2, db2, None, None, None
+
+
 def mlp_block(x, ln_g, ln_b, w1, b1, w2, b2, eps: float = 1e-6, post_norm: bool = False,
               ln_count: int = 0) -> torch.Tensor:
     """``x + Dense2(gelu(Dense1(LN(x))))`` for 2-D ``x`` (tokens, D).  On the
     card three launches (LN, two tensor-core products: bfloat16 ``wgmma``, or
     split TF32 in float32), whose activations make one round trip through
-    device memory."""
+    device memory.  The backward is the card's (Kernel A, ``ln_backward_rows``,
+    products) where ``mlp_backward_takes`` the call, else the twin's,
+    recomputed."""
     _check_mlp(x, ln_g, ln_b, w1, b1, w2, b2)
+    if mlp_backward_takes(x, w1, post_norm, ln_count):
+        return _grad.explicit_backward(_mlp_kernel, _mlp_block_backward, x, ln_g, ln_b, w1, b1, w2, b2, eps,
+                                       post_norm, ln_count)
     return _grad.recompute_backward(_mlp_kernel, mlp_block_plain, x, ln_g, ln_b, w1, b1, w2, b2, eps, post_norm,
                                     ln_count, dtype=w1.dtype)
 
@@ -258,15 +324,32 @@ def cn_mlp_block_plain(y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale, eps: flo
     return (res.float() + h).to(res.dtype)
 
 
+def _cn_kernel(y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale, eps) -> torch.Tensor:
+    """The launches of ``cvt_mlp_block`` with a residual and a scale on CUDA tensors, the twin on CPU tensors."""
+    if not _build.on_card(y):
+        return cn_mlp_block_plain(y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale, eps)
+    return _launch_mlp(cn_mlp_block, y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale, eps, False, 0)
+
+
+def _cn_mlp_block_backward(args, grad, needs):
+    y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale, eps = args
+    dy, dg, db, dw1, db1, dw2, db2, dls = _mlp_backward(y, ln_g, ln_b, w1, b1, w2, b2, layer_scale, grad, eps, False,
+                                                        False)
+    return dy, grad, dg, db, dw1, db1, dw2, db2, dls, None
+
+
 def cn_mlp_block(y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale, eps: float = 1e-6) -> torch.Tensor:
     """``res + layer_scale * (Dense2(gelu(Dense1(LN(y)))) + b2)`` for 2-D ``y``
     and ``res`` (tokens, D), the tail of a ConvNeXt block after its depthwise
     convolution; on the card the launches of ``mlp_block`` with a residual
-    and a scale."""
+    and a scale.  The backward is ``mlp_block``'s card backward where
+    ``mlp_backward_takes`` the call (``res`` gets ``g``, the branch
+    ``g·layer_scale``), else the twin's, recomputed."""
     _check_cn(y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale)
-    if not _build.on_card(y):
-        return cn_mlp_block_plain(y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale, eps)
-    return _launch_mlp(cn_mlp_block, y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale, eps, False, 0)
+    args = (y, res, ln_g, ln_b, w1, b1, w2, b2, layer_scale, eps)
+    if mlp_backward_takes(y, w1) and res.dtype == y.dtype:
+        return _grad.explicit_backward(_cn_kernel, _cn_mlp_block_backward, *args)
+    return _grad.recompute_backward(_cn_kernel, cn_mlp_block_plain, *args, dtype=w1.dtype)
 
 
 _build.reset_count(cn_mlp_block)
@@ -328,14 +411,31 @@ def _attention_kernel(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads, scale, eps) 
     return out
 
 
+def attention_backward_takes(x: torch.Tensor, w_qkv: torch.Tensor, heads: int) -> bool:
+    """Whether ``attention_block`` of these arguments takes the backward written for the card (bfloat16 ``x`` and
+    weights, a core that ``flash_attention.core_backward_takes``); else the recomputed twin's."""
+    return (x.dtype == w_qkv.dtype == torch.bfloat16 and x.shape[2] % heads == 0
+            and flash_attention.core_backward_takes(x.dtype, x.shape[1], x.shape[2] // heads))
+
+
+def _attention_block_backward(args, grad, needs):
+    x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads, scale, eps = args
+    return (*_attention_backward(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, grad, heads, scale, eps, False), None, None,
+            None)
+
+
 def attention_block(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads: int, scale: float,
                     eps: float = 1e-6) -> torch.Tensor:
     """``x + Out(MHA(LN(x)))`` for 3-D ``x`` (N, S, D); on the card three
     (float32) or four (bfloat16) hand-written launches with no transposed copy
-    of q, k, v or the heads."""
+    of q, k, v or the heads.  The backward is the card's (Kernel B,
+    ``ln_backward_rows``, products) where ``attention_backward_takes`` the
+    call, else the twin's, recomputed."""
     _check_attn(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads)
-    return _grad.recompute_backward(_attention_kernel, attention_block_plain, x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o,
-                                    heads, scale, eps, dtype=w_qkv.dtype)
+    args = (x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads, scale, eps)
+    if attention_backward_takes(x, w_qkv, heads):
+        return _grad.explicit_backward(_attention_kernel, _attention_block_backward, *args)
+    return _grad.recompute_backward(_attention_kernel, attention_block_plain, *args, dtype=w_qkv.dtype)
 
 
 _build.reset_count(attention_block)
@@ -402,3 +502,242 @@ def bf16_product(a, w, bias, epilogue: str = "bias", resid=None, gamma=None,
 
 
 _build.reset_count(bf16_product)
+
+
+# ------------------------------------------------------------------------- the bf16 blocks' backward
+
+
+def _check_ln_backward(x, ln_g, dh, resid) -> None:
+    _check_float(x, ln_g, dh, *(t for t in (resid,) if t is not None))
+    if x.ndim != 2 or min(x.shape) < 1 or dh.shape != x.shape or ln_g.shape != (x.shape[1],):
+        raise ValueError(f"expects x and dh (rows, D) and ln_g (D,), got {tuple(x.shape)}, {tuple(dh.shape)}, "
+                         f"{tuple(ln_g.shape)}")
+    if resid is not None and resid.shape != x.shape:
+        raise ValueError("resid must be shaped like x")
+
+
+def ln_backward_plain(x, ln_g, dh, resid=None, eps: float = 1e-6) -> tuple:
+    """Plain version of ``ln_backward_rows``: ``(dx, d ln_g, d ln_b)`` of
+    ``LN(x)·ln_g + ln_b`` over the rows of ``x`` given ``dh`` (the gradient of
+    LN's output), with ``resid`` (the gradient that reaches ``x`` past the
+    branch, or None) added to ``dx``; statistics from ``x`` in float32,
+    ``dx`` in ``x``'s dtype, the parameters' gradients float32."""
+    _check_ln_backward(x, ln_g, dh, resid)
+    x32, dh32 = x.float(), dh.float()
+    c = x32 - x32.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((c * c).mean(dim=-1, keepdim=True) + eps)
+    xh = c * rstd
+    gd = dh32 * ln_g.float()
+    dx = rstd * (gd - gd.mean(dim=-1, keepdim=True) - xh * (gd * xh).mean(dim=-1, keepdim=True))
+    if resid is not None:
+        dx = resid.float() + dx
+    return dx.to(x.dtype), (dh32 * xh).sum(dim=0), dh32.sum(dim=0)
+
+
+def ln_backward_blocks(m: int) -> int:
+    """Blocks of a ``ln_backward_rows`` launch over ``m`` rows (each adds its rows' parameter gradients)."""
+    return min(math.ceil(m / LN_BACKWARD_ROWS_A_BLOCK), LN_BACKWARD_MAX_BLOCKS)
+
+
+def ln_backward_rows(x, ln_g, dh, resid=None, eps: float = 1e-6) -> tuple:
+    """``(dx, d ln_g, d ln_b)`` as ``ln_backward_plain``: one launch of
+    ``ln_backward_kernel`` on the card (``x``, ``dh`` and ``resid`` of one
+    dtype, contiguous), whose per-block partial sums of the parameters'
+    gradients are then added in block order (the same bits every call); the
+    plain version on CPU tensors."""
+    _check_ln_backward(x, ln_g, dh, resid)
+    if not _build.on_card(x):
+        return ln_backward_plain(x, ln_g, dh, resid, eps)
+    _check_card(x, dh, *(t for t in (resid,) if t is not None))
+    m, d = x.shape
+    blocks = ln_backward_blocks(m)
+    dx = torch.empty_like(x)
+    partial = torch.empty((blocks, 2, d), dtype=torch.float32, device=x.device)
+    _build.launch(_lib(), "cvt_ln_backward", x, x.data_ptr(), _f32c(ln_g).data_ptr(), dh.data_ptr(), _ptr(resid),
+                  dx.data_ptr(), partial.data_ptr(), m, d, float(eps), blocks, int(x.dtype == torch.bfloat16))
+    _build.count_launch(ln_backward_rows, x)
+    sums = partial.sum(dim=0)
+    return dx, sums[0], sums[1]
+
+
+_build.reset_count(ln_backward_rows)
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """The float32 ``x`` rounded to TF32's 10 mantissa bits, to nearest with ties away from zero (``cvt.rna``)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The float32 ``x`` as [hi | lo] (rows, 2 cols) of ``dtype``: for bfloat16, ``x`` rounded to TF32 (what a TF32
+    product does to it) = hi + lo exactly; for float32, ``x`` and zeros."""
+    if dtype == torch.float32:
+        return torch.cat([x, torch.zeros_like(x)], dim=-1)
+    t = _tf32_rna(x)
+    hi = t.to(dtype)
+    return torch.cat([hi, (t - hi.float()).to(dtype)], dim=-1)
+
+
+GELU_BACKWARD_ROWS = 64  # rows whose column sums a block of Kernel A adds (csrc/transformer_block.cu: GB_ROWS)
+
+
+def mlp_gelu_backward_plain(da32, hw, b1, dtype: torch.dtype = torch.bfloat16) -> tuple:
+    """Plain version of Kernel A: from the float32 products ``da32 = g·w2ᵀ``
+    (the gradient of the MLP's gelu output) and ``hw = h·w1`` (the
+    pre-activation without its bias), with ``u = hw + b1`` and ``da`` =
+    ``da32`` rounded to the block's compute ``dtype``: ``(du2, a, db1)``, ``du =
+    da·gelu'(u)`` as ``du2`` = [hi | lo] (``_split``), ``a = gelu(u)`` rounded to
+    ``dtype``, and ``db1``, the column sums of the unrounded ``du``."""
+    u = hw.float() + b1.float()
+    du = da32.to(dtype).float() * _gelu_grad_f32(u)
+    return _split(du, dtype), _gelu_f32(u).to(dtype), du.sum(dim=0)
+
+
+def mlp_gelu_backward(da32, hw, b1) -> tuple:
+    """``(du2, a, db1)`` of the bfloat16 MLP as ``mlp_gelu_backward_plain``,
+    for ``da32`` and ``hw`` (m, Dh) of float32 and ``b1`` (Dh,): Kernel A, one
+    launch of ``gelu_backward_kernel`` on the card (Dh even), whose per-block
+    column sums are then added in block order; the plain version on CPU
+    tensors."""
+    _check_float(da32, hw, b1)
+    if da32.ndim != 2 or hw.shape != da32.shape or b1.shape != (da32.shape[1],):
+        raise ValueError(f"expects da32 and hw of one (m, Dh) shape and b1 (Dh,), got {tuple(da32.shape)}, "
+                         f"{tuple(hw.shape)} and {tuple(b1.shape)}")
+    if not _build.on_card(da32):
+        return mlp_gelu_backward_plain(da32, hw, b1)
+    m, dh = da32.shape
+    if da32.dtype != torch.float32 or hw.dtype != torch.float32 or dh % 2:
+        raise ValueError(f"the kernel takes float32 products and an even Dh, got {da32.dtype}, {hw.dtype}, {dh}")
+    da32, hw = da32.contiguous(), hw.contiguous()
+    du2 = torch.empty((m, 2 * dh), dtype=torch.bfloat16, device=da32.device)
+    a = torch.empty((m, dh), dtype=torch.bfloat16, device=da32.device)
+    partial = torch.empty((math.ceil(m / GELU_BACKWARD_ROWS), dh), dtype=torch.float32, device=da32.device)
+    _build.launch(_lib(), "cvt_mlp_gelu_backward", da32, da32.data_ptr(), hw.data_ptr(), _f32c(b1).data_ptr(),
+                  du2.data_ptr(), a.data_ptr(), partial.data_ptr(), m, dh)
+    _build.count_launch(mlp_gelu_backward, da32)
+    return du2, a, partial.sum(dim=0)
+
+
+_build.reset_count(mlp_gelu_backward)
+
+
+def _ln_product(x, ln_g, ln_b, w, eps) -> tuple:
+    """(LN(x) rounded to ``w``'s dtype, LN(x)·w in float32, without a bias) for 2-D ``x``: the twin's own
+    operators, its bits."""
+    h = _ln_f32(x.float(), ln_g.float(), ln_b.float(), eps).to(w.dtype)
+    with float32_products(w.dtype):
+        return h, _dot_f32(h, w)
+
+
+def _mlp_backward(x, ln_g, ln_b, w1, b1, w2, b2, layer_scale, g, eps, residual: bool, plain: bool) -> tuple:
+    """Gradients of ``x``, ``ln_g``, ``ln_b``, ``w1``, ``b1``, ``w2``, ``b2`` and ``layer_scale`` (None without one) of
+    ``[x +] layer_scale·(W2·gelu(W1·LN(x) + b1) + b2)`` given ``g``: the kernels on the card, unless ``plain``; plain
+    operators whose products take the twin's (TF32 on the card, float32 on the CPU) otherwise."""
+    dtype = w1.dtype
+    g = g.contiguous()
+    kernel = not plain and _build.on_card(x)
+    h, hw = _ln_product(x, ln_g, ln_b, w1, eps)
+    g_sum = g.sum(dim=0, dtype=torch.float32)
+    dz = g.float() if layer_scale is None else g.float() * layer_scale.float()  # the gradient of W2·a + b2
+    with float32_products(dtype):
+        da32 = dz @ w2.float().t()  # the twin's product: a bfloat16 g exact in TF32, a float32 dz rounded
+    d, dh_ = g.shape[1], w1.shape[1]
+    atg = None
+    if kernel:
+        du2, a, db1 = mlp_gelu_backward(da32, hw, b1)
+        del hw, da32
+        if layer_scale is None:
+            dw2 = wgrad_matmul(a, g)  # aᵀ·g, (Dh, D)
+        else:  # dz rounded to TF32 as the twin's products round it, as its two halves; aᵀ·g for the scale
+            prods = wgrad_matmul(a, torch.cat([g, _split(dz, dtype)], dim=-1))  # aᵀ·[g | hi | lo], (Dh, 3 D)
+            atg, dw2 = prods[:, :d], prods[:, d:2 * d] + prods[:, 2 * d:]
+        del a
+        dw1 = wgrad_matmul(h, du2)  # hᵀ·[hi | lo]: the two halves' products side by side
+        dw1 = dw1[:, :dh_] + dw1[:, dh_:]
+        w1t = w1.t()
+        dh = bf16_product(du2, torch.cat([w1t, w1t], dim=0), torch.zeros(d, device=x.device))  # du·w1ᵀ
+        del du2
+    else:
+        u = hw + b1.float()
+        du = da32.to(dtype).float() * _gelu_grad_f32(u)
+        a = _gelu_f32(u).to(dtype)
+        db1 = du.sum(dim=0)
+        with float32_products(dtype):
+            dw2 = _dot_f32(a.t(), dz)
+            if layer_scale is not None:
+                atg = _dot_f32(a.t(), g)
+            dw1 = _dot_f32(h.t(), du)
+            dh = _dot_f32(du, w1.t()).to(dtype)
+        del u, du, a, hw, da32
+    db2, dls = dz.sum(dim=0), None
+    if layer_scale is not None:
+        dls = (w2.float() * atg).sum(dim=0) + b2.float() * g_sum
+    del dz
+    dx, dg, db = (ln_backward_rows if kernel else ln_backward_plain)(x, ln_g, dh, g if residual else None, eps)
+    return dx, dg, db, dw1, db1, dw2, db2, dls
+
+
+def mlp_block_backward_plain(x, ln_g, ln_b, w1, b1, w2, b2, g, eps: float = 1e-6, layer_scale=None) -> tuple:
+    """The backward of the bfloat16 MLP blocks in plain operators, with the
+    kernels' rounding points (in float32 none: the twin's gradient): the
+    gradients of ``mlp_block``'s seven tensors given ``g``, or with
+    ``layer_scale`` (``cn_mlp_block``, whose ``res`` gets ``g`` itself) of
+    ``y``, ``ln_g``, ``ln_b``, ``w1``, ``b1``, ``w2``, ``b2`` and
+    ``layer_scale``, each in its input's dtype."""
+    _check_mlp(x, ln_g, ln_b, w1, b1, w2, b2)
+    grads = _mlp_backward(x, ln_g, ln_b, w1, b1, w2, b2, layer_scale, g, eps, layer_scale is None, True)
+    inputs = (x, ln_g, ln_b, w1, b1, w2, b2, layer_scale)
+    return tuple(t.to(a.dtype) for t, a in zip(grads, inputs) if a is not None)
+
+
+def _attention_backward(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, g, heads, scale, eps, plain: bool) -> tuple:
+    """Gradients of ``x``, ``ln_g``, ``ln_b``, ``w_qkv``, ``b_qkv``, ``w_o`` and ``b_o`` of ``attention_block`` given
+    ``g``: the kernels on the card, unless ``plain``; plain operators whose products take the twin's otherwise.  The
+    core's backward gives the joined heads again, as the twin rounds them."""
+    n, s, d = x.shape
+    hd = d // heads
+    dtype = w_qkv.dtype
+    kernel = not plain and _build.on_card(x)
+    x2, g2 = x.reshape(n * s, d), g.reshape(n * s, d).contiguous()
+    h, qkv = _ln_product(x2, ln_g, ln_b, w_qkv, eps)
+    qkv = (qkv + b_qkv.float()).to(dtype).reshape(n, s, 3 * d)
+    views = [t.reshape(n, s, heads, hd) for t in qkv.split(d, dim=-1)]
+    dqkv = torch.empty_like(qkv)
+    outs = tuple(t.view(n, s, heads, hd) for t in dqkv.split(d, dim=-1))
+    if kernel:
+        d_joined = bf16_product(g2, w_o.t().contiguous(), torch.zeros(d, device=x.device))
+        joined = torch.empty_like(h)
+        flash_attention.attention_core_backward(*views, d_joined.reshape(n, s, heads, hd).transpose(1, 2), scale,
+                                                out=outs, o=joined.view(n, s, heads, hd))
+        del qkv, d_joined
+        dw_o = wgrad_matmul(joined, g2)
+        dw_qkv = wgrad_matmul(h, dqkv.reshape(n * s, 3 * d))
+        dh = bf16_product(dqkv.reshape(n * s, 3 * d), w_qkv.t().contiguous(), torch.zeros(d, device=x.device))
+    else:
+        with float32_products(dtype):
+            d_joined = _dot_f32(g2, w_o.t()).to(dtype)
+        grads = flash_attention.attention_core_backward_plain(*views, d_joined.reshape(n, s, heads, hd).transpose(1, 2),
+                                                              scale)
+        for t, grad in zip(outs, grads):
+            t.copy_(grad)
+        joined = flash_attention.flash_mha_plain(*views, scale).transpose(1, 2).reshape(n * s, d)
+        with float32_products(dtype):
+            dw_o = _dot_f32(joined.t(), g2)
+            dw_qkv = _dot_f32(h.t(), dqkv.reshape(n * s, 3 * d))
+            dh = _dot_f32(dqkv.reshape(n * s, 3 * d), w_qkv.t()).to(dtype)
+    del joined
+    db_o = g2.sum(dim=0, dtype=torch.float32)
+    db_qkv = dqkv.reshape(n * s, 3 * d).sum(dim=0, dtype=torch.float32)
+    del dqkv
+    dx, dg, db = (ln_backward_rows if kernel else ln_backward_plain)(x2, ln_g, dh, g2, eps)
+    return dx.reshape(n, s, d), dg, db, dw_qkv, db_qkv, dw_o, db_o
+
+
+def attention_block_backward_plain(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, g, heads: int, scale: float,
+                                   eps: float = 1e-6) -> tuple:
+    """The backward of the bfloat16 ``attention_block`` in plain operators, with
+    the kernels' rounding points (in float32 none: the twin's gradient): the
+    gradients of its seven tensors given ``g``, each in its input's dtype."""
+    _check_attn(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads)
+    grads = _attention_backward(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, g, heads, scale, eps, True)
+    return tuple(t.to(a.dtype) for t, a in zip(grads, (x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o)))

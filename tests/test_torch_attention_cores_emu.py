@@ -29,6 +29,14 @@ TOL = 2e-2
 _EMULATE = Path(__file__).resolve().parents[1] / "tools" / "cuda_emu" / "emulate.py"
 
 
+@pytest.fixture(autouse=True)
+def _launch_counts_at_zero_after():
+    """The emulated kernels count their launches; later tests in this process expect CPU tensors to have launched
+    nothing."""
+    yield
+    kernels.reset_launch_counts()
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """The emulator module with its libraries built into a temporary directory."""

@@ -38,9 +38,13 @@ bfloat16 attention core on the tensor cores, and of the float32 MLP blocks.
 The weight gradient (both dtypes) and the float32 MLP block, whose float32
 products run on the tensor cores by split TF32, stand no further from the
 float64 result on the same inputs than twice a float32 product with TF32 off
-(``max|out - f64| / max|f64|``).  The gradients of the kernels' routes
-(recomputed through the twins) are held to the plain routes' within
-``1e-5 + 1e-5·|plain|`` in float32.  The ``None`` routes of
+(``max|out - f64| / max|f64|``).  The gradients of the kernels' routes are
+held to the plain routes' within ``1e-5 + 1e-5·|plain|`` in float32 and
+``1e-2·(1 + |plain|)`` in bfloat16 (and no further from the float32
+function's than 1.5 times the plain route's).  The bfloat16 blocks' backward
+kernels (``attention_core_backward``, ``mlp_gelu_backward``,
+``ln_backward_rows``) are held to their plain versions: the transformer
+kernels' bfloat16 rule, Kernel A's outputs bit for bit.  The ``None`` routes of
 ViT, Swin and NMS send a shape their kernel does not take to the plain route
 (NMS at 13,601 boxes a problem); explicit routes still raise there.
 """
@@ -94,7 +98,8 @@ def test_kernels_match_twins(cuda, rng, shape):
         "harris_response_fused": 1, "fused_gaussian_blur": 1, "fused_conv3x3_relu_pool": 0,
         "flash_mha": 0, "attention_block": 0, "mlp_block": 0, "cn_mlp_block": 0, "window_attention_block": 0,
         "depthwise_conv2d": 0, "nms_sorted": 0, "int8_matmul_requant": 0, "mlp_block_int8": 0,
-        "attention_block_int8": 0, "wgrad_matmul": 0}
+        "attention_block_int8": 0, "wgrad_matmul": 0, "bf16_product": 0, "mlp_gelu_backward": 0,
+        "attention_core_backward": 0, "ln_backward_rows": 0}
 
 
 @pytest.mark.parametrize("ks,sigma", [(3, 0.8), (7, 2.0), (9, 3.0)])
@@ -915,10 +920,13 @@ def _assert_grads_equal(got, want, tol):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_kernel_routes_give_the_plain_routes_gradients(cuda, rng, dtype):
-    """Rows 7, 9, 10, 11: the kernel forward, then the twin's gradient; the plain route is the twin under autograd,
-    its backward's products taken as the kernels' backward takes them (``float32_products``: in bfloat16, TF32
-    rounds a float32 cotangent to 10 mantissa bits).  In bfloat16 each gradient also stands no further from the
-    float32 function's than 1.5 times the twin's with a full-float32 backward does (norms over the tensor)."""
+    """Rows 7, 9-14: the kernel forward, then the kernel routes' backward: in bfloat16 the card's own for rows 9-12
+    (Kernel A, Kernel B, ``ln_backward_rows``, the tensor-core products), the twin's recomputed gradient for row 13,
+    row 14's own (the forward kernel on the flipped taps), and in float32 the twins' for rows 9-13.  The plain route
+    is the twin under autograd, its backward's products taken as the twin's own backward takes them
+    (``float32_products``: in bfloat16, TF32 rounds a float32 cotangent to 10 mantissa bits).  In bfloat16 each
+    gradient also stands no further from the float32 function's than 1.5 times the twin's with a full-float32
+    backward does (norms over the tensor).  The window block's mask is a constant, as in the JAX ``_bwd``."""
     gen = torch.Generator(device=cuda).manual_seed(0)
 
     def normal(shape, dt=torch.float32, std=1.0, mean=0.0):
@@ -953,10 +961,111 @@ def test_kernel_routes_give_the_plain_routes_gradients(cuda, rng, dtype):
     conv = (normal((4, 28, 28, 8)), normal((3, 3, 8, 16), std=0.1), normal(16, std=0.1))
     _assert_grads_equal(_grads(kernels.fused_conv3x3_relu_pool, conv),
                         _grads(conv_block.fused_conv3x3_relu_pool_plain, conv), 1e-5)
+    # row 12: ConvNeXt's tail, with a residual of its own and a layer scale
+    cn = (mlp[0], normal((394, d), dtype), *mlp[1:], normal(d, std=0.5))
+    check(kernels.cn_mlp_block, transformer_block.cn_mlp_block_plain, cn)
+    # row 13: Swin-T's first stage, v1 with the shift mask and v2 with its logit scale
+    c, heads, s_len, nw_img = 96, 3, 49, 4
+    for v2 in (False, True):
+        mask = None if v2 else torch.where(torch.rand((nw_img, s_len, s_len), generator=gen, device=cuda) < 0.3,
+                                           -100.0, 0.0)
+        win = [normal((8, s_len, c), dtype), normal(c, std=0.2, mean=1.0), normal(c, std=0.1),
+               normal((c, 3 * c), dtype, c ** -0.5), normal(3 * c, std=0.1), normal((c, c), dtype, c ** -0.5),
+               normal(c, std=0.1), normal((heads, s_len, s_len), std=0.3)]
+        if v2:
+            win.append(normal(heads, std=0.5, mean=1.0))
+        tail = (heads, 32 ** -0.5, 1e-5, v2, nw_img)
+
+        def window(fn, *a, mask=mask, v2=v2, tail=tail):
+            return fn(*a[:8], mask, a[8] if v2 else None, *tail)
+
+        check(lambda *a: window(kernels.window_attention_block, *a),
+              lambda *a: window(swin_attention.window_attention_block_plain, *a), win)
+    # row 14: ConvNeXt's 7x7 depthwise convolution, with its bias
+    dw = (normal((2, 14, 14, 96), dtype), normal((7, 7, 96), dtype, 1.0 / 7), normal(96))
+    if dtype == torch.float32:
+        _assert_grads_equal(_grads(kernels.depthwise_conv2d, dw), _grads(depthwise.depthwise_conv2d_plain, dw), 1e-5)
+    else:
+        check(kernels.depthwise_conv2d, depthwise.depthwise_conv2d_plain, dw)
     assert {name: kernels.launch_counts()[name] for name in
-            ("flash_mha", "attention_block", "mlp_block", "fused_conv3x3_relu_pool")} == {
-        "flash_mha": 1, "attention_block": 1, "mlp_block": 1,
-        "fused_conv3x3_relu_pool": 1}
+            ("flash_mha", "attention_block", "mlp_block", "fused_conv3x3_relu_pool", "cn_mlp_block",
+             "window_attention_block", "depthwise_conv2d")} == {
+        "flash_mha": 1, "attention_block": 1, "mlp_block": 1, "fused_conv3x3_relu_pool": 1, "cn_mlp_block": 1,
+        "window_attention_block": 2, "depthwise_conv2d": 2}  # the depthwise backward's dx is one more launch
+    backward = kernels.launch_counts()
+    if dtype == torch.bfloat16:  # rows 9-12 on the card's backward: three cores, two MLP blocks
+        assert (backward["attention_core_backward"], backward["mlp_gelu_backward"], backward["ln_backward_rows"]) == (
+            2, 2, 3)
+    else:
+        assert backward["attention_core_backward"] == backward["mlp_gelu_backward"] == backward["ln_backward_rows"] == 0
+
+
+@pytest.mark.parametrize("n,s,heads", [(128, 197, 12), (3, 65, 2), (2, 256, 4), (1, 1, 1), (5, 130, 3)])
+def test_attention_core_backward_matches_plain(cuda, rng, n, s, heads):
+    """Kernel B at ViT-B/16 b128's core and ragged ones: dq, dk, dv and the joined heads within the bf16 rule of its
+    plain version (whose TF32 products round ds as the kernel does), the same bits twice."""
+    q, k, v = (_normal(rng, (n, s, heads, 64), torch.bfloat16, cuda) for _ in range(3))
+    do = _normal(rng, (n, heads, s, 64), torch.bfloat16, cuda)
+    o = torch.empty_like(q)
+    got = kernels.attention_core_backward(q, k, v, do, 0.125, o=o)
+    assert kernels.launch_counts()["attention_core_backward"] == 1
+    with _dtype.float32_products(torch.bfloat16):
+        ref = kernels.attention_core_backward_plain(q, k, v, do, 0.125)
+        joined = kernels.flash_mha_plain(q, k, v, 0.125).transpose(1, 2)
+    for a, b in zip((*got, o), (*ref, joined.contiguous())):
+        _close(a, b, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(got, kernels.attention_core_backward(q, k, v, do, 0.125)))
+
+
+@pytest.mark.parametrize("m,dh", [(25216, 3072), (75, 448), (1, 64)])
+def test_mlp_gelu_backward_matches_plain(cuda, rng, m, dh):
+    """Kernel A at ViT-B/16 b128's hidden and ragged ones: the activations and du's two halves the plain version's
+    bits (the same operators in the same order, none contracted), the bias gradient (sums over the rows in other
+    orders) within 1e-5·(1 + |plain|) and 1e-5 of its largest."""
+    da32, hw, b1 = (_normal(rng, (m, dh), torch.float32, cuda), _normal(rng, (m, dh), torch.float32, cuda, 2.0),
+                    _normal(rng, (dh,), torch.float32, cuda, 0.3))
+    du2, a, db1 = kernels.mlp_gelu_backward(da32, hw, b1)
+    assert kernels.launch_counts()["mlp_gelu_backward"] == 1
+    ref_du2, ref_a, ref_db1 = kernels.mlp_gelu_backward_plain(da32, hw, b1)
+    assert torch.equal(a, ref_a) and torch.equal(du2, ref_du2)
+    assert bool(((db1 - ref_db1).abs() <= 1e-5 * (1 + ref_db1.abs()) + 1e-5 * ref_db1.abs().max()).all()), float(
+        (db1 - ref_db1).abs().max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,d,resid", [(25216, 768, True), (75, 96, True), (9, 2048, False), (1, 64, True)])
+def test_ln_backward_rows_matches_plain(cuda, rng, m, d, resid, dtype):
+    """ln_backward_rows at ViT-B/16 b128's rows and ragged ones: dx within the transformer kernels' rule, the
+    parameters' gradients within 1e-5·(1 + |plain|) and 1e-5 of their largest, the same bits twice."""
+    x, dh, r = (_normal(rng, (m, d), dtype, cuda) for _ in range(3))
+    ln_g = _normal(rng, (d,), torch.float32, cuda, 0.2, 1.0)
+    got = kernels.ln_backward_rows(x, ln_g, dh, r if resid else None)
+    assert kernels.launch_counts()["ln_backward_rows"] == 1
+    ref = kernels.ln_backward_plain(x, ln_g, dh, r if resid else None)
+    _close(got[0], ref[0], dtype)
+    for a, b in zip(got[1:], ref[1:]):
+        assert bool(((a - b).abs() <= 1e-5 * (1 + b.abs()) + 1e-5 * b.abs().max()).all()), float((a - b).abs().max())
+    assert all(torch.equal(a, b) for a, b in zip(got, kernels.ln_backward_rows(x, ln_g, dh, r if resid else None)))
+
+
+def test_vit_train_step_runs_the_backward_kernels(cuda, rng, monkeypatch):
+    """A bf16 ViT (D 256, head dim 64, 2 layers) step on the kernel routes: each MLP's backward launches Kernel A,
+    each attention block's Kernel B, each of the four LayerNorms ln_backward_rows; no twin is recomputed."""
+    twins = []
+    for name in ("mlp_block_plain", "attention_block_plain"):
+        twin = getattr(transformer_block, name)
+        monkeypatch.setattr(transformer_block, name, lambda *a, twin=twin, **k: twins.append(twin) or twin(*a, **k))
+    model = models.VisionTransformer(16, 2, 4, 256, 512, num_classes=10, dtype=torch.bfloat16, image_size=64,
+                                     attention="block", mlp="block", generator=torch.Generator().manual_seed(0))
+    step = parallel.make_train_step(
+        lambda m, b: (torch.nn.functional.cross_entropy(m(b[0], train=True).float(), b[1]), {}))
+    images = torch.from_numpy(rng.random((4, 64, 64, 3), dtype=np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, 10, 4)).to(cuda)
+    loss, _ = step(model.to(cuda), (images, labels))
+    counts = kernels.launch_counts()
+    assert bool(torch.isfinite(loss)) and not twins
+    assert (counts["mlp_gelu_backward"], counts["attention_core_backward"], counts["ln_backward_rows"]) == (2, 2, 4)
+    assert counts["mlp_block"] == counts["attention_block"] == 2
 
 
 def test_cnn_forward_kernel_route_trains(cuda, rng):

@@ -70,7 +70,7 @@ template <typename F> cudaError_t cudaFuncSetAttribute(F, int, int bytes) {
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
-inline thread_local dim3 threadIdx, blockIdx, blockDim;
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline std::barrier<>* emu_block_barrier;
 inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
 inline float emu_shuffle[1024];
@@ -90,6 +90,11 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
 }
 
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+// the IEEE operations that nvcc never contracts into an FMA (g++ -O1 does not contract across statements either)
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 inline int min(int a, int b) { return a < b ? a : b; }
 
 // kernel<<<grid, block, shared, stream>>>(args) becomes
@@ -114,6 +119,7 @@ inline void emu_launch(dim3 grid, int block, size_t shared_bytes, cudaStream_t, 
             threadIdx = dim3(t);
             blockIdx = dim3(x, y, z);
             blockDim = dim3(block);
+            gridDim = grid;
             kernel();
           });
         for (auto& th : threads) th.join();

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Run the port's transformer, window attention, depthwise, NMS, int8 and
-weight-gradient kernels on the CPU, with no card and no ``nvcc``.
+"""Run the port's transformer (and the bf16 blocks' backward), window
+attention, depthwise, NMS, int8 and weight-gradient kernels on the CPU, with
+no card and no ``nvcc``.
 
 The sources ``cpu_vision_tpu_torch/csrc/attention.cu``, ``transformer_block.cu``,
 ``swin_attention.cu``, ``depthwise.cu``, ``nms.cu``, ``int8_matmul.cu``,
@@ -23,9 +24,9 @@ self-check of the kernels against their plain twins.
 Covered: ``__global__`` templates, ``threadIdx``/``blockIdx``, ``__syncthreads``,
 ``__shfl_xor_sync`` on floats, dynamic shared memory declared as
 ``extern __shared__ __align__(16) float smem[];``, static ``__shared__`` arrays,
-``float4``, ``int4``, ``uint4``, ``__dp4a``, ``__int2float_rn``, ``__nv_bfloat16`` with its conversions (a pair too),
+``float4``, ``int4``, ``uint4``, ``__dp4a``, ``__int2float_rn``, ``__fmul_rn`` and its kin, ``__nv_bfloat16`` with its conversions (a pair too),
 ``cudaFuncSetAttribute``,
-``blockDim``, the ``<<<...>>>`` launch, ``make_float4``, and the functions of ``csrc/hopper.cuh`` (``cp.async``,
+``blockDim``, ``gridDim``, the ``<<<...>>>`` launch, ``make_float4``, and the functions of ``csrc/hopper.cuh`` (``cp.async``,
 ``wgmma`` of bf16 and of tf32, ``cvt.rna.tf32.f32``; the stand-in ``hopper.cuh`` here replaces that header).  Not covered: everything else (``stencil.cu`` and
 ``conv_block.cu`` use typed shared arrays and ``__syncthreads_or``); extend the
 headers as a source needs.
