@@ -79,7 +79,11 @@ is left), then:
    ``F.scaled_dot_product_attention`` on q, k and v of the same shapes (the
    window rows' bias and mask as its additive mask); ``flash_mha`` is also
    held and timed in bfloat16 at ViT-B/16 b256's (256, 197, 12, 64), beside
-   SDPA; the float32 MLP blocks are three launches too (LN, two
+   SDPA; its float32 row (the split-TF32 core, ``csrc/tf32x3_attention.cuh``)
+   carries its float64 error beside the scalar float32 core's that it
+   replaced (``f64_err``, ``scalar_f64_err``, held to twice it;
+   ``scalar_core_ms``), its ``HGMMA ... .TF32`` count and its occupancy
+   (registers, shared memory, blocks an SM); the float32 MLP blocks are three launches too (LN, two
    split-TF32 products), timed apart and bounded at three tf32 products a
    product (``TF32X3_OPS_PER_S``), with ``split_bytes_ms`` for their f32
    hidden, their float64 error at ViT-B/16 b64 beside the twin's
@@ -89,8 +93,13 @@ is left), then:
    ``attention_block`` is also held and timed in float32 at (64, 197, 768),
    on no main path, beside its composite; the bf16 blocks' backward kernels
    and ``bf16_product`` and ``wgrad_matmul`` at the ViT training path's
-   shapes, each beside its bound and one PyTorch call (SDPA's backward,
-   ``aten.gelu_backward``, ``aten.native_layer_norm_backward``, ``torch.mm``);
+   shapes, each beside its bound and one PyTorch call (SDPA's backward, its
+   graph kept between calls,
+   ``aten.gelu_backward``, ``aten.native_layer_norm_backward``, ``torch.mm``;
+   Kernel B also at S 257 and 577, its launches counted and timed apart on
+   the device clock, SDPA's backward beside it on the same clock with the
+   range of each over fifteen calls, and each kernel's occupancy);  ``depthwise_conv2d``'s backward dx at ConvNeXt-T's
+   four stage shapes beside ``aten.convolution_backward`` (``backward_dx``);
    and the gradients of ``cn_mlp_block``, ``window_attention_block`` and
    ``depthwise_conv2d`` (rows 12-14) against their twins' on the card;
    ``held_untimed`` lists the checks that were not timed), then, last,
@@ -396,10 +405,18 @@ def main() -> int:
                 f"{stem}: a bf16 head-dim-64 attention_core_kernel or a bf16 window_core_kernel is left")
         hgmma[stem] = sum(products.values())
         core_hgmma[stem] = sum(cores.values())
-    # the attention core's backward (Kernel B) runs on the tensor cores in both its instantiations
-    bwd_hgmma = {fn: c for fn, c in _build.sass_counts("attention", "HGMMA").items() if "attention_bwd_kernel" in fn}
+    # the attention core's backward (Kernel B: query-tile blocks with and without O, key-tile blocks) runs on the
+    # tensor cores in all three instantiations; the float32 core at head dim 64 on split TF32 (HGMMA ... .TF32)
+    bwd_hgmma = {fn: c for fn, c in _build.sass_counts("attention", "HGMMA").items() if "attention_bwd_" in fn}
     print(f"  attention: HGMMA in the core's backward {bwd_hgmma}")
-    require(len(bwd_hgmma) == 2 and all(bwd_hgmma.values()), "attention: a core backward without HGMMA")
+    require(len(bwd_hgmma) == 3 and all(bwd_hgmma.values()), "attention: a core backward without HGMMA")
+    x3_core_hgmma = {fn: c for fn, c in _build.sass_counts("attention", "HGMMA", ".TF32").items()
+                     if "attention_x3_kernel" in fn}
+    print(f"  attention: HGMMA .TF32 in the float32 core {x3_core_hgmma}")
+    require(len(x3_core_hgmma) == 1 and all(x3_core_hgmma.values()), "attention: the float32 core without HGMMA .TF32")
+    for name in flash_attention.KERNEL_INFO:
+        print(f"  {name}: {flash_attention.kernel_info(name)} (registers a thread, dynamic shared memory a block, "
+              f"blocks an SM)")
     # the float32 products of mlp_block / cn_mlp_block and both dtypes of wgrad_matmul run on the tensor
     # cores: HGMMA ... .TF32 in every split-TF32 instantiation (x3_gemm_kernel), HGMMA ... .BF16 in every bf16 weight
     # gradient one, and neither the scalar f32 mlp_block_kernel nor the scalar wgrad_partial_kernel is left
@@ -1325,6 +1342,58 @@ def main() -> int:
         return [(spans[i][2], sum(spans[c * chain + i][1] - spans[c * chain + i][0] for c in range(calls)) / calls / 1e3)
                 for i in range(chain)]
 
+    marker = []  # the name the profiler gives torch.cuda._sleep's kernel, read once
+
+    def calls_on_device(fn, calls=5, tries=5):
+        """[[(kernel, device ms)] of each call] of ``calls`` calls of ``fn``, every kernel and copy each launches,
+        from the profiler: a call is what runs on the card between two marker kernels (``torch.cuda._sleep``)
+        launched before and after it, so the count of a call's kernels is read, not assumed.  One call leads,
+        since the profiler may miss the first kernels of a window; every call must launch the same kernels in
+        the same order.  None if no window of ``tries`` saw them all."""
+        from torch.profiler import ProfilerActivity, profile
+
+        def device_spans(prof):
+            return sorted((e.time_range.start, e.time_range.end, e.name[:e.name.rfind("(")].replace("void ", ""))
+                          for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+        for _ in range(tries if not marker else 0):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(4):
+                    torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+            names = {sp[2] for sp in device_spans(prof)}
+            require(len(names) <= 1, f"torch.cuda._sleep's window holds other kernels too: {names}")
+            marker.extend(names)
+            if marker:
+                break
+        require(bool(marker), "the profiler saw no kernel of torch.cuda._sleep")
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.cuda._sleep(1000)
+                for _ in range(1 + calls):
+                    fn()
+                    torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+            segments, current = [], None
+            for sp in device_spans(prof):
+                if sp[2] == marker[0]:
+                    if current is not None:
+                        segments.append(current)
+                    current = []
+                elif current is not None:
+                    current.append((sp[2], (sp[1] - sp[0]) / 1e3))
+            if len(segments) >= calls:
+                break
+        else:
+            print(f"  the profiler saw {len(segments)} whole calls of {calls}, {tries} times: not measured")
+            return None
+        segments = segments[-calls:]
+        require(all([k for k, _ in seg] == [k for k, _ in segments[0]] for seg in segments),
+                f"the calls launch different kernels: {[[k for k, _ in seg] for seg in segments]}")
+        return segments
+
     def mlp_split_bytes(tokens, d, dh, size, post_norm=False):
         """Bytes the MLP blocks pass through device memory between their launches, each written once and read
         once: the LN rows (not with post_norm), the (tokens, Dh) activations, post_norm's float32 branch; in the
@@ -1459,7 +1528,8 @@ def main() -> int:
         """The attention core's own launch in a block's chain of launches: its device ms (``split``'s entry of the
         core, None where the profiler saw no kernel), its bound (its own inputs and output once, its operations at
         ``ops_per_s``) and ``library_ms``, one PyTorch call of the same function (SDPA)."""
-        core = None if split is None else next(ms for name, ms in split if "core_kernel" in name or "_tc_kernel" in name)
+        core = None if split is None else next(ms for name, ms in split
+                                               if "core_kernel" in name or "_tc_kernel" in name or "_x3_kernel" in name)
         b_ms, b_by = bound(nbytes, nops, ops_per_s)
         return dict(core_ms=core, core_bound_ms=b_ms, core_bound_by=b_by, core_library_ms=library_ms)
 
@@ -1472,9 +1542,12 @@ def main() -> int:
         return time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=scale), 10)
 
     # flash_mha: float32 at ViT-B/16 b64 (the f32 path's shape), and bf16 at b256 (the tensor-core core of the bf16
-    # blocks alone; no main path runs flash_mha in bf16)
+    # blocks alone; no main path runs flash_mha in bf16).  At head dim 64 float32 runs split TF32 (three tf32
+    # products a product: its bound at TF32X3_OPS_PER_S), held to float64: f64_err = max |out - f64| / max |f64| no
+    # more than twice scalar_f64_err, the scalar float32 core's that it replaced (_flash_mha_scalar, timed beside it)
     scale = hd ** -0.5
     flash_rows = []
+    core_rate = {torch.float32: TF32X3_OPS_PER_S, torch.bfloat16: BF16_OPS_PER_S}
     for dtype, batch in ((torch.float32, 64), (torch.bfloat16, 256)):
         q, k, v = (normal((batch, seq, heads, hd), dtype) for _ in range(3))
         out = kernels.flash_mha(q, k, v, scale)
@@ -1483,8 +1556,23 @@ def main() -> int:
         require(torch.equal(kernels.flash_mha(q, k, v, scale), out), f"flash_mha {dtype}: two calls differ")
         qh, kh, vh = (a.permute(0, 2, 1, 3) for a in (q, k, v))
         sdpa = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+        figures = {}
         if dtype == torch.float32:
             max_err_f32(out, sdpa, "flash_mha vs SDPA", 1e-3, 1e-3)
+            ref64 = torch.einsum("nhqk,nkhd->nhqd", torch.softmax(
+                torch.einsum("nqhd,nkhd->nhqk", q.double(), k.double()) * scale, dim=-1), v.double())
+            scalar = flash_attention._flash_mha_scalar(q, k, v, scale)
+            figures = dict(f64_err=f64_err(out, ref64), scalar_f64_err=f64_err(scalar, ref64),
+                           library_f64_err=f64_err(sdpa, ref64),
+                           scalar_core_ms=time_ms(lambda: flash_attention._flash_mha_scalar(q, k, v, scale), 20),
+                           hgmma_tf32_in_sass=sum(x3_core_hgmma.values()),
+                           occupancy=flash_attention.kernel_info("attention_x3_kernel"))
+            print(f"  flash_mha f32, max|a - f64| / max|f64|: split-TF32 core {figures['f64_err']:.3e}, scalar core "
+                  f"{figures['scalar_f64_err']:.3e}, SDPA {figures['library_f64_err']:.3e}; scalar core "
+                  f"{figures['scalar_core_ms']:.4f} ms")
+            require(figures["f64_err"] <= 2 * figures["scalar_f64_err"],
+                    "flash_mha f32 strays from float64 past twice the scalar core")
+            del ref64, scalar
         else:
             max_err_f32(out, sdpa, "flash_mha bf16 vs SDPA", 5e-2, 5e-2)
             print(f"flash_mha bf16 vs SDPA: max |err| {float((out.float() - sdpa.float()).abs().max()):.3e}")
@@ -1493,8 +1581,8 @@ def main() -> int:
                               time_ms(lambda: flash_attention.flash_mha_plain(q, k, v, scale), 5),
                               4 * q.numel() * q.element_size(), attention_ops(batch),
                               library_ms=time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), 20),
-                              source=ATTENTION, ops_per_s=rate[dtype], at=(q.shape, dtype), shape=list(q.shape),
-                              dtype=str(dtype).replace("torch.", "")))
+                              source=ATTENTION, ops_per_s=core_rate[dtype], at=(q.shape, dtype), shape=list(q.shape),
+                              dtype=str(dtype).replace("torch.", ""), **figures))
         del q, k, v, qh, kh, vh, out, sdpa
     rows.append(entry(flash_rows[0], "vit_b_16 f32 b64", flash_rows[1:], core_hgmma_in_sass=core_hgmma["attention"]))
 
@@ -1547,7 +1635,8 @@ def main() -> int:
     del x, out, args, args128, w_qkv, w_o
 
     # attention_block in float32 at ViT-B/16 b64's shape: on no measured path (the f32 None route takes flash_mha),
-    # timed beside its composite (TF32 off); three launches, scalar f32 products (ln_gemm_kernel) and the scalar core
+    # timed beside its composite (TF32 off); three launches, scalar f32 products (ln_gemm_kernel) and the split-TF32
+    # core
     x = normal((64, seq, d_model), torch.float32)
     ln_g, ln_b = ln_params()
     w_qkv = normal((d_model, 3 * d_model), torch.float32, d_model ** -0.5)
@@ -1571,13 +1660,17 @@ def main() -> int:
     require(torch.equal(kernels.attention_block(*args), out), "attention_block f32: two calls differ")
     split = launch_split(lambda: kernels.attention_block(*args), chain)
     print(f"  attention_block f32's launches apart (device ms): {split}")
-    core = core_fields(split, 4 * x.numel() * 4, attention_ops(64), F32_OPS_PER_S,
+    core = core_fields(split, 4 * x.numel() * 4, attention_ops(64), TF32X3_OPS_PER_S,
                        sdpa_ms(64, seq, heads, hd, torch.float32, scale))
+    # the bound's operations at two rates: the scalar f32 products at F32_OPS_PER_S, the split-TF32 core's at
+    # TF32X3_OPS_PER_S, given to row() as their sum of times at the f32 rate
+    f32_products_ops = 64 * seq * (8 * d_model * d_model + 8 * d_model)
     attn_f32 = row("attention_block", f"{PALLAS_BLOCK}:237", "vit_b_16 f32 b64", err,
                    time_ms(lambda: kernels.attention_block(*args), 5),
                    time_ms(lambda: transformer_block.attention_block_plain(*args), 3),
                    2 * x.numel() * 4 + (w_qkv.numel() + w_o.numel()) * 4 + 4 * (6 * d_model),
-                   64 * seq * (8 * d_model * d_model + 8 * d_model) + attention_ops(64),
+                   f32_products_ops + attention_ops(64) * F32_OPS_PER_S / TF32X3_OPS_PER_S,
+                   ops_by_rate={"f32": f32_products_ops, "tf32x3": attention_ops(64)},
                    library_ms=time_ms(attention_library_f32, 5), source=TRANSFORMER, at=(x.shape, torch.float32),
                    shape=list(x.shape), dtype="float32", kernel_launches=chain,
                    split_bytes_ms=2 * 4 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3, launch_ms=split, **core)
@@ -1887,7 +1980,39 @@ def main() -> int:
         depthwise_case((128, 28, 28, 192), 3, dtype)
         depthwise_case((64, 56, 56, 96), 5, dtype, use_bias=False)
     main = next(r for r in dw_rows if r["dtype"] == "bfloat16" and r["shape"] == [256, 56, 56, 96])
-    rows.append(entry(main, CN, [r for r in dw_rows if r is not main]))
+
+    # row 14's backward dx at ConvNeXt-T's stage shapes, bf16 b256: the forward kernel on the flipped taps (one launch,
+    # depthwise.py:_backward), held to its plain version; bound: the gradient read and dx written once; library:
+    # aten.convolution_backward with groups=C, dx only (cuDNN, TF32 off)
+    def depthwise_dx_case(shape):
+        c = shape[3]
+        g, xin = normal(shape, torch.bfloat16), normal(shape, torch.bfloat16)
+        taps = normal((7, 7, c), torch.bfloat16, 1.0 / 7)
+        flipped, no_bias = taps.flip(0, 1).contiguous(), torch.zeros(c, device=dev)
+        out = kernels.depthwise_conv2d(g, flipped, no_bias, use_bias=False)
+        what = f"depthwise_conv2d dx {list(shape)}"
+        err = max_err_f32(out, depthwise.depthwise_conv2d_plain(g, flipped, None), what, TOL[torch.bfloat16],
+                          TOL[torch.bfloat16])
+        weight = taps.permute(2, 0, 1)[:, None].contiguous()
+        g_nchw, x_nchw = g.permute(0, 3, 1, 2), xin.permute(0, 3, 1, 2)  # channels-last views of the same memory
+
+        def library():
+            with _dtype.full_float32():
+                return torch.ops.aten.convolution_backward(g_nchw, x_nchw, weight, None, [1, 1], [3, 3], [1, 1], False,
+                                                           [0, 0], c, [True, False, False])[0]
+
+        max_err_f32(out, library().permute(0, 2, 3, 1), what + " vs aten.convolution_backward", 5e-2, 5e-2)
+        b_ms, b_by = bound(2 * g.numel() * 2 + taps.numel() * 2, g.numel() * 2 * 49, BF16_OPS_PER_S)
+        dx = dict(shape=list(shape), taps=7, dtype="bfloat16", max_abs_err=err,
+                  ms=time_ms(lambda: kernels.depthwise_conv2d(g, flipped, no_bias, use_bias=False), 10),
+                  plain_ms=time_ms(lambda: depthwise.depthwise_conv2d_plain(g, flipped, None), 3),
+                  bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, 10))
+        print(f"depthwise_conv2d backward dx {list(shape)}: kernel_ms {dx['ms']:.4f} plain_ms {dx['plain_ms']:.4f} "
+              f"bound_ms {b_ms:.4f} ({b_by}) library_ms {dx['library_ms']:.4f}, max_abs_err {err}")
+        return dx
+
+    rows.append(entry(main, CN, [r for r in dw_rows if r is not main],
+                      backward_dx=[depthwise_dx_case((256, side, side, c)) for c, side in zip(widths, sides)]))
 
     # nms_sorted at the three shapes of a detection forward, on the boxes the float32 path handed it; the bound counts
     # the IoUs this data needs (every pair of kept boxes, one a struck box against a kept box that struck it), each
@@ -2117,8 +2242,8 @@ def main() -> int:
     # ---- the bf16 blocks' backward at ViT-B/16 b128's training shapes (rows 9-12's backward, since PR 11): Kernel B,
     # Kernel A, ln_backward_rows and the activation-gradient products against their plain versions, and four more
     # wgrad_matmul shapes.  Bounds count the function's inputs and outputs once; library_ms is one PyTorch call of
-    # the same function: the backward of F.scaled_dot_product_attention (its forward and backward less its forward),
-    # aten.gelu_backward (exact erf, on u and the rounded da), aten.native_layer_norm_backward, torch.mm in bf16
+    # the same function: the backward of F.scaled_dot_product_attention (its graph kept, its kernels' time on the
+    # device clock, as Kernel B's beside it), aten.gelu_backward (exact erf, on u and the rounded da), aten.native_layer_norm_backward, torch.mm in bf16
     from cpu_vision_tpu_torch.ops.kernels.transformer_block import (bf16_product_plain, ln_backward_plain,
                                                                     mlp_gelu_backward_plain)
 
@@ -2129,35 +2254,70 @@ def main() -> int:
     def bnormal(shape, dtype, std=1.0, mean=0.0):
         return (torch.randn(shape, generator=bgen, device=dev) * std + mean).to(dtype)
 
-    qb, kb, vb = (bnormal((128, seq, heads, hd), bf) for _ in range(3))
-    dob = bnormal((128, heads, seq, hd), bf)
-    ob = torch.empty_like(qb)
-    got = kernels.attention_core_backward(qb, kb, vb, dob, scale, o=ob)
-    with _dtype.float32_products(bf):
-        ref = flash_attention.attention_core_backward_plain(qb, kb, vb, dob, scale)
-        joined = flash_attention.flash_mha_plain(qb, kb, vb, scale).transpose(1, 2).contiguous()
-    err = max(max_err_f32(a, b, f"attention_core_backward {name}", TOL[bf], TOL[bf])
-              for a, b, name in zip((*got, ob), (*ref, joined), ("dq", "dk", "dv", "o")))
-    require(all(torch.equal(a, b) for a, b in zip(got, kernels.attention_core_backward(qb, kb, vb, dob, scale))),
-            "attention_core_backward: two calls differ")
-    qh, kh, vh = (t.permute(0, 2, 1, 3).detach().requires_grad_() for t in (qb, kb, vb))
+    # Kernel B at the training path's (128, 197, 12, 64), and past the first design's cap of S 256: (64, 257, 16, 64)
+    # and (16, 577, 16, 64), a 384² input of ViT-L/16's width; two launches a call (query-tile blocks, key-tile
+    # blocks), counted and each timed apart from the profiler, with its registers, shared memory and blocks an SM
+    bwd_occupancy = {name: flash_attention.kernel_info(name) for name in ("attention_bwd_q_kernel",
+                                                                          "attention_bwd_kv_kernel")}
 
-    def sdpa_forward():
-        return F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+    def core_b_case(n, s_len, n_heads):
+        qb, kb, vb = (bnormal((n, s_len, n_heads, hd), bf) for _ in range(3))
+        dob = bnormal((n, n_heads, s_len, hd), bf)
+        ob = torch.empty_like(qb)
+        got = kernels.attention_core_backward(qb, kb, vb, dob, scale, o=ob)
+        with _dtype.float32_products(bf):
+            ref = flash_attention.attention_core_backward_plain(qb, kb, vb, dob, scale)
+            joined = flash_attention.flash_mha_plain(qb, kb, vb, scale).transpose(1, 2).contiguous()
+        err = max(max_err_f32(a, b, f"attention_core_backward {name} S {s_len}", TOL[bf], TOL[bf])
+                  for a, b, name in zip((*got, ob), (*ref, joined), ("dq", "dk", "dv", "o")))
+        require(all(torch.equal(a, b) for a, b in zip(got, kernels.attention_core_backward(qb, kb, vb, dob, scale))),
+                f"attention_core_backward S {s_len}: two calls differ")
+        del ref, joined
+        qh, kh, vh = (t.permute(0, 2, 1, 3).detach().requires_grad_() for t in (qb, kb, vb))
+        sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
 
-    def sdpa_backward():
-        torch.autograd.grad(sdpa_forward(), (qh, kh, vh), dob)
+        def sdpa_backward():  # SDPA's backward kernels alone: its graph is kept between calls
+            torch.autograd.grad(sdpa_out, (qh, kh, vh), dob, retain_graph=True)
 
-    core_b = row("attention_core_backward", f"{PALLAS_FLASH}:83", VIT_TRAIN, err,
-                 time_ms(lambda: kernels.attention_core_backward(qb, kb, vb, dob, scale, o=ob), 20),
-                 time_ms(lambda: flash_attention.attention_core_backward_plain(qb, kb, vb, dob, scale), 3),
-                 8 * qb.numel() * 2, 6 * 2 * 128 * heads * seq * seq * hd,
-                 library_ms=max(time_ms(sdpa_backward, 10) - time_ms(sdpa_forward, 10), 0.0), source=ATTENTION,
-                 ops_per_s=BF16_OPS_PER_S, at=(qb.shape, bf), shape=list(qb.shape), dtype="bfloat16",
-                 writes_joined_heads=True,
-                 hgmma_in_sass=sum(c for fn, c in _build.sass_counts("attention", "HGMMA").items() if "bwd" in fn))
-    rows.append(entry(core_b, VIT_TRAIN, []))
-    del qb, kb, vb, dob, ob, got, ref, joined, qh, kh, vh
+        def call():
+            kernels.attention_core_backward(qb, kb, vb, dob, scale, o=ob)
+
+        # both on the device clock, the sum of the kernels of one call, in three rounds taken in turn: the
+        # range over all fifteen calls of each is printed beside its mean
+        device = {"kernel": [], "library": []}
+        for _ in range(3):
+            for side, fn in (("kernel", call), ("library", sdpa_backward)):
+                seen = calls_on_device(fn)
+                require(seen is not None, f"attention_core_backward S {s_len}: the profiler missed the {side}'s calls")
+                device[side].extend(seen)
+        kernel_launches = len(device["kernel"][0])
+        require(kernel_launches == 2 and "attention_bwd_q_kernel" in device["kernel"][0][0][0]
+                and "attention_bwd_kv_kernel" in device["kernel"][0][1][0],
+                f"attention_core_backward S {s_len}: a call ran {[k for k, _ in device['kernel'][0]]}, not the "
+                f"query-tile and key-tile kernels")
+        sums = {side: [sum(t for _, t in seg) for seg in segs] for side, segs in device.items()}
+        figures = {f"{side}_device_ms": sum(v) / len(v) for side, v in sums.items()}
+        figures.update({f"{side}_device_ms_range": [min(v), max(v)] for side, v in sums.items()})
+        launch_ms = [(device["kernel"][0][i][0], sum(seg[i][1] for seg in device["kernel"]) / len(device["kernel"]))
+                     for i in range(kernel_launches)]
+        print(f"  attention_core_backward {list(qb.shape)} on the device clock over {len(sums['kernel'])} calls: "
+              f"kernel {figures['kernel_device_ms']:.4f} ms ({min(sums['kernel']):.4f}-{max(sums['kernel']):.4f}), "
+              f"SDPA's backward {figures['library_device_ms']:.4f} ms ({min(sums['library']):.4f}-"
+              f"{max(sums['library']):.4f}; its kernels {[k for k, _ in device['library'][0]]})")
+        return row("attention_core_backward", f"{PALLAS_FLASH}:83", VIT_TRAIN, err, time_ms(call, 20),
+                   time_ms(lambda: flash_attention.attention_core_backward_plain(qb, kb, vb, dob, scale), 3),
+                   8 * qb.numel() * 2, 6 * 2 * n * n_heads * s_len * s_len * hd,
+                   library_ms=figures["library_device_ms"], source=ATTENTION,
+                   ops_per_s=BF16_OPS_PER_S, at=(qb.shape, bf), shape=list(qb.shape), dtype="bfloat16",
+                   writes_joined_heads=True, kernel_launches=kernel_launches, launch_ms=launch_ms,
+                   library_events_ms=time_ms(sdpa_backward, 10), **figures)
+
+    core_b = core_b_case(128, seq, heads)
+    rows.append(entry(core_b, VIT_TRAIN, [core_b_case(64, 257, 16), core_b_case(16, 577, 16)],
+                      occupancy=bwd_occupancy,
+                      hgmma_in_sass=sum(c for fn, c in _build.sass_counts("attention", "HGMMA").items() if "bwd" in fn)))
+    print(f"  attention_core_backward's launches apart at {core_b['shape']} (device ms): {core_b['launch_ms']}; "
+          f"occupancy {bwd_occupancy}")
 
     da32, hw = bnormal((tb_tokens, d_hidden), torch.float32), bnormal((tb_tokens, d_hidden), torch.float32, 2.0)
     b1 = bnormal((d_hidden,), torch.float32, 0.3)

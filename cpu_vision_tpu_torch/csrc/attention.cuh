@@ -2,10 +2,11 @@
 // type helpers and the softmax(scale * Q K^T) V core that attention.cu
 // (flash_mha), transformer_block.cu (attention_block) and int8_transformer.cu
 // (attention_block_int8) instantiate.  attention_core() routes by type and
-// head dim: bf16 at head dim 64 (ViT-B/16's width, every measured bf16 path)
-// runs the tensor-core core of tc_attention.cuh; float32 at every head dim,
-// and bf16 at 16 and 80, run the scalar attention_core_kernel below (TF32
-// would round the f32 operands; bf16 at 16 and 80 is on no measured path).
+// head dim: at head dim 64 (ViT-B/16's width, every measured path) bf16 runs
+// the tensor-core core of tc_attention.cuh and float32 with a float32 output
+// the split-TF32 core of tf32x3_attention.cuh; head dims 16 and 80, and
+// float32 into int8 (the int8 block's float32 form, on no measured path), run
+// the scalar attention_core_kernel below.
 //
 // Types.  A kernel is a template over its storage type T, float or
 // __nv_bfloat16.  Every operand is widened to f32 when it is staged in shared
@@ -239,13 +240,14 @@ cudaError_t launch_attention_core(const T* q, const T* k, const T* v, OutT* o, i
 }  // namespace cvt
 
 #include "tc_attention.cuh"
+#include "tf32x3_attention.cuh"
 
 namespace cvt {
 
 // Head dims with an instantiation; any other is refused.  o_inv: the int8
-// output's inverse scales, one a joined channel (OutT = int8_t only).  bf16 at
-// head dim 64 takes the tensor-core core, which needs q, k, v and their
-// strides 16-byte aligned and refuses them otherwise.
+// output's inverse scales, one a joined channel (OutT = int8_t only).  At head
+// dim 64 bf16, and float32 into float32, take the tensor-core cores, which
+// need q, k, v and their strides 16-byte aligned and refuse them otherwise.
 template <typename T, typename OutT>
 cudaError_t attention_core(const T* q, const T* k, const T* v, OutT* o, int n, int s_len, int heads, int hd,
                            float scale, long long in_n, long long in_s, long long in_h, long long o_n,
@@ -261,6 +263,8 @@ cudaError_t attention_core(const T* q, const T* k, const T* v, OutT* o, int n, i
       if constexpr (std::is_same<T, __nv_bfloat16>::value)
         return launch_attention_tc<OutT>(q, k, v, o, n, s_len, heads, scale, in_n, in_s, in_h, o_n, o_s, o_h, stream,
                                          o_inv);
+      else if constexpr (std::is_same<OutT, float>::value)
+        return launch_attention_x3(q, k, v, o, n, s_len, heads, scale, in_n, in_s, in_h, o_n, o_s, o_h, stream);
       else
         return launch_attention_core<T, 64, OutT>(q, k, v, o, n, s_len, heads, scale, in_n, in_s, in_h, o_n, o_s, o_h,
                                                   stream, o_inv);

@@ -10,18 +10,21 @@ the product with ``v``, which sums in float32.  ``flash_mha`` given CUDA
 tensors launches the hand-written kernel, adds one to its ``launches`` count
 and raises if the launch fails; given CPU tensors it runs the twin.  Nothing
 falls back from one to the other.  It is differentiable, from the saved
-``q``, ``k``, ``v``.  In bfloat16 at head dim 64 with S ≤ ``CORE_BACKWARD_MAX_S``
-the backward is ``attention_core_backward`` (Kernel B, ``csrc/tc_attention_bwd.cuh``;
-on CPU tensors its plain version), the softmax backward the JAX package
-writes out by hand (``flash_attention.py:_bwd``); any other call
-differentiates the twin, recomputed (``_grad.recompute_backward``).
+``q``, ``k``, ``v``.  In bfloat16 at head dim 64 (any S) the backward is
+``attention_core_backward`` (Kernel B, ``csrc/tc_attention_bwd.cuh``; on CPU
+tensors its plain version), the softmax backward the JAX package writes out
+by hand (``flash_attention.py:_bwd``); any other call differentiates the
+twin, recomputed (``_grad.recompute_backward``).
 
 ``attention_core_backward(q, k, v, do, scale)`` is that backward alone:
 ``dq``, ``dk``, ``dv`` in ``q``'s layout from ``do`` in the output's, with
 ``p`` in float32, ``dp = do·vᵀ`` rounded to bfloat16 and ``ds = p (dp − Σ dp p)
 · scale`` rounded to TF32 before its products, as the twin's TF32 products
 round it (the kernel multiplies its two exact bfloat16 halves), every sum
-float32: the twin's gradient, its rounding points and all.
+float32: the twin's gradient, its rounding points and all.  On the card it is
+two launches (``attention_core_backward.kernel_launches``): query-tile blocks
+(each row's softmax statistics into a float32 scratch, ``dq``, the output),
+then key-tile blocks (``dk``, ``dv``).
 ``attention_block``'s backward hands it views of its (N, S, 3D) QKV buffer,
 writes the gradients into one (N, S, 3D) tensor through ``out``, and has it
 write the output again through ``o`` with the twin's rounding (probabilities
@@ -29,9 +32,12 @@ normalised, then rounded), for the gradient of its output projection.
 
 The kernel streams key tiles with an online softmax and divides by the row
 sum at the end; the twin normalises before the cast, as the Pallas kernel
-does.  In bfloat16 at head dim 64 the kernel runs on the tensor cores
-(``wgmma``); float32, and bfloat16 at head dims 16 and 80, run scalar FMAs.  In float32 the two differ by the order of sums; in bfloat16 also by
-where the probabilities are rounded (before or after the division), both
+does.  At head dim 64 the kernel runs on the tensor cores (``wgmma``): bfloat16
+as it is, float32 by split TF32 (``csrc/tf32x3_attention.cuh``: three TF32
+products a product, within twice the scalar float32 core's distance from
+float64, ``_flash_mha_scalar``); head dims 16 and 80 run scalar FMAs.  In
+float32 the two differ by the order and rounding of sums; in bfloat16 also
+by where the probabilities are rounded (before or after the division), both
 within the bfloat16 step.
 """
 
@@ -45,13 +51,14 @@ import torch
 from ..._dtype import float32_products
 from . import _build, _grad
 
-__all__ = ["flash_mha", "flash_mha_plain", "attention_core_backward", "attention_core_backward_plain",
-           "core_backward_takes", "HEAD_DIMS"]
+__all__ = ["flash_mha", "flash_mha_plain", "attention_core_backward",
+           "attention_core_backward_plain", "core_backward_takes", "kernel_info", "HEAD_DIMS"]
 
 HEAD_DIMS = (16, 64, 80)  # instantiations in csrc/attention.cuh
-TC_HEAD_DIM = 64  # bfloat16 at this head dim runs the tensor-core core of csrc/tc_attention.cuh
+TC_HEAD_DIM = 64  # at this head dim the cores run on the tensor cores (csrc/tc_attention.cuh, tf32x3_attention.cuh)
 DTYPES = (torch.float32, torch.bfloat16)
-CORE_BACKWARD_MAX_S = 256  # Kernel B holds a head's whole sequence on chip (csrc/tc_attention_bwd.cuh)
+# the kernels kernel_info reports on: Kernel B's two launches, the split-TF32 float32 core
+KERNEL_INFO = {"attention_bwd_q_kernel": 0, "attention_bwd_kv_kernel": 1, "attention_x3_kernel": 2}
 
 _c_lib: Optional[ctypes.CDLL] = None
 
@@ -63,8 +70,14 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.cvt_flash_mha.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
         lib.cvt_flash_mha.restype = ctypes.c_int
-        lib.cvt_attention_core_backward.argtypes = [p] * 8 + [i, i, i, ctypes.c_float] + [ctypes.c_longlong] * 9 + [p]
+        lib.cvt_attention_core_backward.argtypes = [p] * 9 + [i, i, i, ctypes.c_float] + [ctypes.c_longlong] * 9 + [p]
         lib.cvt_attention_core_backward.restype = ctypes.c_int
+        lib.cvt_attention_core_backward_stats_floats.argtypes = [i, i, i]
+        lib.cvt_attention_core_backward_stats_floats.restype = ctypes.c_longlong
+        lib.cvt_attention_core_scalar.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, p]
+        lib.cvt_attention_core_scalar.restype = ctypes.c_int
+        lib.cvt_attention_kernel_info.argtypes = [i, p, p, p]
+        lib.cvt_attention_kernel_info.restype = ctypes.c_int
         _c_lib = lib
     return _c_lib
 
@@ -100,9 +113,9 @@ def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
         raise ValueError(f"at most 65535 images and heads a launch, got {n} and {h}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    if q.dtype == torch.bfloat16 and hd == TC_HEAD_DIM and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("bfloat16 q, k and v of head dim 64 must start on 16-byte boundaries (the tensor-core "
-                         "core copies 16 bytes at a time)")
+    if hd == TC_HEAD_DIM and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v of head dim 64 must start on 16-byte boundaries (the tensor-core cores copy "
+                         "16 bytes at a time)")
     out = torch.empty((n, h, s, hd), dtype=q.dtype, device=q.device)
     _build.launch(_lib(), "cvt_flash_mha", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   n, s, h, hd, float(scale), int(q.dtype == torch.bfloat16))
@@ -110,9 +123,37 @@ def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
     return out
 
 
+def _flash_mha_scalar(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """The scalar float32 core at head dim 64 (``csrc/attention.cuh:attention_core_kernel``) that the split-TF32
+    core replaced, as ``flash_mha`` lays it out: the yardstick of that core's distance from float64, run by no
+    path and counted nowhere.  On CPU tensors the twin."""
+    _check(q, k, v)
+    if not _build.on_card(q):
+        return flash_mha_plain(q, k, v, scale)
+    n, s, h, hd = q.shape
+    if q.dtype != torch.float32 or hd != TC_HEAD_DIM or not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError(f"takes contiguous float32 q, k, v of head dim {TC_HEAD_DIM}, got {q.dtype}, head dim {hd}")
+    out = torch.empty((n, h, s, hd), dtype=q.dtype, device=q.device)
+    _build.launch(_lib(), "cvt_attention_core_scalar", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  n, s, h, float(scale))
+    return out
+
+
+def kernel_info(name: str, device=None) -> dict:
+    """``{"regs", "smem_bytes", "blocks_per_sm"}`` of the kernel ``name`` of ``KERNEL_INFO`` on the card: its
+    registers a thread, its dynamic shared memory a block, and the blocks an SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        err = _lib().cvt_attention_kernel_info(KERNEL_INFO[name], *(ctypes.addressof(x) for x in vals))
+    if err != 0:
+        raise RuntimeError(f"cvt_attention_kernel_info({name}) failed with CUDA error {err}")
+    return dict(zip(("regs", "smem_bytes", "blocks_per_sm"), (x.value for x in vals)))
+
+
 def core_backward_takes(dtype: torch.dtype, s: int, hd: int) -> bool:
     """Whether ``attention_core_backward`` (Kernel B) takes a core of ``dtype``, ``s`` tokens and head dim ``hd``."""
-    return dtype == torch.bfloat16 and hd == TC_HEAD_DIM and 1 <= s <= CORE_BACKWARD_MAX_S
+    return dtype == torch.bfloat16 and hd == TC_HEAD_DIM and s >= 1
 
 
 def _flash_backward(args, grad, needs):
@@ -168,7 +209,7 @@ def attention_core_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 def attention_core_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, scale: float,
                             out: Optional[tuple] = None, o: Optional[torch.Tensor] = None) -> tuple:
     """``(dq, dk, dv)`` of ``softmax(q kᵀ · scale) v`` given ``do``: Kernel B,
-    one launch on the card (bfloat16, head dim 64, S ≤ ``CORE_BACKWARD_MAX_S``;
+    two launches on the card (bfloat16, head dim 64, any S;
     ``q``, ``k``, ``v`` may be strided views sharing their strides, with the
     head dim contiguous), its plain version on CPU tensors.  ``out``: three
     tensors to write into, with ``q``'s strides (else new ones like ``q``);
@@ -186,8 +227,7 @@ def attention_core_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d
         return tuple(out)
     n, s, h, hd = q.shape
     if not core_backward_takes(q.dtype, s, hd):
-        raise ValueError(f"the kernel takes bfloat16 at head dim {TC_HEAD_DIM} and S <= {CORE_BACKWARD_MAX_S}, got "
-                         f"{q.dtype}, head dim {hd}, S {s}")
+        raise ValueError(f"the kernel takes bfloat16 at head dim {TC_HEAD_DIM}, got {q.dtype}, head dim {hd}")
     if n > 65535:
         raise ValueError(f"at most 65535 images a launch, got {n}")
     if do.stride(3) != 1:
@@ -205,12 +245,16 @@ def attention_core_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d
     if (any(t.data_ptr() % 16 for t in (q, k, v, do, *out, *(() if o is None else (o,))))
             or any(x % 8 for x in (*strides[:3], *do.stride()[:3], *o_strides[:3]))):
         raise ValueError("the kernel copies 16 bytes at a time: bases 16-byte aligned, strides multiples of 8")
-    _build.launch(_lib(), "cvt_attention_core_backward", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                  out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), None if o is None else o.data_ptr(), n, s, h,
-                  float(scale), strides[0], strides[1], strides[2], do.stride(0), do.stride(2), do.stride(1),
-                  o_strides[0], o_strides[1], o_strides[2])
+    lib = _lib()
+    stats = torch.empty(lib.cvt_attention_core_backward_stats_floats(n, s, h), dtype=torch.float32, device=q.device)
+    _build.launch(lib, "cvt_attention_core_backward", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), None if o is None else o.data_ptr(),
+                  stats.data_ptr(), n, s, h, float(scale), strides[0], strides[1], strides[2], do.stride(0),
+                  do.stride(2), do.stride(1), o_strides[0], o_strides[1], o_strides[2])
     _build.count_launch(attention_core_backward, q)
+    attention_core_backward.kernel_launches += 2
     return tuple(out)
 
 
 _build.reset_count(attention_core_backward)
+attention_core_backward.kernel_launches = 0

@@ -32,7 +32,7 @@ the same math.  Which backward a call takes is decided by its arguments
 (``mlp_backward_takes``, ``attention_backward_takes``), never after a failure:
 
 * bfloat16 (``post_norm=False``, ``ln_count=0``; attention at head dim 64 and
-  S ≤ 256): a backward written for the card, bfloat16 with float32 sums, that
+  any S): a backward written for the card, bfloat16 with float32 sums, that
   rounds where the twin rounds and gives the twin's gradient to its
   rounding (``_mlp_backward``, ``_attention_backward``): the kernels
   ``mlp_gelu_backward`` (Kernel A, the gelu's elementwise backward),

@@ -1,7 +1,9 @@
-"""The bf16 attention cores' CUDA sources (``csrc/tc_attention.cuh`` behind
-``flash_mha``, ``attention_block`` and ``attention_block_int8``; the window
-core of ``csrc/swin_attention.cu``) run on the CPU through ``tools/cuda_emu``,
-against the wrappers' plain twins.
+"""The attention cores' CUDA sources on the tensor cores (bf16
+``csrc/tc_attention.cuh`` behind ``flash_mha``, ``attention_block`` and
+``attention_block_int8``; the float32 split-TF32 core
+``csrc/tf32x3_attention.cuh`` behind ``flash_mha`` and ``attention_block``;
+the window core of ``csrc/swin_attention.cu``) run on the CPU through
+``tools/cuda_emu``, against the wrappers' plain twins.
 
 The emulator compiles the sources with ``g++`` against stand-in headers and
 runs one thread per CUDA thread; its ``hopper.cuh`` decodes the ``wgmma``
@@ -9,9 +11,15 @@ descriptors (the 128- and 64-byte swizzles, K-major and MN-major operands, A
 from registers) and defers copies and products to their waits, so the cores'
 tiling, masking of keys past S and ragged query tiles are exercised here
 before a card sees them.  The shapes are small and ragged: S 70 is a full key
-tile and one of 6 keys, S 49 and 64 the two window sizes.  Tolerance:
+tile and one of 6 keys (197: seven key tiles of 32, the last of 5, and four
+query tiles), S 49 and 64 the two window sizes.  Tolerance:
 ``2e-2·(1 + |twin|)``, the bf16 kernels' rule on the card (the core rounds
-the probabilities before the division by their sum, the twin after it).
+the probabilities before the division by their sum, the twin after it);
+float32 ``2e-4·(1 + |twin|)``, the card's float32 rule, and no further from
+float64 than twice the scalar float32 core (``_flash_mha_scalar``, emulated
+too).  The emulator sums a product's terms in order in float32, not as the
+tensor cores do, so the float64 check here tests the split, not the card's
+sums: ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold those.
 Without ``g++`` the tests skip.
 """
 
@@ -24,8 +32,10 @@ import pytest
 import torch
 
 from cpu_vision_tpu_torch.ops import kernels
+from cpu_vision_tpu_torch.ops.kernels import flash_attention
 
 TOL = 2e-2
+F32_TOL = 2e-4  # the float32 transformer kernels' rule on the card
 _EMULATE = Path(__file__).resolve().parents[1] / "tools" / "cuda_emu" / "emulate.py"
 
 
@@ -54,10 +64,10 @@ def _normal(rng, shape, dtype=torch.float32, std=1.0, mean=0.0):
     return torch.from_numpy((rng.standard_normal(shape) * std + mean).astype(np.float32)).to(dtype)
 
 
-def _assert_close(out, ref):
+def _assert_close(out, ref, tol=TOL):
     assert out.shape == ref.shape and out.dtype == ref.dtype
     err = (out.float() - ref.float()).abs()
-    assert bool((err <= TOL + TOL * ref.float().abs()).all()), f"max |err| {float(err.max())}"
+    assert bool((err <= tol + tol * ref.float().abs()).all()), f"max |err| {float(err.max())}"
 
 
 def _run(emulated, fn, twin, args):
@@ -73,6 +83,29 @@ def test_flash_mha(emulated):
     rng = np.random.default_rng(0)
     q, k, v = (_normal(rng, (1, 70, 2, 64), torch.bfloat16) for _ in range(3))
     _run(emulated, kernels.flash_mha, kernels.flash_mha_plain, (q, k, v, 0.125))
+
+
+@pytest.mark.parametrize("s", [70, 197])
+def test_flash_mha_float32(emulated, s):
+    """The float32 core at head dim 64 (split TF32, ``csrc/tf32x3_attention.cuh``): within the float32 rule of the
+    twin, and no further from float64 than twice the scalar float32 core it replaced."""
+    emulate, build_dir = emulated
+    rng = np.random.default_rng(s)
+    q, k, v = (_normal(rng, (1, s, 2, 64)) for _ in range(3))
+    with emulate.kernels_on_cpu(build_dir):
+        before = kernels.flash_mha.launches
+        out = kernels.flash_mha(q, k, v, 0.125)
+        assert kernels.flash_mha.launches == before + 1  # the emulated kernel ran, not the twin
+        scalar = flash_attention._flash_mha_scalar(q, k, v, 0.125)
+        assert torch.equal(kernels.flash_mha(q, k, v, 0.125), out)
+    _assert_close(out, kernels.flash_mha_plain(q, k, v, 0.125), F32_TOL)
+    p = torch.softmax(torch.einsum("nqhd,nkhd->nhqk", q.double(), k.double()) * 0.125, dim=-1)
+    ref64 = torch.einsum("nhqk,nkhd->nhqd", p, v.double())
+
+    def f64_err(a):
+        return float((a.double() - ref64).abs().max() / ref64.abs().max())
+
+    assert f64_err(out) <= 2 * f64_err(scalar), (f64_err(out), f64_err(scalar))
 
 
 def test_attention_block(emulated):

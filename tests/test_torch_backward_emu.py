@@ -9,7 +9,9 @@ the whole backward of ``mlp_block``, ``cn_mlp_block`` and ``attention_block``.
 The emulator compiles the sources with ``g++`` against stand-in headers and
 runs one thread per CUDA thread (see ``tests/test_torch_attention_cores_emu.py``).
 The shapes are small and ragged: S 7 (one tile, 57 padded keys), 70 (a full
-key tile and one of 6) and 130 (three tiles, the second warpgroup's pair);
+key tile and one of 6), 130 (three tiles) and, past the first design's cap of
+256, 257 (a last tile of one row) and 300 (five tiles: the three-stage rings
+wrap);
 rows that fill no whole block of the row passes.  Tolerances: Kernel B and the
 blocks' gradients ``2e-2·(1 + |plain|)``, the bf16 kernels' rule on the card
 (the kernel multiplies ds rounded to TF32 where the plain version's products
@@ -67,7 +69,7 @@ def _assert_close(out, ref, tol=TOL):
     assert bool((err <= tol + tol * ref.float().abs()).all()), f"max |err| {float(err.max())}"
 
 
-@pytest.mark.parametrize("n,s,heads", [(2, 7, 2), (1, 70, 2), (1, 130, 1)])
+@pytest.mark.parametrize("n,s,heads", [(2, 7, 2), (1, 70, 2), (1, 130, 1), (1, 257, 2), (1, 300, 2)])
 def test_attention_core_backward(emulated, n, s, heads):
     emulate, build_dir = emulated
     rng = np.random.default_rng(s)
@@ -82,7 +84,10 @@ def test_attention_core_backward(emulated, n, s, heads):
     for a, b in zip(got, kernels.attention_core_backward_plain(q, k, v, do, 0.125)):
         _assert_close(a, b)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # the same bits without o, and twice
-    assert torch.equal(o, flash_attention.flash_mha_plain(q, k, v, 0.125).transpose(1, 2))  # the twin's joined heads
+    joined = flash_attention.flash_mha_plain(q, k, v, 0.125).transpose(1, 2)
+    if s <= 130:  # the twin's joined heads bit for bit; past two key tiles its CPU product sums in another order
+        assert torch.equal(o, joined)
+    _assert_close(o, joined)
 
 
 @pytest.mark.parametrize("m,dh", [(37, 96), (130, 448)])

@@ -38,7 +38,9 @@ bfloat16 attention core on the tensor cores, and of the float32 MLP blocks.
 The weight gradient (both dtypes) and the float32 MLP block, whose float32
 products run on the tensor cores by split TF32, stand no further from the
 float64 result on the same inputs than twice a float32 product with TF32 off
-(``max|out - f64| / max|f64|``).  The gradients of the kernels' routes are
+(``max|out - f64| / max|f64|``), and the float32 attention core at head dim
+64 (split TF32 too) no further than twice the scalar float32 core it
+replaced (``flash_attention._flash_mha_scalar``).  The gradients of the kernels' routes are
 held to the plain routes' within ``1e-5 + 1e-5·|plain|`` in float32 and
 ``1e-2·(1 + |plain|)`` in bfloat16 (and no further from the float32
 function's than 1.5 times the plain route's).  The bfloat16 blocks' backward
@@ -904,6 +906,19 @@ def test_f32_mlp_block_stands_near_float64(cuda, rng):
     assert _f64_err(kernels.mlp_block(*args), ref64) <= 2 * _f64_err(kernels.mlp_block_plain(*args), ref64)
 
 
+def test_f32_flash_core_stands_near_float64(cuda, rng):
+    """The float32 core at head dim 64 by split TF32, at ViT-B/16 b64's (64, 197, 12, 64): within the float32 rule
+    of the twin, no further from float64 than twice the scalar float32 core it replaced, the same bits twice."""
+    q, k, v = (_normal(rng, (64, 197, 12, 64), torch.float32, cuda) for _ in range(3))
+    out = kernels.flash_mha(q, k, v, 0.125)
+    assert kernels.launch_counts()["flash_mha"] == 1
+    _close(out, kernels.flash_mha_plain(q, k, v, 0.125), torch.float32)
+    assert torch.equal(kernels.flash_mha(q, k, v, 0.125), out)
+    p = torch.softmax(torch.einsum("nqhd,nkhd->nhqk", q.double(), k.double()) * 0.125, dim=-1)
+    ref64 = torch.einsum("nhqk,nkhd->nhqd", p, v.double())
+    assert _f64_err(out, ref64) <= 2 * _f64_err(flash_attention._flash_mha_scalar(q, k, v, 0.125), ref64)
+
+
 def _grads(fn, args):
     args = [a.detach().requires_grad_(a.dtype.is_floating_point) for a in args]
     out = fn(*args)
@@ -1000,15 +1015,18 @@ def test_kernel_routes_give_the_plain_routes_gradients(cuda, rng, dtype):
         assert backward["attention_core_backward"] == backward["mlp_gelu_backward"] == backward["ln_backward_rows"] == 0
 
 
-@pytest.mark.parametrize("n,s,heads", [(128, 197, 12), (3, 65, 2), (2, 256, 4), (1, 1, 1), (5, 130, 3)])
+@pytest.mark.parametrize("n,s,heads", [(128, 197, 12), (3, 65, 2), (2, 256, 4), (1, 1, 1), (5, 130, 3),
+                                        (4, 197, 12), (2, 257, 16), (1, 577, 16)])
 def test_attention_core_backward_matches_plain(cuda, rng, n, s, heads):
-    """Kernel B at ViT-B/16 b128's core and ragged ones: dq, dk, dv and the joined heads within the bf16 rule of its
-    plain version (whose TF32 products round ds as the kernel does), the same bits twice."""
+    """Kernel B at ViT-B/16 b128's core, ragged ones and past the first design's cap of S 256 (257; 577, a 384²
+    input): dq, dk, dv and the joined heads within the bf16 rule of its plain version (whose TF32 products round ds
+    as the kernel does), the same bits twice; two launches a call."""
     q, k, v = (_normal(rng, (n, s, heads, 64), torch.bfloat16, cuda) for _ in range(3))
     do = _normal(rng, (n, heads, s, 64), torch.bfloat16, cuda)
     o = torch.empty_like(q)
     got = kernels.attention_core_backward(q, k, v, do, 0.125, o=o)
     assert kernels.launch_counts()["attention_core_backward"] == 1
+    assert kernels.attention_core_backward.kernel_launches == 2
     with _dtype.float32_products(torch.bfloat16):
         ref = kernels.attention_core_backward_plain(q, k, v, do, 0.125)
         joined = kernels.flash_mha_plain(q, k, v, 0.125).transpose(1, 2)

@@ -63,3 +63,25 @@ def test_bad_arguments_raise(rng):
         kernels.flash_mha(q.double(), k.double(), v.double(), 0.25)
     with pytest.raises(ValueError):
         kernels.flash_mha(q.to("meta"), k.to("meta"), v.to("meta"), 0.25)
+
+
+@pytest.mark.parametrize("dtype,s,hd,takes", [
+    (torch.bfloat16, 577, 64, True), (torch.bfloat16, 257, 64, True), (torch.bfloat16, 197, 64, True),
+    (torch.bfloat16, 1, 64, True), (torch.float32, 577, 64, False), (torch.float32, 197, 64, False),
+    (torch.bfloat16, 197, 80, False), (torch.bfloat16, 577, 16, False)])
+def test_core_backward_takes_any_sequence_length(dtype, s, hd, takes):
+    """Kernel B streams its tiles, so it takes every S (384² inputs: 577 tokens); bfloat16 at head dim 64 only."""
+    assert tfa.core_backward_takes(dtype, s, hd) is takes
+
+
+@pytest.mark.parametrize("s,d,heads,dtype,takes", [(577, 768, 12, torch.bfloat16, True),
+                                                   (577, 1024, 16, torch.bfloat16, True),
+                                                   (257, 1280, 16, torch.bfloat16, False),
+                                                   (577, 768, 12, torch.float32, False)])
+def test_attention_block_backward_route_follows(s, d, heads, dtype, takes):
+    """attention_block takes the card's backward wherever its core does: ViT-B/16 and ViT-L/16 at 384² (S 577, head
+    dim 64) now, ViT-H/14 (head dim 80) and float32 still the recomputed twin."""
+    from cpu_vision_tpu_torch.ops.kernels import transformer_block
+
+    x, w_qkv = torch.empty((1, s, d), dtype=dtype), torch.empty((d, 3 * d), dtype=dtype)
+    assert transformer_block.attention_backward_takes(x, w_qkv, heads) is takes

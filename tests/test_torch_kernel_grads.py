@@ -401,8 +401,9 @@ def test_attention_block_backward_plain_matches_twin_and_jax(rng, n, s, d, heads
 
 
 def test_backward_route_is_chosen_by_the_arguments(rng):
-    """bfloat16 blocks take the card's backward (``explicit_backward``), float32, post_norm, ln_count, head dims
-    other than 64 and the window and conv kernels the recomputed twin; depthwise its own backward."""
+    """bfloat16 blocks take the card's backward (``explicit_backward``, attention at any S), float32, post_norm,
+    ln_count, head dims other than 64 and the window and conv kernels the recomputed twin; depthwise its own
+    backward."""
     def kind(out):
         return type(out.grad_fn).__name__
 
@@ -418,8 +419,9 @@ def test_backward_route_is_chosen_by_the_arguments(rng):
     assert kind(kernels.flash_mha(q.float(), q.float(), q.float(), 0.125)) == "_RecomputeBackwardBackward"
     q16 = torch.zeros((1, 5, 2, 16), dtype=torch.bfloat16, requires_grad=True)
     assert kind(kernels.flash_mha(q16, q16, q16, 0.25)) == "_RecomputeBackwardBackward"
-    long = torch.zeros((1, 257, 1, 64), dtype=torch.bfloat16, requires_grad=True)
-    assert kind(kernels.flash_mha(long, long, long, 0.125)) == "_RecomputeBackwardBackward"
+    for s in (257, 577):  # past the first Kernel B's cap of 256: the streamed Kernel B takes any S
+        long = torch.zeros((1, s, 1, 64), dtype=torch.bfloat16, requires_grad=True)
+        assert kind(kernels.flash_mha(long, long, long, 0.125)) == "_ExplicitBackwardBackward"
     dw = kernels.depthwise_conv2d(torch.zeros((1, 5, 5, 4), requires_grad=True), torch.zeros((3, 3, 4)), None)
     assert kind(dw) == "_ExplicitBackwardBackward"
     # only the inputs are saved, not the recomputed activations

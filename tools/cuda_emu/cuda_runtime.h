@@ -69,6 +69,18 @@ template <typename F> cudaError_t cudaFuncSetAttribute(F, int, int bytes) {
   return bytes > (int)EMU_MAX_SHARED ? cudaErrorInvalidValue : cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// what a compiled kernel would report: nothing here (no registers, one block an SM)
+struct cudaFuncAttributes {
+  int numRegs;
+};
+inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* attr, const void*) {
+  attr->numRegs = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, const void*, int, size_t) {
+  *blocks = 1;
+  return cudaSuccess;
+}
 
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline std::barrier<>* emu_block_barrier;
