@@ -9,10 +9,11 @@ from ``cuobjdump``; it fails if a product or a core has none or a bf16
 instantiation of the scalar kernels they replaced is left: a bf16
 ``attention_core_kernel`` at head dim 64, a bf16 ``window_core_kernel``; and
 if a split-TF32 product (``csrc/tf32x3.cuh:x3_gemm_kernel``,
-behind the float32 ``mlp_block`` / ``cn_mlp_block`` and ``wgrad_matmul``) lacks
-``HGMMA ... .TF32``, a bf16 ``wgrad_bf16_kernel`` lacks ``HGMMA ... .BF16``,
-either spills, or the scalar ``mlp_block_kernel`` or ``wgrad_partial_kernel``
-is left), then:
+behind the float32 ``mlp_block`` / ``cn_mlp_block``, ``attention_block``,
+``window_attention_block`` and ``wgrad_matmul``) lacks ``HGMMA ... .TF32``, a
+bf16 ``wgrad_bf16_kernel`` lacks ``HGMMA ... .BF16``, either or the depthwise
+kernel spills, or the scalar ``mlp_block_kernel``, ``wgrad_partial_kernel`` or
+``ln_gemm_kernel`` is left in any library), then:
 
 1. drives the main paths through the public entry points, each with the
    kernels' launch counts set to 0 just before it and read just after:
@@ -91,7 +92,15 @@ is left), then:
    the twin's), and the same bits twice; every ``wgrad_matmul`` row carries its
    float64 error beside ``torch.mm``'s (``library_f64_err``, held to twice it);
    ``attention_block`` is also held and timed in float32 at (64, 197, 768),
-   on no main path, beside its composite; the bf16 blocks' backward kernels
+   on no main path, beside its composite; the float32 ``attention_block`` and
+   every float32 ``window_attention_block`` case are four launches (LN rows, two
+   split-TF32 products, the core; v2: no LN rows, LN + residual last), each
+   timed apart and none of them ``ln_gemm_kernel``, held to float64 as the MLP
+   (``f64_err`` no more than twice ``twin_f64_err``), the same bits twice; every
+   ``depthwise_conv2d`` case twice, the same bits, with its tile, registers,
+   shared memory and blocks an SM (``kernel_info``), its bound at the rate of
+   its dtype and, apart, the f32 FMA pipe's floor (``fma_floor_ms``) of the
+   kernel, which sums in f32 on the CUDA cores; the bf16 blocks' backward kernels
    and ``bf16_product`` and ``wgrad_matmul`` at the ViT training path's
    shapes, each beside its bound and one PyTorch call (SDPA's backward, its
    graph kept between calls,
@@ -380,8 +389,9 @@ def main() -> int:
             fn = named.group(1) if named else fn
             if "Used" in line or "spill" in line or ("wgmma" in line.lower() and "warning" in line.lower()):
                 print(f"  {stem}: {line.strip()}")
-            # the split-TF32 products and the bf16 weight gradient: no spill, and no wgmma that ptxas serialises
-            if ("x3_gemm_kernel" in fn or "wgrad_bf16_kernel" in fn) and "spill" in line:
+            # the split-TF32 products, the bf16 weight gradient and the depthwise convolution (49 sums and 49 taps
+            # a thread): no spill, and no wgmma that ptxas serialises
+            if ("x3_gemm_kernel" in fn or "wgrad_bf16_kernel" in fn or "depthwise_kernel" in fn) and "spill" in line:
                 require(" 0 bytes spill stores, 0 bytes spill loads" in line, f"{stem}: {fn} spills: {line.strip()}")
             if ("x3_gemm_kernel" in line or "wgrad_bf16_kernel" in line) and "serialized" in line:
                 raise AssertionError(f"{stem}: {line.strip()}")
@@ -398,7 +408,7 @@ def main() -> int:
         if stem in ("transformer_block", "swin_attention"):
             require(len(products) >= 2 and all(c > 0 for c in products.values()), f"{stem}: a product without HGMMA")
         require(len(cores) >= 1 and all(c > 0 for c in cores.values()), f"{stem}: an attention core without HGMMA")
-        require(not any(("mlp_block_kernel" in fn or "ln_gemm_kernel" in fn) and "bfloat16" in fn for fn in counts_by_fn),
+        require(not any("mlp_block_kernel" in fn and "bfloat16" in fn for fn in counts_by_fn),
                 f"{stem}: a bf16 instantiation of a scalar kernel is left")
         require(not any("bfloat16" in fn and (("attention_core_kernel" in fn and "Li64E" in fn)
                                               or "window_core_kernel" in fn) for fn in counts_by_fn),
@@ -417,17 +427,22 @@ def main() -> int:
     for name in flash_attention.KERNEL_INFO:
         print(f"  {name}: {flash_attention.kernel_info(name)} (registers a thread, dynamic shared memory a block, "
               f"blocks an SM)")
-    # the float32 products of mlp_block / cn_mlp_block and both dtypes of wgrad_matmul run on the tensor
-    # cores: HGMMA ... .TF32 in every split-TF32 instantiation (x3_gemm_kernel), HGMMA ... .BF16 in every bf16 weight
-    # gradient one, and neither the scalar f32 mlp_block_kernel nor the scalar wgrad_partial_kernel is left
+    # the float32 products of mlp_block / cn_mlp_block / attention_block / window_attention_block and both dtypes of
+    # wgrad_matmul run on the tensor cores: HGMMA ... .TF32 in every split-TF32 instantiation (x3_gemm_kernel),
+    # HGMMA ... .BF16 in every bf16 weight gradient one, and none of the scalar f32 mlp_block_kernel, the scalar
+    # wgrad_partial_kernel or the scalar f32 product ln_gemm_kernel (deleted: no library may hold it) is left
+    for stem in ("attention", "transformer_block", "swin_attention", "int8_transformer", "wgrad_matmul"):
+        require(not any("ln_gemm_kernel" in fn for fn in _build.sass_counts(stem, "HGMMA")),
+                f"{stem}: the scalar ln_gemm_kernel is left")
     tf32_hgmma = {}
-    for stem, scalar in (("transformer_block", "mlp_block_kernel"), ("wgrad_matmul", "wgrad_partial_kernel")):
+    for stem, scalar in (("transformer_block", "mlp_block_kernel"), ("swin_attention", "ln_gemm_kernel"),
+                         ("wgrad_matmul", "wgrad_partial_kernel")):
         tf32 = {fn: c for fn, c in _build.sass_counts(stem, "HGMMA", ".TF32").items() if "x3_gemm_kernel" in fn}
         bf16 = {fn: c for fn, c in _build.sass_counts(stem, "HGMMA", ".BF16").items() if "wgrad_bf16_kernel" in fn}
         print(f"  {stem}: HGMMA .TF32 in SASS {tf32}, .BF16 {bf16}")
-        require(len(tf32) >= (2 if stem == "transformer_block" else 4) and all(tf32.values()),
-                f"{stem}: a split-TF32 product without HGMMA .TF32")
-        require(stem == "transformer_block" or (len(bf16) == 4 and all(bf16.values())),
+        require(len(tf32) >= {"transformer_block": 3, "swin_attention": 2, "wgrad_matmul": 4}[stem]
+                and all(tf32.values()), f"{stem}: a split-TF32 product without HGMMA .TF32")
+        require(stem != "wgrad_matmul" or (len(bf16) == 4 and all(bf16.values())),
                 f"{stem}: a bf16 weight-gradient instantiation without HGMMA .BF16")
         require(not any(scalar in fn for fn in _build.sass_counts(stem, "HGMMA")), f"{stem}: {scalar} is left")
         tf32_hgmma[stem] = sum(tf32.values()) + sum(bf16.values())
@@ -1342,6 +1357,12 @@ def main() -> int:
         return [(spans[i][2], sum(spans[c * chain + i][1] - spans[c * chain + i][0] for c in range(calls)) / calls / 1e3)
                 for i in range(chain)]
 
+    def split_is_x3(split, products):
+        """Whether a float32 block's launches (``launch_split``'s) hold ``products`` split-TF32 products and no scalar
+        ln_gemm_kernel (deleted: its name must not come back)."""
+        names = [name for name, _ in split]
+        return sum("x3_gemm_kernel" in name for name in names) == products and not any("ln_gemm" in n for n in names)
+
     marker = []  # the name the profiler gives torch.cuda._sleep's kernel, read once
 
     def calls_on_device(fn, calls=5, tries=5):
@@ -1635,8 +1656,9 @@ def main() -> int:
     del x, out, args, args128, w_qkv, w_o
 
     # attention_block in float32 at ViT-B/16 b64's shape: on no measured path (the f32 None route takes flash_mha),
-    # timed beside its composite (TF32 off); three launches, scalar f32 products (ln_gemm_kernel) and the split-TF32
-    # core
+    # timed beside its composite (TF32 off); four launches: LN rows, the QKV product and the output projection on
+    # split TF32 (x3_gemm_kernel), the split-TF32 core between them; held to float64 as the f32 MLP: f64_err no more
+    # than twice the twin's (TF32 off)
     x = normal((64, seq, d_model), torch.float32)
     ln_g, ln_b = ln_params()
     w_qkv = normal((d_model, 3 * d_model), torch.float32, d_model ** -0.5)
@@ -1658,22 +1680,31 @@ def main() -> int:
 
     max_err_f32(out, attention_library_f32(), "attention_block f32 vs the stock composite", 1e-3, 1e-3)
     require(torch.equal(kernels.attention_block(*args), out), "attention_block f32: two calls differ")
+    require(chain == 4, f"attention_block f32: {chain} kernel launches a call, not 4")
     split = launch_split(lambda: kernels.attention_block(*args), chain)
     print(f"  attention_block f32's launches apart (device ms): {split}")
+    require(split is not None and split_is_x3(split, 2), f"attention_block f32's launches: {split}")
+    ref64 = transformer_block._attention_block_f64(*args)
+    figures = dict(f64_err=f64_err(out, ref64), twin_f64_err=f64_err(transformer_block.attention_block_plain(*args),
+                                                                     ref64))
+    del ref64
+    print(f"  attention_block f32, max|a - f64| / max|f64|: kernel {figures['f64_err']:.3e}, twin (TF32 off) "
+          f"{figures['twin_f64_err']:.3e}")
+    require(figures["f64_err"] <= 2 * figures["twin_f64_err"], "attention_block f32 strays from float64 past twice the twin")
     core = core_fields(split, 4 * x.numel() * 4, attention_ops(64), TF32X3_OPS_PER_S,
                        sdpa_ms(64, seq, heads, hd, torch.float32, scale))
-    # the bound's operations at two rates: the scalar f32 products at F32_OPS_PER_S, the split-TF32 core's at
-    # TF32X3_OPS_PER_S, given to row() as their sum of times at the f32 rate
-    f32_products_ops = 64 * seq * (8 * d_model * d_model + 8 * d_model)
+    # every operation at the split-TF32 rate: the products and the core are three tf32 products a product
     attn_f32 = row("attention_block", f"{PALLAS_BLOCK}:237", "vit_b_16 f32 b64", err,
                    time_ms(lambda: kernels.attention_block(*args), 5),
                    time_ms(lambda: transformer_block.attention_block_plain(*args), 3),
                    2 * x.numel() * 4 + (w_qkv.numel() + w_o.numel()) * 4 + 4 * (6 * d_model),
-                   f32_products_ops + attention_ops(64) * F32_OPS_PER_S / TF32X3_OPS_PER_S,
-                   ops_by_rate={"f32": f32_products_ops, "tf32x3": attention_ops(64)},
+                   64 * seq * (8 * d_model * d_model + 8 * d_model) + attention_ops(64), ops_per_s=TF32X3_OPS_PER_S,
+                   ops_by_rate={"tf32x3": {"products": 64 * seq * (8 * d_model * d_model + 8 * d_model),
+                                           "core": attention_ops(64)}},
                    library_ms=time_ms(attention_library_f32, 5), source=TRANSFORMER, at=(x.shape, torch.float32),
                    shape=list(x.shape), dtype="float32", kernel_launches=chain,
-                   split_bytes_ms=2 * 4 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3, launch_ms=split, **core)
+                   split_bytes_ms=2 * 5 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3, launch_ms=split,
+                   hgmma_tf32_in_sass=tf32_hgmma["transformer_block"], **figures, **core)
     rows.append(entry(attn_main, "vit_b_16 bf16 b256", [attn_f32]))
     del x, out, args, w_qkv, w_o
 
@@ -1841,10 +1872,28 @@ def main() -> int:
         out = kernels.window_attention_block(*args)
         kernel_launches = kernels.window_attention_block.kernel_launches - kernel_launches  # of this one call, as counted
         what = f"window_attention_block {nw}x{s}x{c} {dtype} v2={v2} masked={masked} ln_count={ln_count} spread={spread}"
-        err = max_err_f32(out, swin_attention.window_attention_block_plain(*args), what, TOL[dtype], TOL[dtype])
+        twin = swin_attention.window_attention_block_plain(*args)
+        err = max_err_f32(out, twin, what, TOL[dtype], TOL[dtype])
+        require(torch.equal(kernels.window_attention_block(*args), out), what + ": two calls differ")
+        require(kernel_launches == 4, f"{what}: {kernel_launches} kernel launches a call, not 4")
+        extra = {}
+        if dtype == torch.float32 or path is not None:
+            extra["launch_ms"] = launch_split(lambda: kernels.window_attention_block(*args), kernel_launches)
+        if dtype == torch.float32:
+            # the products on split TF32: each launch apart, and the block held to float64 (f64_err no more than
+            # twice the twin's, TF32 off), as the f32 MLP
+            split = extra["launch_ms"]
+            require(split is not None and split_is_x3(split, 2), f"{what}: launches {split}")
+            ref64 = swin_attention._window_attention_block_f64(*args)
+            extra.update(f64_err=f64_err(out, ref64), twin_f64_err=f64_err(twin, ref64))
+            del ref64
+            print(f"  {what}: launches apart {split}; max|a - f64| / max|f64|: kernel {extra['f64_err']:.3e}, twin "
+                  f"(TF32 off) {extra['twin_f64_err']:.3e}")
+            require(extra["f64_err"] <= 2 * extra["twin_f64_err"], what + ": strays from float64 past twice the twin")
+        del twin
         if path is None:
             hold("window_attention_block", x.shape, dtype, err, v2=v2, masked=masked, ln_count=ln_count, spread=spread,
-                 kernel_launches=kernel_launches)
+                 kernel_launches=kernel_launches, **extra)
             return None
         # the stock composite: layer_norm + linear + SDPA with the bias and mask as its additive mask + linear
         add = rel_bias[None].expand(nw, -1, -1, -1)
@@ -1890,13 +1939,13 @@ def main() -> int:
         # (the TPU kernels keep them on chip): their time at the memory rate is split_bytes_ms
         nbytes = (2 * x.numel() * size + (w_qkv.numel() + w_o.numel()) * size + 4 * (6 * c + rel_bias.numel())
                   + (4 * mask.numel() if masked else 0) + (4 * n_heads if v2 else 0))
-        # (+ the bf16 LN rows of v1, written by a row pass and read by the QKV product)
+        # (+ the LN rows of v1, written by a row pass and read by the QKV product)
         split_bytes = (2 * tokens * 3 * c * 4 + 2 * tokens * c * size + (2 * tokens * c * 4 if v2 else 0)
-                       + (2 * tokens * c * size if dtype == torch.bfloat16 and not v2 else 0))
-        extra = dict(launch_ms=launch_split(lambda: kernels.window_attention_block(*args), kernel_launches))
+                       + (2 * tokens * c * size if not v2 else 0))
         if dtype == torch.bfloat16:
             extra.update(hgmma_in_sass=hgmma["swin_attention"], core_hgmma_in_sass=core_hgmma["swin_attention"])
-            require(torch.equal(kernels.window_attention_block(*args), out), what + ": two calls differ")
+        else:
+            extra.update(hgmma_tf32_in_sass=tf32_hgmma["swin_attention"])
         # the core alone: the float32 QKV rows, position bias, mask and logit scale read once, the joined heads
         # written once; SDPA on q, k and v of the compute dtype with the bias and mask as its additive mask
         core_ops = nw * n_heads * s * s * (4 * 32 + 5)
@@ -1904,7 +1953,14 @@ def main() -> int:
                                  + (4 * mask.numel() if masked else 0) + (4 * n_heads if v2 else 0) + tokens * c * size,
                                  core_ops, rate[dtype],
                                  sdpa_ms(nw, s, n_heads, 32, dtype, scale, add if dtype == torch.bfloat16 else add32)))
-        nops = tokens * (8 * c * c + 8 * c) + core_ops
+        products_ops = tokens * (8 * c * c + 8 * c)
+        if dtype == torch.float32:
+            # the bound's operations at two rates: the products on split TF32 at TF32X3_OPS_PER_S, the scalar f32
+            # core's at F32_OPS_PER_S, given to row() as their sum of times at the f32 rate
+            nops = products_ops * F32_OPS_PER_S / TF32X3_OPS_PER_S + core_ops
+            extra.update(ops_by_rate={"tf32x3": products_ops, "f32": core_ops})
+        else:
+            nops = products_ops + core_ops
         return row("window_attention_block", f"{PALLAS_SWIN}:234", path, err,
                    time_ms(lambda: kernels.window_attention_block(*args), 5),
                    time_ms(lambda: swin_attention.window_attention_block_plain(*args), 3), nbytes, nops,
@@ -1942,7 +1998,11 @@ def main() -> int:
                       kernel_launches_a_forward=window_kernel_launches))
     print(f"  window_attention_block's launches apart at {main['shape']} (device ms): {main['launch_ms']}")
 
-    # depthwise_conv2d 7x7 at ConvNeXt-T's stage shapes (batch 256), and 3x3 and 5x5
+    # depthwise_conv2d 7x7 at ConvNeXt-T's stage shapes (batch 256), 3x3 and 5x5, and shapes off its tiles (9x13 maps,
+    # C 40 and 200); every case twice, the same bits, with the tile, registers, shared memory and blocks an SM of its
+    # launch (depthwise.kernel_info).  The bound is the function's: its operations at the card's peak rate for the
+    # inputs' type (bf16: the tensor cores', so bytes bind).  The kernel does them as f32 FMAs on the CUDA cores in
+    # either dtype; that pipe's floor, the operations at 67 TFLOP/s, is printed apart as fma_floor_ms
     def depthwise_case(shape, ks, dtype, path=None, use_bias=True):
         c = shape[3]
         x = normal(shape, dtype)
@@ -1954,8 +2014,11 @@ def main() -> int:
             err = max_err_f32(out, ref, what, CONV_ATOL, CONV_RTOL)
         else:
             err = max_err_f32(out, ref, what, TOL[dtype], TOL[dtype])
+        require(torch.equal(kernels.depthwise_conv2d(x, taps, bias, use_bias), out), what + ": two calls differ")
+        info = depthwise.kernel_info(x, ks)
+        print(f"  {what}: {info}")
         if path is None:
-            hold("depthwise_conv2d", shape, dtype, err, taps=ks, bias=use_bias)
+            hold("depthwise_conv2d", shape, dtype, err, taps=ks, bias=use_bias, kernel_info=info)
             return None
         weight = taps.permute(2, 0, 1)[:, None].contiguous()
         nchw = x.permute(0, 3, 1, 2)  # a channels-last view of the same memory
@@ -1966,12 +2029,14 @@ def main() -> int:
 
         max_err_f32(out, library().permute(0, 2, 3, 1), what + " vs F.conv2d", 1e-4 if dtype == torch.float32 else 5e-2,
                     1e-4 if dtype == torch.float32 else 5e-2)
+        ops = x.numel() * 2 * ks * ks
         return row("depthwise_conv2d", f"{PALLAS_DEPTHWISE}:57", path, err,
                    time_ms(lambda: kernels.depthwise_conv2d(x, taps, bias, use_bias), 10),
                    time_ms(lambda: depthwise.depthwise_conv2d_plain(x, taps, bias, use_bias), 3),
-                   2 * x.numel() * x.element_size() + taps.numel() * x.element_size() + 4 * c, x.numel() * 2 * ks * ks,
+                   2 * x.numel() * x.element_size() + taps.numel() * x.element_size() + 4 * c, ops,
                    library_ms=time_ms(library, 10), source=DEPTHWISE, ops_per_s=rate[dtype], at=(x.shape, dtype),
-                   shape=list(shape), taps=ks, dtype=str(dtype).replace("torch.", ""))
+                   shape=list(shape), taps=ks, dtype=str(dtype).replace("torch.", ""), kernel_info=info,
+                   fma_floor_ms=ops / F32_OPS_PER_S * 1e3)
 
     dw_rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -1979,6 +2044,9 @@ def main() -> int:
             dw_rows.append(depthwise_case((256, side, side, c), 7, dtype, CN))
         depthwise_case((128, 28, 28, 192), 3, dtype)
         depthwise_case((64, 56, 56, 96), 5, dtype, use_bias=False)
+        depthwise_case((16, 9, 13, 40), 7, dtype)
+        depthwise_case((16, 9, 13, 200), 5, dtype, use_bias=False)
+        depthwise_case((64, 7, 7, 200), 3, dtype)
     main = next(r for r in dw_rows if r["dtype"] == "bfloat16" and r["shape"] == [256, 56, 56, 96])
 
     # row 14's backward dx at ConvNeXt-T's stage shapes, bf16 b256: the forward kernel on the flipped taps (one launch,
@@ -1991,6 +2059,7 @@ def main() -> int:
         flipped, no_bias = taps.flip(0, 1).contiguous(), torch.zeros(c, device=dev)
         out = kernels.depthwise_conv2d(g, flipped, no_bias, use_bias=False)
         what = f"depthwise_conv2d dx {list(shape)}"
+        require(torch.equal(kernels.depthwise_conv2d(g, flipped, no_bias, use_bias=False), out), what + ": two calls differ")
         err = max_err_f32(out, depthwise.depthwise_conv2d_plain(g, flipped, None), what, TOL[torch.bfloat16],
                           TOL[torch.bfloat16])
         weight = taps.permute(2, 0, 1)[:, None].contiguous()
@@ -2006,7 +2075,8 @@ def main() -> int:
         dx = dict(shape=list(shape), taps=7, dtype="bfloat16", max_abs_err=err,
                   ms=time_ms(lambda: kernels.depthwise_conv2d(g, flipped, no_bias, use_bias=False), 10),
                   plain_ms=time_ms(lambda: depthwise.depthwise_conv2d_plain(g, flipped, None), 3),
-                  bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, 10))
+                  bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, 10),
+                  fma_floor_ms=g.numel() * 2 * 49 / F32_OPS_PER_S * 1e3)
         print(f"depthwise_conv2d backward dx {list(shape)}: kernel_ms {dx['ms']:.4f} plain_ms {dx['plain_ms']:.4f} "
               f"bound_ms {b_ms:.4f} ({b_by}) library_ms {dx['library_ms']:.4f}, max_abs_err {err}")
         return dx

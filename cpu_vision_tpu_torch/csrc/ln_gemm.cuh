@@ -1,19 +1,9 @@
-// The tiled products with an optional LayerNorm prologue that the fused
+// The bf16 tiled product and the LayerNorm row passes that the fused
 // sub-blocks share: transformer_block.cu (mlp_block, cn_mlp_block,
 // attention_block) and swin_attention.cu (window_attention_block) launch them
 // for their projections, and the int8 sources take row_stats and gelu_erf
-// from here.
-//
-// float32: ln_gemm_kernel, scalar f32 FMAs from shared memory,
-//
-//   out[m, n] = A'[m, :] . w[:, n] + bias[n]   (+ resid[m, n] first, with RESID)
-//
-// A' = LN(a) with LN, else a.  a is (m, k), w (k, n), out (m, n), all f32, k a
-// multiple of 16.  128 x 128 outputs a block of 256 threads, 8 x 8 a thread, K
-// in steps of 16 with the next tiles fetched into registers during the current
-// step; with LN the block first takes the mean and variance of its 128 rows
-// and normalises A as it is staged.  No mma: tensor cores would multiply f32
-// in TF32, which rounds the operands.
+// from here.  Their float32 products are split TF32 (tf32x3.cuh) after the
+// same row passes.
 //
 // bfloat16: tc_gemm_kernel, the tensor cores through wgmma (hopper.cuh),
 //
@@ -25,9 +15,9 @@
 //   TC_GELU    gelu_erf(acc + bias[n])
 //   TC_RESID   resid[m, n] + (acc + bias[n]) (* gamma[n] first, where given)
 // A LayerNorm before the product is its own pass, ln_rows_kernel, a warp a
-// row: LN(x) rounded to bf16 into an (m, k) buffer, the bits the scalar
-// kernel staged as A; each row's statistics are taken once, not once for
-// each column tile.
+// row: LN(x) rounded to T (bf16, or f32 for the split-TF32 products) into an
+// (m, k) buffer; each row's statistics are taken once, not once for each
+// column tile.
 //
 // Bound and design.  The products of the transformer blocks do 2 k flops a
 // byte and more (ViT-B/16's MLP 476 GFLOP on 155 MB), so the tensor cores
@@ -98,125 +88,6 @@ __device__ __forceinline__ void row_stats(const T* __restrict__ p, int d, float 
     v += dv * dv;
   }
   rstd = rsqrtf(warp_sum(v) / (float)d + eps);
-}
-
-constexpr int G_BM = 128;
-constexpr int G_BN = 128;
-constexpr int G_BK = 16;
-constexpr int G_THREADS = 256;
-constexpr int G_LDA = G_BM + 4;
-
-template <bool LN, bool RESID>
-__global__ void __launch_bounds__(G_THREADS, 2)
-ln_gemm_kernel(const float* __restrict__ a, const float* __restrict__ ln_g, const float* __restrict__ ln_b,
-               const float* __restrict__ w, const float* __restrict__ bias, const float* __restrict__ resid,
-               float* __restrict__ out, int m, int k, int n, float eps, int ln_count) {
-  __shared__ __align__(16) float s_a[G_BK * G_LDA];  // [k][row]
-  __shared__ __align__(16) float s_b[G_BK * G_BN];   // [k][col]
-  __shared__ float s_mean[G_BM];
-  __shared__ float s_rstd[G_BM];
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * G_BM, n0 = blockIdx.x * G_BN;
-
-  if (LN) {
-    const int warp = tid >> 5, lane = tid & 31;
-    for (int r = warp; r < G_BM; r += G_THREADS / 32) {
-      float mean = 0.0f, rstd = 0.0f;
-      if (m0 + r < m) row_stats<float>(a + (size_t)(m0 + r) * k, k, eps, ln_count, lane, mean, rstd);
-      if (lane == 0) {
-        s_mean[r] = mean;
-        s_rstd[r] = rstd;
-      }
-    }
-    __syncthreads();
-  }
-
-  // a thread stages 8 consecutive k of one row of A and 8 strided words of B
-  const int a_row = tid >> 1, a_k = (tid & 1) * 8;
-  const bool a_in = m0 + a_row < m;
-  const float* a_ptr = a + (size_t)(a_in ? m0 + a_row : 0) * k + a_k;
-  float a_mean = 0.0f, a_rstd = 0.0f;
-  if (LN) {
-    a_mean = s_mean[a_row];
-    a_rstd = s_rstd[a_row];
-  }
-  float ra[8], rb[8];
-
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float val = a_in ? a_ptr[k0 + j] : 0.0f;
-      if (LN && a_in) {
-        const int kk = k0 + a_k + j;
-        val = (val - a_mean) * a_rstd * ln_g[kk] + ln_b[kk];
-      }
-      ra[j] = val;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int e = tid + G_THREADS * j;
-      const int br = e >> 7, col = n0 + (e & 127);
-      rb[j] = col < n ? w[(size_t)(k0 + br) * n + col] : 0.0f;
-    }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  fetch(0);
-  for (int k0 = 0; k0 < k; k0 += G_BK) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s_a[(a_k + j) * G_LDA + a_row] = ra[j];
-      s_b[tid + G_THREADS * j] = rb[j];
-    }
-    __syncthreads();
-    if (k0 + G_BK < k) fetch(k0 + G_BK);
-#pragma unroll
-    for (int kk = 0; kk < G_BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(s_a + kk * G_LDA + ty * 8);
-      const float4 a1 = *reinterpret_cast<const float4*>(s_a + kk * G_LDA + ty * 8 + 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(s_b + kk * G_BN + tx * 4);
-      const float4 b1 = *reinterpret_cast<const float4*>(s_b + kk * G_BN + 64 + tx * 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] += av[i] * bv[j];
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + ty * 8 + i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + tx * 4 + 64 * (j >> 2) + (j & 3);
-      if (col >= n) continue;
-      const size_t at = (size_t)row * n + col;
-      float val = acc[i][j];
-      if (RESID) val += resid[at];
-      out[at] = val + bias[col];
-    }
-  }
-}
-
-template <bool LN, bool RESID>
-cudaError_t launch_ln_gemm(const float* a, const float* ln_g, const float* ln_b, const float* w, const float* bias,
-                           const float* resid, float* out, int m, int k, int n, float eps, int ln_count,
-                           cudaStream_t stream) {
-  const int rows = (m + G_BM - 1) / G_BM, cols = (n + G_BN - 1) / G_BN;
-  if (m < 1 || n < 1 || k < G_BK || k % G_BK || rows > 65535) return cudaErrorInvalidValue;
-  ln_gemm_kernel<LN, RESID><<<dim3(cols, rows), G_THREADS, 0, stream>>>(a, ln_g, ln_b, w, bias, resid, out, m, k,
-                                                                         n, eps, ln_count);
-  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ row passes

@@ -29,12 +29,12 @@
 // Launches.  A window's f32 QKV product at C = 768 is 451 KB and a block has
 // 227 KB, and the output projection sums over heads; so, like
 // attention_block, it is a chain of launches, all written here or in
-// ln_gemm.cuh:
-//   (0) bf16 v1: LN(x) rounded to bf16, a warp a row (ln_rows_kernel);
+// ln_gemm.cuh and tf32x3.cuh:
+//   (0) v1: LN(x) rounded to T, a warp a row (ln_rows_kernel);
 //   (1) QKV product + bias into an (nw S, 3 C) buffer of f32 (f32, not T:
-//       v1 scales q and v2 normalises q and k before the cast); float32 v1
-//       takes the LayerNorm as it stages A (ln_gemm_kernel), bf16 reads (0)'s
-//       rows (tc_gemm_kernel, wgmma);
+//       v1 scales q and v2 normalises q and k before the cast), of (0)'s rows
+//       (v1) or of x (v2): bf16 tc_gemm_kernel (wgmma), float32
+//       x3_gemm_kernel (split TF32 on wgmma, launch_x3_rows of tf32x3.cuh);
 //   (2) the window core, one block a (window, head), the windows on
 //       gridDim.x: it stages the head's q, k, v (S x 32 each) in shared
 //       memory by strides out of that buffer, computes all S x S scores as
@@ -46,7 +46,7 @@
 //       v2: output projection + bias into an (nw S, C) buffer of f32, then
 //   (4) v2: LayerNorm of each branch row + residual, a warp a row
 //       (ln_residual_kernel of ln_gemm.cuh).
-// Three launches for float32 v1, four for bf16 v1 and for v2.  The QKV buffer
+// Four launches in either type, v1 or v2.  The QKV buffer
 // (12 C bytes a token), the joined heads, v2's branch rows and the LN rows
 // are the intermediates that now touch device memory, each written once and
 // read once; the TPU kernels keep them in VMEM.  The mask holds -100, not
@@ -57,8 +57,8 @@
 // (802,816 tokens, C 96) 59 GFLOP + 30 GFLOP against 308 MB of x and out in
 // bf16.  The intermediates add 2.16 GB there: traffic of this split into
 // launches, not of the function, so no part of its bound.  The products run
-// on the tensor cores in bf16 and as scalar f32 FMAs in float32, and so does
-// the core.
+// on the tensor cores in either type (float32 by split TF32); the core on
+// them in bf16, as scalar f32 FMAs in float32.
 //
 // The bf16 core (window_tc_kernel).  At Swin-T's first stage it reads 925 MB
 // of the f32 QKV buffer and writes 154 MB of joined heads, 0.32 ms at the
@@ -83,15 +83,17 @@
 // one is computed, ran slower (fewer pairs in flight an SM).
 
 #include "ln_gemm.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 using cvt::bf16;
 using cvt::from_f32;
-using cvt::launch_ln_gemm;
 using cvt::launch_ln_residual;
 using cvt::launch_ln_rows;
 using cvt::launch_tc_gemm;
+using cvt::launch_x3_rows;
+using cvt::ResidEpi;
 using cvt::round_to;
 using cvt::TC_BIAS;
 using cvt::TC_RESID;
@@ -423,14 +425,16 @@ cudaError_t window_core(const float* qkv, const float* rel_bias, const float* ma
   return cudaGetLastError();
 }
 
-// The products of window_attention_block in T: QKV (f32 out, with LN for
-// v1) and the output projection (+ residual into out for v1, f32 branch for
-// v2).  ln_buf: scratch of m c bf16 values (bf16 v1 only).
+// The products of window_attention_block in T: QKV (f32 out, of LN(x) for
+// v1, of x for v2) and the output projection (+ residual into out for v1,
+// f32 branch for v2).  ln_buf: scratch of m c values of T (v1 only).
 cudaError_t qkv_product(const float* x, const float* ln_g, const float* ln_b, const float* w_qkv, const float* b_qkv,
-                        float* qkv, float*, int m, int c, float eps, int v2, int ln_count, cudaStream_t stream) {
-  return v2 ? launch_ln_gemm<false, false>(x, nullptr, nullptr, w_qkv, b_qkv, nullptr, qkv, m, c, 3 * c, eps, 0, stream)
-            : launch_ln_gemm<true, false>(x, ln_g, ln_b, w_qkv, b_qkv, nullptr, qkv, m, c, 3 * c, eps, ln_count,
-                                          stream);
+                        float* qkv, float* ln_buf, int m, int c, float eps, int v2, int ln_count, cudaStream_t stream) {
+  if (!v2) {
+    cudaError_t err = launch_ln_rows<float>(x, ln_g, ln_b, ln_buf, m, c, eps, ln_count, stream);
+    if (err != cudaSuccess) return err;
+  }
+  return launch_x3_rows(v2 ? x : ln_buf, w_qkv, m, 3 * c, c, ResidEpi{b_qkv, nullptr, nullptr, qkv, 3 * c}, stream);
 }
 
 cudaError_t qkv_product(const bf16* x, const float* ln_g, const float* ln_b, const bf16* w_qkv, const float* b_qkv,
@@ -443,9 +447,9 @@ cudaError_t qkv_product(const bf16* x, const float* ln_g, const float* ln_b, con
 }
 
 cudaError_t out_product(const float* joined, const float* w_o, const float* b_o, const float* x, float* out,
-                        float* branch, int m, int c, float eps, int v2, cudaStream_t stream) {
-  return v2 ? launch_ln_gemm<false, false>(joined, nullptr, nullptr, w_o, b_o, nullptr, branch, m, c, c, eps, 0, stream)
-            : launch_ln_gemm<false, true>(joined, nullptr, nullptr, w_o, b_o, x, out, m, c, c, eps, 0, stream);
+                        float* branch, int m, int c, float, int v2, cudaStream_t stream) {
+  return v2 ? launch_x3_rows(joined, w_o, m, c, c, ResidEpi{b_o, nullptr, nullptr, branch, c}, stream)
+            : launch_x3_rows(joined, w_o, m, c, c, ResidEpi{b_o, x, nullptr, out, c}, stream);
 }
 
 cudaError_t out_product(const bf16* joined, const bf16* w_o, const float* b_o, const bf16* x, bf16* out,
@@ -480,8 +484,8 @@ extern "C" {
 
 // x and out are (nw, s_len, c) of T; qkv is scratch of nw * s_len * 3 c
 // floats, joined of nw * s_len * c values of T, branch (v2 only, else unused)
-// of nw * s_len * c floats, ln_buf (bf16 v1 only, else unused) of
-// nw * s_len * c bf16 values.  mask (nw_img, s, s) and logit_scale (heads) may
+// of nw * s_len * c floats, ln_buf (v1 only, else unused) of nw * s_len * c
+// values of T.  mask (nw_img, s, s) and logit_scale (heads) may
 // be null (logit_scale only for v1).  Launches on `stream` and returns the
 // first failed launch's cudaError_t (0 on success); does not synchronise.
 int cvt_window_attention_block(const void* x, const float* ln_g, const float* ln_b, const void* w_qkv,

@@ -1,7 +1,9 @@
 // Float32 products on Hopper's tensor cores by split TF32 (3xTF32), for the
 // kernels whose products must keep float32 accuracy: the weight gradient of
-// wgrad_matmul.cu and the two products of the float32 MLP of
-// transformer_block.cu.
+// wgrad_matmul.cu, the two products of the float32 MLP of
+// transformer_block.cu, and the QKV and output projections of the float32
+// attention_block (transformer_block.cu) and window_attention_block
+// (swin_attention.cu).
 //
 //   out = Epi(A . B)   A (m x k), B (k x n) of f32, sums in f32
 //
@@ -331,6 +333,46 @@ cudaError_t launch_x3_gemm(const float* a, int lda, const float* b, int ldb, int
   x3_gemm_kernel<A_KMAJOR, WGS, BN, Epi><<<dim3(cols, rows, slabs), S::THREADS, S::SMEM, stream>>>(
       a, lda, b, ldb, m, n, k, k_slab, epi);
   return cudaGetLastError();
+}
+
+// The epilogue of the float32 blocks' products: out = resid + gamma * (acc +
+// bias) in f32, stored in pairs of columns at row stride ld; gamma null for
+// none, and with resid null out = acc + bias alone (a bias epilogue).
+struct ResidEpi {
+  const float* bias;
+  const float* resid;
+  const float* gamma;
+  float* out;
+  int ld;
+  __device__ __forceinline__ void store(int row, int col, float v0, float v1) const {
+    const size_t at = (size_t)row * ld + col;
+    v0 += bias[col];
+    v1 += bias[col + 1];
+    if (gamma != nullptr) {
+      v0 *= gamma[col];
+      v1 *= gamma[col + 1];
+    }
+    if (resid != nullptr) {
+      v0 = resid[at] + v0;
+      v1 = resid[at + 1] + v1;
+    }
+    float2 v;
+    v.x = v0;
+    v.y = v1;
+    *reinterpret_cast<float2*>(out + at) = v;
+  }
+};
+
+// out = Epi(a . b) for a (m, k) and b (k, n), both row-major (lda k, ldb n: multiples of 4), in one slab (the
+// epilogue needs the whole sum): the attention blocks' projections.  Tiles of 128 rows by BN columns, BN 128 or 64,
+// whichever pads n the less (128 on a tie: A read once a column tile).  N 288 (Swin-T's first QKV) takes 5 tiles of
+// 64, 320 columns, not 3 of 128 (384); N 96 and the multiples of 128 take 128.
+template <class Epi>
+cudaError_t launch_x3_rows(const float* a, const float* b, int m, int n, int k, Epi epi, cudaStream_t stream) {
+  const int k_slab = (k + X3_BK - 1) / X3_BK * X3_BK;
+  if ((n + 63) / 64 * 64 < (n + 127) / 128 * 128)
+    return launch_x3_gemm<true, 2, 64>(a, k, b, n, m, n, k, k_slab, epi, stream);
+  return launch_x3_gemm<true, 2, 128>(a, k, b, n, m, n, k, k_slab, epi, stream);
 }
 
 }  // namespace cvt

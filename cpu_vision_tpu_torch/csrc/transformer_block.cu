@@ -40,15 +40,17 @@
 // zero-padded row (see ln_gemm.cuh).
 // attention_block: the TPU kernel holds one image's (S, 3 D) QKV product in
 // VMEM (908 KB at ViT-B/16 in bf16); a block here has 227 KB, and the output
-// projection sums over heads, which live in different blocks.  So it is
-// three launches, all written here: (1) LN + QKV product + bias into a
-// (N S, 3 D) buffer of T (ln_gemm_kernel), (2) the attention core of
-// attention.cuh reading q, k, v out of that buffer by strides and writing the
-// joined heads as (N S, D) of T, (3) output projection + bias + residual
-// (ln_gemm_kernel).  The QKV buffer and the joined heads are the two
-// intermediates that now touch device memory, written once and read once; no
-// transposed copy exists, as on the TPU.  Its f32 products are still the
-// scalar FMAs of ln_gemm_kernel.
+// projection sums over heads, which live in different blocks.  So it is four
+// launches, all written here, in either type: (1) LN(x) rows of T
+// (ln_rows_kernel), (2) QKV product + bias into a (N S, 3 D) buffer of T,
+// (3) the attention core of attention.cuh reading q, k, v out of that buffer
+// by strides and writing the joined heads as (N S, D) of T, (4) output
+// projection + bias + residual.  In float32 both products are x3_gemm_kernel
+// (launch_x3_rows of tf32x3.cuh: one slab, 128 x 128 or 128 x 64 tiles, the
+// ResidEpi epilogue, resid null for the QKV bias) and the core at head dim 64
+// attention_x3_kernel, split TF32 too.  The LN rows, the QKV buffer and the
+// joined heads are the intermediates that now touch device memory, written
+// once and read once; no transposed copy exists, as on the TPU.
 //
 // bfloat16.  Every product is tc_gemm_kernel of ln_gemm.cuh (wgmma, f32
 // sums), a LayerNorm before one is ln_rows_kernel:
@@ -88,27 +90,30 @@ namespace {
 
 using cvt::bf16;
 using cvt::gelu_erf;
-using cvt::launch_ln_gemm;
 using cvt::launch_ln_residual;
 using cvt::launch_ln_rows;
 using cvt::launch_tc_gemm;
+using cvt::ResidEpi;
 using cvt::TC_BIAS;
 using cvt::TC_GELU;
 using cvt::TC_RESID;
 
+// ln_buf: scratch of n s_len d f32 values
 cudaError_t attention_block_f32(const float* x, const float* ln_g, const float* ln_b, const float* w_qkv,
                                 const float* b_qkv, const float* w_o, const float* b_o, float* qkv, float* heads_out,
-                                float* out, int n, int s_len, int d, int heads, float scale, float eps,
+                                float* ln_buf, float* out, int n, int s_len, int d, int heads, float scale, float eps,
                                 cudaStream_t stream) {
   if (heads < 1 || d % heads) return cudaErrorInvalidValue;
   const int m = n * s_len, hd = d / heads;
-  cudaError_t err = launch_ln_gemm<true, false>(x, ln_g, ln_b, w_qkv, b_qkv, nullptr, qkv, m, d, 3 * d, eps, 0, stream);
+  cudaError_t err = launch_ln_rows<float>(x, ln_g, ln_b, ln_buf, m, d, eps, 0, stream);
+  if (err != cudaSuccess) return err;
+  err = cvt::launch_x3_rows(ln_buf, w_qkv, m, 3 * d, d, ResidEpi{b_qkv, nullptr, nullptr, qkv, 3 * d}, stream);
   if (err != cudaSuccess) return err;
   const long long row = 3LL * d;
   err = cvt::attention_core<float>(qkv, qkv + d, qkv + 2 * d, heads_out, n, s_len, heads, hd, scale, s_len * row,
                                    row, hd, (long long)s_len * d, d, hd, stream);
   if (err != cudaSuccess) return err;
-  return launch_ln_gemm<false, true>(heads_out, nullptr, nullptr, w_o, b_o, x, out, m, d, d, eps, 0, stream);
+  return cvt::launch_x3_rows(heads_out, w_o, m, d, d, ResidEpi{b_o, x, nullptr, out, d}, stream);
 }
 
 // ln_buf: scratch of n s_len d bf16 values
@@ -131,35 +136,13 @@ cudaError_t attention_block_bf16(const bf16* x, const float* ln_g, const float* 
 
 // ---------------------------------------------------------------- mlp_block
 
-// the epilogues of the float32 MLP's two split-TF32 products (tf32x3.cuh)
+// the up-projection's epilogue of the float32 MLP (the down-projection's is ResidEpi of tf32x3.cuh)
 struct GeluEpi {  // out = gelu(acc + bias): the hidden activations
   const float* bias;
   float* out;
   int ld;
   __device__ __forceinline__ void store(int row, int col, float v0, float v1) const {
     cvt::store2(out + (size_t)row * ld + col, gelu_erf(v0 + bias[col]), gelu_erf(v1 + bias[col + 1]));
-  }
-};
-
-struct ResidEpi {  // out = resid + gamma * (acc + bias), gamma null for none; or acc + bias alone (resid null)
-  const float* bias;
-  const float* resid;
-  const float* gamma;
-  float* out;
-  int ld;
-  __device__ __forceinline__ void store(int row, int col, float v0, float v1) const {
-    const size_t at = (size_t)row * ld + col;
-    v0 += bias[col];
-    v1 += bias[col + 1];
-    if (gamma != nullptr) {
-      v0 *= gamma[col];
-      v1 *= gamma[col + 1];
-    }
-    if (resid != nullptr) {
-      v0 = resid[at] + v0;
-      v1 = resid[at + 1] + v1;
-    }
-    cvt::store2(out + at, v0, v1);
   }
 };
 
@@ -329,8 +312,8 @@ int cvt_mlp_block(const void* x, const void* resid, const float* ln_g, const flo
                             ln_count, st);
 }
 
-// qkv is scratch of n * s_len * 3 d values of T, heads_out of n * s_len * d,
-// ln_buf (bf16 only, null for float32) of n * s_len * d.
+// qkv is scratch of n * s_len * 3 d values of T, heads_out and ln_buf of
+// n * s_len * d.
 int cvt_attention_block(const void* x, const float* ln_g, const float* ln_b, const void* w_qkv,
                         const float* b_qkv, const void* w_o, const float* b_o, void* qkv, void* heads_out,
                         void* ln_buf, void* out, int n, int s_len, int d, int heads, float scale, float eps,
@@ -341,7 +324,8 @@ int cvt_attention_block(const void* x, const float* ln_g, const float* ln_b, con
                                      (bf16*)qkv, (bf16*)heads_out, (bf16*)ln_buf, (bf16*)out, n, s_len, d, heads,
                                      scale, eps, st);
   return (int)attention_block_f32((const float*)x, ln_g, ln_b, (const float*)w_qkv, b_qkv, (const float*)w_o, b_o,
-                                  (float*)qkv, (float*)heads_out, (float*)out, n, s_len, d, heads, scale, eps, st);
+                                  (float*)qkv, (float*)heads_out, (float*)ln_buf, (float*)out, n, s_len, d, heads,
+                                  scale, eps, st);
 }
 
 // Kernel A: from da32 = g W2^T and hw = h W1, (m, n) of f32, and b1 (n,): with u = hw + b1 and da = bf16(da32),

@@ -25,7 +25,9 @@ float32 in plain operators, as the JAX package leaves them to XLA.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -34,7 +36,7 @@ import torch.nn.functional as F
 from . import _build, _grad
 from .flash_attention import DTYPES
 
-__all__ = ["depthwise_conv2d", "depthwise_conv2d_plain", "KERNEL_SIZES"]
+__all__ = ["depthwise_conv2d", "depthwise_conv2d_plain", "kernel_info", "KERNEL_SIZES"]
 
 KERNEL_SIZES = (3, 5, 7)  # instantiations in csrc/depthwise.cu
 
@@ -46,8 +48,10 @@ def _lib() -> ctypes.CDLL:
     if _c_lib is None:
         lib = _build.load("depthwise")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.cvt_depthwise_conv2d.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.cvt_depthwise_conv2d.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
         lib.cvt_depthwise_conv2d.restype = ctypes.c_int
+        lib.cvt_depthwise_info.argtypes = [p, i, i, i, i, i, i, i, p]
+        lib.cvt_depthwise_info.restype = ctypes.c_int
         _c_lib = lib
     return _c_lib
 
@@ -133,9 +137,40 @@ def _kernel(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor])
     out = torch.empty_like(x)
     _build.launch(_lib(), "cvt_depthwise_conv2d", x, x.data_ptr(), kernel.data_ptr(),
                   None if bias is None else bias.data_ptr(), out.data_ptr(), n, h, w, c, kh,
-                  int(x.dtype == torch.bfloat16))
+                  int(x.dtype == torch.bfloat16), _sms(x))
     _build.count_launch(depthwise_conv2d, x)
     return out
+
+
+def _sms(x: torch.Tensor) -> int:
+    """The multiprocessors of ``x``'s card: the persistent grid's size is a multiple of them.  Read once a card; a
+    CPU tensor (the emulator's stand-in card) asks each time."""
+    if x.is_cuda:
+        return _card_sms(x.device.index)
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
+
+
+@functools.cache
+def _card_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_INFO_KEYS = ("patch_rows", "patch_cols", "channel_groups", "threads", "shared_bytes", "blocks_per_sm",
+              "registers", "grid", "tiles", "vector_copies")
+
+
+def kernel_info(x: torch.Tensor, ks: int) -> dict:
+    """What ``depthwise_conv2d`` launches for the CUDA tensor ``x`` (N, H, W, C) and ``ks``×``ks`` taps: its tile (7×7
+    patches a warp: rows and columns of patches, groups of 32 channels), threads and shared bytes a block, blocks an
+    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers a thread, grid, tiles, and whether the window
+    is copied 16 bytes at a time (``vector_copies``).  Launches nothing."""
+    n, h, w, c = x.shape
+    info = (ctypes.c_int * len(_INFO_KEYS))()
+    with torch.cuda.device(x.device) if x.is_cuda else contextlib.nullcontext():  # a CPU tensor: the emulator
+        err = _lib().cvt_depthwise_info(x.data_ptr(), n, h, w, c, ks, int(x.dtype == torch.bfloat16), _sms(x), info)
+    if err != 0:
+        raise RuntimeError(f"cvt_depthwise_info: CUDA error {err}")
+    return dict(zip(_INFO_KEYS, info))
 
 
 _build.reset_count(depthwise_conv2d)

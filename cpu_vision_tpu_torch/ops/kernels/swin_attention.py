@@ -23,20 +23,19 @@ taken per head: the JAX package's head-packed kernel and its per-head one are
 one function here.
 
 Given CUDA tensors the wrapper launches its kernels, adds one to ``launches``
-and the number of kernel launches (v1: 3 in float32, LN + QKV product, the
-window core, the output projection + residual; 4 in bfloat16, whose LN is a
-row pass before the tensor-core QKV product; v2: 4, QKV product, core,
-output projection, LayerNorm + residual) to ``kernel_launches``, and raises if a launch fails or the kernels do not take
+and the number of kernel launches (4 in either dtype; v1: LN rows, QKV
+product, the window core, the output projection + residual; v2: QKV product,
+core, output projection, LayerNorm + residual) to ``kernel_launches``, and raises if a launch fails or the kernels do not take
 the arguments (head dim ``HEAD_DIM``, S ≤ ``MAX_TOKENS``, C a multiple of 16,
 ``x`` in the weights' dtype); given CPU tensors it runs the twin.  Nothing
 falls back from one to the other.  It is differentiable as the JAX
 function's ``custom_vjp`` (``swin_attention.py:_bwd``): the backward recomputes
 the twin from the saved inputs and differentiates it (``_grad``); the mask is
 a constant there and gets no gradient.  On the card the float32 QKV product
-(12·C bytes a token), the joined heads, v2's branch rows and bf16 v1's LN
-rows pass through device memory once each, which the Pallas kernels keep in
-VMEM.  In bfloat16 both projections run on the tensor cores (the product of
-``transformer_block.bf16_product``).
+(12·C bytes a token), the joined heads, v2's branch rows and v1's LN rows
+pass through device memory once each, which the Pallas kernels keep in VMEM.
+Both projections run on the tensor cores: in bfloat16 the product of
+``transformer_block.bf16_product``, in float32 split TF32 (``csrc/tf32x3.cuh``).
 """
 
 from __future__ import annotations
@@ -126,6 +125,31 @@ def window_attention_block_plain(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias
     return (x32 + o).to(x.dtype)
 
 
+def _window_attention_block_f64(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask, logit_scale, heads: int,
+                                scale: float, eps: float, v2: bool, nw_img: int, ln_count: int = 0) -> torch.Tensor:
+    """The function of ``window_attention_block`` in float64 throughout, nothing rounded to the weights' dtype: the
+    yardstick that the float32 kernel (split-TF32 products) and its twin are both held to by the checks.  No route
+    calls it."""
+    x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias = (t.double() for t in (x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o,
+                                                                             rel_bias))
+    nw, s, c = x.shape
+    h = x if v2 else _ln_f32(x, ln_g, ln_b, eps, ln_count)
+    q, k, v = (a.reshape(nw, s, heads, c // heads) for a in (h @ w_qkv + b_qkv).split(c, dim=-1))
+    if v2:
+        q = q * torch.rsqrt((q * q).sum(dim=-1, keepdim=True).clamp_min(1e-12))
+        k = k * torch.rsqrt((k * k).sum(dim=-1, keepdim=True).clamp_min(1e-12))
+        scores = torch.einsum("bnhd,bmhd->bhnm", q, k)
+        scores = scores * torch.exp(logit_scale.double().reshape(1, heads, 1, 1).clamp_max(math.log(100.0)))
+    else:
+        scores = torch.einsum("bnhd,bmhd->bhnm", q * scale, k)
+    scores = scores + rel_bias[None]
+    if mask is not None:
+        scores = scores.reshape(nw // nw_img, nw_img, heads, s, s) + mask.double()[None, :, None]
+        scores = scores.reshape(nw, heads, s, s)
+    o = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(scores, dim=-1), v).reshape(nw, s, c) @ w_o + b_o
+    return x + (_ln_f32(o, ln_g, ln_b, eps, ln_count) if v2 else o)
+
+
 def kernel_takes(c: int, heads: int, s: int) -> bool:
     """Whether the kernels take ``c`` channels in ``heads`` heads and windows of ``s`` tokens."""
     return heads >= 1 and c % heads == 0 and c // heads == HEAD_DIM and s <= MAX_TOKENS and c % 16 == 0
@@ -134,8 +158,8 @@ def kernel_takes(c: int, heads: int, s: int) -> bool:
 def window_attention_block(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask, logit_scale, heads: int,
                            scale: float, eps: float, v2: bool, nw_img: int, ln_count: int = 0) -> torch.Tensor:
     """``x + Proj(WindowMSA(LN(x)))`` over ``x`` (num_windows, S, C); on the
-    card three (float32 v1) or four hand-written launches with no transposed
-    copy of q, k, v or the heads.  The backward is the twin's, recomputed;
+    card four hand-written launches with no transposed copy of q, k, v or the
+    heads.  The backward is the twin's, recomputed;
     ``mask`` gets no gradient."""
     _check(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask, logit_scale, heads, v2, nw_img, ln_count)
     mask = None if mask is None else mask.detach()
@@ -160,7 +184,7 @@ def _kernel(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask, logit_scale, 
     qkv = torch.empty((tokens, 3 * c), dtype=torch.float32, device=x.device)
     joined = torch.empty_like(x)
     branch = torch.empty((tokens, c), dtype=torch.float32, device=x.device) if v2 else None
-    ln_rows = torch.empty_like(x) if bf16 and not v2 else None
+    ln_rows = None if v2 else torch.empty_like(x)
     out = torch.empty_like(x)
     ln_g, ln_b, b_qkv, b_o, rel_bias = _f32c(ln_g), _f32c(ln_b), _f32c(b_qkv), _f32c(b_o), _f32c(rel_bias)
     mask = None if mask is None else _f32c(mask)
@@ -170,7 +194,7 @@ def _kernel(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask, logit_scale, 
                   _ptr(logit_scale), qkv.data_ptr(), joined.data_ptr(), _ptr(branch), _ptr(ln_rows), out.data_ptr(),
                   nw, s, c, heads, nw_img, float(scale), float(eps), int(bool(v2)), int(ln_count), int(bf16))
     _build.count_launch(window_attention_block, x)
-    window_attention_block.kernel_launches += 4 if v2 or bf16 else 3
+    window_attention_block.kernel_launches += 4
     return out
 
 

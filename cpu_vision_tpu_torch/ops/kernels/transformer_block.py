@@ -65,12 +65,12 @@ either dtype (LN, up-projection + gelu, down-projection + residual; with
 the tensor cores: bfloat16 ``wgmma`` (``bf16_product``'s kernel,
 ``csrc/ln_gemm.cuh``), float32 split TF32, three tf32 products a product
 with float32 sums (``csrc/tf32x3.cuh``); the (tokens, Dh) activations make
-one round trip through device memory in the weights' dtype.  In float32
-``attention_block`` is three launches (LN + QKV product, attention core,
-output projection + residual; scalar float32 products), in bfloat16 four (LN,
-QKV product, attention core, output projection + residual).  The QKV product
-and the joined heads pass through device memory once in either type; the
-Pallas kernels keep all of these in VMEM.  On the card ``x`` (and ``res``)
+one round trip through device memory in the weights' dtype.
+``attention_block`` is four launches in either dtype (LN, QKV product,
+attention core, output projection + residual), its products on the tensor
+cores as the MLP's (float32 split TF32).  The LN rows, the QKV product and
+the joined heads pass through device memory once in either type; the Pallas
+kernels keep all of these in VMEM.  On the card ``x`` (and ``res``)
 must have the weights' dtype,
 ``mlp_block`` and ``cn_mlp_block`` need D in ``MLP_DIMS`` and Dh a multiple of
 256, or of ``MLP_HIDDEN_STEP`` up to D = ``MLP_RAGGED_MAX_DIM``, and
@@ -387,8 +387,20 @@ def attention_block_plain(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads: int, sca
     return (x32 + o + b_o.float()).to(x.dtype)
 
 
+def _attention_block_f64(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads: int, scale: float,
+                         eps: float = 1e-6) -> torch.Tensor:
+    """The function of ``attention_block`` in float64 throughout, nothing rounded to the weights' dtype: the
+    yardstick that the float32 kernel (split-TF32 products) and its twin are both held to by the checks.  No route
+    calls it."""
+    x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o = (t.double() for t in (x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o))
+    n, s, d = x.shape
+    q, k, v = (a.reshape(n, s, heads, d // heads) for a in (_ln_f32(x, ln_g, ln_b, eps) @ w_qkv + b_qkv).split(d, -1))
+    probs = torch.softmax(torch.einsum("nqhd,nkhd->nhqk", q, k) * scale, dim=-1)
+    return x + torch.einsum("nhqk,nkhd->nqhd", probs, v).reshape(n, s, d) @ w_o + b_o
+
+
 def _attention_kernel(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads, scale, eps) -> torch.Tensor:
-    """The three launches of ``cvt_attention_block`` on CUDA tensors, the twin on CPU tensors."""
+    """The four launches of ``cvt_attention_block`` on CUDA tensors, the twin on CPU tensors."""
     if not _build.on_card(x):
         return attention_block_plain(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads, scale, eps)
     n, s, d = x.shape
@@ -400,14 +412,15 @@ def _attention_kernel(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads, scale, eps) 
     bf16 = x.dtype == torch.bfloat16
     qkv = torch.empty((n, s, 3 * d), dtype=x.dtype, device=x.device)
     joined = torch.empty_like(x)
-    ln_rows = torch.empty_like(x) if bf16 else None
+    ln_rows = torch.empty_like(x)
     out = torch.empty_like(x)
     ln_g, ln_b, b_qkv, b_o = _f32c(ln_g), _f32c(ln_b), _f32c(b_qkv), _f32c(b_o)
     _build.launch(_lib(), "cvt_attention_block", x, x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(),
                   w_qkv.data_ptr(), b_qkv.data_ptr(), w_o.data_ptr(), b_o.data_ptr(), qkv.data_ptr(),
-                  joined.data_ptr(), _ptr(ln_rows), out.data_ptr(), n, s, d, heads, float(scale), float(eps), int(bf16))
+                  joined.data_ptr(), ln_rows.data_ptr(), out.data_ptr(), n, s, d, heads, float(scale), float(eps),
+                  int(bf16))
     _build.count_launch(attention_block, x)
-    attention_block.kernel_launches += 4 if bf16 else 3
+    attention_block.kernel_launches += 4
     return out
 
 
@@ -426,9 +439,9 @@ def _attention_block_backward(args, grad, needs):
 
 def attention_block(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads: int, scale: float,
                     eps: float = 1e-6) -> torch.Tensor:
-    """``x + Out(MHA(LN(x)))`` for 3-D ``x`` (N, S, D); on the card three
-    (float32) or four (bfloat16) hand-written launches with no transposed copy
-    of q, k, v or the heads.  The backward is the card's (Kernel B,
+    """``x + Out(MHA(LN(x)))`` for 3-D ``x`` (N, S, D); on the card four
+    hand-written launches (LN rows, QKV product, core, output product) with no
+    transposed copy of q, k, v or the heads.  The backward is the card's (Kernel B,
     ``ln_backward_rows``, products) where ``attention_backward_takes`` the
     call, else the twin's, recomputed."""
     _check_attn(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads)

@@ -19,7 +19,7 @@ matrix products, with fused multiply-adds: float32 is held to
 ``2e-4 + 2e-4·|twin|``, bfloat16 (compared in bfloat16, where one step is 2^-8
 of the value) to ``2e-2 + 2e-2·|twin|``.  The depthwise convolution sums its
 taps in the twin's order, with fused multiply-adds: ``1e-5 + 1e-5·|twin|`` in
-float32, ``2e-2·(1 + |twin|)`` in bfloat16.  NMS keep masks must equal the
+float32, ``2e-2·(1 + |twin|)`` in bfloat16, and gives the same bits twice.  NMS keep masks must equal the
 twin's bit for bit (the IoUs are the same float32 operations in the same
 order, without FMA contraction), and so must Faster R-CNN's float32
 detections on the kernel route and on the plain one.  The int8 product with
@@ -35,8 +35,8 @@ that is to a few int8 steps of the sub-block's output.  The weight gradient
 order than its twin's float32 product: held to ``1e-5·max|twin|``, and two
 calls must give the same bits, as must two calls of each wrapper that runs a
 bfloat16 attention core on the tensor cores, and of the float32 MLP blocks.
-The weight gradient (both dtypes) and the float32 MLP block, whose float32
-products run on the tensor cores by split TF32, stand no further from the
+The weight gradient (both dtypes) and the float32 MLP and attention blocks,
+whose float32 products run on the tensor cores by split TF32, stand no further from the
 float64 result on the same inputs than twice a float32 product with TF32 off
 (``max|out - f64| / max|f64|``), and the float32 attention core at head dim
 64 (split TF32 too) no further than twice the scalar float32 core it
@@ -256,7 +256,7 @@ def test_attention_block_matches_twin(cuda, rng, n, s, d, heads, dtype):
     args = _attention_args(rng, n, s, d, heads, dtype, cuda)
     out = kernels.attention_block(*args)
     assert kernels.launch_counts()["attention_block"] == 1
-    assert kernels.attention_block.kernel_launches == (4 if dtype == torch.bfloat16 else 3)  # bf16: LN pass apart
+    assert kernels.attention_block.kernel_launches == 4  # LN rows, QKV product, core, output projection
     _close(out, kernels.attention_block_plain(*args), dtype)
 
 
@@ -427,7 +427,7 @@ def test_window_attention_block_matches_twin(cuda, rng, nw, s, c, masked, nw_img
     args = _window_args(rng, nw, s, c, v2, masked, nw_img, dtype, cuda, ln_count)
     out = kernels.window_attention_block(*args)
     assert kernels.launch_counts()["window_attention_block"] == 1
-    assert kernels.window_attention_block.kernel_launches == (4 if v2 or dtype == torch.bfloat16 else 3)
+    assert kernels.window_attention_block.kernel_launches == 4  # v1: LN rows first; v2: LN + residual last
     _close(out, kernels.window_attention_block_plain(*args), dtype)
     if ln_count:
         assert bool((out[..., ln_count:] == 0).all())
@@ -484,6 +484,29 @@ def test_depthwise_conv2d_matches_twin(cuda, rng, shape, k, use_bias, dtype):
     assert out.shape == ref.shape and out.dtype == ref.dtype == dtype and bool(torch.isfinite(out).all())
     err, scale = (out.float() - ref.float()).abs(), ref.float().abs()
     assert bool((err <= (1e-5 + 1e-5 * scale if dtype == torch.float32 else 2e-2 * (1 + scale))).all()), float(err.max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,k,use_bias", [((2, 9, 13, 40), 7, True), ((1, 9, 13, 200), 5, False),
+                                              ((3, 7, 7, 200), 3, True), ((2, 9, 13, 42), 7, True),
+                                              ((1, 23, 30, 96), 7, False)])
+def test_depthwise_conv2d_off_its_tiles(cuda, rng, shape, k, use_bias, dtype):
+    """Maps off the 7x7 patches, channel groups past C, C 42 (plain loads, not a multiple of 8 values) and an input
+    off 16-byte alignment (plain loads): held to the twin, the same bits twice."""
+    x = _normal(rng, shape, dtype, cuda)
+    taps = _normal(rng, (k, k, shape[3]), dtype, cuda, 1.0 / k)
+    bias = _normal(rng, (shape[3],), torch.float32, cuda)
+    offset = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:].view(shape)  # contiguous, 2 or 4 bytes off
+    offset.copy_(x)
+    assert depthwise.kernel_info(offset, k)["vector_copies"] == 0
+    assert depthwise.kernel_info(x, k)["vector_copies"] == (shape[3] % (8 if dtype == torch.bfloat16 else 4) == 0)
+    ref = kernels.depthwise_conv2d_plain(x, taps, bias, use_bias)
+    for inp in (x, offset):
+        out = kernels.depthwise_conv2d(inp, taps, bias, use_bias)
+        assert torch.equal(kernels.depthwise_conv2d(inp, taps, bias, use_bias), out)
+        err, scale = (out.float() - ref.float()).abs(), ref.float().abs()
+        assert bool((err <= (1e-5 + 1e-5 * scale if dtype == torch.float32 else 2e-2 * (1 + scale))).all()), \
+            float(err.max())
 
 
 def test_new_kernels_refuse_what_they_do_not_take(cuda, rng):
@@ -904,6 +927,25 @@ def test_f32_mlp_block_stands_near_float64(cuda, rng):
     h = transformer_block._ln_f32(x.double(), ln_g.double(), ln_b.double(), eps)
     ref64 = x.double() + transformer_block._gelu_f32(h @ w1.double() + b1.double()) @ w2.double() + b2.double()
     assert _f64_err(kernels.mlp_block(*args), ref64) <= 2 * _f64_err(kernels.mlp_block_plain(*args), ref64)
+
+
+@pytest.mark.parametrize("block", ["attention_block", "window v1", "window v2", "window ln_count"])
+def test_f32_attention_blocks_stand_near_float64(cuda, rng, block):
+    """The float32 attention blocks' split-TF32 products: within the float32 rule of the twin, no further from the
+    block in float64 than twice the twin (TF32 off), the same bits twice."""
+    if block == "attention_block":
+        args = _attention_args(rng, 4, 197, 768, 12, torch.float32, cuda)
+        fn, twin, ref64 = kernels.attention_block, kernels.attention_block_plain, transformer_block._attention_block_f64
+    else:
+        v2, ln_count = block == "window v2", 96 if block == "window ln_count" else 0
+        args = _window_args(rng, 128, 64 if v2 else 49, 128 if ln_count else 96, v2, True, 64, torch.float32, cuda,
+                            ln_count)
+        fn, twin = kernels.window_attention_block, kernels.window_attention_block_plain
+        ref64 = swin_attention._window_attention_block_f64
+    out, plain, exact = fn(*args), twin(*args), ref64(*args)
+    _close(out, plain, torch.float32)
+    assert torch.equal(fn(*args), out)
+    assert _f64_err(out, exact) <= 2 * _f64_err(plain, exact), (_f64_err(out, exact), _f64_err(plain, exact))
 
 
 def test_f32_flash_core_stands_near_float64(cuda, rng):

@@ -1,7 +1,8 @@
 """The split-TF32 products' CUDA sources (``csrc/tf32x3.cuh`` behind the float32
-``mlp_block``, ``cn_mlp_block`` and ``wgrad_matmul``) and the bfloat16 weight
-gradient on ``wgmma`` (``csrc/wgrad_matmul.cu``) run on the CPU through
-``tools/cuda_emu``, against the wrappers' plain twins.
+``mlp_block``, ``cn_mlp_block``, ``attention_block``, ``window_attention_block`` and
+``wgrad_matmul``) and the bfloat16 weight gradient on ``wgmma``
+(``csrc/wgrad_matmul.cu``) run on the CPU through ``tools/cuda_emu``, against the
+wrappers' plain twins.
 
 The emulator compiles the sources with ``g++`` against stand-in headers and
 runs one thread per CUDA thread; its ``hopper.cuh`` reads tf32 operands K-major
@@ -13,8 +14,9 @@ not a multiple of a stage (32 rows in float32, 64 in bfloat16) and cut into
 several slabs, Cin and Cout off the tile (64 or 128) and off a multiple of 8
 (the wrapper's zero columns), token counts off the 128-row tile, D 96 under a
 128-column tile.  Tolerances are the card's (``chip_smoke.py``):
-``1e-5·max|twin|`` for the weight gradient, ``2e-4·(1 + |twin|)`` for the MLP
-blocks.  Without ``g++`` the tests skip.
+``1e-5·max|twin|`` for the weight gradient, ``2e-4·(1 + |twin|)`` for the MLP and
+attention blocks; the attention blocks also stand no further from their float64
+statement than twice the twin.  Without ``g++`` the tests skip.
 """
 
 import importlib.util
@@ -26,6 +28,7 @@ import pytest
 import torch
 
 from cpu_vision_tpu_torch.ops import kernels
+from cpu_vision_tpu_torch.ops.kernels import swin_attention, transformer_block
 from cpu_vision_tpu_torch.ops.kernels.wgrad_matmul import slab_rows
 
 WGRAD_TOL = 1e-5
@@ -116,3 +119,49 @@ def test_cn_mlp_block_float32(emulated):
     args = (y, _normal(rng, (m, d)), ln_g, ln_b, w1, b1, w2, b2, _normal(rng, (d,), std=0.5), 1e-6)
     out = _run(emulated, kernels.cn_mlp_block, args, kernel_launches=3)
     _assert_close(out, kernels.cn_mlp_block_plain(*args))
+
+
+def _assert_near_float64(out, twin, ref64):
+    """No further from the float64 statement than twice the twin (full float32)."""
+    def far(a):
+        return float((a.double() - ref64).abs().max() / ref64.abs().max())
+
+    assert far(out) <= 2 * far(twin), (far(out), far(twin))
+
+
+def test_attention_block_float32(emulated):
+    """LN rows, the QKV product (3 D = 384: three 128-column tiles), the split-TF32 core, the output projection with
+    the residual; 140 tokens, off the 128-row tile."""
+    rng = np.random.default_rng(11)
+    n, s, d, heads = 2, 70, 128, 2
+    args = (_normal(rng, (n, s, d)), _normal(rng, (d,), std=0.2, mean=1.0), _normal(rng, (d,), std=0.1),
+            _normal(rng, (d, 3 * d), std=d ** -0.5), _normal(rng, (3 * d,), std=0.1), _normal(rng, (d, d), std=d ** -0.5),
+            _normal(rng, (d,), std=0.1), heads, 0.125)
+    out = _run(emulated, kernels.attention_block, args, kernel_launches=4)
+    twin = kernels.attention_block_plain(*args)
+    _assert_close(out, twin)
+    _assert_near_float64(out, twin, transformer_block._attention_block_f64(*args))
+
+
+@pytest.mark.parametrize("nw,c,v2,masked,ln_count", [(3, 96, False, True, 0), (3, 96, False, False, 0),
+                                                     (3, 96, True, True, 0), (3, 128, False, True, 96)],
+                         ids=["v1_masked", "v1", "v2", "ln_count"])
+def test_window_attention_block_float32(emulated, nw, c, v2, masked, ln_count):
+    """Windows of 49 tokens, 147 rows (off the 128-row tile); C 96 under one 128-column tile (its QKV product, N 288,
+    in five tiles of 64), or C 128 with 96 real channels."""
+    rng = np.random.default_rng(c + nw + 2 * v2 + masked)
+    s, heads, nw_img = 49, c // 32, 3 if masked else 1
+    args = [_normal(rng, (nw, s, c)), _normal(rng, (c,), std=0.2, mean=1.0), _normal(rng, (c,), std=0.1),
+            _normal(rng, (c, 3 * c), std=c ** -0.5), _normal(rng, (3 * c,), std=0.1), _normal(rng, (c, c), std=c ** -0.5),
+            _normal(rng, (c,), std=0.1), _normal(rng, (heads, s, s), std=0.3),
+            torch.from_numpy((rng.random((nw_img, s, s)) > 0.5).astype(np.float32) * -100.0) if masked else None,
+            _normal(rng, (heads,), std=0.5, mean=2.3) if v2 else None, heads, 32 ** -0.5, 1e-5, v2, nw_img, ln_count]
+    if ln_count:  # a zero-padded channel layout: the real channels first
+        for i in (0, 1, 2, 6):
+            args[i][..., ln_count:] = 0
+        args[3][ln_count:] = 0
+        args[5][:, ln_count:] = 0
+    out = _run(emulated, kernels.window_attention_block, args, kernel_launches=4)
+    twin = kernels.window_attention_block_plain(*args)
+    _assert_close(out, twin)
+    _assert_near_float64(out, twin, swin_attention._window_attention_block_f64(*args))

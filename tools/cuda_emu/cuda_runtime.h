@@ -69,6 +69,10 @@ template <typename F> cudaError_t cudaFuncSetAttribute(F, int, int bytes) {
   return bytes > (int)EMU_MAX_SHARED ? cudaErrorInvalidValue : cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* device) {  // one card
+  *device = 0;
+  return cudaSuccess;
+}
 // what a compiled kernel would report: nothing here (no registers, one block an SM)
 struct cudaFuncAttributes {
   int numRegs;

@@ -137,8 +137,10 @@ def main() -> int:
 
     sys.path.insert(0, str(REPO))
     from cpu_vision_tpu_torch.ops import kernels
+    from cpu_vision_tpu_torch.ops.kernels import swin_attention
 
     gen = torch.Generator().manual_seed(0)
+    yardsticks = {}  # name: float64 result of the float32 v2 window blocks (split-TF32 products at logit scale 100)
 
     def normal(shape, dtype, std=1.0, mean=0.0):
         return (torch.randn(shape, generator=gen) * std + mean).to(dtype)
@@ -187,6 +189,8 @@ def main() -> int:
                         48 if masked else 0)
                 pairs.append((f"window_attention_block S {s_len} v2={v2} masked={masked}",
                               kernels.window_attention_block(*swin), kernels.window_attention_block_plain(*swin)))
+                if dtype == torch.float32 and v2:
+                    yardsticks[pairs[-1][0]] = swin_attention._window_attention_block_f64(*swin)
             for ks in (3, 5, 7):
                 dw = (normal((2, 9, 19, 40), dtype), normal((ks, ks, 40), dtype, 1.0 / ks), normal((40,), torch.float32))
                 pairs.append((f"depthwise_conv2d {ks}x{ks}", kernels.depthwise_conv2d(*dw, use_bias=ks != 5),
@@ -227,11 +231,21 @@ def main() -> int:
                               kernels.wgrad_matmul_plain(x, dy)))
             for name, out, ref in pairs:
                 err = (out.float() - ref.float()).abs()
+                note = ""
                 if name.startswith("wgrad_matmul"):  # the weight gradient's rule on the card: 1e-5 max |twin|
                     ok = float(err.max()) <= 1e-5 * float(ref.abs().max())
+                elif dtype == torch.float32 and name in yardsticks:
+                    # the float32 v2 window blocks, held as on the card: within 2e-4 (1 + |twin|) of the twin and no
+                    # further from float64 than twice the twin (at v2's logit scale 100 the split-TF32 kernel and the
+                    # twin stray from float64 about alike, in different directions, past this check's 2e-5 of each
+                    # other); attention_block and the v1 window blocks keep the 2e-5 rule
+                    ref64 = yardsticks[name]
+                    far = [float((a.double() - ref64).abs().max() / ref64.abs().max()) for a in (out, ref)]
+                    ok = bool((err <= 2e-4 + 2e-4 * ref.abs()).all()) and far[0] <= 2 * far[1]
+                    note = f", from float64 {far[0]:.3e} (twin {far[1]:.3e})"
                 else:
                     ok = bool((err <= tol + tol * ref.float().abs()).all())
-                print(f"{name} {dtype}: max |err| {float(err.max()):.3e} {'ok' if ok else 'FAILED'}")
+                print(f"{name} {dtype}: max |err| {float(err.max()):.3e}{note} {'ok' if ok else 'FAILED'}")
                 worst = max(worst, 0.0 if ok else 1.0)
     return int(worst)
 
