@@ -13,7 +13,11 @@ behind the float32 ``mlp_block`` / ``cn_mlp_block``, ``attention_block``,
 ``window_attention_block`` and ``wgrad_matmul``) lacks ``HGMMA ... .TF32``, a
 bf16 ``wgrad_bf16_kernel`` lacks ``HGMMA ... .BF16``, either or the depthwise
 kernel spills, or the scalar ``mlp_block_kernel``, ``wgrad_partial_kernel`` or
-``ln_gemm_kernel`` is left in any library), then:
+``ln_gemm_kernel`` is left in any library; and if an int8 MLP product,
+``csrc/int8_transformer.cu:i8_tc_gemm_kernel``, lacks ``IGMMA`` (``wgmma`` s8)
+or holds ``IDP4A``, spills or is serialised, the dp4a ``mlp_int8_kernel`` it
+replaced is left, or the LayerNorm backward's ``ln_backward_vec_kernel``
+spills), then:
 
 1. drives the main paths through the public entry points, each with the
    kernels' launch counts set to 0 just before it and read just after:
@@ -41,7 +45,7 @@ kernel spills, or the scalar ``mlp_block_kernel``, ``wgrad_partial_kernel`` or
    width on 8 images of unequal sizes on a 640x640 canvas (``nms_sorted`` in
    the RPN's two NMS calls and the postprocess's one); and the int8 engines
    ``models.Int8ViT`` over ``vit_b_16`` (bfloat16, ``attention_block_int8`` and
-   ``mlp_block_int8`` in each of the 12 layers) and ``models.Int8ResNet`` over
+   ``mlp_block_int8`` in each of the 12 layers, three kernel launches each) and ``models.Int8ResNet`` over
    ``resnet50`` (``int8_matmul_requant`` in its 36 1x1 convolutions), both at
    batch 256 on 224x224 images; and training: ``vit_b_16`` bfloat16 at batch
    128 through ``parallel.make_train_step`` (3 SGD steps on the kernel routes,
@@ -100,9 +104,14 @@ kernel spills, or the scalar ``mlp_block_kernel``, ``wgrad_partial_kernel`` or
    ``depthwise_conv2d`` case twice, the same bits, with its tile, registers,
    shared memory and blocks an SM (``kernel_info``), its bound at the rate of
    its dtype and, apart, the f32 FMA pipe's floor (``fma_floor_ms``) of the
-   kernel, which sums in f32 on the CUDA cores; the bf16 blocks' backward kernels
+   kernel, which sums in f32 on the CUDA cores; ``mlp_block_int8`` twice, the
+   same bits, its three launches (LN rows to int8, two s8 products) timed apart
+   on the device clock, with ``split_bytes_ms`` for its int8 LN rows and
+   hidden and its ``IGMMA`` count; the bf16 blocks' backward kernels
    and ``bf16_product`` and ``wgrad_matmul`` at the ViT training path's
-   shapes, each beside its bound and one PyTorch call (SDPA's backward, its
+   shapes, each beside its bound and one PyTorch call (``ln_backward_rows``
+   with its kernel's path, grid and occupancy, ``kernel_info``, and its two
+   launches apart; SDPA's backward, its
    graph kept between calls,
    ``aten.gelu_backward``, ``aten.native_layer_norm_backward``, ``torch.mm``;
    Kernel B also at S 257 and 577, its launches counted and timed apart on
@@ -389,11 +398,14 @@ def main() -> int:
             fn = named.group(1) if named else fn
             if "Used" in line or "spill" in line or ("wgmma" in line.lower() and "warning" in line.lower()):
                 print(f"  {stem}: {line.strip()}")
-            # the split-TF32 products, the bf16 weight gradient and the depthwise convolution (49 sums and 49 taps
-            # a thread): no spill, and no wgmma that ptxas serialises
-            if ("x3_gemm_kernel" in fn or "wgrad_bf16_kernel" in fn or "depthwise_kernel" in fn) and "spill" in line:
+            # the split-TF32 products, the bf16 weight gradient, the depthwise convolution (49 sums and 49 taps
+            # a thread), the int8 MLP's s8 products and the LayerNorm backward's rows held in registers: no spill,
+            # and no wgmma that ptxas serialises
+            if any(k in fn for k in ("x3_gemm_kernel", "wgrad_bf16_kernel", "depthwise_kernel", "i8_tc_gemm_kernel",
+                                     "ln_backward_vec_kernel")) and "spill" in line:
                 require(" 0 bytes spill stores, 0 bytes spill loads" in line, f"{stem}: {fn} spills: {line.strip()}")
-            if ("x3_gemm_kernel" in line or "wgrad_bf16_kernel" in line) and "serialized" in line:
+            if "serialized" in line and any(k in line for k in ("x3_gemm_kernel", "wgrad_bf16_kernel",
+                                                                 "i8_tc_gemm_kernel")):
                 raise AssertionError(f"{stem}: {line.strip()}")
     # the bf16 products of rows 10-13 and the bf16 attention cores of rows 9, 11, 13 and 16 run on the tensor cores:
     # HGMMA (wgmma) in every instantiation of the product and of the cores, and no bf16 instantiation of the scalar
@@ -415,6 +427,14 @@ def main() -> int:
                 f"{stem}: a bf16 head-dim-64 attention_core_kernel or a bf16 window_core_kernel is left")
         hgmma[stem] = sum(products.values())
         core_hgmma[stem] = sum(cores.values())
+    # the int8 MLP's two products run on the int8 tensor cores: IGMMA (wgmma s8) and no IDP4A in every
+    # instantiation of i8_tc_gemm_kernel, and the dp4a mlp_int8_kernel they replaced is gone
+    i8_igmma, i8_dp4a = _build.sass_counts("int8_transformer", "IGMMA"), _build.sass_counts("int8_transformer", "IDP4A")
+    i8_products = {fn: (c, i8_dp4a.get(fn, 0)) for fn, c in i8_igmma.items() if "i8_tc_gemm_kernel" in fn}
+    print(f"  int8_transformer: (IGMMA, IDP4A) in the int8 MLP's products {i8_products}")
+    require(len(i8_products) == 4 and all(ig > 0 and dp == 0 for ig, dp in i8_products.values()),
+            "int8_transformer: an int8 MLP product without IGMMA, or with IDP4A")
+    require(not any("mlp_int8_kernel" in fn for fn in i8_igmma), "int8_transformer: the dp4a mlp_int8_kernel is left")
     # the attention core's backward (Kernel B: query-tile blocks with and without O, key-tile blocks) runs on the
     # tensor cores in all three instantiations; the float32 core at head dim 64 on split TF32 (HGMMA ... .TF32)
     bwd_hgmma = {fn: c for fn, c in _build.sass_counts("attention", "HGMMA").items() if "attention_bwd_" in fn}
@@ -918,12 +938,14 @@ def main() -> int:
     vlogits = veng(int8_images)
     vcounts = read_counts(INT8_VIT)
     vit_i8_kernel_launches = kernels.attention_block_int8.kernel_launches
+    vit_i8_mlp_kernel_launches = kernels.mlp_block_int8.kernel_launches
     print(f"{INT8_VIT} main path launches: {vcounts} (routes {veng.routes()}, {vit_i8_kernel_launches} kernel "
-          f"launches in attention_block_int8)")
+          f"launches in attention_block_int8, {vit_i8_mlp_kernel_launches} in mlp_block_int8)")
     require(launches_at("mlp_block_int8", (256 * 197, 768), torch.bfloat16).get(INT8_VIT) == 12
             and launches_at("attention_block_int8", (256, 197, 768), torch.bfloat16).get(INT8_VIT) == 12
-            and vit_i8_kernel_launches == 36 and vcounts["mlp_block_int8"] == 12
-            and vcounts["attention_block_int8"] == 12, f"{INT8_VIT}: expected 12 + 12 launches at its shapes")
+            and vit_i8_kernel_launches == 36 and vit_i8_mlp_kernel_launches == 36 and vcounts["mlp_block_int8"] == 12
+            and vcounts["attention_block_int8"] == 12, f"{INT8_VIT}: expected 12 + 12 launches at its shapes, 36 + 36 "
+            f"kernel launches")
     require(vlogits.device.type == "cuda" and vlogits.shape == (256, 1000) and vlogits.dtype == torch.float32
             and bool(torch.isfinite(vlogits).all()), "int8 vit logits shape/dtype/device/finite")
     vtwin = models.Int8ViT.from_model(vit16, route="plain").set_scales(veng.scales)(int8_images)
@@ -2188,12 +2210,32 @@ def main() -> int:
     max_err_f32(mlp_i8_library(), int8_transformer.mlp_block_int8_plain(*vit_mlp_args), "mlp_block_int8 composite",
                 5e-2, 5e-2)
     tok = xm.shape[0]
+    kernels.reset_launch_counts()
+    require(torch.equal(kernels.mlp_block_int8(*vit_mlp_args), kernels.mlp_block_int8(*vit_mlp_args))
+            and kernels.mlp_block_int8.kernel_launches == 6, "mlp_block_int8: two calls differ, or a call is not three "
+            "kernel launches")
+    # its three launches apart on the device clock: LN rows to int8, up-projection, down-projection (the wrapper's
+    # stock set-up, the inverse activation scales, is left out)
+    mlp_i8_calls = calls_on_device(lambda: kernels.mlp_block_int8(*vit_mlp_args))
+    require(mlp_i8_calls is not None, "mlp_block_int8: the profiler missed its calls")
+    mlp_i8_chains = [[(k, ms) for k, ms in call if "ln_quant_rows_kernel" in k or "i8_tc_gemm_kernel" in k]
+                     for call in mlp_i8_calls]
+    require(all(len(c) == 3 and "ln_quant_rows_kernel" in c[0][0] and "i8_tc_gemm_kernel<0" in c[1][0]
+                and "i8_tc_gemm_kernel<1" in c[2][0] for c in mlp_i8_chains),
+            f"mlp_block_int8: a call ran {[k for k, _ in mlp_i8_calls[0]]}, not LN rows and two s8 products")
+    mlp_i8_split = [(mlp_i8_chains[0][i][0], sum(c[i][1] for c in mlp_i8_chains) / len(mlp_i8_chains))
+                    for i in range(3)]
+    print(f"  mlp_block_int8's launches apart (device ms): {mlp_i8_split}; a call's other kernels: "
+          f"{[k for k, _ in mlp_i8_calls[0] if not any(k == c for c, _ in mlp_i8_chains[0])]}")
     rows.append(entry(row("mlp_block_int8", f"{PALLAS_INT8_TB}:88", INT8_VIT, err,
                           time_ms(lambda: kernels.mlp_block_int8(*vit_mlp_args), 5),
                           time_ms(lambda: int8_transformer.mlp_block_int8_plain(*vit_mlp_args), 3),
                           2 * xm.numel() * 2 + 2 * 768 * 3072 + 4 * (5 * 768 + 3 * 3072), tok * 4 * 768 * 3072,
                           library_ms=time_ms(mlp_i8_library, 5), source=INT8_TRANSFORMER,
-                          ops_per_s=INT8_OPS_PER_S, at=(xm.shape, xm.dtype), shape=list(xm.shape), dtype="bfloat16"),
+                          ops_per_s=INT8_OPS_PER_S, at=(xm.shape, xm.dtype), shape=list(xm.shape), dtype="bfloat16",
+                          kernel_launches=vit_i8_mlp_kernel_launches,
+                          split_bytes_ms=2 * tok * (768 + 3072) / HBM_BYTES_PER_S * 1e3, launch_ms=mlp_i8_split,
+                          igmma_in_sass=sum(ig for ig, _ in i8_products.values())),
                       INT8_VIT, []))
     print(f"  under mlp_block_int8's load: {clock_under(lambda: kernels.mlp_block_int8(*vit_mlp_args), 20)}")
 
@@ -2418,12 +2460,23 @@ def main() -> int:
     require(all(torch.equal(a, b) for a, b in zip(got, kernels.ln_backward_rows(xl, gl, dhl, rl))),
             "ln_backward_rows: two calls differ")
     _, mean_l, rstd_l = torch.ops.aten.native_layer_norm(xl, [d_model], gl.to(bf), None, 1e-6)
+    # the vector kernel (three 16-byte chunks of a row a lane) on its persistent grid, then the blocks' sums added
+    ln_info = transformer_block.ln_backward_info(xl, gl, dhl, rl)
+    require(ln_info["chunks_a_lane"] == 3, f"ln_backward_rows: ViT-B/16's rows took {ln_info}, not the vector kernel")
+    ln_calls = calls_on_device(lambda: kernels.ln_backward_rows(xl, gl, dhl, rl))
+    require(ln_calls is not None and all([k for k, _ in c] == [k for k, _ in ln_calls[0]] for c in ln_calls)
+            and sum("ln_backward_vec_kernel" in k for k, _ in ln_calls[0]) == 1
+            and sum("ln_backward_reduce_kernel" in k for k, _ in ln_calls[0]) == 1,
+            f"ln_backward_rows: a call ran {ln_calls and [k for k, _ in ln_calls[0]]}")
+    ln_split = [(k, sum(c[i][1] for c in ln_calls) / len(ln_calls)) for i, (k, _) in enumerate(ln_calls[0])]
+    print(f"  ln_backward_rows {list(xl.shape)}: {ln_info}; launches apart (device ms): {ln_split}")
     ln_rows = row("ln_backward_rows", f"{PALLAS_BLOCK}:299", VIT_TRAIN, err,
                   time_ms(lambda: kernels.ln_backward_rows(xl, gl, dhl, rl), 20),
                   time_ms(lambda: ln_backward_plain(xl, gl, dhl, rl), 5), 4 * xl.numel() * 2, 10 * xl.numel(),
                   library_ms=time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
                       dhl, xl, [d_model], mean_l, rstd_l, gl.to(bf), None, [True, True, False]), 10),
-                  source=TRANSFORMER, at=(xl.shape, bf), shape=list(xl.shape), dtype="bfloat16")
+                  source=TRANSFORMER, at=(xl.shape, bf), shape=list(xl.shape), dtype="bfloat16", kernel_info=ln_info,
+                  kernel_launches=len(ln_split), launch_ms=ln_split)
     rows.append(entry(ln_rows, VIT_TRAIN, []))
     del xl, dhl, rl, got, ref, mean_l, rstd_l
 

@@ -44,6 +44,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
 
 namespace cvt {
@@ -77,6 +78,39 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// Blocks of the kernel fn, at `threads` threads and `smem` dynamic shared bytes, that fit on an SM of the current
+// card (a persistent grid's size: depthwise.cu, the LayerNorm backward of ln_gemm.cuh): asked of the runtime once
+// a (card, kernel, threads, smem) and kept, so that a launch is its choice and the launch alone.  The kernel's
+// shared-memory limit is raised to `smem_limit`, the most any of its launches takes, never to one call's smem: a
+// later call with more would find it lowered.  Past 64 of them it asks each time.
+inline cudaError_t blocks_per_sm(const void* fn, int threads, size_t smem, int smem_limit, int* per_sm) {
+  struct Seen {
+    int device;
+    const void* fn;
+    int threads;
+    size_t smem;
+    int per_sm;
+  };
+  static Seen seen[64];
+  static int n_seen = 0;
+  static std::mutex mu;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_seen; ++i)
+    if (seen[i].device == device && seen[i].fn == fn && seen[i].threads == threads && seen[i].smem == smem) {
+      *per_sm = seen[i].per_sm;
+      return cudaSuccess;
+    }
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_limit);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (n_seen < 64) seen[n_seen++] = Seen{device, fn, threads, smem, *per_sm};
+  return cudaSuccess;
 }
 
 constexpr int ATT_BQ = 64;

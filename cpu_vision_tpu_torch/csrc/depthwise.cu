@@ -43,8 +43,6 @@
 // tile's window is copied while this one's FMAs run.  No atomics: every call
 // gives the same bits.
 
-#include <mutex>
-
 #include "attention.cuh"
 #include "hopper.cuh"
 
@@ -214,41 +212,6 @@ depthwise_kernel(const T* __restrict__ in, const T* __restrict__ taps, const flo
   }
 }
 
-// Blocks an SM of depthwise_kernel<T, K> at (threads, smem) on the current card: asked of the runtime once a (card,
-// threads, smem) and kept, so that a launch is the tile choice and the launch alone.  The kernel's shared-memory
-// limit is raised to the most any tile takes, two stages of DW_STAGE_MAX, never to one call's smem: a later call
-// with a larger window would find it lowered.  dw_tile gives few distinct pairs an instantiation; past DW_SEEN of
-// them it asks each time.
-constexpr int DW_SEEN = 32;
-
-template <typename T, int K>
-cudaError_t blocks_per_sm(int threads, size_t smem, int* per_sm) {
-  struct Seen {
-    int device, threads;
-    size_t smem;
-    int per_sm;
-  };
-  static Seen seen[DW_SEEN];
-  static int n_seen = 0;
-  static std::mutex mu;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < n_seen; ++i)
-    if (seen[i].device == device && seen[i].threads == threads && seen[i].smem == smem) {
-      *per_sm = seen[i].per_sm;
-      return cudaSuccess;
-    }
-  const void* fn = (const void*)depthwise_kernel<T, K>;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, 2 * DW_STAGE_MAX);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, threads, smem);
-  if (err != cudaSuccess) return err;
-  if (n_seen < DW_SEEN) seen[n_seen++] = Seen{device, threads, smem, *per_sm};
-  return cudaSuccess;
-}
-
 // The launch of one call: its tile, block size, shared memory and grid; with info, also the kernel's registers a
 // thread and blocks an SM, into info[0..9] = b, ct, g, threads, shared bytes a block, blocks an SM, registers,
 // grid, tiles, vec (no launch then).
@@ -264,7 +227,7 @@ cudaError_t launch_depthwise(const T* in, const T* taps, const float* bias, T* o
   const int threads = gm.b * gm.ct * gm.g * 32;
   const size_t smem = 2 * (size_t)gm.g * gm.wr * gm.wc * DW_CH * sizeof(T);
   int per_sm = 0;
-  cudaError_t err = blocks_per_sm<T, K>(threads, smem, &per_sm);
+  cudaError_t err = cvt::blocks_per_sm((const void*)depthwise_kernel<T, K>, threads, smem, 2 * DW_STAGE_MAX, &per_sm);
   if (err != cudaSuccess) return err;
   if (per_sm < 1 || sms < 1) return cudaErrorInvalidValue;
   const int grid = (int)(tiles < (long long)per_sm * sms ? tiles : (long long)per_sm * sms);

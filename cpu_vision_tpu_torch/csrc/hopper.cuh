@@ -11,8 +11,10 @@
 //     x^T dy of wgrad_matmul.cu, both operands as their rows lie;
 //   tf32, 64 x {32, 64, 128} x 8, A from registers, B K-major (the only
 //     layout PTX gives tf32 in shared memory): the split-TF32 products of
-//     tf32x3.cuh.
-// The last two take scale_d: 0 overwrites the sums with the product, 1 adds
+//     tf32x3.cuh;
+//   s8, 64 x 128 x 32 into int32 sums, A and B K-major (PTX has no other
+//     layout for 8-bit operands): the int8 products of int8_transformer.cu.
+// The last three take scale_d: 0 overwrites the sums with the product, 1 adds
 // to them.
 //
 // tools/cuda_emu carries a CPU stand-in of this header with the same
@@ -35,7 +37,8 @@
 // A step of 16 k moves a K-major start address by 32 bytes inside the
 // swizzled row, an MN-major one by 16 rows.  A tf32 value is 4 bytes: a
 // 128-byte K-major row holds 32 of them, and a step of 8 k moves the start
-// by the same 32 bytes.  B is K-major when the
+// by the same 32 bytes, and so does a step of 32 k of int8 (1 byte each: a
+// 128-byte row holds 128 k).  B is K-major when the
 // instruction's transpose flag is 0 (the K tile of S = Q K^T: keys are B's
 // columns, each key's head dims one row), MN-major when it is 1 (the
 // weights of the product, V of O += P V).
@@ -101,6 +104,10 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
 template <int N> __device__ __forceinline__ void fence_sums(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void fence_sums(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
@@ -301,6 +308,32 @@ __device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uin
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d[64] (+)= A (64 x 32, int8, K-major, desc a) . B (32 x 128, int8, K-major, desc b), summed in int32 (exact:
+// no saturation is asked for, and the callers' sums stay far inside int32); d as the f32 sums above:
+// d[4 j + 2 h + e] = D[16 w + l / 4 + 8 h][8 j + 2 (l % 4) + e]
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 }  // namespace cvt

@@ -13,22 +13,34 @@
 // product is rounded through T after its bias, as the TPU kernel casts it.
 //
 // mlp_block_int8.  The TPU kernel keeps both int8 weights resident in VMEM and
-// the int8 activations in vregs.  Here a block of 512 threads owns 32 tokens:
-// q1(LN(x)) of the tile sits in shared memory as int8 (32 x D bytes), the
-// (32, D) int32 accumulator in registers, and the hidden dim is a loop inside
-// the block over chunks of 256 columns: (a) the chunk's up-projection from
-// q1(LN(x)) and tiles of qW1 streamed through shared memory, (b) bias + gelu +
-// q2 into a (32, 256) int8 buffer, (c) the chunk's share of the
-// down-projection from that buffer and tiles of qW2.  The (tokens, Dh) int8
-// activations never reach device memory.  One int32 sum runs over the whole
-// hidden dim and is scaled by s2 once: JAX's order wherever its hidden dim is
-// one block (ViT-B and ViT-L), while at ViT-H it sums four f32 partials.  The
-// weights come transposed, qW1^T (Dh, D) and qW2^T (D, Dh), so that four
-// consecutive k of a column are one word, the operand of __dp4a.  Thread
-// (rg, cg) of 8 x 64 owns rows 4 rg .. 4 rg + 3 and, of the up-projection, the
-// chunk's columns 4 cg .. 4 cg + 3 (one word of the buffer (b) writes), of
-// the down-projection columns 4 cg .. 4 cg + 3 of every 256-column group.  D
-// is a multiple of 256 (256 to 1280 instantiated), Dh of 256.
+// the int8 activations in vregs.  Here it is three launches, as the bf16
+// mlp_block is (transformer_block.cu):
+// (1) ln_quant_rows_kernel, a warp a row: the row's statistics once
+// (row_stats), then q1(LN(x)) into an (m, D) int8 buffer, four channels a word;
+// (2) the up-projection q1 . qW1 on the int8 tensor cores (i8_tc_gemm_kernel,
+// wgmma m64n128k32 s8 x s8 into int32 sums), its epilogue
+// q2(gelu(acc * s1 + b1)) into an (m, Dh) int8 hidden, the 128 x 128 tile
+// staged in the free ring and stored 16 bytes a thread;
+// (3) the down-projection hidden . qW2 on the same product, its epilogue
+// x + (acc * s2 + b2) rounded to T.
+// The product is tc_gemm_kernel's (ln_gemm.cuh) in bytes: a block of two
+// warpgroups owns 128 x 128 outputs, 64 int32 sums a thread; k runs in tiles of
+// 128 (one 128-byte swizzled row of int8), four k32 wgmma a tile, copied by all
+// threads with cp.async into a ring of 3 stages (97 KB, two blocks an SM).
+// 8-bit wgmma takes both operands K-major only: A (q1 or the hidden) is
+// row-major (m, k), and the weights come transposed, qW1^T (Dh, D) and qW2^T
+// (D, Dh), a row of k for each output column.  Rows past m are copied as zeros
+// (cp.async's zero fill) and not stored; D and Dh are multiples of 128 (the
+// wrapper takes D in 256 .. 1280 by 256 and Dh a multiple of 256).  The int8
+// LN rows and the hidden make one round trip through device memory (2 m (D +
+// Dh) bytes, 0.116 ms at ViT-B/16 b256), where the TPU kernel keeps them in
+// VMEM: a down-projection fused behind the up-projection would hold (64, D)
+// int32 sums a warpgroup, D / 2 registers a thread, past 255 at D 768.  Every
+// sum is one int32 sum over the whole k (exact in any order: |acc| <= 5120 *
+// 127^2 < 2^31), and the f32 steps are the dp4a kernel's that this replaced,
+// one by one, so the output is that kernel's bit for bit: JAX's order wherever
+// its hidden dim is one block (ViT-B and ViT-L), while at ViT-H it sums four
+// f32 partials.
 //
 // attention_block_int8.  Three launches, as the bf16 attention_block:
 // (1) LN + q1 + int8 QKV product + s * acc + b into an (N S, 3 D) buffer of T
@@ -37,226 +49,223 @@
 // by strides, its f32 head outputs quantised by qo in its epilogue into an
 // (N S, D) int8 buffer (the TPU kernel quantises the f32 output, so nothing
 // is rounded through T there); (3) the int8 output projection + so * acc + bo
-// + residual.  Head dims 16, 64 and 80.
+// + residual.  Head dims 16, 64 and 80.  Its two products are still the dp4a
+// product of int8_gemm.cuh (no tensor core).
 //
 // Bound.  At ViT-B/16 batch 256 (50,432 tokens) mlp_block_int8 does 476 G int8
 // operations on 155 MB, attention_block_int8 268 G: operations bind both at
-// the int8 tensor-core rate.  This first version uses no tensor core: dp4a
-// from shared memory.  Built with --fmad=false: the f32 steps are the twins'
-// operations one by one (LayerNorm statistics and the exponentials still
-// differ from the twins' in the last bits, so the quantised values may too).
+// the int8 tensor-core rate (1,979 TOP/s).  Built with --fmad=false: the f32
+// steps are the twins' operations one by one (LayerNorm statistics and the
+// exponentials still differ from the twins' in the last bits, so the quantised
+// values may too).
 
 #include "int8_gemm.cuh"
 
 namespace {
 
+using cvt::bf16;
+using cvt::cp_async16;
+using cvt::cp_async_commit;
+using cvt::cp_async_wait;
+using cvt::fence_proxy_async;
+using cvt::fence_sums;
 using cvt::from_f32;
 using cvt::gelu_erf;
+using cvt::load2;
 using cvt::pack4;
 using cvt::quant_i8;
+using cvt::ROW_THREADS;
 using cvt::row_stats;
+using cvt::smem_addr;
+using cvt::store2;
+using cvt::sw128_desc;
 using cvt::to_f32;
+using cvt::wgmma_commit;
+using cvt::wgmma_fence;
+using cvt::wgmma_m64n128k32_s8;
+using cvt::wgmma_wait;
 
 // ---------------------------------------------------------- mlp_block_int8
 
-constexpr int Q_BM = 32;          // tokens a block
-constexpr int Q_THREADS = 512;
-constexpr int Q_HC = 256;         // hidden columns a chunk
-constexpr int Q_KW = 8;           // words of k a weight tile (32 bytes)
-constexpr int Q_LDR = Q_BM + 4;   // row stride of the [word][row] buffers
-
-template <int D> constexpr size_t mlp_int8_smem_bytes() {
-  // q1(LN(x)) [D/4][Q_LDR], the gelu chunk [Q_HC/4][Q_LDR], a weight tile [Q_KW][max(Q_HC, D) + 4]
-  return sizeof(int) * ((size_t)(D / 4) * Q_LDR + (size_t)(Q_HC / 4) * Q_LDR +
-                        (size_t)Q_KW * ((D > Q_HC ? D : Q_HC) + 4));
+// (1) q1 = clamp(rint(LN(x) * inv1)) of each row into int8, a warp a row
+template <typename T>
+__global__ void __launch_bounds__(ROW_THREADS)
+ln_quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ ln_g, const float* __restrict__ ln_b,
+                     const float* __restrict__ inv1, int8_t* __restrict__ q1, int m, int d, float eps) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (ROW_THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= m) return;
+  const T* p = x + row * d;
+  float mean, rstd;
+  row_stats<T>(p, d, eps, 0, lane, mean, rstd);
+  int* o = reinterpret_cast<int*>(q1 + row * d);
+  for (int w = lane; w < d / 4; w += 32) {
+    int q[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 4 * w + j;
+      q[j] = quant_i8((to_f32<T>(p[c]) - mean) * rstd * ln_g[c] + ln_b[c], inv1[c]);
+    }
+    o[w] = pack4(q[0], q[1], q[2], q[3]);
+  }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(Q_THREADS, 1)
-mlp_int8_kernel(const T* __restrict__ x, const float* __restrict__ ln_g, const float* __restrict__ ln_b,
-                const int8_t* __restrict__ w1t, const float* __restrict__ s1, const float* __restrict__ b1,
-                const int8_t* __restrict__ w2t, const float* __restrict__ s2, const float* __restrict__ b2,
-                const float* __restrict__ inv1, const float* __restrict__ inv2, T* __restrict__ out, int m,
-                int dh, float eps) {
-  constexpr int NREP = D / 256;             // 256-column groups of the output
-  constexpr int LDW2 = D + 4;
-  constexpr int NL2 = (2 * D + Q_THREADS - 1) / Q_THREADS;  // 16-byte loads of a qW2 tile a thread
-  static_assert(D % 256 == 0, "D must be a multiple of 256");
+// (2), (3) out = Epi(a . bt^T): a (m, k) and bt (n, k) int8, both rows of k; the epilogues, on the int32 sum:
+//   Q8_GELU   q2(gelu(acc * scale[n] + bias[n])) with inv[n], into int8
+//   Q8_RESID  resid[m, n] + (acc * scale[n] + bias[n]), rounded to T
+enum { Q8_GELU = 0, Q8_RESID = 1 };
+
+constexpr int Q8_BM = 128;  // two warpgroups of 64 rows
+constexpr int Q8_BN = 128;
+constexpr int Q8_BK = 128;  // one 128-byte swizzled row of int8: four k32 steps
+constexpr int Q8_STAGES = 3;
+constexpr int Q8_AHEAD = Q8_STAGES - 1;  // tiles copied ahead of the products
+constexpr int Q8_THREADS = 256;
+constexpr int Q8_TILE_BYTES = Q8_BM * Q8_BK;  // the A and the B tile alike
+constexpr int Q8_STAGE_BYTES = 2 * Q8_TILE_BYTES;
+constexpr size_t Q8_SMEM = (size_t)Q8_STAGES * Q8_STAGE_BYTES + 1024;  // + room to align to 1024
+constexpr int Q8_CHUNKS = Q8_TILE_BYTES / 16 / Q8_THREADS;              // 16-byte copies a thread a tile
+constexpr int Q8_LDT = Q8_BN + 16;  // row stride of the int8 output tile staged in the ring (no bank conflicts)
+static_assert(Q8_BM == Q8_BN && Q8_CHUNKS == 4 && Q8_SMEM <= 113 * 1024 && Q8_BM * Q8_LDT <= Q8_STAGE_BYTES,
+              "tiles; two blocks an SM; the output tile fits a stage");
+
+template <typename T>
+struct Q8Epi {
+  const float* scale;  // (n,)
+  const float* bias;   // (n,)
+  const float* inv;    // Q8_GELU: the hidden's inverse activation scale (n,)
+  const T* resid;      // Q8_RESID: (m, n)
+  void* out;           // (m, n) of int8 (Q8_GELU) or T (Q8_RESID)
+};
+
+template <int EPI, typename T>
+__global__ void __launch_bounds__(Q8_THREADS, 2)
+i8_tc_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bt, Q8Epi<T> epi, int m, int k, int n) {
   extern __shared__ __align__(16) float smem[];
-  int* s_h = reinterpret_cast<int*>(smem);   // [D/4][Q_LDR]     q1(LN(x)), four channels a word
-  int* s_g = s_h + (D / 4) * Q_LDR;          // [Q_HC/4][Q_LDR]  q2(gelu) of the chunk
-  int* s_w = s_g + (Q_HC / 4) * Q_LDR;       // a qW1 tile [Q_KW][Q_HC + 4] or a qW2 tile [Q_KW][LDW2]
+  const uint32_t base = (smem_addr(smem) + 1023u) & ~1023u;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int m0 = blockIdx.y * Q8_BM, n0 = blockIdx.x * Q8_BN;
+  const int k_tiles = k / Q8_BK;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rg = tid >> 6, cg = tid & 63;
-  const long long m0 = (long long)blockIdx.x * Q_BM;
-
-  // q1(LN(x)): a warp a row, a lane four channels at a time
-  for (int r = warp; r < Q_BM; r += Q_THREADS / 32) {
-    const long long row = m0 + r;
-    if (row < m) {
-      const T* p = x + row * D;
-      float mean, rstd;
-      row_stats<T>(p, D, eps, 0, lane, mean, rstd);
-      for (int w = lane; w < D / 4; w += 32) {
-        int q[4];
+  // both tiles K-major: row r (of m, or of n), chunk c of 16 k at r * 128 + (c ^ r % 8) * 16
+  auto load = [&](int stage, int kt) {
+    const int k0 = kt * Q8_BK;
+    const uint32_t sa = base + stage * Q8_STAGE_BYTES, sb = sa + Q8_TILE_BYTES;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = 4 * w + j;
-          q[j] = quant_i8((to_f32<T>(p[c]) - mean) * rstd * ln_g[c] + ln_b[c], inv1[c]);
-        }
-        s_h[w * Q_LDR + r] = pack4(q[0], q[1], q[2], q[3]);
-      }
-    } else {
-      for (int w = lane; w < D / 4; w += 32) s_h[w * Q_LDR + r] = 0;
+    for (int i = 0; i < Q8_CHUNKS; ++i) {
+      const int e = tid + i * Q8_THREADS;
+      const int r = e >> 3, c = e & 7;
+      const uint32_t at = r * 128 + ((c ^ (r & 7)) << 4);
+      const bool a_ok = m0 + r < m, b_ok = n0 + r < n;
+      cp_async16(sa + at, a + (a_ok ? (size_t)(m0 + r) * k + k0 + c * 16 : 0), a_ok);
+      cp_async16(sb + at, bt + (b_ok ? (size_t)(n0 + r) * k + k0 + c * 16 : 0), b_ok);
     }
+  };
+
+  int acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+
+  // the stage a step refills held the tile of the step before, whose products the wait that closed that step
+  // retired in both warpgroups (the barrier orders them)
+#pragma unroll
+  for (int s = 0; s < Q8_AHEAD; ++s) {
+    if (s < k_tiles) load(s, s);
+    cp_async_commit();
   }
-  __syncthreads();
-
-  int acc[4][4 * NREP];
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_async_wait<Q8_AHEAD - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    const int next = kt + Q8_AHEAD;
+    if (next < k_tiles) load(next % Q8_STAGES, next);
+    cp_async_commit();
+    const uint32_t sa = base + (kt % Q8_STAGES) * Q8_STAGE_BYTES, sb = sa + Q8_TILE_BYTES;
+    wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * NREP; ++j) acc[i][j] = 0;
-
-  // a qW1 tile: 256 columns x 32 bytes of k, one 16-byte load a thread
-  const int t_col = tid >> 1, t_w = (tid & 1) * 4;
-  int4 r1;
-  int4 r2[NL2];
-
-  for (int h0 = 0; h0 < dh; h0 += Q_HC) {
-    // (a) hj = q1(LN(x)) . qW1[:, h0 : h0 + 256]
-    int hj[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) hj[i][j] = 0;
-    const int8_t* w1p = w1t + (size_t)(h0 + t_col) * D + 4 * t_w;
-    r1 = *reinterpret_cast<const int4*>(w1p);
-    for (int k0 = 0; k0 < D / 4; k0 += Q_KW) {
-      s_w[(t_w + 0) * (Q_HC + 4) + t_col] = r1.x;
-      s_w[(t_w + 1) * (Q_HC + 4) + t_col] = r1.y;
-      s_w[(t_w + 2) * (Q_HC + 4) + t_col] = r1.z;
-      s_w[(t_w + 3) * (Q_HC + 4) + t_col] = r1.w;
-      __syncthreads();
-      if (k0 + Q_KW < D / 4) r1 = *reinterpret_cast<const int4*>(w1p + 4 * (k0 + Q_KW));
-#pragma unroll
-      for (int w = 0; w < Q_KW; ++w) {
-        const int4 a = *reinterpret_cast<const int4*>(s_h + (k0 + w) * Q_LDR + 4 * rg);
-        const int4 b = *reinterpret_cast<const int4*>(s_w + w * (Q_HC + 4) + 4 * cg);
-        const int av[4] = {a.x, a.y, a.z, a.w};
-        const int bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) hj[i][j] = __dp4a(av[i], bv[j], hj[i][j]);
-      }
-      __syncthreads();
-    }
-
-    // (b) q2(gelu(hj * s1 + b1)): this thread's four columns are word cg of the chunk.  The chunk
-    // before was read to its end (the barrier that closed its last qW2 tile); the barrier of the
-    // first qW2 tile below orders these writes before their reads.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int q[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int h = h0 + 4 * cg + j;
-        q[j] = quant_i8(gelu_erf(__int2float_rn(hj[i][j]) * s1[h] + b1[h]), inv2[h]);
-      }
-      s_g[cg * Q_LDR + 4 * rg + i] = pack4(q[0], q[1], q[2], q[3]);
-    }
-
-    // (c) acc += q2 . qW2[h0 : h0 + 256, :], tiles of 32 hidden rows (8 words) by D columns
-    auto fetch2 = [&](int k0) {
-#pragma unroll
-      for (int l = 0; l < NL2; ++l) {
-        const int e = tid + Q_THREADS * l;
-        if (e < 2 * D) r2[l] = *reinterpret_cast<const int4*>(w2t + (size_t)(e >> 1) * dh + h0 + 4 * k0 + 16 * (e & 1));
-      }
-    };
-    fetch2(0);
-    for (int k0 = 0; k0 < Q_HC / 4; k0 += Q_KW) {
-#pragma unroll
-      for (int l = 0; l < NL2; ++l) {
-        const int e = tid + Q_THREADS * l;
-        if (e < 2 * D) {
-          const int col = e >> 1, w = (e & 1) * 4;
-          s_w[(w + 0) * LDW2 + col] = r2[l].x;
-          s_w[(w + 1) * LDW2 + col] = r2[l].y;
-          s_w[(w + 2) * LDW2 + col] = r2[l].z;
-          s_w[(w + 3) * LDW2 + col] = r2[l].w;
-        }
-      }
-      __syncthreads();
-      if (k0 + Q_KW < Q_HC / 4) fetch2(k0 + Q_KW);
-#pragma unroll
-      for (int w = 0; w < Q_KW; ++w) {
-        const int4 a = *reinterpret_cast<const int4*>(s_g + (k0 + w) * Q_LDR + 4 * rg);
-        const int av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-        for (int rep = 0; rep < NREP; ++rep) {
-          const int4 b = *reinterpret_cast<const int4*>(s_w + w * LDW2 + rep * 256 + 4 * cg);
-          const int bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][4 * rep + j] = __dp4a(av[i], bv[j], acc[i][4 * rep + j]);
-        }
-      }
-      __syncthreads();
-    }
+    for (int s = 0; s < Q8_BK / 32; ++s)
+      wgmma_m64n128k32_s8(acc, sw128_desc(sa + wg * (64 * 128) + s * 32, 16, 1024), sw128_desc(sb + s * 32, 16, 1024),
+                          1);
+    wgmma_commit();
+    wgmma_wait<0>();
   }
+  fence_sums(acc);
 
-  // out = x + (acc * s2 + b2), in the TPU kernel's order
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int t0 = wg * 64 + warp * 16 + (lane >> 2);  // this thread's first row in the tile
+  if (EPI == Q8_GELU) {
+    // the int8 tile through shared memory (the ring is free: both warpgroups' products have retired, no copy is
+    // in flight), then to the hidden 16 bytes a thread, eight threads a row
+    int8_t* tile = reinterpret_cast<int8_t*>(smem) + (base - smem_addr(smem));
+    cp_async_wait<0>();
+    __syncthreads();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long row = m0 + 4 * rg + i;
-    if (row >= m) continue;
+    for (int j = 0; j < Q8_BN / 8; ++j) {
+      const int c = j * 8 + (lane & 3) * 2, col = n0 + c;  // n is a multiple of 16: the chunk is in or out
+      if (col >= n) continue;
+      const float sc0 = epi.scale[col], sc1 = epi.scale[col + 1], b0 = epi.bias[col], b1 = epi.bias[col + 1];
+      const float inv0 = epi.inv[col], inv1 = epi.inv[col + 1];
 #pragma unroll
-    for (int rep = 0; rep < NREP; ++rep)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = rep * 256 + 4 * cg + j;
-        const long long at = row * D + col;
-        out[at] = from_f32<T>(to_f32<T>(x[at]) + (__int2float_rn(acc[i][4 * rep + j]) * s2[col] + b2[col]));
+      for (int h = 0; h < 2; ++h) {
+        const int q0 = quant_i8(gelu_erf(__int2float_rn(acc[4 * j + 2 * h]) * sc0 + b0), inv0);
+        const int q1 = quant_i8(gelu_erf(__int2float_rn(acc[4 * j + 2 * h + 1]) * sc1 + b1), inv1);
+        *reinterpret_cast<uint16_t*>(tile + (t0 + 8 * h) * Q8_LDT + c) = (uint16_t)((q0 & 0xff) | ((q1 & 0xff) << 8));
       }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < Q8_CHUNKS; ++i) {
+      const int e = tid + i * Q8_THREADS;
+      const int r = e >> 3, c = (e & 7) * 16;
+      if (m0 + r < m && n0 + c < n)
+        *reinterpret_cast<int4*>(static_cast<int8_t*>(epi.out) + (size_t)(m0 + r) * n + n0 + c) =
+            *reinterpret_cast<const int4*>(tile + r * Q8_LDT + c);
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < Q8_BN / 8; ++j) {
+    const int col = n0 + j * 8 + (lane & 3) * 2;
+    if (col >= n) continue;
+    const float sc0 = epi.scale[col], sc1 = epi.scale[col + 1], b0 = epi.bias[col], b1 = epi.bias[col + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + t0 + 8 * h;
+      if (row >= m) continue;
+      const size_t at = (size_t)row * n + col;
+      float x0, x1;
+      load2(epi.resid + at, x0, x1);
+      store2(static_cast<T*>(epi.out) + at, x0 + (__int2float_rn(acc[4 * j + 2 * h]) * sc0 + b0),
+             x1 + (__int2float_rn(acc[4 * j + 2 * h + 1]) * sc1 + b1));
+    }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_mlp_int8(const T* x, const float* ln_g, const float* ln_b, const int8_t* w1t, const float* s1,
-                            const float* b1, const int8_t* w2t, const float* s2, const float* b2, const float* inv1,
-                            const float* inv2, T* out, int m, int dh, float eps, cudaStream_t stream) {
-  constexpr size_t smem = mlp_int8_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(mlp_int8_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+template <int EPI, typename T>
+cudaError_t launch_i8_tc_gemm(const int8_t* a, const int8_t* bt, const Q8Epi<T>& epi, int m, int k, int n,
+                              cudaStream_t stream) {
+  const int rows = (m + Q8_BM - 1) / Q8_BM, cols = (n + Q8_BN - 1) / Q8_BN;
+  if (m < 1 || n < 16 || n % 16 || k < Q8_BK || k % Q8_BK || rows > 65535) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(i8_tc_gemm_kernel<EPI, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Q8_SMEM);
   if (err != cudaSuccess) return err;
-  mlp_int8_kernel<T, D><<<(unsigned)((m + Q_BM - 1) / Q_BM), Q_THREADS, smem, stream>>>(
-      x, ln_g, ln_b, w1t, s1, b1, w2t, s2, b2, inv1, inv2, out, m, dh, eps);
+  i8_tc_gemm_kernel<EPI, T><<<dim3(cols, rows), Q8_THREADS, Q8_SMEM, stream>>>(a, bt, epi, m, k, n);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t mlp_block_int8(const T* x, const float* ln_g, const float* ln_b, const int8_t* w1t, const float* s1,
                            const float* b1, const int8_t* w2t, const float* s2, const float* b2,
-                           const float* inv1, const float* inv2, T* out, int m, int d, int dh, float eps,
-                           cudaStream_t stream) {
-  if (m < 1 || dh < Q_HC || dh % Q_HC) return cudaErrorInvalidValue;
-#define CVT_MLP_I8_CASE(D) \
-  case D:                  \
-    return launch_mlp_int8<T, D>(x, ln_g, ln_b, w1t, s1, b1, w2t, s2, b2, inv1, inv2, out, m, dh, eps, stream)
-  switch (d) {
-    CVT_MLP_I8_CASE(256);
-    CVT_MLP_I8_CASE(512);
-    CVT_MLP_I8_CASE(768);
-    CVT_MLP_I8_CASE(1024);
-    CVT_MLP_I8_CASE(1280);
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef CVT_MLP_I8_CASE
+                           const float* inv1, const float* inv2, int8_t* q1, int8_t* hidden, T* out, int m, int d,
+                           int dh, float eps, cudaStream_t stream) {
+  if (m < 1 || d < Q8_BK || d % Q8_BK || dh < Q8_BK || dh % Q8_BK) return cudaErrorInvalidValue;
+  constexpr int rows = ROW_THREADS / 32;
+  ln_quant_rows_kernel<T><<<(m + rows - 1) / rows, ROW_THREADS, 0, stream>>>(x, ln_g, ln_b, inv1, q1, m, d, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = launch_i8_tc_gemm<Q8_GELU, T>(q1, w1t, Q8Epi<T>{s1, b1, inv2, nullptr, hidden}, m, d, dh, stream);
+  if (err != cudaSuccess) return err;
+  return launch_i8_tc_gemm<Q8_RESID, T>(hidden, w2t, Q8Epi<T>{s2, b2, nullptr, x, out}, m, dh, d, stream);
 }
 
 // ---------------------------------------------------- attention_block_int8
@@ -290,17 +299,20 @@ extern "C" {
 // w2t (d, dh), wqkv_t (3 d, d), wo_t (d, d), all int8; scales, biases, LayerNorm
 // parameters and inverse activation scales are f32 vectors of their width.
 
+// q1 is scratch of m * d int8, hidden of m * dh int8; d and dh multiples of 128.
 int cvt_mlp_block_int8(const void* x, const float* ln_g, const float* ln_b, const void* w1t, const float* s1,
                        const float* b1, const void* w2t, const float* s2, const float* b2, const float* inv1,
-                       const float* inv2, void* out, int m, int d, int dh, float eps, int is_bf16, void* stream) {
+                       const float* inv2, void* q1, void* hidden, void* out, int m, int d, int dh, float eps,
+                       int is_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int8_t* w1 = (const int8_t*)w1t;
   const int8_t* w2 = (const int8_t*)w2t;
+  int8_t *pq = (int8_t*)q1, *ph = (int8_t*)hidden;
   if (is_bf16)
-    return (int)mlp_block_int8<__nv_bfloat16>((const __nv_bfloat16*)x, ln_g, ln_b, w1, s1, b1, w2, s2, b2, inv1,
-                                              inv2, (__nv_bfloat16*)out, m, d, dh, eps, st);
-  return (int)mlp_block_int8<float>((const float*)x, ln_g, ln_b, w1, s1, b1, w2, s2, b2, inv1, inv2, (float*)out, m,
-                                    d, dh, eps, st);
+    return (int)mlp_block_int8<bf16>((const bf16*)x, ln_g, ln_b, w1, s1, b1, w2, s2, b2, inv1, inv2, pq, ph,
+                                     (bf16*)out, m, d, dh, eps, st);
+  return (int)mlp_block_int8<float>((const float*)x, ln_g, ln_b, w1, s1, b1, w2, s2, b2, inv1, inv2, pq, ph,
+                                    (float*)out, m, d, dh, eps, st);
 }
 
 // qkv is scratch of n * s_len * 3 d values of T, joined of n * s_len * d int8.

@@ -193,20 +193,174 @@ cudaError_t launch_ln_residual(const float* branch, const T* x, const float* ln_
 // The backward of LN over rows of d values (count 0), a warp a row, shared by
 // the bf16 backward of mlp_block, cn_mlp_block and attention_block
 // (ln_backward_rows): with x^ = (x - mean) rstd, the statistics recomputed
-// from x in f32 as row_stats takes them, and gd = gamma dh,
+// from x in f32 (mean, then the centred squares, as row_stats takes them), and
+// gd = gamma dh,
 //   dx = resid + rstd (gd - mean(gd) - x^ mean(gd x^))    (resid null: none)
-// rounded to T once, and this block's sums over its rows of dh x^ (for dgamma)
-// and of dh (for dbeta) into partial[block][2][d]: each warp sums its rows in
-// its own slice of shared memory (a lane its own columns), then the block adds
-// the four slices in warp order; the wrapper adds the blocks' partials in
-// block order.  Rows go to warps by a fixed stride, so every call gives the
-// same bits.  Bound: bytes, x, dh and resid read and dx written once (155 MB
-// at ViT-B/16 b128, 0.046 ms).  The row is read through the caches: a
-// version holding rows in registers ran at fewer warps an SM, and slower.
-constexpr int LNB_THREADS = 128;
+// rounded to T once, and the sums over the rows of dh x^ (for dgamma) and of
+// dh (for dbeta).  Bound: bytes, x, dh and resid read and dx written once
+// (155 MB at ViT-B/16 b128, 0.046 ms).
+//
+// ln_backward_vec_kernel, the rule: a lane owns NC 16-byte chunks of the row
+// (columns 8 c .. 8 c + 7 of chunk c = lane + 32 j in bf16, 4 c .. in f32), so
+// a row is read once: x, dh and resid with 16-byte loads, held in registers
+// through both passes, and dx stored 16 bytes at a time.  The parameters'
+// sums stay in the lane's registers (its own columns) across every row its
+// warp takes on a persistent grid (as many blocks as fit on the card,
+// blocks_per_sm), and meet the block's other warps once, at the end, in
+// shared memory.  It takes rows of d a multiple of 16 bytes, at most 32
+// LNB_CHUNKS_MAX chunks, every row 16-byte aligned; ln_backward_kernel, the
+// same sums by scalar loads through the caches and per-warp slices of shared
+// memory, takes any other d (300; 2048 in bf16; a misaligned view).
+//
+// Both write each block's sums into partial[block][2][d], the warps added in
+// warp order; ln_backward_reduce_kernel then adds the blocks in block order
+// into sums[2][d].  Rows go to warps by a fixed stride, so every call on one
+// card gives the same bits.  No atomics.
+constexpr int LNB_THREADS = 256;     // ln_backward_vec_kernel: eight warps, a row each at a time
+constexpr int LNB_SCALAR_THREADS = 128;
+constexpr int LNB_CHUNKS_MAX = 6;    // bf16 rows up to 1536 values, f32 up to 768
+
+// 16 bytes of T as f32 values, and back
+template <typename T> struct Chunk {
+  static constexpr int N = 16 / (int)sizeof(T);
+};
+template <typename T> __device__ __forceinline__ void unpack16(const int4& raw, float (&v)[Chunk<T>::N]) {
+  const T* h = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int e = 0; e < Chunk<T>::N; ++e) v[e] = to_f32<T>(h[e]);
+}
+template <typename T> __device__ __forceinline__ int4 pack16(const float (&v)[Chunk<T>::N]) {
+  int4 raw;
+  T* h = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int e = 0; e < Chunk<T>::N; ++e) h[e] = from_f32<T>(v[e]);
+  return raw;
+}
+
+// V f32 values at p (16-byte aligned), by 16-byte loads
+template <int V> __device__ __forceinline__ void gamma_chunk(const float* p, float (&v)[V]) {
+#pragma unroll
+  for (int q = 0; q < V / 4; ++q) {
+    const float4 f = reinterpret_cast<const float4*>(p)[q];
+    v[4 * q] = f.x;
+    v[4 * q + 1] = f.y;
+    v[4 * q + 2] = f.z;
+    v[4 * q + 3] = f.w;
+  }
+}
+
+template <typename T, int NC>
+__global__ void __launch_bounds__(LNB_THREADS)
+ln_backward_vec_kernel(const T* __restrict__ x, const float* __restrict__ ln_g, const T* __restrict__ dh,
+                       const T* __restrict__ resid, T* __restrict__ dx, float* __restrict__ partial, int m, int d,
+                       float eps) {
+  constexpr int V = Chunk<T>::N;
+  extern __shared__ __align__(16) float smem[];  // [warp][2][d] at the end
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int chunks = d / V;
+  float acc_g[NC][V], acc_b[NC][V];  // this lane's columns: sums of dh x^, of dh
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc_g[j][e] = acc_b[j][e] = 0.0f;
+
+  for (int row = blockIdx.x * (LNB_THREADS / 32) + warp; row < m; row += gridDim.x * (LNB_THREADS / 32)) {
+    const int4* px = reinterpret_cast<const int4*>(x + (size_t)row * d);
+    const int4* pg = reinterpret_cast<const int4*>(dh + (size_t)row * d);
+    const int4* pr = resid != nullptr ? reinterpret_cast<const int4*>(resid + (size_t)row * d) : nullptr;
+    int4 rx[NC], rg[NC], rr[NC];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int ch = lane + 32 * j;
+      if (ch < chunks) {
+        rx[j] = px[ch];
+        rg[j] = pg[ch];
+        if (resid != nullptr) rr[j] = pr[ch];
+      }
+    }
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      if (lane + 32 * j >= chunks) continue;
+      float v[V];
+      unpack16<T>(rx[j], v);
+#pragma unroll
+      for (int e = 0; e < V; ++e) s += v[e];
+    }
+    const float mean = warp_sum(s) / (float)d;
+    float var = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      if (lane + 32 * j >= chunks) continue;
+      float v[V];
+      unpack16<T>(rx[j], v);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float dv = v[e] - mean;
+        var += dv * dv;
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(var) / (float)d + eps);
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int ch = lane + 32 * j;
+      if (ch >= chunks) continue;
+      float xv[V], gv[V], lg[V];
+      unpack16<T>(rx[j], xv);
+      unpack16<T>(rg[j], gv);
+      gamma_chunk<V>(ln_g + ch * V, lg);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float xh = (xv[e] - mean) * rstd, gd = lg[e] * gv[e];
+        s1 += gd;
+        s2 += gd * xh;
+        acc_g[j][e] += gv[e] * xh;
+        acc_b[j][e] += gv[e];
+      }
+    }
+    s1 = warp_sum(s1) / (float)d;
+    s2 = warp_sum(s2) / (float)d;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int ch = lane + 32 * j;
+      if (ch >= chunks) continue;
+      float xv[V], gv[V], lg[V], rv[V];
+      unpack16<T>(rx[j], xv);
+      unpack16<T>(rg[j], gv);
+      gamma_chunk<V>(ln_g + ch * V, lg);
+      if (resid != nullptr) unpack16<T>(rr[j], rv);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float xh = (xv[e] - mean) * rstd, gd = lg[e] * gv[e];
+        const float v = rstd * (gd - s1 - xh * s2);
+        xv[e] = resid != nullptr ? rv[e] + v : v;
+      }
+      reinterpret_cast<int4*>(dx + (size_t)row * d)[ch] = pack16<T>(xv);
+    }
+  }
+  float* mine = smem + 2 * d * warp;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int ch = lane + 32 * j;
+    if (ch >= chunks) continue;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      mine[ch * V + e] = acc_g[j][e];
+      mine[d + ch * V + e] = acc_b[j][e];
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < 2 * d; c += LNB_THREADS) {
+    float sum = 0.0f;
+#pragma unroll
+    for (int w = 0; w < LNB_THREADS / 32; ++w) sum += smem[2 * d * w + c];
+    partial[(size_t)blockIdx.x * 2 * d + c] = sum;
+  }
+}
 
 template <typename T>
-__global__ void __launch_bounds__(LNB_THREADS)
+__global__ void __launch_bounds__(LNB_SCALAR_THREADS)
 ln_backward_kernel(const T* __restrict__ x, const float* __restrict__ ln_g, const T* __restrict__ dh,
                    const T* __restrict__ resid, T* __restrict__ dx, float* __restrict__ partial, int m, int d,
                    float eps) {
@@ -214,7 +368,8 @@ ln_backward_kernel(const T* __restrict__ x, const float* __restrict__ ln_g, cons
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* acc = smem + 2 * d * warp;  // [2][d]: sums of dh x^, of dh
   for (int c = lane; c < 2 * d; c += 32) acc[c] = 0.0f;
-  for (int row = blockIdx.x * (LNB_THREADS / 32) + warp; row < m; row += gridDim.x * (LNB_THREADS / 32)) {
+  for (int row = blockIdx.x * (LNB_SCALAR_THREADS / 32) + warp; row < m;
+       row += gridDim.x * (LNB_SCALAR_THREADS / 32)) {
     const T* px = x + (size_t)row * d;
     const T* pg = dh + (size_t)row * d;
     float mean, rstd;
@@ -238,23 +393,83 @@ ln_backward_kernel(const T* __restrict__ x, const float* __restrict__ ln_g, cons
     }
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < 2 * d; c += LNB_THREADS) {
+  for (int c = threadIdx.x; c < 2 * d; c += LNB_SCALAR_THREADS) {
     float s = 0.0f;
 #pragma unroll
-    for (int w = 0; w < LNB_THREADS / 32; ++w) s += smem[2 * d * w + c];
+    for (int w = 0; w < LNB_SCALAR_THREADS / 32; ++w) s += smem[2 * d * w + c];
     partial[(size_t)blockIdx.x * 2 * d + c] = s;
   }
 }
 
-// partial holds blocks * 2 * d floats
+// sums[c] = partial[0][c] + partial[1][c] + ... over `blocks` rows of `width`, in block order: warp w adds rows w,
+// w + 8, ... of its 32 columns, then the eight warps' sums are added in warp order
+constexpr int LNR_WARPS = 8;
+
+__global__ void __launch_bounds__(LNR_WARPS * 32)
+ln_backward_reduce_kernel(const float* __restrict__ partial, float* __restrict__ sums, int blocks, int width) {
+  __shared__ float part[LNR_WARPS * 32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = blockIdx.x * 32 + lane;
+  float s = 0.0f;
+  if (c < width)
+    for (int b = warp; b < blocks; b += LNR_WARPS) s += partial[(size_t)b * width + c];
+  part[warp * 32 + lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < width) {
+    float total = 0.0f;
+#pragma unroll
+    for (int w = 0; w < LNR_WARPS; ++w) total += part[w * 32 + lane];
+    sums[c] = total;
+  }
+}
+
+template <typename T>
+using LnBackwardKernel = void (*)(const T*, const float*, const T*, const T*, T*, float*, int, int, float);
+
+// One call: the kernel of the row's path on a persistent grid of at most `capacity` blocks (partial holds
+// capacity * 2 * d floats), then the blocks' sums into sums (2 * d floats).  With info, no launch: info[0..5] =
+// path (NC 16-byte chunks a lane; 0 the scalar kernel), threads, shared bytes a block, blocks an SM, registers a
+// thread, grid.
 template <typename T>
 cudaError_t launch_ln_backward(const T* x, const float* ln_g, const T* dh, const T* resid, T* dx, float* partial,
-                               int m, int d, float eps, int blocks, cudaStream_t stream) {
-  const size_t smem = (size_t)2 * d * (LNB_THREADS / 32) * sizeof(float);
-  if (m < 1 || d < 1 || blocks < 1 || smem > 232448) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(ln_backward_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                               float* sums, int m, int d, float eps, int sms, int capacity, int* info,
+                               cudaStream_t stream) {
+  if (m < 1 || d < 1 || sms < 1 || capacity < 1) return cudaErrorInvalidValue;
+  constexpr int V = Chunk<T>::N;
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int nc = (d / V + 31) / 32;
+  const bool vec = d % V == 0 && nc <= LNB_CHUNKS_MAX && aligned(x) && aligned(dh) && aligned(dx) &&
+                   aligned(ln_g) && (resid == nullptr || aligned(resid));
+  LnBackwardKernel<T> fn = ln_backward_kernel<T>;
+  if (vec) {
+    const LnBackwardKernel<T> by_chunks[LNB_CHUNKS_MAX] = {
+        ln_backward_vec_kernel<T, 1>, ln_backward_vec_kernel<T, 2>, ln_backward_vec_kernel<T, 3>,
+        ln_backward_vec_kernel<T, 4>, ln_backward_vec_kernel<T, 5>, ln_backward_vec_kernel<T, 6>};
+    fn = by_chunks[nc - 1];
+  }
+  const int threads = vec ? LNB_THREADS : LNB_SCALAR_THREADS;
+  const size_t smem = (size_t)2 * d * (threads / 32) * sizeof(float);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  int per_sm = 0;
+  cudaError_t err = blocks_per_sm((const void*)fn, threads, smem, 232448, &per_sm);
   if (err != cudaSuccess) return err;
-  ln_backward_kernel<T><<<blocks, LNB_THREADS, smem, stream>>>(x, ln_g, dh, resid, dx, partial, m, d, eps);
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  const long long want = ((long long)m + threads / 32 - 1) / (threads / 32);
+  long long grid = (long long)per_sm * sms;
+  grid = want < grid ? want : grid;
+  grid = capacity < grid ? capacity : grid;
+  if (info != nullptr) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, (const void*)fn);
+    if (err != cudaSuccess) return err;
+    const int got[6] = {vec ? nc : 0, threads, (int)smem, per_sm, attr.numRegs, (int)grid};
+    for (int i = 0; i < 6; ++i) info[i] = got[i];
+    return cudaSuccess;
+  }
+  fn<<<(int)grid, threads, smem, stream>>>(x, ln_g, dh, resid, dx, partial, m, d, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ln_backward_reduce_kernel<<<(2 * d + 31) / 32, LNR_WARPS * 32, 0, stream>>>(partial, sums, (int)grid, 2 * d);
   return cudaGetLastError();
 }
 
@@ -291,6 +506,18 @@ __device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
   v.x = from_f32<bf16>(v0);
   v.y = from_f32<bf16>(v1);
   *reinterpret_cast<__nv_bfloat162*>(p) = v;
+}
+
+// two adjacent values as f32, one 4- or 8-byte load
+__device__ __forceinline__ void load2(const float* p, float& v0, float& v1) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  v0 = v.x;
+  v1 = v.y;
+}
+__device__ __forceinline__ void load2(const bf16* p, float& v0, float& v1) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+  v0 = to_f32<bf16>(v.x);
+  v1 = to_f32<bf16>(v.y);
 }
 
 template <int EPI, typename OutT>

@@ -80,8 +80,8 @@
 //   cvt_mlp_gelu_backward  Kernel A, the MLP's elementwise backward through
 //                          its gelu, fused (gelu_backward_kernel)
 //   cvt_ln_backward        the LayerNorm backward rows of all three blocks
-//                          (ln_backward_kernel of ln_gemm.cuh), with the
-//                          partial sums of dgamma and dbeta
+//                          (ln_backward_vec_kernel or ln_backward_kernel of
+//                          ln_gemm.cuh), with dgamma and dbeta
 
 #include "ln_gemm.cuh"
 #include "tf32x3.cuh"
@@ -340,15 +340,28 @@ int cvt_mlp_gelu_backward(const float* da32, const float* hw, const float* b1, v
   return (int)cudaGetLastError();
 }
 
-// The LayerNorm backward rows: dx = resid + LN'(x) dh of T (resid null for none), partial (blocks, 2, d) of f32.
+// The LayerNorm backward rows: dx = resid + LN'(x) dh of T (resid null for none), and sums (2, d) of f32, d ln_g
+// and d ln_b; partial is scratch of capacity * 2 * d floats (the persistent grid has at most capacity blocks, sms
+// the card's multiprocessors).
 int cvt_ln_backward(const void* x, const float* ln_g, const void* dh, const void* resid, void* dx, float* partial,
-                    int m, int d, float eps, int blocks, int is_bf16, void* stream) {
+                    float* sums, int m, int d, float eps, int sms, int capacity, int is_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16)
     return (int)cvt::launch_ln_backward<bf16>((const bf16*)x, ln_g, (const bf16*)dh, (const bf16*)resid, (bf16*)dx,
-                                              partial, m, d, eps, blocks, st);
+                                              partial, sums, m, d, eps, sms, capacity, nullptr, st);
   return (int)cvt::launch_ln_backward<float>((const float*)x, ln_g, (const float*)dh, (const float*)resid,
-                                             (float*)dx, partial, m, d, eps, blocks, st);
+                                             (float*)dx, partial, sums, m, d, eps, sms, capacity, nullptr, st);
+}
+
+// What cvt_ln_backward would launch for these arguments, without launching: info[0..5] = chunks a lane (0: the
+// scalar kernel), threads, shared bytes a block, blocks an SM, registers a thread, grid.
+int cvt_ln_backward_info(const void* x, const float* ln_g, const void* dh, const void* resid, const void* dx, int m,
+                         int d, int sms, int capacity, int is_bf16, int* info) {
+  if (is_bf16)
+    return (int)cvt::launch_ln_backward<bf16>((const bf16*)x, ln_g, (const bf16*)dh, (const bf16*)resid,
+                                              (bf16*)dx, nullptr, nullptr, m, d, 0.0f, sms, capacity, info, nullptr);
+  return (int)cvt::launch_ln_backward<float>((const float*)x, ln_g, (const float*)dh, (const float*)resid,
+                                             (float*)dx, nullptr, nullptr, m, d, 0.0f, sms, capacity, info, nullptr);
 }
 
 // The bf16 tensor-core product alone: out = Epi(a w), a (m, k), w (k, n) of

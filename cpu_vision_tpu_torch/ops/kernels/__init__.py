@@ -101,4 +101,5 @@ def reset_launch_counts() -> None:
     cn_mlp_block.kernel_launches = 0
     window_attention_block.kernel_launches = 0
     attention_block_int8.kernel_launches = 0
+    mlp_block_int8.kernel_launches = 0
     attention_core_backward.kernel_launches = 0

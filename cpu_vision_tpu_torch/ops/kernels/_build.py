@@ -12,6 +12,7 @@ loads at once.  All sources that need building compile in parallel, one
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -22,8 +23,8 @@ from typing import Dict
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "SOURCE_FLAGS", "build", "load", "sass_counts", "on_card", "launch", "count_launch",
-           "count_plain_route", "reset_count"]
+__all__ = ["NVCC_FLAGS", "SOURCE_FLAGS", "build", "load", "sass_counts", "on_card", "sm_count", "launch",
+           "count_launch", "count_plain_route", "reset_count"]
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -137,6 +138,19 @@ def on_card(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
     raise ValueError(f"expected a CPU or CUDA tensor, got one on {x.device}")
+
+
+def sm_count(x: torch.Tensor) -> int:
+    """The multiprocessors of ``x``'s card, which size a persistent grid.  Read once a card; a CPU tensor (the
+    emulator's stand-in card) asks each time."""
+    if x.is_cuda:
+        return _card_sms(x.device.index)
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
+
+
+@functools.cache
+def _card_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch(lib: ctypes.CDLL, name: str, x: torch.Tensor, *args) -> None:

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import functools
 from typing import Optional
 
 import torch
@@ -137,22 +136,9 @@ def _kernel(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor])
     out = torch.empty_like(x)
     _build.launch(_lib(), "cvt_depthwise_conv2d", x, x.data_ptr(), kernel.data_ptr(),
                   None if bias is None else bias.data_ptr(), out.data_ptr(), n, h, w, c, kh,
-                  int(x.dtype == torch.bfloat16), _sms(x))
+                  int(x.dtype == torch.bfloat16), _build.sm_count(x))
     _build.count_launch(depthwise_conv2d, x)
     return out
-
-
-def _sms(x: torch.Tensor) -> int:
-    """The multiprocessors of ``x``'s card: the persistent grid's size is a multiple of them.  Read once a card; a
-    CPU tensor (the emulator's stand-in card) asks each time."""
-    if x.is_cuda:
-        return _card_sms(x.device.index)
-    return torch.cuda.get_device_properties(x.device).multi_processor_count
-
-
-@functools.cache
-def _card_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 _INFO_KEYS = ("patch_rows", "patch_cols", "channel_groups", "threads", "shared_bytes", "blocks_per_sm",
@@ -167,7 +153,8 @@ def kernel_info(x: torch.Tensor, ks: int) -> dict:
     n, h, w, c = x.shape
     info = (ctypes.c_int * len(_INFO_KEYS))()
     with torch.cuda.device(x.device) if x.is_cuda else contextlib.nullcontext():  # a CPU tensor: the emulator
-        err = _lib().cvt_depthwise_info(x.data_ptr(), n, h, w, c, ks, int(x.dtype == torch.bfloat16), _sms(x), info)
+        err = _lib().cvt_depthwise_info(x.data_ptr(), n, h, w, c, ks, int(x.dtype == torch.bfloat16),
+                                        _build.sm_count(x), info)
     if err != 0:
         raise RuntimeError(f"cvt_depthwise_info: CUDA error {err}")
     return dict(zip(_INFO_KEYS, info))

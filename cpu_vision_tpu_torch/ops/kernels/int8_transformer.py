@@ -22,10 +22,15 @@ every rescale are float32; the QKV product is rounded to x's dtype after its
 bias, and the attention output is quantised from float32.  The JAX functions'
 ``block_m`` and ``interpret`` arguments have no counterpart here.
 
-A wrapper given CUDA tensors launches its hand-written kernel, adds one to its
-``launches`` count and raises if the launch fails or the kernel does not take
-the arguments; given CPU tensors it runs the twin.  ``attention_block_int8`` is
-three kernel launches a call, counted in ``attention_block_int8.kernel_launches``.
+A wrapper given CUDA tensors launches its hand-written kernels, adds one to its
+``launches`` count and raises if a launch fails or the kernels do not take
+the arguments; given CPU tensors it runs the twin.  Each is three kernel
+launches a call, counted in its ``kernel_launches``: ``mlp_block_int8`` the
+LayerNorm rows quantised to int8, then the up- and the down-projection on the
+int8 tensor cores (``wgmma`` s8, int32 sums; the (tokens, D) and (tokens, Dh)
+int8 activations make one round trip through device memory);
+``attention_block_int8`` its QKV product, attention core and output projection
+(the dp4a product of ``csrc/int8_gemm.cuh``).
 On the card ``x`` is float32 or bfloat16 and contiguous, ``mlp_block_int8``
 takes D in ``MLP_DIMS`` and Dh a multiple of 256, ``attention_block_int8`` D a
 multiple of 16 and a head dim of ``flash_attention.HEAD_DIMS``.  The kernels
@@ -51,7 +56,7 @@ from .transformer_block import _gelu_f32, _ln_f32
 __all__ = ["quantize_weight", "mlp_block_int8", "mlp_block_int8_plain", "attention_block_int8",
            "attention_block_int8_plain", "mlp_kernel_takes", "attention_kernel_takes", "MLP_DIMS"]
 
-MLP_DIMS = (256, 512, 768, 1024, 1280)  # instantiations in csrc/int8_transformer.cu
+MLP_DIMS = (256, 512, 768, 1024, 1280)  # the widths held on the card (csrc takes D and Dh multiples of 128)
 MLP_HIDDEN_STEP = 256
 
 _c_lib: Optional[ctypes.CDLL] = None
@@ -62,7 +67,7 @@ def _lib() -> ctypes.CDLL:
     if _c_lib is None:
         lib = _build.load("int8_transformer")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.cvt_mlp_block_int8.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, i, p]
+        lib.cvt_mlp_block_int8.argtypes = [p] * 14 + [i, i, i, f, i, p]
         lib.cvt_mlp_block_int8.restype = ctypes.c_int
         lib.cvt_attention_block_int8.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, p]
         lib.cvt_attention_block_int8.restype = ctypes.c_int
@@ -140,8 +145,8 @@ def _check_card(x: torch.Tensor) -> None:
 
 def mlp_block_int8(x, ln_g, ln_b, qw1, s1, b1, qw2, s2, b2, a1, a2, eps: float = 1e-6) -> torch.Tensor:
     """``x + Dense2(gelu(Dense1(LN(x))))`` with int8 products for 2-D ``x``
-    (tokens, D), in one kernel on the card: the (tokens, Dh) int8 activations
-    never reach device memory."""
+    (tokens, D); on the card three hand-written launches (LN rows to int8, the
+    two products on the int8 tensor cores)."""
     _check_mlp(x, ln_g, ln_b, qw1, s1, b1, qw2, s2, b2)
     if not _build.on_card(x):
         return mlp_block_int8_plain(x, ln_g, ln_b, qw1, s1, b1, qw2, s2, b2, a1, a2, eps)
@@ -153,15 +158,20 @@ def mlp_block_int8(x, ln_g, ln_b, qw1, s1, b1, qw2, s2, b2, a1, a2, eps: float =
     w1t, w2t = qw1.t().contiguous(), qw2.t().contiguous()
     inv1, inv2 = _inverse(a1, d, x.device), _inverse(a2, dh, x.device)
     ln_g, ln_b, s1, b1, s2, b2 = (_f32(t) for t in (ln_g, ln_b, s1, b1, s2, b2))
+    q1 = torch.empty((m, d), dtype=torch.int8, device=x.device)
+    hidden = torch.empty((m, dh), dtype=torch.int8, device=x.device)
     out = torch.empty_like(x)
     _build.launch(_lib(), "cvt_mlp_block_int8", x, x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(), w1t.data_ptr(),
                   s1.data_ptr(), b1.data_ptr(), w2t.data_ptr(), s2.data_ptr(), b2.data_ptr(), inv1.data_ptr(),
-                  inv2.data_ptr(), out.data_ptr(), m, d, dh, float(eps), int(x.dtype == torch.bfloat16))
+                  inv2.data_ptr(), q1.data_ptr(), hidden.data_ptr(), out.data_ptr(), m, d, dh, float(eps),
+                  int(x.dtype == torch.bfloat16))
     _build.count_launch(mlp_block_int8, x)
+    mlp_block_int8.kernel_launches += 3
     return out
 
 
 _build.reset_count(mlp_block_int8)
+mlp_block_int8.kernel_launches = 0
 
 
 def _check_attn(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, heads: int) -> None:

@@ -85,6 +85,7 @@ with f32 sums and one of the three epilogues of the blocks: ``"bias"``
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Optional
@@ -107,8 +108,7 @@ MLP_DIMS = (96, 128, 192, 256, 384, 512, 768, 1024, 1280, 1536)  # the widths he
 MLP_HIDDEN_STEP = 64       # Dh is a multiple of 256, or of this up to D = MLP_RAGGED_MAX_DIM
 MLP_RAGGED_MAX_DIM = 512
 PRODUCT_EPILOGUES = ("bias", "gelu", "residual")  # bf16_product's, in the order of csrc's TC_BIAS, TC_GELU, TC_RESID
-LN_BACKWARD_ROWS_A_BLOCK = 4     # ln_backward_kernel: a warp a row, four warps a block (csrc/ln_gemm.cuh)
-LN_BACKWARD_MAX_BLOCKS = 528     # four blocks an SM of an H100; the partial sums are added in block order
+LN_BACKWARD_BLOCKS_AN_SM = 16    # room for ln_backward_rows' per-block sums: the most blocks of its kernels an SM holds
 
 _c_lib: Optional[ctypes.CDLL] = None
 
@@ -137,8 +137,10 @@ def _lib() -> ctypes.CDLL:
         lib.cvt_bf16_product.restype = ctypes.c_int
         lib.cvt_mlp_gelu_backward.argtypes = [p] * 6 + [i, i, p]
         lib.cvt_mlp_gelu_backward.restype = ctypes.c_int
-        lib.cvt_ln_backward.argtypes = [p] * 6 + [i, i, f, i, i, p]
+        lib.cvt_ln_backward.argtypes = [p] * 7 + [i, i, f, i, i, i, p]
         lib.cvt_ln_backward.restype = ctypes.c_int
+        lib.cvt_ln_backward_info.argtypes = [p] * 5 + [i, i, i, i, i, p]
+        lib.cvt_ln_backward_info.restype = ctypes.c_int
         _c_lib = lib
     return _c_lib
 
@@ -547,30 +549,47 @@ def ln_backward_plain(x, ln_g, dh, resid=None, eps: float = 1e-6) -> tuple:
     return dx.to(x.dtype), (dh32 * xh).sum(dim=0), dh32.sum(dim=0)
 
 
-def ln_backward_blocks(m: int) -> int:
-    """Blocks of a ``ln_backward_rows`` launch over ``m`` rows (each adds its rows' parameter gradients)."""
-    return min(math.ceil(m / LN_BACKWARD_ROWS_A_BLOCK), LN_BACKWARD_MAX_BLOCKS)
-
-
 def ln_backward_rows(x, ln_g, dh, resid=None, eps: float = 1e-6) -> tuple:
-    """``(dx, d ln_g, d ln_b)`` as ``ln_backward_plain``: one launch of
-    ``ln_backward_kernel`` on the card (``x``, ``dh`` and ``resid`` of one
-    dtype, contiguous), whose per-block partial sums of the parameters'
-    gradients are then added in block order (the same bits every call); the
-    plain version on CPU tensors."""
+    """``(dx, d ln_g, d ln_b)`` as ``ln_backward_plain``: on the card (``x``,
+    ``dh`` and ``resid`` of one dtype, contiguous) one kernel on a persistent
+    grid, rows read once with 16-byte loads and the parameters' sums kept in
+    registers (``ln_backward_vec_kernel``; any row it does not take, by width or
+    alignment, goes to the scalar ``ln_backward_kernel``), then a pass that
+    adds the blocks' sums in block order (the same bits every call); the plain
+    version on CPU tensors."""
     _check_ln_backward(x, ln_g, dh, resid)
     if not _build.on_card(x):
         return ln_backward_plain(x, ln_g, dh, resid, eps)
     _check_card(x, dh, *(t for t in (resid,) if t is not None))
     m, d = x.shape
-    blocks = ln_backward_blocks(m)
+    capacity = LN_BACKWARD_BLOCKS_AN_SM * _build.sm_count(x)
     dx = torch.empty_like(x)
-    partial = torch.empty((blocks, 2, d), dtype=torch.float32, device=x.device)
+    partial = torch.empty((capacity, 2, d), dtype=torch.float32, device=x.device)
+    sums = torch.empty((2, d), dtype=torch.float32, device=x.device)
     _build.launch(_lib(), "cvt_ln_backward", x, x.data_ptr(), _f32c(ln_g).data_ptr(), dh.data_ptr(), _ptr(resid),
-                  dx.data_ptr(), partial.data_ptr(), m, d, float(eps), blocks, int(x.dtype == torch.bfloat16))
+                  dx.data_ptr(), partial.data_ptr(), sums.data_ptr(), m, d, float(eps), _build.sm_count(x), capacity,
+                  int(x.dtype == torch.bfloat16))
     _build.count_launch(ln_backward_rows, x)
-    sums = partial.sum(dim=0)
     return dx, sums[0], sums[1]
+
+
+_LN_BACKWARD_INFO = ("chunks_a_lane", "threads", "shared_bytes", "blocks_per_sm", "registers", "grid")
+
+
+def ln_backward_info(x, ln_g, dh, resid=None) -> dict:
+    """What ``ln_backward_rows`` launches for these tensors: the 16-byte chunks of a row a lane holds
+    (``chunks_a_lane``; 0 is the scalar kernel), threads and shared bytes a block, blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers a thread and the grid.  Launches nothing."""
+    m, d = x.shape
+    info = (ctypes.c_int * len(_LN_BACKWARD_INFO))()
+    ln_g = _f32c(ln_g)
+    with torch.cuda.device(x.device) if x.is_cuda else contextlib.nullcontext():  # a CPU tensor: the emulator
+        err = _lib().cvt_ln_backward_info(x.data_ptr(), ln_g.data_ptr(), dh.data_ptr(), _ptr(resid), x.data_ptr(),
+                                          m, d, _build.sm_count(x), LN_BACKWARD_BLOCKS_AN_SM * _build.sm_count(x),
+                                          int(x.dtype == torch.bfloat16), info)
+    if err != 0:
+        raise RuntimeError(f"cvt_ln_backward_info: CUDA error {err}")
+    return dict(zip(_LN_BACKWARD_INFO, info))
 
 
 _build.reset_count(ln_backward_rows)

@@ -3,8 +3,11 @@
 backward (Kernel B, ``csrc/tc_attention_bwd.cuh``, wgmma with A from
 registers and MN-major B tiles), the gelu's elementwise backward (Kernel A,
 ``csrc/transformer_block.cu:gelu_backward_kernel``) and the LayerNorm
-backward rows (``csrc/ln_gemm.cuh:ln_backward_kernel``), each alone and in
-the whole backward of ``mlp_block``, ``cn_mlp_block`` and ``attention_block``.
+backward rows (``csrc/ln_gemm.cuh``: ``ln_backward_vec_kernel``, rows held
+in registers on a persistent grid, and the scalar ``ln_backward_kernel`` for
+other widths and misaligned rows, each with the pass that adds the blocks'
+sums), each alone and in the whole backward of ``mlp_block``,
+``cn_mlp_block`` and ``attention_block``.
 
 The emulator compiles the sources with ``g++`` against stand-in headers and
 runs one thread per CUDA thread (see ``tests/test_torch_attention_cores_emu.py``).
@@ -122,6 +125,34 @@ def test_ln_backward_rows(emulated, m, d, resid, dtype):
     for a, b in zip(got[1:], ref[1:]):
         _assert_close(a, b, 1e-5)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # block partials added in a fixed order
+
+
+# the vector kernel with several rows a warp (a persistent grid of one or two blocks on one or two emulated SMs,
+# eight warps each), ragged against the warps; a misaligned view of a vector width, which takes the scalar kernel
+@pytest.mark.parametrize("m,d,dtype,sms,offset,chunks", [(75, 768, torch.bfloat16, 1, 0, 3),
+                                                        (41, 96, torch.float32, 2, 0, 1),
+                                                        (23, 256, torch.bfloat16, 1, 1, 0)])
+def test_ln_backward_rows_paths(emulated, monkeypatch, m, d, dtype, sms, offset, chunks):
+    emulate, build_dir = emulated
+    rng = np.random.default_rng(m)
+
+    def rows():  # (m, d) of dtype, its storage shifted by `offset` values (2 bytes in bf16: off 16-byte alignment)
+        return _normal(rng, (m * d + offset,), dtype)[offset:].view(m, d)
+
+    x, dh, r = rows(), rows(), rows()
+    ln_g = _normal(rng, (d,), std=0.2, mean=1.0)
+    monkeypatch.setattr(transformer_block._build, "sm_count", lambda t: sms)
+    with emulate.kernels_on_cpu(build_dir):
+        info = transformer_block.ln_backward_info(x, ln_g, dh, r)
+        got = kernels.ln_backward_rows(x, ln_g, dh, r)
+        again = kernels.ln_backward_rows(x, ln_g, dh, r)
+    assert info["chunks_a_lane"] == chunks  # 0: the scalar kernel
+    assert info["grid"] == sms and m > info["grid"] * info["threads"] // 32  # some warp takes several rows
+    ref = kernels.ln_backward_plain(x, ln_g, dh, r)
+    _assert_close(got[0], ref[0], 1e-5 if dtype == torch.float32 else 2 ** -8)
+    for a, b in zip(got[1:], ref[1:]):
+        _assert_close(a, b, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def _mlp_args(rng, m, d, dh):

@@ -798,7 +798,9 @@ def test_mlp_block_int8_matches_twin(cuda, rng, m, d, dh, dtype):
     torch.cuda.synchronize()
     want = int8_transformer.mlp_block_int8_plain(*args)
     assert got.dtype == dtype and _scaled_err(got, want) <= 2e-2
-    assert kernels.mlp_block_int8.launches == 1
+    # LN rows to int8, the up- and the down-projection on wgmma s8
+    assert kernels.mlp_block_int8.launches == 1 and kernels.mlp_block_int8.kernel_launches == 3
+    assert torch.equal(got, kernels.mlp_block_int8(*args))  # exact int32 sums: the same bits twice
 
 
 def test_mlp_block_int8_per_tensor_scales(cuda, rng):
@@ -1106,6 +1108,26 @@ def test_ln_backward_rows_matches_plain(cuda, rng, m, d, resid, dtype):
     for a, b in zip(got[1:], ref[1:]):
         assert bool(((a - b).abs() <= 1e-5 * (1 + b.abs()) + 1e-5 * b.abs().max()).all()), float((a - b).abs().max())
     assert all(torch.equal(a, b) for a, b in zip(got, kernels.ln_backward_rows(x, ln_g, dh, r if resid else None)))
+
+
+@pytest.mark.parametrize("offset,chunks", [(0, 3), (1, 0)])
+def test_ln_backward_rows_misaligned_view_takes_the_scalar_kernel(cuda, rng, offset, chunks):
+    """ViT-B/16 b128's rows in bf16 take the vector kernel (three 16-byte chunks a lane); the same rows on a view
+    one value off 16-byte alignment (contiguous all the same) take the scalar kernel, held to the same rules."""
+    m, d = 25216, 768
+
+    def rows():
+        return _normal(rng, (m * d + offset,), torch.bfloat16, cuda)[offset:].view(m, d)
+
+    x, dh, r = rows(), rows(), rows()
+    ln_g = _normal(rng, (d,), torch.float32, cuda, 0.2, 1.0)
+    assert transformer_block.ln_backward_info(x, ln_g, dh, r)["chunks_a_lane"] == chunks
+    got = kernels.ln_backward_rows(x, ln_g, dh, r)
+    ref = kernels.ln_backward_plain(x, ln_g, dh, r)
+    _close(got[0], ref[0], torch.bfloat16)
+    for a, b in zip(got[1:], ref[1:]):
+        assert bool(((a - b).abs() <= 1e-5 * (1 + b.abs()) + 1e-5 * b.abs().max()).all()), float((a - b).abs().max())
+    assert all(torch.equal(a, b) for a, b in zip(got, kernels.ln_backward_rows(x, ln_g, dh, r)))
 
 
 def test_vit_train_step_runs_the_backward_kernels(cuda, rng, monkeypatch):

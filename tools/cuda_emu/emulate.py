@@ -68,15 +68,15 @@ def compiler() -> str:
     return found
 
 
-def build(build_dir) -> Path:
-    """Translate and compile ``STEMS`` into ``build_dir``; returns it."""
+def build(build_dir, stems=STEMS) -> Path:
+    """Translate and compile ``stems`` (all of ``STEMS`` by default) into ``build_dir``; returns it."""
     build_dir = Path(build_dir)
     build_dir.mkdir(parents=True, exist_ok=True)
     for header in CSRC.glob("*.cuh"):
         if not (HERE / header.name).exists():  # a stand-in here (hopper.cuh) takes the header's place
             (build_dir / header.name).write_text(translate(header.read_text()))
     jobs = []
-    for stem in STEMS:
+    for stem in stems:
         source = build_dir / f"{stem}.cpp"
         source.write_text(translate((CSRC / f"{stem}.cu").read_text()))
         cmd = [compiler(), "-std=c++20", "-O1", "-shared", "-fPIC", "-I", str(build_dir), "-I", str(HERE),
@@ -90,11 +90,12 @@ def build(build_dir) -> Path:
 
 
 @contextlib.contextmanager
-def kernels_on_cpu(build_dir) -> Iterator[None]:
+def kernels_on_cpu(build_dir, stems=STEMS) -> Iterator[None]:
     """Inside, the wrappers of ``flash_attention``, ``transformer_block``,
     ``swin_attention``, ``depthwise``, ``nms``, ``int8_matmul``, ``int8_transformer`` and ``wgrad_matmul`` take CPU
     tensors through the emulated CUDA sources instead of the twins.
-    Builds into ``build_dir`` unless the libraries are there already."""
+    Builds ``stems`` (all by default; a wrapper of a source left out fails to load) into ``build_dir`` unless the
+    libraries are there already."""
     sys.path.insert(0, str(REPO))
     import importlib
     import types
@@ -107,8 +108,8 @@ def kernels_on_cpu(build_dir) -> Iterator[None]:
     modules = (flash_attention, transformer_block, swin_attention, depthwise, nms, int8_matmul, int8_transformer, wgrad)
 
     build_dir = Path(build_dir)
-    if not all((build_dir / f"lib{stem}.so").exists() for stem in STEMS):
-        build(build_dir)
+    if not all((build_dir / f"lib{stem}.so").exists() for stem in stems):
+        build(build_dir, stems)
 
     def launch(lib, name, x, *args):
         err = getattr(lib, name)(*args, None)

@@ -17,7 +17,9 @@
 // it held.  A tf32 operand is read as the f32 word it is stored in with its 13
 // low mantissa bits dropped, as the hardware truncates them, so a hi half
 // that was not rounded before it was stored shows as a wrong sum;
-// tf32_rna rounds to nearest, ties away from zero, as cvt.rna.  It checks a
+// tf32_rna rounds to nearest, ties away from zero, as cvt.rna.  The s8
+// products read int8 operands (K-major only, as PTX has them) and sum in
+// int32, exactly: float sums of int8 products would stop being exact past 2^24.  It checks a
 // kernel's tiling against that reading of the hardware, not the hardware
 // itself.
 
@@ -76,6 +78,7 @@ template <int N> inline void wgmma_wait() {
   emu_warp_barriers[threadIdx.x >> 5]->arrive_and_wait();  // see emu_wgmma_rs
 }
 template <int N> inline void fence_sums(float (&)[N]) {}
+template <int N> inline void fence_sums(int (&)[N]) {}
 
 inline uint64_t emu_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint64_t layout) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
@@ -224,5 +227,35 @@ inline void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t* a, uint64_t b
   emu_wgmma_rs_tf32<32>(d, a, b, scale_d);
 }
 inline void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t* a, uint64_t b) { emu_wgmma_rs<32>(d, a, b); }
+
+// Element (mn, k) of a K-major int8 operand in the descriptor's swizzle (a 128-byte row holds 128 k).
+inline int emu_operand_s8(uint64_t desc, int mn, int k) {
+  const uint64_t layout = desc >> 62;
+  if (layout != 1 && layout != 2) abort();
+  const uint32_t row_bytes = layout == 1 ? 128 : 64;
+  const uint32_t start = (uint32_t)(desc & 0x3FFF) << 4, sbo = (uint32_t)((desc >> 32) & 0x3FFF) << 4;
+  uint32_t addr = start + (mn / 8) * sbo + (mn % 8) * row_bytes + k;
+  addr ^= ((addr >> 7) & (layout == 1 ? 7 : 3)) << 4;
+  if (addr + 1 > EMU_MAX_SHARED) abort();
+  int8_t v;
+  memcpy(&v, (const char*)emu_shared + addr, 1);
+  return v;
+}
+
+// d[64] (+)= A (64 x 32, K-major) . B (32 x 128, K-major), int8 into int32 sums, in the layout of emu_wgmma
+inline void wgmma_m64n128k32_s8(int (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  const int t = threadIdx.x & 127, w = t >> 5, l = t & 31;
+  int* out = d;
+  emu_products.open.push_back([=] {
+    for (int j = 0; j < 16; ++j)
+      for (int h = 0; h < 2; ++h)
+        for (int e = 0; e < 2; ++e) {
+          const int row = 16 * w + l / 4 + 8 * h, col = 8 * j + 2 * (l % 4) + e;
+          int sum = 0;
+          for (int k = 0; k < 32; ++k) sum += emu_operand_s8(a, row, k) * emu_operand_s8(b, col, k);
+          out[4 * j + 2 * h + e] = (scale_d ? out[4 * j + 2 * h + e] : 0) + sum;
+        }
+  });
+}
 
 }  // namespace cvt
