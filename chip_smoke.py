@@ -13,11 +13,12 @@ behind the float32 ``mlp_block`` / ``cn_mlp_block``, ``attention_block``,
 ``window_attention_block`` and ``wgrad_matmul``) lacks ``HGMMA ... .TF32``, a
 bf16 ``wgrad_bf16_kernel`` lacks ``HGMMA ... .BF16``, either or the depthwise
 kernel spills, or the scalar ``mlp_block_kernel``, ``wgrad_partial_kernel`` or
-``ln_gemm_kernel`` is left in any library; and if an int8 MLP product,
-``csrc/int8_transformer.cu:i8_tc_gemm_kernel``, lacks ``IGMMA`` (``wgmma`` s8)
-or holds ``IDP4A``, spills or is serialised, the dp4a ``mlp_int8_kernel`` it
-replaced is left, or the LayerNorm backward's ``ln_backward_vec_kernel``
-spills), then:
+``ln_gemm_kernel`` is left in any library; and if an instantiation of the
+int8 product, ``csrc/int8_gemm.cuh:i8_tc_gemm_kernel``, in
+``libint8_transformer`` or ``libint8_matmul`` lacks ``IGMMA`` (``wgmma`` s8)
+or holds ``IDP4A``, spills or is serialised, or a dp4a kernel it replaced
+(``mlp_int8_kernel``, ``i8_gemm_kernel``) is left, or the LayerNorm
+backward's ``ln_backward_vec_kernel`` spills), then:
 
 1. drives the main paths through the public entry points, each with the
    kernels' launch counts set to 0 just before it and read just after:
@@ -45,7 +46,7 @@ spills), then:
    width on 8 images of unequal sizes on a 640x640 canvas (``nms_sorted`` in
    the RPN's two NMS calls and the postprocess's one); and the int8 engines
    ``models.Int8ViT`` over ``vit_b_16`` (bfloat16, ``attention_block_int8`` and
-   ``mlp_block_int8`` in each of the 12 layers, three kernel launches each) and ``models.Int8ResNet`` over
+   ``mlp_block_int8`` in each of the 12 layers, four and three kernel launches) and ``models.Int8ResNet`` over
    ``resnet50`` (``int8_matmul_requant`` in its 36 1x1 convolutions), both at
    batch 256 on 224x224 images; and training: ``vit_b_16`` bfloat16 at batch
    128 through ``parallel.make_train_step`` (3 SGD steps on the kernel routes,
@@ -107,7 +108,13 @@ spills), then:
    kernel, which sums in f32 on the CUDA cores; ``mlp_block_int8`` twice, the
    same bits, its three launches (LN rows to int8, two s8 products) timed apart
    on the device clock, with ``split_bytes_ms`` for its int8 LN rows and
-   hidden and its ``IGMMA`` count; the bf16 blocks' backward kernels
+   hidden and its ``IGMMA`` count; ``attention_block_int8`` the same way, its
+   four launches (LN rows to int8, the QKV product, the core, the output
+   product) apart, ``split_bytes_ms`` for its int8 LN rows, QKV buffer and
+   joined heads; ``int8_matmul_requant`` at every one of the 15 distinct shapes
+   of the int8 ResNet-50 path, on its own inputs, with the sum over the 36
+   launches of a forward (``forward_ms``) beside the composite's and the
+   bound's; the bf16 blocks' backward kernels
    and ``bf16_product`` and ``wgrad_matmul`` at the ViT training path's
    shapes, each beside its bound and one PyTorch call (``ln_backward_rows``
    with its kernel's path, grid and occupancy, ``kernel_info``, and its two
@@ -427,14 +434,20 @@ def main() -> int:
                 f"{stem}: a bf16 head-dim-64 attention_core_kernel or a bf16 window_core_kernel is left")
         hgmma[stem] = sum(products.values())
         core_hgmma[stem] = sum(cores.values())
-    # the int8 MLP's two products run on the int8 tensor cores: IGMMA (wgmma s8) and no IDP4A in every
-    # instantiation of i8_tc_gemm_kernel, and the dp4a mlp_int8_kernel they replaced is gone
-    i8_igmma, i8_dp4a = _build.sass_counts("int8_transformer", "IGMMA"), _build.sass_counts("int8_transformer", "IDP4A")
-    i8_products = {fn: (c, i8_dp4a.get(fn, 0)) for fn, c in i8_igmma.items() if "i8_tc_gemm_kernel" in fn}
-    print(f"  int8_transformer: (IGMMA, IDP4A) in the int8 MLP's products {i8_products}")
-    require(len(i8_products) == 4 and all(ig > 0 and dp == 0 for ig, dp in i8_products.values()),
-            "int8_transformer: an int8 MLP product without IGMMA, or with IDP4A")
-    require(not any("mlp_int8_kernel" in fn for fn in i8_igmma), "int8_transformer: the dp4a mlp_int8_kernel is left")
+    # every int8 product runs on the int8 tensor cores: IGMMA (wgmma s8) and no IDP4A in every instantiation of
+    # i8_tc_gemm_kernel (int8_transformer: the MLP's two epilogues and the attention block's two, in both dtypes;
+    # int8_matmul: requantised or f32 out, with and without relu), and the dp4a kernels they replaced are gone
+    i8_sass = {}
+    for stem, instances in (("int8_transformer", 8), ("int8_matmul", 4)):
+        i8_igmma, i8_dp4a = _build.sass_counts(stem, "IGMMA"), _build.sass_counts(stem, "IDP4A")
+        i8_sass[stem] = {fn: (c, i8_dp4a.get(fn, 0)) for fn, c in i8_igmma.items() if "i8_tc_gemm_kernel" in fn}
+        print(f"  {stem}: (IGMMA, IDP4A) in the int8 products {i8_sass[stem]}")
+        require(len(i8_sass[stem]) == instances and all(ig > 0 and dp == 0 for ig, dp in i8_sass[stem].values()),
+                f"{stem}: an int8 product without IGMMA, or with IDP4A")
+        require(not any(dp for dp in i8_dp4a.values()), f"{stem}: a kernel holds IDP4A")
+        require(not any("mlp_int8_kernel" in fn or "i8_gemm_kernel" in fn for fn in i8_igmma),
+                f"{stem}: a dp4a kernel (mlp_int8_kernel, i8_gemm_kernel) is left")
+    i8_products = i8_sass["int8_transformer"]
     # the attention core's backward (Kernel B: query-tile blocks with and without O, key-tile blocks) runs on the
     # tensor cores in all three instantiations; the float32 core at head dim 64 on split TF32 (HGMMA ... .TF32)
     bwd_hgmma = {fn: c for fn, c in _build.sass_counts("attention", "HGMMA").items() if "attention_bwd_" in fn}
@@ -943,8 +956,8 @@ def main() -> int:
           f"launches in attention_block_int8, {vit_i8_mlp_kernel_launches} in mlp_block_int8)")
     require(launches_at("mlp_block_int8", (256 * 197, 768), torch.bfloat16).get(INT8_VIT) == 12
             and launches_at("attention_block_int8", (256, 197, 768), torch.bfloat16).get(INT8_VIT) == 12
-            and vit_i8_kernel_launches == 36 and vit_i8_mlp_kernel_launches == 36 and vcounts["mlp_block_int8"] == 12
-            and vcounts["attention_block_int8"] == 12, f"{INT8_VIT}: expected 12 + 12 launches at its shapes, 36 + 36 "
+            and vit_i8_kernel_launches == 48 and vit_i8_mlp_kernel_launches == 36 and vcounts["mlp_block_int8"] == 12
+            and vcounts["attention_block_int8"] == 12, f"{INT8_VIT}: expected 12 + 12 launches at its shapes, 48 + 36 "
             f"kernel launches")
     require(vlogits.device.type == "cuda" and vlogits.shape == (256, 1000) and vlogits.dtype == torch.float32
             and bool(torch.isfinite(vlogits).all()), "int8 vit logits shape/dtype/device/finite")
@@ -2154,9 +2167,11 @@ def main() -> int:
     nms_entry = entry(main, DET_F32, [r for r in nms_rows if r is not main])
     rows.append(nms_entry)
 
-    # int8_matmul_requant at ResNet-50's heaviest 1x1 shape, layer 1's (802,816 x 256) @ (256 x 64), on the main
-    # path's own inputs; library_ms is a composite: torch._int_mm on the weight laid out for cuBLASLt, then the
-    # stock epilogue.  Bound: the int8 operands and output once, 2 M K N int8 operations
+    # int8_matmul_requant at each of the 15 distinct (M, K, N) of the int8 ResNet-50 path, on the path's own inputs;
+    # the entry is the heaviest shape, layer 1's (802,816 x 256) @ (256 x 64), with the others beside it and the sums
+    # over a forward's 36 launches (forward_ms, forward_library_ms, forward_bound_ms: each shape's time times its
+    # launches).  library_ms is a composite: torch._int_mm on the weight laid out for cuBLASLt, then the stock
+    # epilogue.  Bound: the int8 operands and output once, 2 M K N int8 operations
     def int8_mm_row(qx_, qw_, sc_, b_, os_, relu_, timed):
         m_, k_ = qx_.shape
         n_ = qw_.shape[1]
@@ -2180,15 +2195,23 @@ def main() -> int:
                    source=INT8_MATMUL, ops_per_s=INT8_OPS_PER_S, at=(qx_.shape, qx_.dtype), shape=[m_, k_, n_],
                    relu=relu_)
 
-    mm_rows = []
-    timed_shapes = {(802816, 256, 64), (200704, 128, 512), (12544, 2048, 512)}
+    mm_rows, mm_launches = {}, {}
     for args in r50_inputs:
         key = (args[0].shape[0], args[0].shape[1], args[1].shape[1])
-        mm_rows.append(int8_mm_row(*args, timed=key in timed_shapes))
-        timed_shapes.discard(key)
-    mm_rows = [r for r in mm_rows if r is not None]
-    main = next(r for r in mm_rows if r["shape"] == [802816, 256, 64])
-    rows.append(entry(main, INT8_R50, [r for r in mm_rows if r is not main], held_exact_at_shapes=len(r50_held)))
+        mm_launches[key] = mm_launches.get(key, 0) + 1
+        timed_row = int8_mm_row(*args, timed=key not in mm_rows)
+        if timed_row is not None:
+            mm_rows[key] = timed_row
+    for key, r in mm_rows.items():
+        r["launches_a_forward"] = mm_launches[key]
+    mm_forward = {f"forward_{k}": sum(r[k] * r["launches_a_forward"] for r in mm_rows.values())
+                  for k in ("ms", "library_ms", "bound_ms")}
+    print(f"  int8_matmul_requant over one {INT8_R50} forward ({sum(mm_launches.values())} launches, {len(mm_rows)} "
+          f"shapes): {mm_forward} ({card})")
+    require(len(mm_rows) == 15 and sum(mm_launches.values()) == 36, f"{INT8_R50}: expected 36 launches in 15 shapes")
+    main = mm_rows[(802816, 256, 64)]
+    rows.append(entry(main, INT8_R50, [r for r in mm_rows.values() if r is not main], held_exact_at_shapes=len(r50_held),
+                      **mm_forward))
     del r50_inputs
 
     # mlp_block_int8 and attention_block_int8 at ViT-B/16's shapes on layer 0's real inputs; library_ms is a composite
@@ -2235,7 +2258,7 @@ def main() -> int:
                           ops_per_s=INT8_OPS_PER_S, at=(xm.shape, xm.dtype), shape=list(xm.shape), dtype="bfloat16",
                           kernel_launches=vit_i8_mlp_kernel_launches,
                           split_bytes_ms=2 * tok * (768 + 3072) / HBM_BYTES_PER_S * 1e3, launch_ms=mlp_i8_split,
-                          igmma_in_sass=sum(ig for ig, _ in i8_products.values())),
+                          igmma_in_sass=sum(ig for fn, (ig, _) in i8_products.items() if "ILi0E" in fn or "ILi1E" in fn)),
                       INT8_VIT, []))
     print(f"  under mlp_block_int8's load: {clock_under(lambda: kernels.mlp_block_int8(*vit_mlp_args), 20)}")
 
@@ -2260,11 +2283,23 @@ def main() -> int:
                 "attention_block_int8 composite", 5e-2, 5e-2)
     tok = xa.shape[0] * xa.shape[1]
     attn_core_ops = 256 * 12 * 197 * 197 * (4 * 64 + 5)
-    require(torch.equal(kernels.attention_block_int8(*vit_attn_args), kernels.attention_block_int8(*vit_attn_args)),
-            "attention_block_int8: two calls differ")
-    split = launch_split(lambda: kernels.attention_block_int8(*vit_attn_args), vit_i8_kernel_launches // 12,
-                         keep=lambda name: name.startswith("cvt::"))  # not the wrapper's two inverse-scale passes
-    print(f"  attention_block_int8's launches apart (device ms): {split}")
+    kernels.reset_launch_counts()
+    require(torch.equal(kernels.attention_block_int8(*vit_attn_args), kernels.attention_block_int8(*vit_attn_args))
+            and kernels.attention_block_int8.kernel_launches == 8, "attention_block_int8: two calls differ, or a call "
+            "is not four kernel launches")
+    # its four launches apart on the device clock: LN rows to int8, the QKV product, the core, the output product
+    # (the wrapper's stock set-up, the inverse activation scales, is left out)
+    attn_i8_calls = calls_on_device(lambda: kernels.attention_block_int8(*vit_attn_args))
+    require(attn_i8_calls is not None, "attention_block_int8: the profiler missed its calls")
+    attn_i8_chains = [[(k, ms) for k, ms in call if "ln_quant_rows_kernel" in k or "i8_tc_gemm_kernel" in k
+                       or "_tc_kernel" in k or "core_kernel" in k] for call in attn_i8_calls]
+    require(all(len(c) == 4 and "ln_quant_rows_kernel" in c[0][0] and "i8_tc_gemm_kernel<2" in c[1][0]
+                and "attention_tc_kernel" in c[2][0] and "i8_tc_gemm_kernel<3" in c[3][0] for c in attn_i8_chains),
+            f"attention_block_int8: a call ran {[k for k, _ in attn_i8_calls[0]]}, not LN rows, an s8 product, the "
+            f"core and an s8 product")
+    split = [(attn_i8_chains[0][i][0], sum(c[i][1] for c in attn_i8_chains) / len(attn_i8_chains)) for i in range(4)]
+    print(f"  attention_block_int8's launches apart (device ms): {split}; a call's other kernels: "
+          f"{[k for k, _ in attn_i8_calls[0] if not any(k == c for c, _ in attn_i8_chains[0])]}")
     # the core alone: bf16 q, k and v read once out of the (N*S, 3D) buffer, the int8 joined heads written once
     core = core_fields(split, tok * 3 * 768 * 2 + tok * 768 + 4 * 768, attn_core_ops, BF16_OPS_PER_S,
                        sdpa_ms(256, 197, 12, 64, torch.bfloat16, vit_attn_args[12]))
@@ -2276,8 +2311,10 @@ def main() -> int:
                           library_ms=time_ms(attention_i8_library, 5), source=INT8_TRANSFORMER,
                           ops_per_s=INT8_OPS_PER_S, at=(xa.shape, xa.dtype), shape=list(xa.shape), dtype="bfloat16",
                           kernel_launches=vit_i8_kernel_launches,
-                          split_bytes_ms=(tok * 3 * 768 * 2 * 2 + tok * 768 * 2) / HBM_BYTES_PER_S * 1e3,
-                          launch_ms=split, core_hgmma_in_sass=core_hgmma["int8_transformer"], **core),
+                          split_bytes_ms=(tok * 768 * 2 + tok * 3 * 768 * 2 * 2 + tok * 768 * 2) / HBM_BYTES_PER_S * 1e3,
+                          launch_ms=split, core_hgmma_in_sass=core_hgmma["int8_transformer"],
+                          igmma_in_sass=sum(ig for fn, (ig, _) in i8_products.items() if "ILi2E" in fn or "ILi3E" in fn),
+                          **core),
                       INT8_VIT, []))
     print(f"  under attention_block_int8's load: "
           f"{clock_under(lambda: kernels.attention_block_int8(*vit_attn_args), 20)}")

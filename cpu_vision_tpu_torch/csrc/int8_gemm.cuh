@@ -1,29 +1,52 @@
-// The int8 tiled product that int8_matmul.cu (int8_matmul_requant) and
-// int8_transformer.cu (attention_block_int8's two projections) instantiate:
+// The int8 product on the int8 tensor cores that every int8 kernel of the port
+// runs: int8_matmul.cu (int8_matmul_requant) and int8_transformer.cu
+// (mlp_block_int8's and attention_block_int8's projections):
 //
 //   acc[m, n] = sum_k A[m, k] * B[k, n]      int8 x int8 -> int32, exact
-//   out[m, n] = Epi(acc[m, n], m, n)         an epilogue in f32
+//   out[m, n] = epilogue(acc[m, n])          in f32
 //
-// B is given transposed, bt (n, k) row-major: both operands then run along k
-// in memory, and four k of a row are one 32-bit word, the operand of __dp4a
-// (four int8 products and their sum into an int32 in one instruction).  A is
-// either an int8 (m, k) matrix (A_I8), or (A_LN) the LayerNorm of an (m, k)
-// matrix of T, quantised while it is staged: q = clamp(rint(LN(x)[c] *
-// inv[c]), -127, 127) with LN(x) = (x - mean) * rstd * g + b in f32, as the
-// TPU kernels' _ln_f32 and _quant.
+// i8_tc_gemm_kernel: wgmma m64n128k32 s8 x s8 into int32 sums.  A block of
+// two warpgroups owns 128 x 128 outputs, 64 sums a thread; k runs in tiles of
+// 128 (one 128-byte swizzled row of int8), four k32 wgmma a tile, copied by
+// all threads with cp.async into a ring of 3 stages (97 KB, two blocks an SM).
+// 8-bit wgmma takes both operands K-major only: A is row-major (m, k) and B
+// comes transposed, bt (n, k), a row of k for each output column.
 //
-// 128 x 128 outputs a block of 256 threads, 8 x 8 a thread; K in steps of 32
-// bytes (8 words) staged as [word][row] and [word][col] in shared memory, the
-// next step's operands fetched into registers during the current one.  k is
-// a multiple of 16 (one 16-byte load of a row a thread), and every row starts
-// 16-byte aligned.  A ragged m or n is masked.  No mma, no cp.async, no TMA:
-// dp4a from shared memory.
+// Domain.  k a multiple of 16 (a 16-byte chunk of a row), m from 1 to
+// Q8_MAX_ROW_TILES * 128 (the row tiles run on the grid's y), n from 1; every
+// row of A and bt starts 16-byte aligned.  Rows past m or n, and the chunks of
+// the last k tile past k, are copied as zeros (cp.async's zero fill): a zero
+// product adds nothing to an int32 sum, so every stage issues its four wgmma
+// with no branch around them (a wgmma under a branch is serialised, ptxas
+// C7518).
 //
-// Exactness.  Every sum is an integer sum in int32 (|acc| <= k * 127^2, below
-// 2^31 for k < 133,000).  The epilogues convert acc with __int2float_rn and
-// run their f32 operations one by one in the twins' order; the sources that
-// include this header build with --fmad=false, so no product and sum are
-// contracted into one rounding.
+// Epilogues (EPI), on the int32 sum a = float(acc) (__int2float_rn), each the
+// f32 operations of the code it replaced, one by one and in that order:
+//   Q8_GELU          q(gelu(a * scale[c] + bias[c]), inv[c])       int8   the MLP's up-projection
+//   Q8_RESID         resid + (a * scale[c] + bias[c])              T      the MLP's down-projection
+//   Q8_AFFINE        a * scale[c] + bias[c]                        T      the attention block's QKV product
+//   Q8_ATTN_RESID    (resid + a * scale[c]) + bias[c]              T      the attention block's output product
+//   Q8_REQUANT       q(a * scale[c] + bias[c], *inv)               int8   int8_matmul_requant
+//   Q8_REQUANT_RELU  q(max(a * scale[c] + bias[c], 0), *inv)       int8
+//   Q8_LINEAR        a * scale[c] + bias[c]                        f32    int8_matmul_requant, no output scale
+//   Q8_LINEAR_RELU   max(a * scale[c] + bias[c], 0)                f32
+// with q(f, inv) = clamp(rint(f * inv), -127, 127), as the TPU kernels'
+// _quant.  The two residual orders differ as the TPU kernels' do
+// (int8_transformer.py's _mlp_kernel and _attn_kernel): merged, they would
+// round differently.  Either way the tile goes through the free ring and out
+// 16 bytes a thread: an int8 tile as it is; for T and f32, the f32 partials
+// (the steps before the residual), finished where the residual is read 16
+// bytes at a time.  Where n is not a multiple of 16 bytes' worth of values,
+// the last chunks go out one value at a time.  A block reads its columns'
+// scale, bias and inverse scale once into shared memory, where the epilogue
+// takes them two columns at a time: read from global memory in the
+// epilogue, they cost 7-16% of the call (tools/torch_int8_products_ab.py, in
+// turns, on an H100).
+//
+// Exactness.  Every sum is one int32 sum over the whole k (|acc| <= k * 127^2,
+// below 2^31 for k < 133,000), exact in any order.  The sources that include
+// this header build with --fmad=false, so no product and sum of an epilogue
+// is contracted into one rounding.
 
 #pragma once
 
@@ -33,200 +56,272 @@
 
 namespace cvt {
 
-constexpr int I_BM = 128;
-constexpr int I_BN = 128;
-constexpr int I_BKW = 8;  // words of k a step (32 bytes)
-constexpr int I_THREADS = 256;
-constexpr int I_LD = I_BM + 4;
-
-// rint, then clamp to +-127, as int8: the TPU kernels' _quant
+// rint(f * inv), then clamp to +-127, as int8: the TPU kernels' _quant.  Clamped first (the same, for integer
+// bounds), then rounded to nearest even by adding 1.5 * 2^23, where a float's step is 1: the integer is the low bits
+// of the sum's word.  Adds and compares on the FP32 pipe, where rintf and a conversion to int would take the
+// conversion pipe (16 results a clock an SM), the limit of an epilogue that writes int8
 __device__ __forceinline__ int quant_i8(float f, float inv) {
-  return (int)fminf(fmaxf(rintf(f * inv), -127.0f), 127.0f);
+  return __float_as_int(fminf(fmaxf(f * inv, -127.0f), 127.0f) + 12582912.0f) - 0x4B400000;
 }
 
 __device__ __forceinline__ int pack4(int a, int b, int c, int d) {
   return (a & 0xff) | ((b & 0xff) << 8) | ((c & 0xff) << 16) | ((unsigned)(d & 0xff) << 24);
 }
 
-// 16 values of T at p as f32 (p 16-byte aligned)
-template <typename T> __device__ __forceinline__ void load16(const T* p, float (&v)[16]);
-template <> __device__ __forceinline__ void load16<float>(const float* p, float (&v)[16]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float4 f = reinterpret_cast<const float4*>(p)[j];
-    v[4 * j] = f.x;
-    v[4 * j + 1] = f.y;
-    v[4 * j + 2] = f.z;
-    v[4 * j + 3] = f.w;
-  }
-}
-template <> __device__ __forceinline__ void load16<__nv_bfloat16>(const __nv_bfloat16* p, float (&v)[16]) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int4 raw = reinterpret_cast<const int4*>(p)[j];
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[8 * j + e] = __bfloat162float(h[e]);
-  }
-}
-
-enum ASource { A_I8, A_LN };
-
-// Operand A of a block: int8 rows (A_I8), or LN(x) of rows of T quantised by inv (A_LN).
-template <typename T>
-struct AOperand {
-  const void* a;         // (m, k) of int8 or of T
-  const float* ln_g;     // A_LN: LayerNorm scale and shift (k,) and the
-  const float* ln_b;     //       per-channel inverse activation scale (k,)
-  const float* inv;
-  float eps;
+enum {
+  Q8_GELU = 0,
+  Q8_RESID = 1,
+  Q8_AFFINE = 2,
+  Q8_ATTN_RESID = 3,
+  Q8_REQUANT = 4,
+  Q8_REQUANT_RELU = 5,
+  Q8_LINEAR = 6,
+  Q8_LINEAR_RELU = 7
 };
 
-template <typename T, ASource SRC, typename Epi>
-__global__ void __launch_bounds__(I_THREADS, 2)
-i8_gemm_kernel(AOperand<T> A, const int8_t* __restrict__ bt, int m, int k, int n, Epi epi) {
-  __shared__ __align__(16) int s_a[I_BKW * I_LD];  // [word][row]
-  __shared__ __align__(16) int s_b[I_BKW * I_LD];  // [word][col]
-  __shared__ float s_mean[I_BM];
-  __shared__ float s_rstd[I_BM];
+template <int EPI>
+constexpr bool Q8_INT8_OUT = EPI == Q8_GELU || EPI == Q8_REQUANT || EPI == Q8_REQUANT_RELU;
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long long m0 = (long long)blockIdx.x * I_BM;
-  const int n0 = blockIdx.y * I_BN;
+constexpr int Q8_BM = 128;  // two warpgroups of 64 rows
+constexpr int Q8_BN = 128;
+constexpr int Q8_BK = 128;  // one 128-byte swizzled row of int8: four k32 steps
+constexpr int Q8_KSTEP = 16;  // k is a multiple of this: one 16-byte chunk of a row
+constexpr int Q8_STAGES = 3;
+constexpr int Q8_AHEAD = Q8_STAGES - 1;  // tiles copied ahead of the products
+constexpr int Q8_THREADS = 256;
+constexpr int Q8_MAX_ROW_TILES = 65535;  // the grid's y
+constexpr int Q8_TILE_BYTES = Q8_BM * Q8_BK;  // the A and the B tile alike
+constexpr int Q8_STAGE_BYTES = 2 * Q8_TILE_BYTES;
+constexpr size_t Q8_SMEM = (size_t)Q8_STAGES * Q8_STAGE_BYTES + 1024;  // + room to align to 1024
+constexpr int Q8_CHUNKS = Q8_TILE_BYTES / 16 / Q8_THREADS;              // 16-byte copies a thread a tile
+constexpr int Q8_LDT = Q8_BN + 16;  // row stride of the int8 output tile staged in the ring (no bank conflicts)
+constexpr int Q8_LDF = Q8_BN + 8;   // row stride of the f32 partials staged in the ring (no bank conflicts)
+static_assert(Q8_BM == Q8_BN && Q8_CHUNKS == 4 && Q8_SMEM <= 113 * 1024 && Q8_BM * Q8_LDT <= Q8_STAGE_BYTES &&
+                  Q8_BM * Q8_LDF * 4 <= Q8_STAGES * Q8_STAGE_BYTES,
+              "tiles; two blocks an SM; the int8 tile fits a stage, the f32 partials the ring");
 
-  if (SRC == A_LN) {
-    const int warp = tid >> 5, lane = tid & 31;
-    const T* x = static_cast<const T*>(A.a);
-    for (int r = warp; r < I_BM; r += I_THREADS / 32) {
-      float mean = 0.0f, rstd = 0.0f;
-      if (m0 + r < m) row_stats<T>(x + (m0 + r) * k, k, A.eps, 0, lane, mean, rstd);
-      if (lane == 0) {
-        s_mean[r] = mean;
-        s_rstd[r] = rstd;
-      }
-    }
-    __syncthreads();
+template <typename T>
+struct Q8Epi {
+  const float* scale;  // (n,)
+  const float* bias;   // (n,)
+  const float* inv;    // Q8_GELU: the output's inverse activation scale (n,); Q8_REQUANT*: one value
+  const T* resid;      // Q8_RESID, Q8_ATTN_RESID: (m, n)
+  void* out;           // (m, n) of int8 (Q8_GELU, Q8_REQUANT*) or T (T is float for Q8_LINEAR*)
+};
+
+// the int8 output of an int8 epilogue, from the sum a, the column's scale and bias and the inverse scale inv
+template <int EPI>
+__device__ __forceinline__ int q8_int8(int acc, float s, float b, float inv) {
+  const float f = __int2float_rn(acc) * s + b;
+  if (EPI == Q8_GELU) return quant_i8(gelu_erf(f), inv);
+  if (EPI == Q8_REQUANT_RELU) return quant_i8(fmaxf(f, 0.0f), inv);
+  return quant_i8(f, inv);
+}
+
+// The other epilogues in two steps: q8_partial on the sum, from the sums' fragment, and q8_finish on that partial p
+// and the residual x, 16 bytes of output at a time: the f32 operations of the epilogue table, in its order
+template <int EPI>
+__device__ __forceinline__ float q8_partial(int acc, float s, float b) {
+  const float a = __int2float_rn(acc);
+  if (EPI == Q8_ATTN_RESID) return a * s;  // + x, then + bias, in q8_finish
+  if (EPI == Q8_LINEAR_RELU) return fmaxf(a * s + b, 0.0f);
+  return a * s + b;
+}
+template <int EPI>
+__device__ __forceinline__ float q8_finish(float p, float x, const float* bias, int col) {
+  if (EPI == Q8_RESID) return x + p;
+  if (EPI == Q8_ATTN_RESID) return (x + p) + bias[col];
+  return p;
+}
+
+// 16 bytes of T as f32 and back (p 16-byte aligned)
+__device__ __forceinline__ void load16b(const float* p, float (&v)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+}
+__device__ __forceinline__ void load16b(const bf16* p, float (&v)[8]) {
+  const int4 raw = *reinterpret_cast<const int4*>(p);
+  const bf16* h = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = to_f32<bf16>(h[e]);
+}
+__device__ __forceinline__ void store16b(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store16b(bf16* p, const float (&v)[8]) {
+  int4 raw;
+  bf16* h = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) h[e] = from_f32<bf16>(v[e]);
+  *reinterpret_cast<int4*>(p) = raw;
+}
+
+template <int EPI, typename T>
+__global__ void __launch_bounds__(Q8_THREADS, 2)
+i8_tc_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bt, Q8Epi<T> epi, int m, int k, int n) {
+  constexpr bool has_resid = EPI == Q8_RESID || EPI == Q8_ATTN_RESID;
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t base = (smem_addr(smem) + 1023u) & ~1023u;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int m0 = blockIdx.y * Q8_BM, n0 = blockIdx.x * Q8_BN;
+  const int k_tiles = (k + Q8_BK - 1) / Q8_BK;
+  // the epilogue's per-column scale, bias and (Q8_GELU) inverse scale of this tile, read once, visible after the
+  // first barrier of the loop
+  __shared__ __align__(16) float s_par[3][Q8_BN];
+  if (tid < Q8_BN) {
+    const int col = n0 + tid;
+    const bool in = col < n;
+    s_par[0][tid] = in ? epi.scale[col] : 0.0f;
+    s_par[1][tid] = in ? epi.bias[col] : 0.0f;
+    s_par[2][tid] = in && EPI == Q8_GELU ? epi.inv[col] : 0.0f;
   }
 
-  // a thread stages 16 k of one row of A and 16 k of one column of B
-  const int s_row = tid >> 1, s_k = (tid & 1) * 16;
-  const bool a_in = m0 + s_row < m, b_in = n0 + s_row < n;
-  const int8_t* b_ptr = bt + (size_t)(b_in ? n0 + s_row : 0) * k + s_k;
-  int4 ra, rb;
-
-  // a step of 32 bytes may end half full (k a multiple of 16): that half is zeros
-  auto fetch = [&](int k0) {
-    const bool k_in = k0 + s_k < k;
-    rb = b_in && k_in ? *reinterpret_cast<const int4*>(b_ptr + k0) : make_int4(0, 0, 0, 0);
-    if (!a_in || !k_in) {
-      ra = make_int4(0, 0, 0, 0);
-    } else if (SRC == A_I8) {
-      ra = *reinterpret_cast<const int4*>(static_cast<const int8_t*>(A.a) + (m0 + s_row) * k + k0 + s_k);
-    } else {
-      float v[16];
-      load16<T>(static_cast<const T*>(A.a) + (m0 + s_row) * k + k0 + s_k, v);
-      const float mean = s_mean[s_row], rstd = s_rstd[s_row];
-      int q[16];
+  // both tiles K-major: row r (of m, or of n), chunk c of 16 k at r * 128 + (c ^ r % 8) * 16; a chunk past k,
+  // or of a row past m or n, is zero-filled
+  auto load = [&](int stage, int kt) {
+    const int k0 = kt * Q8_BK;
+    const uint32_t sa = base + stage * Q8_STAGE_BYTES, sb = sa + Q8_TILE_BYTES;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int c = k0 + s_k + j;
-        q[j] = quant_i8((v[j] - mean) * rstd * A.ln_g[c] + A.ln_b[c], A.inv[c]);
-      }
-      ra = make_int4(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]),
-                     pack4(q[8], q[9], q[10], q[11]), pack4(q[12], q[13], q[14], q[15]));
+    for (int i = 0; i < Q8_CHUNKS; ++i) {
+      const int e = tid + i * Q8_THREADS;
+      const int r = e >> 3, c = e & 7;
+      const uint32_t at = r * 128 + ((c ^ (r & 7)) << 4);
+      const bool k_ok = k0 + c * 16 < k;
+      const bool a_ok = k_ok && m0 + r < m, b_ok = k_ok && n0 + r < n;
+      cp_async16(sa + at, a + (a_ok ? (size_t)(m0 + r) * k + k0 + c * 16 : 0), a_ok);
+      cp_async16(sb + at, bt + (b_ok ? (size_t)(n0 + r) * k + k0 + c * 16 : 0), b_ok);
     }
   };
 
-  int acc[8][8];
+  int acc[64];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0;
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
 
-  const int w0 = (tid & 1) * 4;
-  fetch(0);
-  for (int k0 = 0; k0 < k; k0 += 4 * I_BKW) {
-    s_a[(w0 + 0) * I_LD + s_row] = ra.x;
-    s_a[(w0 + 1) * I_LD + s_row] = ra.y;
-    s_a[(w0 + 2) * I_LD + s_row] = ra.z;
-    s_a[(w0 + 3) * I_LD + s_row] = ra.w;
-    s_b[(w0 + 0) * I_LD + s_row] = rb.x;
-    s_b[(w0 + 1) * I_LD + s_row] = rb.y;
-    s_b[(w0 + 2) * I_LD + s_row] = rb.z;
-    s_b[(w0 + 3) * I_LD + s_row] = rb.w;
+  // the stage a step refills held the tile of the step before, whose products the wait that closed that step
+  // retired in both warpgroups (the barrier orders them)
+#pragma unroll
+  for (int s = 0; s < Q8_AHEAD; ++s) {
+    if (s < k_tiles) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_async_wait<Q8_AHEAD - 1>();
+    fence_proxy_async();
     __syncthreads();
-    if (k0 + 4 * I_BKW < k) fetch(k0 + 4 * I_BKW);
+    const int next = kt + Q8_AHEAD;
+    if (next < k_tiles) load(next % Q8_STAGES, next);
+    cp_async_commit();
+    const uint32_t sa = base + (kt % Q8_STAGES) * Q8_STAGE_BYTES, sb = sa + Q8_TILE_BYTES;
+    wgmma_fence();
 #pragma unroll
-    for (int w = 0; w < I_BKW; ++w) {
-      const int4 a0 = *reinterpret_cast<const int4*>(s_a + w * I_LD + ty * 8);
-      const int4 a1 = *reinterpret_cast<const int4*>(s_a + w * I_LD + ty * 8 + 4);
-      const int4 b0 = *reinterpret_cast<const int4*>(s_b + w * I_LD + tx * 4);
-      const int4 b1 = *reinterpret_cast<const int4*>(s_b + w * I_LD + 64 + tx * 4);
-      const int av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const int bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int s = 0; s < Q8_BK / 32; ++s)
+      wgmma_m64n128k32_s8(acc, sw128_desc(sa + wg * (64 * 128) + s * 32, 16, 1024), sw128_desc(sb + s * 32, 16, 1024),
+                          1);
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+  fence_sums(acc);
+
+  // sum 4 j + 2 h + e of this thread is output (t0 + 8 h, j * 8 + (lane % 4) * 2 + e) of the tile
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int t0 = wg * 64 + warp * 16 + (lane >> 2);
+  if constexpr (Q8_INT8_OUT<EPI>) {
+    // the int8 tile through shared memory (the ring is free: both warpgroups' products have retired, no copy is
+    // in flight), then out 16 bytes a thread, eight threads a row
+    int8_t* tile = reinterpret_cast<int8_t*>(smem) + (base - smem_addr(smem));
+    cp_async_wait<0>();
+    __syncthreads();
+    const float inv = EPI == Q8_GELU ? 0.0f : *epi.inv;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+    for (int j = 0; j < Q8_BN / 8; ++j) {
+      const int c = j * 8 + (lane & 3) * 2, col = n0 + c;
+      if (col >= n) continue;
+      const float2 sc = *reinterpret_cast<const float2*>(&s_par[0][c]),
+                   bb = *reinterpret_cast<const float2*>(&s_par[1][c]);
+      const float sc0 = sc.x, b0 = bb.x, sc1 = sc.y, b1 = bb.y;
+      const float2 iv = EPI == Q8_GELU ? *reinterpret_cast<const float2*>(&s_par[2][c]) : make_float2(inv, inv);
+      const float inv0 = iv.x, inv1 = iv.y;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
+      for (int h = 0; h < 2; ++h) {
+        const int q0 = q8_int8<EPI>(acc[4 * j + 2 * h], sc0, b0, inv0);
+        const int q1 = q8_int8<EPI>(acc[4 * j + 2 * h + 1], sc1, b1, inv1);
+        *reinterpret_cast<uint16_t*>(tile + (t0 + 8 * h) * Q8_LDT + c) = (uint16_t)((q0 & 0xff) | ((q1 & 0xff) << 8));
+      }
     }
     __syncthreads();
-  }
-
+    int8_t* out = static_cast<int8_t*>(epi.out);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long row = m0 + ty * 8 + i;
-    if (row >= m) continue;
+    for (int i = 0; i < Q8_CHUNKS; ++i) {
+      const int e = tid + i * Q8_THREADS;
+      const int r = e >> 3, c = (e & 7) * 16;
+      if (m0 + r >= m || n0 + c >= n) continue;
+      int8_t* to = out + (size_t)(m0 + r) * n + n0 + c;
+      if (n % 16 == 0) {  // every row and chunk 16-byte aligned, the chunk wholly in
+        *reinterpret_cast<int4*>(to) = *reinterpret_cast<const int4*>(tile + r * Q8_LDT + c);
+      } else {
+        for (int b = 0; b < 16 && n0 + c + b < n; ++b) to[b] = tile[r * Q8_LDT + c + b];
+      }
+    }
+    return;
+  } else {
+    // f32 partial values through shared memory (the epilogue's first steps, which need no residual), then out 16
+    // bytes of T a thread, the residual read 16 bytes at a time, the last steps done there
+    float* part = reinterpret_cast<float*>(smem) + (base - smem_addr(smem)) / 4;
+    cp_async_wait<0>();
+    __syncthreads();
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = n0 + 64 * h + tx * 4;
-      epi.store4(row, col, n, acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+    for (int j = 0; j < Q8_BN / 8; ++j) {
+      const int c = j * 8 + (lane & 3) * 2, col = n0 + c;
+      if (col >= n) continue;
+      const float2 sc = *reinterpret_cast<const float2*>(&s_par[0][c]),
+                   bb = *reinterpret_cast<const float2*>(&s_par[1][c]);
+      const float sc0 = sc.x, b0 = bb.x, sc1 = sc.y, b1 = bb.y;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(part + (t0 + 8 * h) * Q8_LDF + c) =
+            make_float2(q8_partial<EPI>(acc[4 * j + 2 * h], sc0, b0), q8_partial<EPI>(acc[4 * j + 2 * h + 1], sc1, b1));
+    }
+    __syncthreads();
+    constexpr int V = 16 / sizeof(T), ROW_CHUNKS = Q8_BN / V;  // values of T in 16 bytes
+    T* out = static_cast<T*>(epi.out);
+#pragma unroll 2
+    for (int i = 0; i < Q8_BM * ROW_CHUNKS / Q8_THREADS; ++i) {
+      const int e = tid + i * Q8_THREADS;
+      const int r = e / ROW_CHUNKS, c = e % ROW_CHUNKS * V, row = m0 + r, col = n0 + c;
+      if (row >= m || col >= n) continue;
+      const float* p = part + r * Q8_LDF + c;
+      const size_t at = (size_t)row * n + col;
+      if (n % V == 0) {  // every row and chunk 16-byte aligned, the chunk wholly in
+        float v[V], x[V];
+#pragma unroll
+        for (int q = 0; q < V; q += 4) {
+          const float4 f = *reinterpret_cast<const float4*>(p + q);
+          v[q] = f.x, v[q + 1] = f.y, v[q + 2] = f.z, v[q + 3] = f.w;
+        }
+        if (has_resid) load16b(epi.resid + at, x);
+#pragma unroll
+        for (int q = 0; q < V; ++q) v[q] = q8_finish<EPI>(v[q], has_resid ? x[q] : 0.0f, s_par[1], c + q);
+        store16b(out + at, v);
+      } else {
+        for (int q = 0; q < V && col + q < n; ++q)
+          out[at + q] = from_f32<T>(q8_finish<EPI>(p[q], has_resid ? to_f32<T>(epi.resid[at + q]) : 0.0f, s_par[1],
+                                                   c + q));
+      }
     }
   }
 }
 
-// Launch on (m, k) x (k, n); the grid's x runs over rows (up to 2^31 - 1 blocks).
-template <typename T, ASource SRC, typename Epi>
-cudaError_t launch_i8_gemm(const AOperand<T>& a, const int8_t* bt, int m, int k, int n, const Epi& epi,
-                           cudaStream_t stream) {
-  const long long rows = ((long long)m + I_BM - 1) / I_BM;
-  const int cols = (n + I_BN - 1) / I_BN;
-  if (m < 1 || n < 1 || k < 16 || k % 16 || cols > 65535) return cudaErrorInvalidValue;
-  i8_gemm_kernel<T, SRC, Epi><<<dim3((unsigned)rows, cols), I_THREADS, 0, stream>>>(a, bt, m, k, n, epi);
+// out = epilogue(a . bt^T) for a (m, k) and bt (n, k) int8 (see the domain above); cudaErrorInvalidValue outside it
+template <int EPI, typename T>
+cudaError_t launch_i8_tc_gemm(const int8_t* a, const int8_t* bt, const Q8Epi<T>& epi, int m, int k, int n,
+                              cudaStream_t stream) {
+  const int rows = (m + Q8_BM - 1) / Q8_BM, cols = (n + Q8_BN - 1) / Q8_BN;
+  if (m < 1 || n < 1 || k < Q8_KSTEP || k % Q8_KSTEP || rows > Q8_MAX_ROW_TILES) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(i8_tc_gemm_kernel<EPI, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Q8_SMEM);
+  if (err != cudaSuccess) return err;
+  i8_tc_gemm_kernel<EPI, T><<<dim3(cols, rows), Q8_THREADS, Q8_SMEM, stream>>>(a, bt, epi, m, k, n);
   return cudaGetLastError();
 }
-
-// Four consecutive outputs of a row (cols col .. col + 3, those below n).
-// out = from_f32<OutT>(float(acc) * scale[c] + bias[c]), the affine epilogue.
-template <typename OutT>
-struct EpiAffine {
-  const float* scale;
-  const float* bias;
-  OutT* out;
-  __device__ __forceinline__ void store4(long long row, int col, int n, int a0, int a1, int a2, int a3) const {
-    const int a[4] = {a0, a1, a2, a3};
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (col + j < n) out[row * n + col + j] = from_f32<OutT>(__int2float_rn(a[j]) * scale[col + j] + bias[col + j]);
-  }
-};
-
-// out = from_f32<T>((resid + float(acc) * scale[c]) + bias[c]): an output
-// projection added to its residual, in the TPU kernel's order.
-template <typename T>
-struct EpiResidual {
-  const float* scale;
-  const float* bias;
-  const T* resid;
-  T* out;
-  __device__ __forceinline__ void store4(long long row, int col, int n, int a0, int a1, int a2, int a3) const {
-    const int a[4] = {a0, a1, a2, a3};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (col + j >= n) continue;
-      const long long at = row * n + col + j;
-      out[at] = from_f32<T>((to_f32<T>(resid[at]) + __int2float_rn(a[j]) * scale[col + j]) + bias[col + j]);
-    }
-  }
-};
 
 }  // namespace cvt

@@ -24,13 +24,14 @@ bias, and the attention output is quantised from float32.  The JAX functions'
 
 A wrapper given CUDA tensors launches its hand-written kernels, adds one to its
 ``launches`` count and raises if a launch fails or the kernels do not take
-the arguments; given CPU tensors it runs the twin.  Each is three kernel
-launches a call, counted in its ``kernel_launches``: ``mlp_block_int8`` the
-LayerNorm rows quantised to int8, then the up- and the down-projection on the
-int8 tensor cores (``wgmma`` s8, int32 sums; the (tokens, D) and (tokens, Dh)
-int8 activations make one round trip through device memory);
-``attention_block_int8`` its QKV product, attention core and output projection
-(the dp4a product of ``csrc/int8_gemm.cuh``).
+the arguments; given CPU tensors it runs the twin.  Every product runs on the
+int8 tensor cores (``wgmma`` s8, int32 sums: ``csrc/int8_gemm.cuh``), after
+the LayerNorm rows quantised to int8 by a launch of their own; the int8
+activations between launches make one round trip through device memory.
+``mlp_block_int8`` is three kernel launches a call, counted in its
+``kernel_launches``: the LayerNorm rows, the up- and the down-projection.
+``attention_block_int8`` is four: the LayerNorm rows, the QKV product, the
+attention core and the output product.
 On the card ``x`` is float32 or bfloat16 and contiguous, ``mlp_block_int8``
 takes D in ``MLP_DIMS`` and Dh a multiple of 256, ``attention_block_int8`` D a
 multiple of 16 and a head dim of ``flash_attention.HEAD_DIMS``.  The kernels
@@ -58,6 +59,7 @@ __all__ = ["quantize_weight", "mlp_block_int8", "mlp_block_int8_plain", "attenti
 
 MLP_DIMS = (256, 512, 768, 1024, 1280)  # the widths held on the card (csrc takes D and Dh multiples of 128)
 MLP_HIDDEN_STEP = 256
+MAX_TOKENS = 65535 * 128  # a launch's tokens: 128-row tiles on the grid's y (csrc/int8_gemm.cuh)
 
 _c_lib: Optional[ctypes.CDLL] = None
 
@@ -69,7 +71,7 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.cvt_mlp_block_int8.argtypes = [p] * 14 + [i, i, i, f, i, p]
         lib.cvt_mlp_block_int8.restype = ctypes.c_int
-        lib.cvt_attention_block_int8.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, i, p]
+        lib.cvt_attention_block_int8.argtypes = [p] * 15 + [i, i, i, i, f, f, i, p]
         lib.cvt_attention_block_int8.restype = ctypes.c_int
         _c_lib = lib
     return _c_lib
@@ -154,6 +156,8 @@ def mlp_block_int8(x, ln_g, ln_b, qw1, s1, b1, qw2, s2, b2, a1, a2, eps: float =
     dh = qw1.shape[1]
     if not mlp_kernel_takes(d, dh):
         raise ValueError(f"the kernel takes D in {MLP_DIMS} and Dh a multiple of {MLP_HIDDEN_STEP}, got {d} and {dh}")
+    if m > MAX_TOKENS:
+        raise ValueError(f"the kernels take at most {MAX_TOKENS} tokens a launch, got {m}")
     _check_card(x)
     w1t, w2t = qw1.t().contiguous(), qw2.t().contiguous()
     inv1, inv2 = _inverse(a1, d, x.device), _inverse(a2, dh, x.device)
@@ -206,7 +210,8 @@ def attention_block_int8_plain(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b
 def attention_block_int8(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, a1, ao, heads: int, scale: float,
                          eps: float = 1e-6) -> torch.Tensor:
     """``x + Out(MHA(LN(x)))`` with int8 QKV and output products for 3-D ``x``
-    (N, S, D); on the card three hand-written launches."""
+    (N, S, D); on the card four hand-written launches (LN rows to int8, the QKV
+    product, the attention core, the output product)."""
     _check_attn(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, heads)
     if not _build.on_card(x):
         return attention_block_int8_plain(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, a1, ao, heads, scale,
@@ -214,21 +219,24 @@ def attention_block_int8(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, a1
     n, s, d = x.shape
     if not attention_kernel_takes(d, heads):
         raise ValueError(f"the kernels take D a multiple of 16 and head dims {HEAD_DIMS}, got D = {d}, {heads} heads")
-    if n > 65535 or heads > 65535:
-        raise ValueError(f"at most 65535 images and heads a launch, got {n} and {heads}")
+    if n > 65535 or heads > 65535 or n * s > MAX_TOKENS:
+        raise ValueError(f"at most 65535 images and heads and {MAX_TOKENS} tokens a launch, got {n}, {heads} and "
+                         f"{n * s}")
     _check_card(x)
     wqkv_t, wo_t = qw_qkv.t().contiguous(), qw_o.t().contiguous()
     inv1, inv_o = _inverse(a1, d, x.device), _inverse(ao, d, x.device)
     ln_g, ln_b, s_qkv, b_qkv, s_o, b_o = (_f32(t) for t in (ln_g, ln_b, s_qkv, b_qkv, s_o, b_o))
+    q1 = torch.empty((n, s, d), dtype=torch.int8, device=x.device)
     qkv = torch.empty((n, s, 3 * d), dtype=x.dtype, device=x.device)
     joined = torch.empty((n, s, d), dtype=torch.int8, device=x.device)
     out = torch.empty_like(x)
     _build.launch(_lib(), "cvt_attention_block_int8", x, x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(),
                   wqkv_t.data_ptr(), s_qkv.data_ptr(), b_qkv.data_ptr(), wo_t.data_ptr(), s_o.data_ptr(),
-                  b_o.data_ptr(), inv1.data_ptr(), inv_o.data_ptr(), qkv.data_ptr(), joined.data_ptr(),
-                  out.data_ptr(), n, s, d, heads, float(scale), float(eps), int(x.dtype == torch.bfloat16))
+                  b_o.data_ptr(), inv1.data_ptr(), inv_o.data_ptr(), q1.data_ptr(), qkv.data_ptr(),
+                  joined.data_ptr(), out.data_ptr(), n, s, d, heads, float(scale), float(eps),
+                  int(x.dtype == torch.bfloat16))
     _build.count_launch(attention_block_int8, x)
-    attention_block_int8.kernel_launches += 3
+    attention_block_int8.kernel_launches += 4
     return out
 
 

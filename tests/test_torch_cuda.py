@@ -745,7 +745,8 @@ def _scaled_err(a, b):
 # ------------------------------------------------------------ int8 kernels
 
 
-@pytest.mark.parametrize("m,k,n", [(300, 96, 200), (1000, 64, 256), (129, 2048, 1000), (17, 16, 7), (12544, 512, 2048)])
+@pytest.mark.parametrize("m,k,n", [(300, 96, 200), (1000, 64, 256), (129, 2048, 1000), (17, 16, 7), (12544, 512, 2048),
+                                   (4099, 48, 100)])
 @pytest.mark.parametrize("relu", [False, True])
 @pytest.mark.parametrize("quantised", [False, True])
 def test_int8_matmul_requant_equals_twin(cuda, rng, m, k, n, relu, quantised):
@@ -831,7 +832,8 @@ def test_attention_block_int8_matches_twin(cuda, rng, n, s, d, heads, dtype):
     torch.cuda.synchronize()
     want = int8_transformer.attention_block_int8_plain(*args)
     assert got.dtype == dtype and _scaled_err(got, want) <= 2e-2
-    assert kernels.attention_block_int8.launches == 1 and kernels.attention_block_int8.kernel_launches == 3
+    # LN rows to int8, the QKV product, the core, the output product
+    assert kernels.attention_block_int8.launches == 1 and kernels.attention_block_int8.kernel_launches == 4
 
 
 def test_int8_transformer_kernels_refuse(cuda, rng):

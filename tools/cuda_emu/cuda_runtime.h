@@ -38,6 +38,7 @@ inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z,
 struct alignas(8) float2 {
   float x, y;
 };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 struct alignas(16) int4 {
   int x, y, z, w;
 };
@@ -46,17 +47,13 @@ struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };
 
-// four int8 products of the bytes of a and b, summed into c
-inline int __dp4a(int a, int b, int c) {
-  for (int j = 0; j < 4; ++j) c += (int)(int8_t)(a >> (8 * j)) * (int)(int8_t)(b >> (8 * j));
-  return c;
-}
 inline float __int2float_rn(int v) { return (float)v; }  // to nearest, as the host rounds
 inline unsigned __float_as_uint(float v) {
   unsigned u;
   memcpy(&u, &v, 4);
   return u;
 }
+inline int __float_as_int(float v) { return (int)__float_as_uint(v); }
 
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };

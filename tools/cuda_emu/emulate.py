@@ -24,7 +24,7 @@ self-check of the kernels against their plain twins.
 Covered: ``__global__`` templates, ``threadIdx``/``blockIdx``, ``__syncthreads``,
 ``__shfl_xor_sync`` on floats, dynamic shared memory declared as
 ``extern __shared__ __align__(16) float smem[];``, static ``__shared__`` arrays,
-``float4``, ``int4``, ``uint4``, ``__dp4a``, ``__int2float_rn``, ``__fmul_rn`` and its kin, ``__nv_bfloat16`` with its conversions (a pair too),
+``float4``, ``int4``, ``uint4``, ``__int2float_rn``, ``__float_as_int``, ``__fmul_rn`` and its kin, ``__nv_bfloat16`` with its conversions (a pair too),
 ``cudaFuncSetAttribute``, ``cudaFuncGetAttributes`` and ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (stubs: no
 registers, one block an SM),
 ``blockDim``, ``gridDim``, the ``<<<...>>>`` launch, ``make_float4``, and the functions of ``csrc/hopper.cuh`` (``cp.async``,

@@ -32,7 +32,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from torch_detection_breakdown import busy_ms  # noqa: E402
 
-OWN_KERNELS = ("i8_gemm_kernel", "mlp_int8_kernel", "attention_core_kernel")
+OWN_KERNELS = ("i8_tc_gemm_kernel", "ln_quant_rows_kernel", "attention_tc_kernel", "attention_core_kernel")
 
 
 def profile_forward(label: str, forward) -> None:

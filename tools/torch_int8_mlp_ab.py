@@ -224,7 +224,9 @@ def main() -> int:
         faults += ptxas_lines("current", logs.get(stem, ""), NEW_KERNELS)
     igmma = _build.sass_counts("int8_transformer", "IGMMA")
     idp4a = _build.sass_counts("int8_transformer", "IDP4A")
-    products = {fn: (igmma[fn], idp4a.get(fn, 0)) for fn in igmma if "i8_tc_gemm_kernel" in fn}
+    # the MLP's epilogues (Q8_GELU 0, Q8_RESID 1) of the product the int8 kernels share, in both dtypes
+    products = {fn: (igmma[fn], idp4a.get(fn, 0)) for fn in igmma
+                if "i8_tc_gemm_kernel" in fn and ("ILi0E" in fn or "ILi1E" in fn)}
     print(f"  int8_transformer: (IGMMA, IDP4A) in the int8 MLP products' SASS {products}")
     if len(products) != 4 or not all(ig > 0 and dp == 0 for ig, dp in products.values()):
         faults.append(f"int8 MLP products: expected IGMMA and no IDP4A in four instantiations, got {products}")
