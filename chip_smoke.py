@@ -18,7 +18,12 @@ int8 product, ``csrc/int8_gemm.cuh:i8_tc_gemm_kernel``, in
 ``libint8_transformer`` or ``libint8_matmul`` lacks ``IGMMA`` (``wgmma`` s8)
 or holds ``IDP4A``, spills or is serialised, or a dp4a kernel it replaced
 (``mlp_int8_kernel``, ``i8_gemm_kernel``) is left, or the LayerNorm
-backward's ``ln_backward_vec_kernel`` spills), then:
+backward's ``ln_backward_vec_kernel`` spills; and if the fused conv stage,
+``csrc/conv_block.cu:conv3x3_x3_kernel`` (an implicit GEMM by split TF32),
+lacks ``HGMMA ... .TF32`` in either instantiation or holds as many ``FFMA`` as
+``HGMMA`` (a scalar main loop), its scalar predecessor
+``conv3x3_relu_pool_kernel`` is left; its spills and the Harris kernels' are
+printed), then:
 
 1. drives the main paths through the public entry points, each with the
    kernels' launch counts set to 0 just before it and read just after:
@@ -412,7 +417,7 @@ def main() -> int:
                                      "ln_backward_vec_kernel")) and "spill" in line:
                 require(" 0 bytes spill stores, 0 bytes spill loads" in line, f"{stem}: {fn} spills: {line.strip()}")
             if "serialized" in line and any(k in line for k in ("x3_gemm_kernel", "wgrad_bf16_kernel",
-                                                                 "i8_tc_gemm_kernel")):
+                                                                 "i8_tc_gemm_kernel", "conv3x3_x3_kernel")):
                 raise AssertionError(f"{stem}: {line.strip()}")
     # the bf16 products of rows 10-13 and the bf16 attention cores of rows 9, 11, 13 and 16 run on the tensor cores:
     # HGMMA (wgmma) in every instantiation of the product and of the cores, and no bf16 instantiation of the scalar
@@ -479,6 +484,16 @@ def main() -> int:
                 f"{stem}: a bf16 weight-gradient instantiation without HGMMA .BF16")
         require(not any(scalar in fn for fn in _build.sass_counts(stem, "HGMMA")), f"{stem}: {scalar} is left")
         tf32_hgmma[stem] = sum(tf32.values()) + sum(bf16.values())
+    # the fused convolution stage (row 7) is an implicit GEMM on split TF32: HGMMA ... .TF32 in both instantiations
+    # (32 and 64 output channels a block), no FFMA main loop (fewer FFMA than HGMMA), and the scalar
+    # conv3x3_relu_pool_kernel it replaced is gone
+    conv_tf32 = {fn: c for fn, c in _build.sass_counts("conv_block", "HGMMA", ".TF32").items() if "conv3x3" in fn}
+    conv_ffma = _build.sass_counts("conv_block", "FFMA")
+    conv_sass = {fn: (c, conv_ffma.get(fn, 0)) for fn, c in conv_tf32.items()}
+    print(f"  conv_block: (HGMMA .TF32, FFMA) in SASS {conv_sass}")
+    require(len(conv_sass) == 2 and all(0 < hg and ffma < hg for hg, ffma in conv_sass.values()),
+            "conv_block: an instantiation without HGMMA .TF32, or with an FFMA loop")
+    require(not any("conv3x3_relu_pool_kernel" in fn for fn in conv_ffma), "conv_block: the scalar kernel is left")
 
     # Every main path is driven with the counts at 0 and read just after: the wrappers' counts, and their counts
     # by input shape and dtype, from which each per-shape row of the kernels' line takes its launches.
@@ -1512,12 +1527,16 @@ def main() -> int:
 
     m32 = torch.from_numpy(imgs32[..., 0]).to(dev)
     hp = hb * h * w
-    err = max_err_f32(kernels.harris_response_fused(m32[..., None]), stencil.harris_response_fused_plain(m32, t10, 0.04)[..., None],
-                      "harris")
+    err = exact(kernels.harris_response_fused(m32[..., None]), stencil.harris_response_fused_plain(m32, t10, 0.04)[..., None],
+                "harris")
+    # library_ms of Harris is a composite of stock calls (ops.harris_response: reflect pad, conv2d Sobel,
+    # products, separable conv2d window), not one kernel
     rows.append(row("harris_response_fused", f"{PALLAS}:591", hr_counts["harris_response_fused"], err,
                     time_ms(lambda: kernels.harris_response_fused(m32[..., None]), 20),
                     time_ms(lambda: stencil.harris_response_fused_plain(m32, t10, 0.04), 3),
-                    hp * 8, hp * (sobel_ops - 4 + 3 + 3 * blur_ops + 7)))
+                    hp * 8, hp * (sobel_ops - 4 + 3 + 3 * blur_ops + 7),
+                    library_ms=time_ms(lambda: ops.harris_response(m32[..., None]), 3), library_composite=True,
+                    shape=list(m32.shape)))
 
     del m32
 
@@ -1537,25 +1556,43 @@ def main() -> int:
                       [blur_at(x, "gaussian_blur 1080p b8")]))
     del x3
 
+    # row 7 is an implicit GEMM on split TF32 (four tf32 products a product): its bound takes the products at
+    # TF32X3_OPS_PER_S, as the split-TF32 products', and fma_floor_ms is the same work on the FMA units
+    # (F32_OPS_PER_S); f64_err against the stage in float64 on the batch's first 16 images, beside the twin's (TF32
+    # off), held to twice it
+    def stage_f64(x, wgt, bias):
+        y = F.conv2d(x.double().permute(0, 3, 1, 2), wgt.double().permute(3, 2, 0, 1), bias.double(), padding=1)
+        return F.max_pool2d(torch.relu(y), 2).permute(0, 2, 3, 1)
+
+    def f64_err(out, ref64):
+        return float((out.double() - ref64).abs().max() / ref64.abs().max())
+
     conv_rows = []
     for hw in (28, 224):
         params, xc, path = cnn[hw]
         for i in (0, 1):
             wgt, bias = params[f"conv{i}"]["w"], params[f"conv{i}"]["b"]
             out = kernels.fused_conv3x3_relu_pool(xc, wgt, bias)
-            err = max_err_f32(out, conv_block.fused_conv3x3_relu_pool_plain(xc, wgt, bias),
-                              f"conv{i} at {hw}", CONV_ATOL, CONV_RTOL)
+            twin = conv_block.fused_conv3x3_relu_pool_plain(xc, wgt, bias)
+            err = max_err_f32(out, twin, f"conv{i} at {hw}", CONV_ATOL, CONV_RTOL)
             max_err_f32(out, kernels.conv3x3_relu_pool(xc, wgt, bias, "stock"), f"conv{i} at {hw} vs stock",
                         CONV_ATOL, CONV_RTOL)
+            ref64 = stage_f64(xc[:16], wgt, bias)
+            errs64 = (f64_err(out[:16], ref64), f64_err(twin[:16], ref64))
+            require(errs64[0] <= 2 * errs64[1], f"conv{i} at {hw}: float64 error {errs64[0]:.3e} past twice the "
+                                                f"twin's {errs64[1]:.3e}")
+            del twin, ref64
             conv_px = xc.shape[0] * xc.shape[1] * xc.shape[2]
+            nops = conv_px * 2 * 9 * wgt.shape[2] * wgt.shape[3] + 3 * out.numel()
             conv_rows.append(row(
                 "fused_conv3x3_relu_pool", f"{PALLAS_CONV}:36", path, err,
                 time_ms(lambda: kernels.fused_conv3x3_relu_pool(xc, wgt, bias), 10),
                 time_ms(lambda: conv_block.fused_conv3x3_relu_pool_plain(xc, wgt, bias), 3),
-                4 * (xc.numel() + wgt.numel() + bias.numel() + out.numel()),
-                conv_px * 2 * 9 * wgt.shape[2] * wgt.shape[3] + 3 * out.numel(),
+                4 * (xc.numel() + wgt.numel() + bias.numel() + out.numel()), nops,
                 library_ms=time_ms(lambda: kernels.conv3x3_relu_pool(xc, wgt, bias, "stock"), 10),
-                source=CONV_BLOCK, at=(xc.shape, xc.dtype), shape=[list(xc.shape), wgt.shape[3]]))
+                ops_per_s=TF32X3_OPS_PER_S, fma_floor_ms=nops / F32_OPS_PER_S * 1e3, f64_err=errs64[0],
+                twin_f64_err=errs64[1], source=CONV_BLOCK, at=(xc.shape, xc.dtype),
+                shape=[list(xc.shape), wgt.shape[3]]))
             xc = out
     # one entry for the kernel: its heaviest main-path shape, the other three beside it
     rows.append(entry(conv_rows[-1], cnn[224][2], conv_rows[:-1]))

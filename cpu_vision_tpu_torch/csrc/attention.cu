@@ -50,10 +50,14 @@ int cvt_attention_core_scalar(const void* q, const void* k, const void* v, void*
                               float scale, void* stream) {
   const long long in_s = (long long)heads * 64, in_n = (long long)s_len * in_s;
   const long long o_h = (long long)s_len * 64, o_n = (long long)heads * o_h;
-  if (n < 1 || n > 65535 || heads < 1 || heads > 65535 || s_len < 1) return (int)cudaErrorInvalidValue;
-  return (int)cvt::launch_attention_core<float, 64, float>((const float*)q, (const float*)k, (const float*)v,
-                                                           (float*)o, n, s_len, heads, scale, in_n, in_s, 64, o_n,
-                                                           64, o_h, (cudaStream_t)stream, nullptr);
+  if (n < 1 || heads < 1 || s_len < 1) return (int)cudaErrorInvalidValue;
+  return (int)cvt::over_images_heads(n, heads, [&](int n0, int nc, int h0, int hc) {
+    const long long in0 = n0 * in_n + h0 * 64LL;
+    return cvt::launch_attention_core<float, 64, float>((const float*)q + in0, (const float*)k + in0,
+                                                        (const float*)v + in0, (float*)o + n0 * o_n + h0 * o_h, nc,
+                                                        s_len, hc, scale, in_n, in_s, 64, o_n, 64, o_h,
+                                                        (cudaStream_t)stream, nullptr);
+  });
 }
 
 // dq, dk, dv of softmax(scale q k^T) v given dout, bf16 at head dim 64, any S: q, k, v and the gradients share the

@@ -278,15 +278,23 @@ cudaError_t launch_attention_core(const T* q, const T* k, const T* v, OutT* o, i
 
 namespace cvt {
 
-// Head dims with an instantiation; any other is refused.  o_inv: the int8
-// output's inverse scales, one a joined channel (OutT = int8_t only).  At head
-// dim 64 bf16, and float32 into float32, take the tensor-core cores, which
-// need q, k, v and their strides 16-byte aligned and refuse them otherwise.
+// launch(n0, images, h0, heads) for the images and heads of a core in pieces of at most MAX_GRID_YZ of each (the
+// grid's z and y); the first failed launch's error
+template <class Launch>
+cudaError_t over_images_heads(int n, int heads, Launch launch) {
+  for (int n0 = 0; n0 < n; n0 += MAX_GRID_YZ)
+    for (int h0 = 0; h0 < heads; h0 += MAX_GRID_YZ) {
+      const cudaError_t err = launch(n0, min(MAX_GRID_YZ, n - n0), h0, min(MAX_GRID_YZ, heads - h0));
+      if (err != cudaSuccess) return err;
+    }
+  return cudaSuccess;
+}
+
+// One launch, at most MAX_GRID_YZ images and heads (attention_core walks more).
 template <typename T, typename OutT>
-cudaError_t attention_core(const T* q, const T* k, const T* v, OutT* o, int n, int s_len, int heads, int hd,
-                           float scale, long long in_n, long long in_s, long long in_h, long long o_n,
-                           long long o_s, long long o_h, cudaStream_t stream, const float* o_inv = nullptr) {
-  if (n < 1 || n > 65535 || heads < 1 || heads > 65535 || s_len < 1) return cudaErrorInvalidValue;
+cudaError_t attention_core_piece(const T* q, const T* k, const T* v, OutT* o, int n, int s_len, int heads, int hd,
+                                 float scale, long long in_n, long long in_s, long long in_h, long long o_n,
+                                 long long o_s, long long o_h, cudaStream_t stream, const float* o_inv) {
 #define CVT_ATT_CASE(HD)                                                                              \
   case HD:                                                                                            \
     return launch_attention_core<T, HD, OutT>(q, k, v, o, n, s_len, heads, scale, in_n, in_s, in_h, o_n, \
@@ -307,6 +315,25 @@ cudaError_t attention_core(const T* q, const T* k, const T* v, OutT* o, int n, i
       return cudaErrorInvalidValue;
   }
 #undef CVT_ATT_CASE
+}
+
+// Head dims with an instantiation; any other is refused.  o_inv: the int8
+// output's inverse scales, one a joined channel (OutT = int8_t only).  At head
+// dim 64 bf16, and float32 into float32, take the tensor-core cores, which
+// need q, k, v and their strides 16-byte aligned and refuse them otherwise.
+// Any number of images and heads: pieces of MAX_GRID_YZ launch one after
+// another on the offset tensors.
+template <typename T, typename OutT>
+cudaError_t attention_core(const T* q, const T* k, const T* v, OutT* o, int n, int s_len, int heads, int hd,
+                           float scale, long long in_n, long long in_s, long long in_h, long long o_n,
+                           long long o_s, long long o_h, cudaStream_t stream, const float* o_inv = nullptr) {
+  if (n < 1 || heads < 1 || s_len < 1) return cudaErrorInvalidValue;
+  return over_images_heads(n, heads, [&](int n0, int nc, int h0, int hc) {
+    const long long in0 = n0 * in_n + h0 * in_h;
+    return attention_core_piece<T, OutT>(q + in0, k + in0, v + in0, o + n0 * o_n + h0 * o_h, nc, s_len, hc, hd, scale,
+                                         in_n, in_s, in_h, o_n, o_s, o_h, stream,
+                                         o_inv == nullptr ? nullptr : o_inv + (long long)h0 * hd);
+  });
 }
 
 }  // namespace cvt

@@ -1,8 +1,8 @@
 // The few Hopper (sm_90a) instructions the tensor-core kernels are built
-// from, each behind one small function: cp.async with zero fill, the
-// async-proxy fence, wgmma's fence, commit and wait, the shared-memory matrix
-// descriptors of the 128- and 64-byte swizzles, and these forms of
-// wgmma.mma_async into f32 sums:
+// from, each behind one small function: cp.async (16 bytes with zero fill,
+// or 4 bytes), the async-proxy fence, wgmma's fence, commit and wait, the
+// shared-memory matrix descriptors of the 128- and 64-byte swizzles, and
+// these forms of wgmma.mma_async into f32 sums:
 //   bf16, 64 x 128 x 16, A K-major, B MN-major: the product of ln_gemm.cuh;
 //   bf16, 64 x 64 x 16, A and B K-major: S = Q K^T of the attention cores
 //     (tc_attention.cuh, swin_attention.cu);
@@ -70,6 +70,9 @@
 
 namespace cvt {
 
+// a grid's y and z dimensions: what a launcher walks in pieces of at most this many
+constexpr int MAX_GRID_YZ = 65535;
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
@@ -79,6 +82,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
                : "memory");
+}
+
+// 4 bytes from src (global, 4-byte aligned) to dst (shared), through L1, or 4 zero bytes where !valid; src must
+// be a readable address either way
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }

@@ -12,8 +12,8 @@
 // 8-bit wgmma takes both operands K-major only: A is row-major (m, k) and B
 // comes transposed, bt (n, k), a row of k for each output column.
 //
-// Domain.  k a multiple of 16 (a 16-byte chunk of a row), m from 1 to
-// Q8_MAX_ROW_TILES * 128 (the row tiles run on the grid's y), n from 1; every
+// Domain.  k a multiple of 16 (a 16-byte chunk of a row), any m from 1 (the
+// row tiles run on the grid's y, MAX_GRID_YZ a launch), n from 1; every
 // row of A and bt starts 16-byte aligned.  Rows past m or n, and the chunks of
 // the last k tile past k, are copied as zeros (cp.async's zero fill): a zero
 // product adds nothing to an int32 sum, so every stage issues its four wgmma
@@ -89,7 +89,6 @@ constexpr int Q8_KSTEP = 16;  // k is a multiple of this: one 16-byte chunk of a
 constexpr int Q8_STAGES = 3;
 constexpr int Q8_AHEAD = Q8_STAGES - 1;  // tiles copied ahead of the products
 constexpr int Q8_THREADS = 256;
-constexpr int Q8_MAX_ROW_TILES = 65535;  // the grid's y
 constexpr int Q8_TILE_BYTES = Q8_BM * Q8_BK;  // the A and the B tile alike
 constexpr int Q8_STAGE_BYTES = 2 * Q8_TILE_BYTES;
 constexpr size_t Q8_SMEM = (size_t)Q8_STAGES * Q8_STAGE_BYTES + 1024;  // + room to align to 1024
@@ -158,12 +157,13 @@ __device__ __forceinline__ void store16b(bf16* p, const float (&v)[8]) {
 
 template <int EPI, typename T>
 __global__ void __launch_bounds__(Q8_THREADS, 2)
-i8_tc_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bt, Q8Epi<T> epi, int m, int k, int n) {
+i8_tc_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bt, Q8Epi<T> epi, int m, int k, int n,
+                  int row_tile0) {
   constexpr bool has_resid = EPI == Q8_RESID || EPI == Q8_ATTN_RESID;
   extern __shared__ __align__(16) float smem[];
   const uint32_t base = (smem_addr(smem) + 1023u) & ~1023u;
   const int tid = threadIdx.x, wg = tid >> 7;
-  const int m0 = blockIdx.y * Q8_BM, n0 = blockIdx.x * Q8_BN;
+  const int m0 = (row_tile0 + blockIdx.y) * Q8_BM, n0 = blockIdx.x * Q8_BN;
   const int k_tiles = (k + Q8_BK - 1) / Q8_BK;
   // the epilogue's per-column scale, bias and (Q8_GELU) inverse scale of this tile, read once, visible after the
   // first barrier of the loop
@@ -316,12 +316,17 @@ template <int EPI, typename T>
 cudaError_t launch_i8_tc_gemm(const int8_t* a, const int8_t* bt, const Q8Epi<T>& epi, int m, int k, int n,
                               cudaStream_t stream) {
   const int rows = (m + Q8_BM - 1) / Q8_BM, cols = (n + Q8_BN - 1) / Q8_BN;
-  if (m < 1 || n < 1 || k < Q8_KSTEP || k % Q8_KSTEP || rows > Q8_MAX_ROW_TILES) return cudaErrorInvalidValue;
+  if (m < 1 || n < 1 || k < Q8_KSTEP || k % Q8_KSTEP) return cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(i8_tc_gemm_kernel<EPI, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Q8_SMEM);
   if (err != cudaSuccess) return err;
-  i8_tc_gemm_kernel<EPI, T><<<dim3(cols, rows), Q8_THREADS, Q8_SMEM, stream>>>(a, bt, epi, m, k, n);
-  return cudaGetLastError();
+  for (int r0 = 0; r0 < rows; r0 += MAX_GRID_YZ) {  // row tiles past the grid's y in further launches
+    i8_tc_gemm_kernel<EPI, T><<<dim3(cols, min(MAX_GRID_YZ, rows - r0)), Q8_THREADS, Q8_SMEM, stream>>>(a, bt, epi, m,
+                                                                                                       k, n, r0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace cvt

@@ -39,9 +39,10 @@ extern "C" {
 
 // qx (m, k) int8, qwt (n, k) int8 (the weight transposed), scale and bias (n,)
 // f32, inv_out one f32 value (1 / output scale) or null for an f32 output;
-// out (m, n) int8 or f32.  k a multiple of 16, rows 16-byte aligned, m at most
-// 65,535 * 128.  Launches on `stream`, returns the launch's cudaError_t (0 on
-// success), does not synchronise.
+// out (m, n) int8 or f32.  k a multiple of 16, rows 16-byte aligned, any m
+// (one launch for each 65,535 row tiles of 128).  Launches on `stream`,
+// returns the first failed launch's cudaError_t (0 on success), does not
+// synchronise.
 int cvt_int8_matmul_requant(const void* qx, const void* qwt, const float* scale, const float* bias,
                             const float* inv_out, void* out, int m, int k, int n, int relu, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;

@@ -524,11 +524,11 @@ template <int EPI, typename OutT>
 __global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_PER_SM)
 tc_gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w, const float* __restrict__ bias,
                const bf16* __restrict__ resid, const float* __restrict__ gamma, OutT* __restrict__ out, int m, int k,
-               int n) {
+               int n, int row_tile0) {
   extern __shared__ __align__(16) float smem[];
   const uint32_t base = (smem_addr(smem) + 1023u) & ~1023u;
   const int tid = threadIdx.x, wg = tid >> 7;
-  const int m0 = blockIdx.y * TC_BM, n0 = blockIdx.x * TC_BN;
+  const int m0 = (row_tile0 + blockIdx.y) * TC_BM, n0 = blockIdx.x * TC_BN;
   const int k_tiles = (k + TC_BK - 1) / TC_BK;
 
   // A tile: row r, chunk c of 8 k at r * 128 + (c ^ r % 8) * 16.  B tile: two
@@ -625,13 +625,17 @@ template <int EPI, typename OutT>
 cudaError_t launch_tc_gemm(const bf16* a, const bf16* w, const float* bias, const bf16* resid, const float* gamma,
                            OutT* out, int m, int k, int n, cudaStream_t stream) {
   const int rows = (m + TC_BM - 1) / TC_BM, cols = (n + TC_BN - 1) / TC_BN;
-  if (m < 1 || n < 8 || n % 8 || k < 16 || k % 16 || rows > 65535) return cudaErrorInvalidValue;
+  if (m < 1 || n < 8 || n % 8 || k < 16 || k % 16) return cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(tc_gemm_kernel<EPI, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TC_SMEM);
   if (err != cudaSuccess) return err;
-  tc_gemm_kernel<EPI, OutT><<<dim3(cols, rows), TC_THREADS, TC_SMEM, stream>>>(a, w, bias, resid, gamma, out, m, k,
-                                                                               n);
-  return cudaGetLastError();
+  for (int r0 = 0; r0 < rows; r0 += MAX_GRID_YZ) {  // row tiles past the grid's y in further launches
+    tc_gemm_kernel<EPI, OutT><<<dim3(cols, min(MAX_GRID_YZ, rows - r0)), TC_THREADS, TC_SMEM, stream>>>(
+        a, w, bias, resid, gamma, out, m, k, n, r0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace cvt

@@ -11,7 +11,8 @@
 // and _halo_stencil_call_rowfused, stencil.py:171).
 //
 // Design.  The input is one (N, H, W) map, channels folded into N.  Every
-// block owns one TILE_H x TILE_W output tile of one image: it loads the
+// block of the Canny, hysteresis, blur+Sobel and blur kernels owns one
+// TILE_H x TILE_W output tile of one image: it loads the
 // (TILE_H + 2*halo) x (TILE_W + 2*halo) window around it into shared memory
 // with reflect indexing (numpy "reflect": edge not repeated, periodic for
 // pads longer than the image), runs the whole pipeline in shared memory and
@@ -23,8 +24,9 @@
 // do a few tens of f32 operations per pixel, well under the H100's
 // 67 TFLOP/s f32 rate against 3.35 TB/s, so device memory bounds them.  The
 // halo windows overlap, so neighbouring blocks re-read up to ~1.6x the tile
-// from L2, not from HBM.  No cp.async/TMA yet: plain loads, one tile per
-// block, many blocks per SM to hide latency.
+// from L2, not from HBM.  Those four use plain loads, one tile per block,
+// many blocks per SM to hide latency; Harris streams rows through cp.async on
+// a persistent grid (its own note below).
 //
 // Exactness.  Sums run in the order of the Pallas kernels (blur taps j=0..k-1
 // along W, then i=0..k-1 along H; Sobel in stencil.py:327-339's order), with
@@ -35,7 +37,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using cvt::cp_async16;
+using cvt::cp_async4;
+using cvt::cp_async_commit;
+using cvt::cp_async_wait;
+using cvt::smem_addr;
 
 constexpr int MAX_TAPS = 31;
 constexpr int MAX_SWEEPS = 16;
@@ -314,56 +324,191 @@ blur_sobel_kernel(const float* __restrict__ in, float* __restrict__ out, int h, 
 // ---------------------------------------------------- harris_response_fused
 // Sobel -> Ixx/Iyy/Ixy -> separable Gaussian window -> det - k*tr^2;
 // halo = 1 + K/2.
-struct HarrisDims {
-  int r, halo, in_h, in_w, g_h, g_w;
-  __host__ __device__ explicit HarrisDims(int K)
-      : r(K / 2), halo(1 + K / 2), in_h(TILE_H + 2 * halo), in_w(TILE_W + 2 * halo),
-        g_h(TILE_H + 2 * r), g_w(TILE_W + 2 * r) {}
-  __host__ __device__ int floats() const { return in_h * in_w + 3 * g_h * g_w + 3 * g_h * TILE_W; }
+//
+// Redesigned for Hopper: the tile-at-once kernel it replaces spent about 45
+// shared accesses, two integer % and runtime divides an output pixel, and
+// three barriers a tile.  Here every warp works alone on a persistent grid,
+// walking (frame, strip) tiles: a strip is 32 C columns of products, a lane C
+// neighbouring ones, and 32 C - (K - 1) columns of outputs (the last lanes'
+// outputs would need products past the strip), HR_TILE_H rows deep.  The warp
+// streams the strip's rows of the reflect-padded frame through a ring of
+// HR_RING rows in its own shared memory, HR_AHEAD rows ahead of the row it
+// reads: rows of interior strips by 16-byte cp.async as they lie (from the
+// 16-byte boundary at or before the strip's first column; the frame's rows
+// 16-byte aligned), rows of border strips by 4-byte cp.async from reflected
+// columns computed once a tile; a row's own reflection is computed once a
+// row.  A lane's Sobel runs from a 3 x (C + 2) register window that takes
+// C + 2 values of each new row; its C products of each plane blur along W
+// with the K - 1 products after them taken from the next lanes by shuffles;
+// the W-blurred rows of the last K rows sit in registers, and each new one
+// completes the H blur of C outputs.  One __syncwarp a row, no block barrier.
+// K and C are template arguments (C 4 up to K 5, 2 up to K 11, else 1, to
+// bound the registers), so every loop over taps unrolls with the taps in the
+// kernel's parameter space.  Sums in the order of the kernel it replaces and
+// of the twin.
+constexpr int HR_WARPS = 4;
+constexpr int HR_THREADS = 32 * HR_WARPS;
+constexpr int HR_TILE_H = 64;          // output rows of a strip
+constexpr int HR_RING = 8;             // input rows in a warp's shared memory
+constexpr int HR_AHEAD = HR_RING - 1;  // rows copied ahead of the row read
+
+template <int K>
+struct HarrisShape {
+  static constexpr int C = K <= 5 ? 4 : (K <= 11 ? 2 : 1);  // product (and output) columns a lane
+  static constexpr int R = K / 2, HALO = 1 + R;
+  static constexpr int PW = 32 * C;         // product columns of a strip
+  static constexpr int OW = PW - (K - 1);   // output columns of a strip
+  static constexpr int IW = PW + 8;         // a staged row: the strip's PW + 2 input columns from up to 3 before
+  static constexpr int CHUNKS = IW / 4;     // 16-byte chunks of an interior row
+  static constexpr int LOADS = (IW + 31) / 32;  // 4-byte copies a lane of a border row
+  static_assert(OW >= 1 && CHUNKS <= 64, "a strip");
+  static constexpr size_t SMEM = sizeof(float) * HR_WARPS * HR_RING * IW;
 };
 
-__global__ void __launch_bounds__(THREADS)
-harris_kernel(const float* __restrict__ in, float* __restrict__ out, int h, int w,
-              Taps taps, int K, float k) {
-  extern __shared__ float smem[];
-  __shared__ float s_k[MAX_TAPS];
-  const HarrisDims d(K);
-  const int g_n = d.g_h * d.g_w, hb_n = d.g_h * TILE_W;
-  float* s_in = smem;
-  float* s_p = s_in + d.in_h * d.in_w;  // Ixx, Iyy, Ixy planes
-  float* s_hb = s_p + 3 * g_n;           // their W-blurred planes
+// gx, gy of the 3 x 3 window at column c of v (rows top to bottom), in sobel_at's order
+template <int W>
+__device__ __forceinline__ void sobel3(const float (&v)[3][W], int c, float& gx, float& gy) {
+  gx = v[0][c] * -1.0f;
+  gx = gx + v[0][c + 2];
+  gx = gx + v[1][c] * -2.0f;
+  gx = gx + v[1][c + 2] * 2.0f;
+  gx = gx + v[2][c] * -1.0f;
+  gx = gx + v[2][c + 2];
+  gy = v[0][c] * -1.0f;
+  gy = gy + v[0][c + 1] * -2.0f;
+  gy = gy + v[0][c + 2] * -1.0f;
+  gy = gy + v[2][c];
+  gy = gy + v[2][c + 1] * 2.0f;
+  gy = gy + v[2][c + 2];
+}
 
-  const int y0 = blockIdx.y * TILE_H, x0 = blockIdx.x * TILE_W;
+// the reflected index of i (numpy "reflect"), without a division where it lies inside
+__device__ __forceinline__ int reflect_fast(int i, int n) { return (unsigned)i < (unsigned)n ? i : reflect(i, n); }
+
+template <int K>
+__global__ void __launch_bounds__(HR_THREADS)
+harris_kernel(const float* __restrict__ in, float* __restrict__ out, int frames, int h, int w, int tiles_x,
+              int tiles_y, int vec_rows, Taps taps, float k) {
+  using S = HarrisShape<K>;
+  constexpr int C = S::C;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* const s_in = smem + warp * HR_RING * S::IW;  // [HR_RING][IW]
+  const int per_frame = tiles_x * tiles_y;
   const size_t plane = (size_t)h * w;
-  load_taps(taps, s_k);
-  load_window(in + blockIdx.z * plane, h, w, y0 - d.halo, x0 - d.halo, s_in, d.in_h, d.in_w);
-  __syncthreads();
-  for (int i = threadIdx.x; i < g_n; i += blockDim.x) {
-    const int r = i / d.g_w, c = i - r * d.g_w;
-    float gx, gy;
-    sobel_at(s_in + r * d.in_w + c, d.in_w, gx, gy);
-    s_p[i] = gx * gx;
-    s_p[g_n + i] = gy * gy;
-    s_p[2 * g_n + i] = gx * gy;
-  }
-  __syncthreads();
-  for (int p = 0; p < 3; ++p)
-    blur_along_w(s_p + p * g_n, d.g_w, s_hb + p * hb_n, d.g_h, TILE_W, s_k, K);
-  __syncthreads();
-  for (int i = threadIdx.x; i < TILE_H * TILE_W; i += blockDim.x) {
-    const int r = i / TILE_W, c = i - r * TILE_W;
-    const int y = y0 + r, x = x0 + c;
-    if (y >= h || x >= w) continue;
-    float s[3];
-    for (int p = 0; p < 3; ++p) {
-      const float* q = s_hb + p * hb_n + r * TILE_W + c;
-      float acc = q[0] * s_k[0];
-      for (int t = 1; t < K; ++t) acc = acc + q[t * TILE_W] * s_k[t];
-      s[p] = acc;
+
+  for (long long tile = (long long)blockIdx.x * HR_WARPS + warp; tile < (long long)frames * per_frame;
+       tile += (long long)gridDim.x * HR_WARPS) {
+    const int f = (int)(tile / per_frame), rem = (int)(tile - (long long)f * per_frame);
+    const int ty = rem / tiles_x, tx = rem - ty * tiles_x;
+    const int y0 = ty * HR_TILE_H, x0 = tx * S::OW;
+    const int out_rows = min(HR_TILE_H, h - y0), rows_in = out_rows + 2 * S::HALO;
+    const float* const img = in + f * plane;
+    // a staged row holds input columns from first (the strip's first, x0 - HALO, or up to 3 before it: a 16-byte
+    // boundary); interior: the row as it lies
+    const int x_first = x0 - S::HALO, shift = vec_rows ? (x_first & 3) : 0, first = x_first - shift;
+    const bool interior = vec_rows && first >= 0 && first + S::IW <= w;
+    int col[S::LOADS];
+#pragma unroll
+    for (int c = 0; c < S::LOADS; ++c)
+      col[c] = lane + 32 * c < S::IW ? reflect_fast(first + lane + 32 * c, w) : -1;
+    auto load = [&](int i) {  // padded row i of the tile: frame row y0 - HALO + i, reflected
+      const float* row = img + (size_t)reflect_fast(y0 - S::HALO + i, h) * w;
+      const uint32_t dst = smem_addr(s_in + (i % HR_RING) * S::IW);
+      if (interior) {
+#pragma unroll
+        for (int c = 0; c < (S::CHUNKS + 31) / 32; ++c)
+          if (lane + 32 * c < S::CHUNKS) cp_async16(dst + 16 * (lane + 32 * c), row + first + 4 * (lane + 32 * c), true);
+      } else {
+#pragma unroll
+        for (int c = 0; c < S::LOADS; ++c)
+          if (col[c] >= 0) cp_async4(dst + 4 * (lane + 32 * c), row + col[c], true);
+      }
+    };
+
+    float win[3][C + 2];  // the Sobel window of this lane's C product columns
+    float ring[3][C][K];  // W-blurred products of the last K rows, oldest first
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+      for (int b = 0; b < C + 2; ++b) win[a][b] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int j = 0; j < K; ++j) ring[a][c][j] = 0.0f;
     }
-    const float det = s[0] * s[1] - s[2] * s[2];
-    const float tr = s[0] + s[1];
-    out[blockIdx.z * plane + (size_t)y * w + x] = det - k * tr * tr;
+
+    __syncwarp();  // every lane's reads of the last tile's ring rows end before this tile's first copies
+#pragma unroll
+    for (int i = 0; i < HR_AHEAD; ++i) {
+      if (i < rows_in) load(i);
+      cp_async_commit();
+    }
+    // rows in runs of K, unrolled: the W-blurred row g = i - 2 takes ring slot g % K, fixed for each position of
+    // the run, so the ring never moves
+    for (int i0 = 0; i0 < rows_in; i0 += K) {
+#pragma unroll
+      for (int u = 0; u < K; ++u) {
+        const int i = i0 + u;
+        if (i >= rows_in) break;
+        cp_async_wait<HR_AHEAD - 1>();  // this lane's copies of row i
+        __syncwarp();                   // the warp's; and every read of the slot reused below is done
+        if (i + HR_AHEAD < rows_in) load(i + HR_AHEAD);
+        cp_async_commit();
+        // the new row's values of this lane's window: padded columns C lane .. C lane + C + 1
+        const float* r = s_in + (i % HR_RING) * S::IW + shift + C * lane;
+#pragma unroll
+        for (int b = 0; b < C + 2; ++b) {
+          win[0][b] = win[1][b];
+          win[1][b] = win[2][b];
+          win[2][b] = r[b];
+        }
+        if (i < 2) continue;
+        // products of row g = i - 2, blurred along W: the K - 1 products after a lane's own from the next lanes
+        const int slot = (u + 2 * K - 2) % K;  // a constant once the run is unrolled
+        float prod[3][C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          float gx, gy;
+          sobel3(win, c, gx, gy);
+          prod[0][c] = gx * gx;
+          prod[1][c] = gy * gy;
+          prod[2][c] = gx * gy;
+        }
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          float ext[C + K - 1];
+#pragma unroll
+          for (int e = 0; e < C + K - 1; ++e)
+            ext[e] = e < C ? prod[q][e] : __shfl_down_sync(0xffffffffu, prod[q][e % C], e / C);
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            float acc = ext[c] * taps.v[0];
+#pragma unroll
+            for (int j = 1; j < K; ++j) acc = acc + ext[c + j] * taps.v[j];
+            ring[q][c][slot] = acc;
+          }
+        }
+        const int yo = i - 2 - (K - 1);  // the output row the ring completes: rows g - K + 1 .. g, oldest first
+        if (yo < 0 || yo >= out_rows) continue;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int o = C * lane + c;
+          if (o >= S::OW || x0 + o >= w) continue;
+          float sm[3];
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            float acc = ring[q][c][(u + K - 1) % K] * taps.v[0];
+#pragma unroll
+            for (int j = 1; j < K; ++j) acc = acc + ring[q][c][(u + j + K - 1) % K] * taps.v[j];
+            sm[q] = acc;
+          }
+          const float det = sm[0] * sm[1] - sm[2] * sm[2];
+          const float tr = sm[0] + sm[1];
+          out[f * plane + (size_t)(y0 + yo) * w + x0 + o] = det - k * tr * tr;
+        }
+      }
+    }
   }
 }
 
@@ -420,12 +565,44 @@ dim3 grid_for(int n, int h, int w, int tile_h, int tile_w) {
   return dim3((w + tile_w - 1) / tile_w, (h + tile_h - 1) / tile_h, n);
 }
 
-bool bad_shape(int n, int h, int w) { return n < 1 || n > 65535 || h < 1 || w < 1; }
+// launch(f0, frames) for the frames [f0, f0 + frames) of n, at most cvt::MAX_GRID_YZ a launch; the first failed
+// launch's error
+template <typename Launch>
+cudaError_t over_frames(int n, Launch launch) {
+  for (int f0 = 0; f0 < n; f0 += cvt::MAX_GRID_YZ) {
+    launch(f0, n - f0 < cvt::MAX_GRID_YZ ? n - f0 : cvt::MAX_GRID_YZ);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+bool bad_shape(int n, int h, int w) { return n < 1 || h < 1 || w < 1; }
+
+template <int K>
+cudaError_t launch_harris(const float* in, float* out, int n, int h, int w, const Taps& taps, float k, int sms,
+                          cudaStream_t stream) {
+  using S = HarrisShape<K>;
+  cudaError_t err = prepare(harris_kernel<K>, S::SMEM);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)harris_kernel<K>, HR_THREADS, S::SMEM);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1 || sms < 1) return cudaErrorInvalidValue;
+  const int tiles_x = (w + HarrisShape<K>::OW - 1) / HarrisShape<K>::OW, tiles_y = (h + HR_TILE_H - 1) / HR_TILE_H;
+  const long long blocks = ((long long)n * tiles_x * tiles_y + HR_WARPS - 1) / HR_WARPS;  // a strip a warp
+  const int grid = (int)(blocks < (long long)per_sm * sms ? blocks : (long long)per_sm * sms);
+  const int vec_rows = w % 4 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0;  // every row 16-byte aligned
+  harris_kernel<K><<<grid, HR_THREADS, S::SMEM, stream>>>(in, out, n, h, w, tiles_x, tiles_y, vec_rows, taps, k);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
-// Each entry point launches on `stream` and returns the launch's
-// cudaError_t (0 on success); it never synchronises.
+// Each entry point launches on `stream` and returns the first failed
+// launch's cudaError_t (0 on success); it never synchronises.  Any number of
+// frames: past 65,535 (cvt::MAX_GRID_YZ) the tiled kernels launch once for
+// each 65,535 frames; Harris walks its frames on a persistent grid.
 extern "C" {
 
 int cvt_canny_stage1(const float* in, uint8_t* out, int n, int h, int w, const float* taps,
@@ -435,9 +612,12 @@ int cvt_canny_stage1(const float* in, uint8_t* out, int n, int h, int w, const f
   auto kernel = in_tile ? canny_stage1_kernel<true> : canny_stage1_kernel<false>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid_for(n, h, w, TILE_H, TILE_W), THREADS, smem, (cudaStream_t)stream>>>(
-      in, out, h, w, make_taps(taps, ksize), ksize, low, high);
-  return (int)cudaGetLastError();
+  const size_t plane = (size_t)h * w;
+  const Taps t = make_taps(taps, ksize);
+  return (int)over_frames(n, [&](int f0, int frames) {
+    kernel<<<grid_for(frames, h, w, TILE_H, TILE_W), THREADS, smem, (cudaStream_t)stream>>>(
+        in + f0 * plane, out + f0 * plane, h, w, t, ksize, low, high);
+  });
 }
 
 int cvt_gaussian_blur(const float* in, float* out, int n, int h, int w, const float* taps, int ksize,
@@ -446,9 +626,12 @@ int cvt_gaussian_blur(const float* in, float* out, int n, int h, int w, const fl
   const size_t smem = sizeof(float) * BlurDims(ksize).floats();
   cudaError_t err = prepare(gaussian_blur_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  gaussian_blur_kernel<<<grid_for(n, h, w, TILE_H, TILE_W), THREADS, smem, (cudaStream_t)stream>>>(
-      in, out, h, w, make_taps(taps, ksize), ksize);
-  return (int)cudaGetLastError();
+  const size_t plane = (size_t)h * w;
+  const Taps t = make_taps(taps, ksize);
+  return (int)over_frames(n, [&](int f0, int frames) {
+    gaussian_blur_kernel<<<grid_for(frames, h, w, TILE_H, TILE_W), THREADS, smem, (cudaStream_t)stream>>>(
+        in + f0 * plane, out + f0 * plane, h, w, t, ksize);
+  });
 }
 
 int cvt_hysteresis_sweeps(const uint8_t* in, uint8_t* out, int n, int h, int w, int sweeps,
@@ -457,9 +640,11 @@ int cvt_hysteresis_sweeps(const uint8_t* in, uint8_t* out, int n, int h, int w, 
   const size_t smem = 2 * (size_t)(HYST_TILE_H + 2 * sweeps) * (HYST_TILE_W + 2 * sweeps);
   cudaError_t err = prepare(hysteresis_sweeps_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  hysteresis_sweeps_kernel<<<grid_for(n, h, w, HYST_TILE_H, HYST_TILE_W), THREADS, smem,
-                             (cudaStream_t)stream>>>(in, out, h, w, sweeps, changed);
-  return (int)cudaGetLastError();
+  const size_t plane = (size_t)h * w;
+  return (int)over_frames(n, [&](int f0, int frames) {
+    hysteresis_sweeps_kernel<<<grid_for(frames, h, w, HYST_TILE_H, HYST_TILE_W), THREADS, smem,
+                               (cudaStream_t)stream>>>(in + f0 * plane, out + f0 * plane, h, w, sweeps, changed);
+  });
 }
 
 int cvt_blur_sobel(const float* in, float* out, int n, int h, int w, const float* taps, int ksize,
@@ -468,20 +653,34 @@ int cvt_blur_sobel(const float* in, float* out, int n, int h, int w, const float
   const size_t smem = sizeof(float) * BlurSobelDims(ksize).floats();
   cudaError_t err = prepare(blur_sobel_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  blur_sobel_kernel<<<grid_for(n, h, w, TILE_H, TILE_W), THREADS, smem, (cudaStream_t)stream>>>(
-      in, out, h, w, make_taps(taps, ksize), ksize);
-  return (int)cudaGetLastError();
+  const size_t plane = (size_t)h * w;
+  const Taps t = make_taps(taps, ksize);
+  return (int)over_frames(n, [&](int f0, int frames) {
+    blur_sobel_kernel<<<grid_for(frames, h, w, TILE_H, TILE_W), THREADS, smem, (cudaStream_t)stream>>>(
+        in + f0 * plane, out + f0 * plane, h, w, t, ksize);
+  });
 }
 
+// sms: the card's multiprocessors, which size the persistent grid
 int cvt_harris(const float* in, float* out, int n, int h, int w, const float* taps, int ksize,
-               float k, void* stream) {
+               float k, int sms, void* stream) {
   if (bad_shape(n, h, w) || ksize < 1 || ksize > MAX_TAPS) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * HarrisDims(ksize).floats();
-  cudaError_t err = prepare(harris_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  harris_kernel<<<grid_for(n, h, w, TILE_H, TILE_W), THREADS, smem, (cudaStream_t)stream>>>(
-      in, out, h, w, make_taps(taps, ksize), ksize, k);
-  return (int)cudaGetLastError();
+  const Taps t = make_taps(taps, ksize);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (ksize) {
+#define CVT_HARRIS_K(K) \
+  case K:               \
+    return (int)launch_harris<K>(in, out, n, h, w, t, k, sms, st);
+    CVT_HARRIS_K(1) CVT_HARRIS_K(2) CVT_HARRIS_K(3) CVT_HARRIS_K(4) CVT_HARRIS_K(5) CVT_HARRIS_K(6)
+    CVT_HARRIS_K(7) CVT_HARRIS_K(8) CVT_HARRIS_K(9) CVT_HARRIS_K(10) CVT_HARRIS_K(11) CVT_HARRIS_K(12)
+    CVT_HARRIS_K(13) CVT_HARRIS_K(14) CVT_HARRIS_K(15) CVT_HARRIS_K(16) CVT_HARRIS_K(17) CVT_HARRIS_K(18)
+    CVT_HARRIS_K(19) CVT_HARRIS_K(20) CVT_HARRIS_K(21) CVT_HARRIS_K(22) CVT_HARRIS_K(23) CVT_HARRIS_K(24)
+    CVT_HARRIS_K(25) CVT_HARRIS_K(26) CVT_HARRIS_K(27) CVT_HARRIS_K(28) CVT_HARRIS_K(29) CVT_HARRIS_K(30)
+    CVT_HARRIS_K(31)
+#undef CVT_HARRIS_K
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -77,6 +77,7 @@
 
 #pragma once
 
+#include "attention.cuh"  // over_images_heads
 #include "hopper.cuh"
 
 namespace cvt {
@@ -445,31 +446,33 @@ inline cudaError_t launch_attention_bwd(const __nv_bfloat16* q, const __nv_bfloa
                                         long long p_h, cudaStream_t stream) {
   const uintptr_t bases = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout | (uintptr_t)dq |
                           (uintptr_t)dk | (uintptr_t)dv | (uintptr_t)o | (uintptr_t)stats;
-  if (n < 1 || heads < 1 || s_len < 1 || n > 65535 || heads > 65535 || bases % 16 || stats == nullptr ||
+  if (n < 1 || heads < 1 || s_len < 1 || bases % 16 || stats == nullptr ||
       (in_n | in_s | in_h | o_n | o_s | o_h | p_n | p_s | p_h) % 8)
     return cudaErrorInvalidValue;
-  const dim3 grid((s_len + ABW_T - 1) / ABW_T, heads, n);
-  cudaError_t err;
-  if (o != nullptr) {
-    err = cudaFuncSetAttribute(attention_bwd_q_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)ABW_Q_SMEM);
-    if (err != cudaSuccess) return err;
-    attention_bwd_q_kernel<true><<<grid, ABW_THREADS, ABW_Q_SMEM, stream>>>(
-        q, k, v, dout, dq, o, stats, s_len, scale, in_n, in_s, in_h, o_n, o_s, o_h, p_n, p_s, p_h);
-  } else {
-    err = cudaFuncSetAttribute(attention_bwd_q_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)ABW_Q_SMEM);
-    if (err != cudaSuccess) return err;
-    attention_bwd_q_kernel<false><<<grid, ABW_THREADS, ABW_Q_SMEM, stream>>>(
-        q, k, v, dout, dq, o, stats, s_len, scale, in_n, in_s, in_h, o_n, o_s, o_h, p_n, p_s, p_h);
-  }
-  err = cudaGetLastError();
+  auto q_kernel = o != nullptr ? attention_bwd_q_kernel<true> : attention_bwd_q_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ABW_Q_SMEM);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(attention_bwd_kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ABW_KV_SMEM);
   if (err != cudaSuccess) return err;
-  attention_bwd_kv_kernel<<<grid, ABW_THREADS, ABW_KV_SMEM, stream>>>(q, k, v, dout, dk, dv, stats, s_len, scale,
-                                                                      in_n, in_s, in_h, o_n, o_s, o_h);
-  return cudaGetLastError();
+  // past MAX_GRID_YZ images or heads, one pair of launches a piece on the offset tensors; each piece has its own
+  // part of the statistics, laid out as a call of its images and heads would lay them
+  const long long tiles = (s_len + ABW_T - 1) / ABW_T;
+  float* piece_stats = stats;
+  return over_images_heads(n, heads, [&](int n0, int nc, int h0, int hc) {
+    const long long in0 = n0 * in_n + h0 * in_h, o0 = n0 * o_n + h0 * o_h;
+    const dim3 grid((unsigned)tiles, hc, nc);
+    __nv_bfloat16* op = o == nullptr ? nullptr : o + n0 * p_n + h0 * p_h;
+    q_kernel<<<grid, ABW_THREADS, ABW_Q_SMEM, stream>>>(q + in0, k + in0, v + in0, dout + o0, dq + in0, op,
+                                                         piece_stats, s_len, scale, in_n, in_s, in_h, o_n, o_s, o_h,
+                                                         p_n, p_s, p_h);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    attention_bwd_kv_kernel<<<grid, ABW_THREADS, ABW_KV_SMEM, stream>>>(q + in0, k + in0, v + in0, dout + o0,
+                                                                        dk + in0, dv + in0, piece_stats, s_len, scale,
+                                                                        in_n, in_s, in_h, o_n, o_s, o_h);
+    piece_stats += (long long)nc * hc * tiles * ABW_STATS;
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace cvt

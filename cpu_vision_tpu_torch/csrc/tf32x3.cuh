@@ -177,7 +177,9 @@ struct X3RawB {
     }
   }
 
-  // this thread's chunks of a raw slot, split, both halves into the tiles at hi and lo
+  // this thread's chunks of a raw slot, split, both halves into the tiles at hi and lo; ROUND_LO: lo rounded to
+  // tf32 too (cvt.rna), not left to the tensor cores' truncation
+  template <bool ROUND_LO = false>
   static __device__ __forceinline__ void split(const char* raw, char* hi, char* lo) {
 #pragma unroll
     for (int i = 0; i < LOADS; ++i) {
@@ -189,6 +191,7 @@ struct X3RawB {
       for (int q = 0; q < 4; ++q) {
         float h, l;
         split_tf32(v[q], h, l);
+        if (ROUND_LO) l = tf32_rna(l);
         *reinterpret_cast<float*>(hi + kmajor_at(n + q, k)) = h;
         *reinterpret_cast<float*>(lo + kmajor_at(n + q, k)) = l;
       }
@@ -240,13 +243,13 @@ __device__ __forceinline__ void keep_fragments(const uint32_t (&hi)[K8][4], cons
 template <bool A_KMAJOR, int WGS, int BN, class Epi>
 __global__ void __launch_bounds__(256, 1)
 x3_gemm_kernel(const float* __restrict__ a, int lda, const float* __restrict__ b, int ldb, int m, int n, int k,
-               int k_slab, Epi epi) {
+               int k_slab, Epi epi, int row_tile0) {
   using S = X3Shape<WGS, BN>;
   extern __shared__ __align__(16) float smem[];
   const uint32_t base = (smem_addr(smem) + 1023u) & ~1023u;
   char* const tiles = reinterpret_cast<char*>(smem) + (base - smem_addr(smem));
   const int wg = threadIdx.x >> 7;
-  const int m0 = blockIdx.y * S::BM, n0 = blockIdx.x * BN;
+  const int m0 = (row_tile0 + blockIdx.y) * S::BM, n0 = blockIdx.x * BN;
   const int wg_row = WGS == 2 ? wg * 64 : 0, wg_col = WGS == 2 ? 0 : wg * S::WN;  // this warpgroup's part
   const int k_begin = blockIdx.z * k_slab, k_end = min(k, k_begin + k_slab);
   const int stages = (k_end - k_begin + X3_BK - 1) / X3_BK;
@@ -318,7 +321,8 @@ x3_gemm_kernel(const float* __restrict__ a, int lda, const float* __restrict__ b
   store_tile(sum, m0 + wg_row, n0 + wg_col, m, n, epi);
 }
 
-// grid (n tiles, m tiles, slabs); lda and ldb multiples of 4, k_slab of X3_BK
+// grid (n tiles, m tiles, slabs), the m tiles past the grid's y in further launches; lda and ldb multiples of 4,
+// k_slab of X3_BK
 template <bool A_KMAJOR, int WGS, int BN, class Epi>
 cudaError_t launch_x3_gemm(const float* a, int lda, const float* b, int ldb, int m, int n, int k, int k_slab,
                            Epi epi, cudaStream_t stream) {
@@ -326,13 +330,17 @@ cudaError_t launch_x3_gemm(const float* a, int lda, const float* b, int ldb, int
   if (m < 1 || n < 1 || k < 1 || lda % 4 || ldb % 4 || k_slab < X3_BK || k_slab % X3_BK)
     return cudaErrorInvalidValue;
   const int rows = (m + S::BM - 1) / S::BM, cols = (n + BN - 1) / BN, slabs = (k + k_slab - 1) / k_slab;
-  if (rows > 65535 || slabs > 65535) return cudaErrorInvalidValue;
+  if (slabs > MAX_GRID_YZ) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(x3_gemm_kernel<A_KMAJOR, WGS, BN, Epi>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
   if (err != cudaSuccess) return err;
-  x3_gemm_kernel<A_KMAJOR, WGS, BN, Epi><<<dim3(cols, rows, slabs), S::THREADS, S::SMEM, stream>>>(
-      a, lda, b, ldb, m, n, k, k_slab, epi);
-  return cudaGetLastError();
+  for (int r0 = 0; r0 < rows; r0 += MAX_GRID_YZ) {
+    x3_gemm_kernel<A_KMAJOR, WGS, BN, Epi><<<dim3(cols, min(MAX_GRID_YZ, rows - r0), slabs), S::THREADS, S::SMEM,
+                                             stream>>>(a, lda, b, ldb, m, n, k, k_slab, epi, r0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // The epilogue of the float32 blocks' products: out = resid + gamma * (acc +

@@ -261,10 +261,12 @@ __device__ __forceinline__ float gelu_grad_twin(float h) {
 
 __global__ void __launch_bounds__(GB_THREADS)
 gelu_backward_kernel(const float* __restrict__ da32, const float* __restrict__ hw, const float* __restrict__ b1,
-                     bf16* __restrict__ du2, bf16* __restrict__ a, float* __restrict__ partial, int m, int n) {
+                     bf16* __restrict__ du2, bf16* __restrict__ a, float* __restrict__ partial, int m, int n,
+                     int row_tile0) {
   const int col = 2 * (blockIdx.x * GB_THREADS + threadIdx.x);
   if (col >= n) return;
-  const int r0 = blockIdx.y * GB_ROWS, r1 = min(r0 + GB_ROWS, m);
+  const int tile = row_tile0 + blockIdx.y;  // row tiles past the grid's 65,535 come in further launches
+  const int r0 = tile * GB_ROWS, r1 = min(r0 + GB_ROWS, m);
   const float bias0 = b1[col], bias1 = b1[col + 1];
   float s0 = 0.0f, s1 = 0.0f;
   for (int r = r0; r < r1; ++r) {
@@ -283,8 +285,8 @@ gelu_backward_kernel(const float* __restrict__ da32, const float* __restrict__ h
     cvt::store2(du2 + (size_t)r * 2 * n + n + col, t0 - h0, t1 - h1);
     cvt::store2(a + at, gelu_twin(uu.x), gelu_twin(uu.y));
   }
-  partial[(size_t)blockIdx.y * n + col] = s0;
-  partial[(size_t)blockIdx.y * n + col + 1] = s1;
+  partial[(size_t)tile * n + col] = s0;
+  partial[(size_t)tile * n + col + 1] = s1;
 }
 
 }  // namespace
@@ -334,10 +336,15 @@ int cvt_attention_block(const void* x, const float* ln_g, const float* ln_b, con
 int cvt_mlp_gelu_backward(const float* da32, const float* hw, const float* b1, void* du2, void* a, float* partial,
                           int m, int n, void* stream) {
   if (m < 1 || n < 2 || n % 2) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n / 2 + GB_THREADS - 1) / GB_THREADS, (m + GB_ROWS - 1) / GB_ROWS);
-  gelu_backward_kernel<<<grid, GB_THREADS, 0, (cudaStream_t)stream>>>(da32, hw, b1, (bf16*)du2, (bf16*)a, partial,
-                                                                       m, n);
-  return (int)cudaGetLastError();
+  const int tiles = (m + GB_ROWS - 1) / GB_ROWS;
+  for (int t0 = 0; t0 < tiles; t0 += cvt::MAX_GRID_YZ) {
+    const dim3 grid((n / 2 + GB_THREADS - 1) / GB_THREADS, min(cvt::MAX_GRID_YZ, tiles - t0));
+    gelu_backward_kernel<<<grid, GB_THREADS, 0, (cudaStream_t)stream>>>(da32, hw, b1, (bf16*)du2, (bf16*)a, partial,
+                                                                         m, n, t0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // The LayerNorm backward rows: dx = resid + LN'(x) dh of T (resid null for none), and sums (2, d) of f32, d ln_g

@@ -109,8 +109,6 @@ def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
     n, s, h, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"the kernel has head dims {HEAD_DIMS}, got {hd}")
-    if n > 65535 or h > 65535:
-        raise ValueError(f"at most 65535 images and heads a launch, got {n} and {h}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     if hd == TC_HEAD_DIM and any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -228,8 +226,6 @@ def attention_core_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d
     n, s, h, hd = q.shape
     if not core_backward_takes(q.dtype, s, hd):
         raise ValueError(f"the kernel takes bfloat16 at head dim {TC_HEAD_DIM}, got {q.dtype}, head dim {hd}")
-    if n > 65535:
-        raise ValueError(f"at most 65535 images a launch, got {n}")
     if do.stride(3) != 1:
         do = do.contiguous()
     if out is None:

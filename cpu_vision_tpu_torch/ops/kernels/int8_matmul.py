@@ -14,8 +14,9 @@ no counterpart here.
 A wrapper given CUDA tensors launches the hand-written kernel, one launch of
 the s8 product of ``csrc/int8_gemm.cuh`` on the int8 tensor cores (``wgmma``,
 int32 sums), adds one to its ``launches`` count and raises if the launch fails
-or the kernel does not take the arguments (K a multiple of ``K_STEP``, M at
-most ``MAX_ROWS``, rows 16-byte aligned); given CPU tensors it runs the twin.
+or the kernel does not take the arguments (K a multiple of ``K_STEP``, rows
+16-byte aligned; any M: past 65,535 row tiles of 128 the launcher launches
+again on the rows that follow); given CPU tensors it runs the twin.
 The kernel reads the weight transposed, (N, K): a ``qw`` that is the
 transposed view of a contiguous (N, K) tensor costs no copy.  The twin
 multiplies with ``int_mm``, exact in int32 on either device.
@@ -33,10 +34,9 @@ import torch.nn.functional as F
 from . import _build
 
 __all__ = ["int8_matmul_requant", "int8_matmul_requant_plain", "int_mm", "quantize_i8", "kernel_takes", "recording",
-           "K_STEP", "MAX_ROWS"]
+           "K_STEP"]
 
 K_STEP = 16  # the kernel's K is a multiple of this (one 16-byte chunk of a row)
-MAX_ROWS = 65535 * 128  # 128-row tiles on the grid's y (csrc/int8_gemm.cuh)
 
 _c_lib: Optional[ctypes.CDLL] = None
 _recorders: List[list] = []
@@ -133,8 +133,6 @@ def int8_matmul_requant(qx, qw, scale, bias, out_scale=None, relu: bool = False)
     n = qw.shape[1]
     if not kernel_takes(k):
         raise ValueError(f"the kernel takes K a multiple of {K_STEP}, got {k}")
-    if m > MAX_ROWS:
-        raise ValueError(f"the kernel takes at most {MAX_ROWS} rows a launch, got {m}")
     qwt = qw.t().contiguous()
     if not qx.is_contiguous() or qx.data_ptr() % 16 or qwt.data_ptr() % 16:
         raise ValueError("qx must be contiguous, and qx and qw must start 16-byte aligned")

@@ -84,7 +84,7 @@ def _lib() -> ctypes.CDLL:
             "cvt_gaussian_blur": [p, p, i, i, i, p, i, p],
             "cvt_hysteresis_sweeps": [p, p, i, i, i, i, p, p],
             "cvt_blur_sobel": [p, p, i, i, i, p, i, p],
-            "cvt_harris": [p, p, i, i, i, p, i, f, p],
+            "cvt_harris": [p, p, i, i, i, p, i, f, i, p],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -385,7 +385,8 @@ def harris_response_fused(image, k: float = 0.04, window_size: int = 5, sigma: f
         return restore(harris_response_fused_plain(maps, taps, k))
     n, h, w = maps.shape
     out = torch.empty_like(maps)
-    _launch("cvt_harris", maps, maps.data_ptr(), out.data_ptr(), n, h, w, c_taps, window_size, _f32(k))
+    _launch("cvt_harris", maps, maps.data_ptr(), out.data_ptr(), n, h, w, c_taps, window_size, _f32(k),
+            _build.sm_count(maps))
     _build.count_launch(harris_response_fused, maps)
     return restore(out)
 

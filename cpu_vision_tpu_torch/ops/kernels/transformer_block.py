@@ -408,8 +408,6 @@ def _attention_kernel(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, heads, scale, eps) 
     n, s, d = x.shape
     if not attention_kernel_takes(d, heads):
         raise ValueError(f"the kernel takes D a multiple of 16 and head dims {HEAD_DIMS}, got D = {d}, {heads} heads")
-    if n > 65535 or heads > 65535:
-        raise ValueError(f"at most 65535 images and heads a launch, got {n} and {heads}")
     _check_card(x, w_qkv, w_o)
     bf16 = x.dtype == torch.bfloat16
     qkv = torch.empty((n, s, 3 * d), dtype=x.dtype, device=x.device)

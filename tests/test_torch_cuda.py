@@ -48,12 +48,18 @@ kernels (``attention_core_backward``, ``mlp_gelu_backward``,
 ``ln_backward_rows``) are held to their plain versions: the transformer
 kernels' bfloat16 rule, Kernel A's outputs bit for bit.  The ``None`` routes of
 ViT, Swin and NMS send a shape their kernel does not take to the plain route
-(NMS at 13,601 boxes a problem); explicit routes still raise there.
+(NMS at 13,601 boxes a problem); explicit routes still raise there.  Past the
+grid's 65,535 on y and z (row tiles, images, frames) the launchers walk the
+rest in pieces: the wrappers at the smallest inputs past that equal their
+twins or themselves on the pieces, bit for bit.  The fused convolution (split
+TF32 on the tensor cores) stands no further from the float64 stage than twice
+its twin (TF32 off).
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from cpu_vision_tpu_torch import _dtype, graft_entry, models, ops, parallel
 from cpu_vision_tpu_torch.ops import kernels, pointwise
@@ -143,7 +149,9 @@ def test_in_tile_hysteresis_matches_twin_and_fixpoint(cuda, rng, shape, low, hig
 
 
 CONV_SHAPES = [((2, 28, 28, 3), 16), ((1, 64, 48, 8), 32), ((3, 30, 30, 1), 4), ((2, 14, 14, 32), 64),
-               ((1, 2, 2, 1), 1), ((1, 18, 34, 5), 33), ((2, 6, 50, 89), 7)]
+               ((1, 2, 2, 1), 1), ((1, 18, 34, 5), 33), ((2, 6, 50, 89), 7),
+               # past the 89 input channels of the kernel before: windows of 32 channels, two column tiles
+               ((2, 10, 22, 100), 70), ((1, 16, 16, 120), 130)]
 
 
 @pytest.mark.parametrize("shape,cout", CONV_SHAPES)
@@ -160,13 +168,18 @@ def test_conv_block_matches_twin_and_stock(cuda, rng, shape, cout):
 
 
 def test_conv_block_refuses_what_the_kernel_does_not_take(cuda):
-    x = torch.zeros(1, 4, 4, conv_block.MAX_CIN + 1, device=cuda)
-    w = torch.zeros(3, 3, conv_block.MAX_CIN + 1, 2, device=cuda)
-    with pytest.raises(ValueError):
-        kernels.fused_conv3x3_relu_pool(x, w, torch.zeros(2, device=cuda))
+    """Any Cin is taken now (the window is staged 32 channels at a time); odd sizes, a bias of another width and
+    float64 are refused."""
+    x = torch.zeros(1, 4, 4, 90, device=cuda)
+    w = torch.zeros(3, 3, 90, 2, device=cuda)
     with pytest.raises(ValueError):
         kernels.fused_conv3x3_relu_pool(x[:, :3, :, :3], w[:, :, :3], torch.zeros(2, device=cuda))
+    with pytest.raises(ValueError):
+        kernels.fused_conv3x3_relu_pool(x, w, torch.zeros(3, device=cuda))
+    with pytest.raises(TypeError):
+        kernels.fused_conv3x3_relu_pool(x.double(), w.double(), torch.zeros(2, device=cuda, dtype=torch.float64))
     assert kernels.launch_counts()["fused_conv3x3_relu_pool"] == 0
+    assert kernels.fused_conv3x3_relu_pool(x, w, torch.zeros(2, device=cuda)).shape == (1, 2, 2, 2)
 
 
 def test_cnn_forward_runs_the_kernel(cuda, rng):
@@ -736,6 +749,143 @@ def test_swin_none_routes_run_off_the_kernels_domains(cuda, rng):
     out = model(x)
     assert torch.isfinite(out.float()).all() and kernels.window_attention_block.launches == 0
     assert kernels.mlp_block.launches == 0
+
+
+# ------------------------------------------- past the launch grids (65,535 on y and z)
+
+GRID = 65535  # a grid's y and z: row tiles, images, frames; the launchers walk more in pieces
+
+
+def _randn(shape, dtype, device, seed, std=1.0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+
+
+def test_int8_matmul_requant_past_the_grid(cuda, rng):
+    """65,535 x 128 + 1 rows (134 MB of int8): one row tile past the grid's y; the None route's kernel equals the
+    twin bit for bit."""
+    m = GRID * 128 + 1
+    qx = torch.randint(-127, 128, (m, 16), dtype=torch.int8, device=cuda)
+    qw = torch.from_numpy(rng.integers(-127, 128, (16, 8), dtype=np.int8)).to(cuda)
+    sc, bias = torch.rand(8, device=cuda) * 1e-2 + 1e-3, torch.rand(8, device=cuda) - 0.5
+    for out_scale in (None, torch.tensor(0.05)):
+        got = kernels.int8_matmul_requant(qx, qw, sc, bias, out_scale, True)
+        assert torch.equal(got, int8_matmul.int8_matmul_requant_plain(qx, qw, sc, bias, out_scale, True))
+    assert kernels.launch_counts()["int8_matmul_requant"] == 2
+
+
+@pytest.mark.parametrize("conv_channels,n,hw", [((32, 64), GRID + 1, 28), ((32, 128, 64), 4, 32)],
+                         ids=["images_past_the_grid", "cin_128"])
+def test_cnn_forward_past_the_old_limits(cuda, rng, conv_channels, n, hw):
+    """cnn_forward on the None route at 65,536 28x28x1 images (205 MB) and with a 128-channel stage (32x32 images:
+    three even stages), where the kernel it replaced refused (65,535 images; 89 input channels): within the conv
+    stage's rule of the plain route (the twin on the card)."""
+    params = ops.cnn_init(torch.Generator().manual_seed(0), (hw, hw), 1, conv_channels, 128, 10)
+    x = _randn((n, hw, hw, 1), torch.float32, cuda, 3).abs()
+    logits = ops.cnn_forward(params, x)
+    assert kernels.launch_counts()["fused_conv3x3_relu_pool"] == len(conv_channels)
+    assert torch.allclose(logits, ops.cnn_forward(params, x, backend="plain"), rtol=1e-5, atol=1e-5)
+
+
+def test_stencils_past_the_grid(cuda, rng):
+    """ops.canny (Canny's stage and hysteresis sweeps) and harris_response_fused on 65,536 frames of 12 x 10: past
+    the grid's z, Canny the same bits as on the first 65,535 frames and the last one apart (on random frames a tie
+    of gradient magnitudes may part the kernels from the plain route, whatever the grid), Harris the twin's."""
+    maps = torch.rand((GRID + 1, 12, 10), device=cuda, generator=torch.Generator(device=cuda).manual_seed(16))
+    edges = ops.canny(maps[..., None], 0.1, 0.2)
+    counts = kernels.launch_counts()
+    assert counts["canny_stage1"] == 1 and counts["hysteresis_sweeps"] >= 1
+    pieces = torch.cat([ops.canny(maps[:GRID, ..., None], 0.1, 0.2), ops.canny(maps[GRID:, ..., None], 0.1, 0.2)])
+    assert torch.equal(edges, pieces)
+    resp = kernels.harris_response_fused(maps[..., None])[..., 0]
+    assert torch.equal(resp, stencil.harris_response_fused_plain(maps, stencil.gaussian_taps(5, 1.0), 0.04))
+    assert kernels.launch_counts()["harris_response_fused"] == 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mlp_block_past_the_grid(cuda, dtype):
+    """mlp_block at 65,535 x 128 + 1 tokens of D 96 (ConvNeXt-T's width): its two products run one row tile past
+    the grid's y, and the rows give the same bits as the same block on the two pieces."""
+    m, d, dh = GRID * 128 + 1, 96, 384
+    x = _randn((m, d), dtype, cuda, 1)
+    params = (_randn((d,), torch.float32, cuda, 2, 0.2) + 1, _randn((d,), torch.float32, cuda, 3, 0.1),
+              _randn((d, dh), dtype, cuda, 4, d ** -0.5), _randn((dh,), torch.float32, cuda, 5, 0.1),
+              _randn((dh, d), dtype, cuda, 6, dh ** -0.5), _randn((d,), torch.float32, cuda, 7, 0.1), 1e-6)
+    with torch.no_grad():
+        out = kernels.mlp_block(x, *params)
+        cut = GRID * 128
+        assert torch.equal(out[:cut], kernels.mlp_block(x[:cut], *params))
+        assert torch.equal(out[cut:], kernels.mlp_block(x[cut:], *params))
+    assert kernels.launch_counts()["mlp_block"] == 3
+
+
+def test_mlp_block_int8_past_the_grid(cuda, rng):
+    """mlp_block_int8 at 65,535 x 128 + 1 tokens of D 256: the same bits as on the two pieces."""
+    m = GRID * 128 + 1
+    _, *params = _int8_mlp_args(rng, 1, 256, 256, torch.bfloat16, cuda)
+    x = _randn((m, 256), torch.bfloat16, cuda, 8)
+    out = kernels.mlp_block_int8(x, *params)
+    cut = GRID * 128
+    assert torch.equal(out[:cut], kernels.mlp_block_int8(x[:cut], *params))
+    assert torch.equal(out[cut:], kernels.mlp_block_int8(x[cut:], *params))
+
+
+def test_mlp_gelu_backward_past_the_grid(cuda):
+    """Kernel A at 65,535 x 64 + 1 rows (its row tiles of 64 on the grid's y): the activations and du's halves the
+    plain version's bits; the upstream gradient is zero but on the last 65 rows, so that the bias gradient sums
+    those rows alone and is held by the rule of test_mlp_gelu_backward_matches_plain."""
+    m, dh = GRID * 64 + 1, 64
+    da32 = torch.zeros((m, dh), device=cuda)
+    da32[-65:] = _randn((65, dh), torch.float32, cuda, 9)
+    hw, b1 = _randn((m, dh), torch.float32, cuda, 10, 2.0), _randn((dh,), torch.float32, cuda, 11, 0.3)
+    du2, a, db1 = kernels.mlp_gelu_backward(da32, hw, b1)
+    ref_du2, ref_a, ref_db1 = kernels.mlp_gelu_backward_plain(da32, hw, b1)
+    assert torch.equal(a, ref_a) and torch.equal(du2, ref_du2)
+    assert bool(((db1 - ref_db1).abs() <= 1e-5 * (1 + ref_db1.abs()) + 1e-5 * ref_db1.abs().max()).all())
+
+
+@pytest.mark.parametrize("name", ["attention_block", "flash_mha", "attention_block_int8", "attention_core_backward"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_past_the_grid(cuda, rng, name, dtype):
+    """65,536 sequences of 3 tokens at head dim 64, past the grid's z: each wrapper on the None route gives the
+    same bits as on the first 65,535 and the last one apart (Kernel B: bfloat16 only)."""
+    if name == "attention_core_backward" and dtype != torch.bfloat16:
+        pytest.skip("Kernel B is the bfloat16 core's backward")
+    n, s, d, heads = GRID + 1, 3, 128, 2
+    if name.startswith("attention_block"):
+        make, fn = ((_attention_args, kernels.attention_block) if name == "attention_block"
+                    else (_int8_attn_args, kernels.attention_block_int8))
+        params = make(rng, 1, s, d, heads, dtype, cuda)[1:]
+        x = _randn((n, s, d), dtype, cuda, 12)
+        call = lambda sl: fn(x[sl], *params)  # noqa: E731
+    else:
+        q, k, v = (_randn((n, s, heads, 64), dtype, cuda, seed) for seed in (12, 13, 14))
+        do = _randn((n, heads, s, 64), dtype, cuda, 15)
+        if name == "flash_mha":
+            call = lambda sl: kernels.flash_mha(q[sl], k[sl], v[sl], 0.125)  # noqa: E731
+        else:
+            call = lambda sl: torch.cat([t.flatten(1) for t in  # noqa: E731
+                                         kernels.attention_core_backward(q[sl], k[sl], v[sl], do[sl], 0.125)], 1)
+    with torch.no_grad():
+        out = call(slice(None))
+        assert torch.equal(out[:GRID], call(slice(0, GRID)))
+        assert torch.equal(out[GRID:], call(slice(GRID, None)))
+    assert kernels.launch_counts()[name] == 3
+
+
+def test_conv_block_stands_near_float64(cuda, rng):
+    """The split-TF32 implicit GEMM at the CNN's four main-path stages (batch cut to 8 at 224x224): no further from
+    the stage in float64 than twice its twin's float32 products (TF32 off)."""
+    for shape, cout in (((8, 224, 224, 3), 32), ((8, 112, 112, 32), 64), ((64, 28, 28, 1), 32),
+                        ((64, 14, 14, 32), 64)):
+        x = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(cuda)
+        w = torch.from_numpy(rng.normal(0, (2 / (9 * shape[-1])) ** 0.5, (3, 3, shape[-1], cout))
+                             .astype(np.float32)).to(cuda)
+        b = torch.from_numpy(rng.normal(0, 0.1, (cout,)).astype(np.float32)).to(cuda)
+        y64 = F.conv2d(x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1), b.double(), padding=1)
+        ref64 = F.max_pool2d(torch.relu(y64), 2).permute(0, 2, 3, 1)
+        twin = conv_block.fused_conv3x3_relu_pool_plain(x, w, b)
+        assert _f64_err(kernels.fused_conv3x3_relu_pool(x, w, b), ref64) <= 2 * _f64_err(twin, ref64), shape
 
 
 def _scaled_err(a, b):

@@ -87,3 +87,51 @@ def test_nms_none_route_takes_the_twin_past_the_kernels_problems(rng, fn):
         call("kernel")
     kernels.reset_launch_counts()
     assert kernels.nms_sorted.plain_routes == 0
+
+
+# Past the kernels' launch grids (65,535 row tiles, images or frames on a grid dimension): the launchers walk such
+# inputs in pieces, so no rule holds a batch limit, and each None route at these batches is the JAX rule's.
+SWIN_T_STAGE1_PAST_THE_GRID = 2675  # 2,675 x 3,136 tokens: past 65,535 x 128 rows of the products
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_swin_none_routes_past_the_grid_follow_the_jax_rule(dtype):
+    from cpu_vision_tpu.ops.pallas.swin_attention import pick_group
+
+    n, dim, heads, ws, side = SWIN_T_STAGE1_PAST_THE_GRID, 96, 3, 7, 56
+    assert n * side * side > 65535 * 128
+    block = tswin.SwinBlock(dim, heads, ws, ws // 2, dtype=dtype)
+    it = torch.empty((), dtype=dtype).element_size()
+    nsq, nw_img = ws * ws, (side // ws) ** 2
+    group = pick_group(n * nw_img, nw_img, heads, True)  # the JAX package's block, as written in its __call__
+    jax_fused = dim % 8 == 0 and (4 * dim * dim * it + heads * nsq * nsq * 4 + 2 * group * nsq * dim * (4 + it)
+                                  + nsq * 3 * dim * 4) <= 12_500_000
+    assert block.routes(n, side, side) == ("block" if jax_fused else "plain", "block")
+
+
+def test_int8_none_routes_past_the_grid_take_the_kernels():
+    """The JAX engines send every 1x1 convolution (``_pallas_eligible``) and every ViT sub-block to their Pallas
+    kernels at any batch; so do the port's None routes, at ResNet-50's first stage past 65,535 row tiles and at
+    ViT-B/16's width."""
+    import types
+
+    from cpu_vision_tpu_torch.models.quantization_resnet import Int8ResNet
+    from cpu_vision_tpu_torch.models.quantization_vit import Int8ViT
+
+    q = torch.zeros((), dtype=torch.int8).expand(SWIN_T_STAGE1_PAST_THE_GRID, 56, 56, 64)  # no storage
+    assert q.shape[0] * 56 * 56 > 65535 * 128
+    engine = types.SimpleNamespace(conv1x1=None)
+    assert Int8ResNet._takes_kernel(engine, types.SimpleNamespace(is_1x1=True), q)
+    vit = types.SimpleNamespace(route=None, d=768, heads=12, mlp_dim=3072)
+    assert Int8ViT.routes(vit) == ("kernel", "kernel")
+    assert transformer_block.attention_kernel_takes(768, 12) and transformer_block.mlp_kernel_takes(768, 3072)
+
+
+def test_the_wrappers_hold_no_grid_limit():
+    """What the wrappers once refused past the grid (65,535 images, row tiles of 128 rows, 89 input channels) is
+    no longer part of their modules: only NMS keeps a limit, and its None route decides by it."""
+    from cpu_vision_tpu_torch.ops.kernels import conv_block, int8_matmul, int8_transformer
+
+    assert not hasattr(int8_matmul, "MAX_ROWS") and not hasattr(int8_transformer, "MAX_TOKENS")
+    assert not hasattr(conv_block, "MAX_CIN")
+    assert tnms.MAX_PROBLEMS == 65535

@@ -9,6 +9,7 @@
 
 #include <math.h>
 
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -91,6 +92,19 @@ alignas(1024) inline float emu_shared[EMU_MAX_SHARED / sizeof(float)];  // dynam
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
 
+// whether any thread of the block passed a nonzero p: the flags meet in one word between two barriers, and a third
+// lets thread 0 clear it before any thread can set it again
+inline std::atomic<int> emu_any_flag{0};
+inline int __syncthreads_or(int p) {
+  if (p) emu_any_flag.store(1);
+  emu_block_barrier->arrive_and_wait();
+  const int any = emu_any_flag.load();
+  emu_block_barrier->arrive_and_wait();
+  if (threadIdx.x == 0) emu_any_flag.store(0);
+  emu_block_barrier->arrive_and_wait();
+  return any;
+}
+
 // Every lane of the warp must call it (as the kernels do: their shuffles sit
 // under warp-uniform conditions only).
 inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
@@ -102,7 +116,19 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   return r;
 }
 
+// lanes past the warp's last read their own value, as on the card
+inline float __shfl_down_sync(unsigned, float v, int delta) {
+  const int t = threadIdx.x, w = t >> 5;
+  emu_shuffle[t] = v;
+  emu_warp_barriers[w]->arrive_and_wait();
+  const float r = (t & 31) + delta < 32 ? emu_shuffle[t + delta] : v;
+  emu_warp_barriers[w]->arrive_and_wait();
+  return r;
+}
+
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+// the warp's barrier: every lane of the warp calls it
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp_barriers[threadIdx.x >> 5]->arrive_and_wait(); }
 // the IEEE operations that nvcc never contracts into an FMA (g++ -O1 does not contract across statements either)
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }

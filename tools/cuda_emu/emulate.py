@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Run the port's transformer (and the bf16 blocks' backward), window
-attention, depthwise, NMS, int8 and weight-gradient kernels on the CPU, with
-no card and no ``nvcc``.
+attention, depthwise, NMS, int8, weight-gradient, fused convolution and stencil
+kernels on the CPU, with no card and no ``nvcc``.
 
 The sources ``cpu_vision_tpu_torch/csrc/attention.cu``, ``transformer_block.cu``,
 ``swin_attention.cu``, ``depthwise.cu``, ``nms.cu``, ``int8_matmul.cu``,
-``int8_transformer.cu`` and ``wgrad_matmul.cu`` (with the ``.cuh`` headers) are rewritten a little,
+``int8_transformer.cu``, ``wgrad_matmul.cu``, ``conv_block.cu`` and ``stencil.cu``
+(with the ``.cuh`` headers) are rewritten a little,
 compiled with ``g++ -std=c++20`` against the stand-in headers beside this file,
 and loaded in place of the libraries ``nvcc`` would build.  The kernels then
 run one ``std::thread`` per CUDA thread, block after block, so the wrappers in
@@ -22,15 +23,17 @@ or, from the repository root, ``python3 tools/cuda_emu/emulate.py`` for a
 self-check of the kernels against their plain twins.
 
 Covered: ``__global__`` templates, ``threadIdx``/``blockIdx``, ``__syncthreads``,
-``__shfl_xor_sync`` on floats, dynamic shared memory declared as
-``extern __shared__ __align__(16) float smem[];``, static ``__shared__`` arrays,
+``__syncthreads_or``, ``__shfl_xor_sync`` on floats, dynamic shared memory
+declared as ``extern __shared__ [__align__(16)] T name[];`` of any type T,
+static ``__shared__`` arrays,
 ``float4``, ``int4``, ``uint4``, ``__int2float_rn``, ``__float_as_int``, ``__fmul_rn`` and its kin, ``__nv_bfloat16`` with its conversions (a pair too),
 ``cudaFuncSetAttribute``, ``cudaFuncGetAttributes`` and ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (stubs: no
 registers, one block an SM),
-``blockDim``, ``gridDim``, the ``<<<...>>>`` launch, ``make_float4``, and the functions of ``csrc/hopper.cuh`` (``cp.async``,
-``wgmma`` of bf16 and of tf32, ``cvt.rna.tf32.f32``; the stand-in ``hopper.cuh`` here replaces that header).  Not covered: everything else (``stencil.cu`` and
-``conv_block.cu`` use typed shared arrays and ``__syncthreads_or``); extend the
-headers as a source needs.
+``blockDim``, ``gridDim``, the ``<<<...>>>`` launch, ``make_float4``, and the functions of ``csrc/hopper.cuh`` (``cp.async``
+of 16 and 4 bytes, ``wgmma`` of bf16 and of tf32, ``cvt.rna.tf32.f32``; the stand-in ``hopper.cuh`` here replaces that
+header).  Not covered: everything else; extend the headers as a source needs.  The CPU twins of the blur+Sobel
+and Canny kernels take ``torch.sqrt``, which on the CPU may differ from the correctly rounded square root in the last
+bit: hold those to the twins on the card, or through their class maps.
 """
 
 from __future__ import annotations
@@ -48,15 +51,16 @@ HERE = Path(__file__).resolve().parent
 REPO = HERE.parents[1]
 CSRC = REPO / "cpu_vision_tpu_torch" / "csrc"
 STEMS = ("attention", "transformer_block", "swin_attention", "depthwise", "nms", "int8_matmul", "int8_transformer",
-         "wgrad_matmul")
+         "wgrad_matmul", "conv_block", "stencil")
 EMU_SMS = 132  # the SM count the wrappers read, as an H100's
 
+_DYNAMIC_SHARED = re.compile(r"extern __shared__ (__align__\(\d+\) )?(\w+) (\w+)\[\];")
 _LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;(]*>)?)<<<([^;]*?)>>>\(([^;]*?)\);", re.S)
 
 
 def translate(text: str) -> str:
     """CUDA C++ of the covered subset as C++ for the stand-in headers."""
-    text = text.replace("extern __shared__ __align__(16) float smem[];", "float* smem = emu_shared;")
+    text = _DYNAMIC_SHARED.sub(r"\2* \3 = reinterpret_cast<\2*>(emu_shared);", text)
     text = text.replace("__shared__", "static")
     return _LAUNCH.sub(r"emu_launch(\2, [=] { \1(\3); });", text)
 
@@ -101,11 +105,12 @@ def kernels_on_cpu(build_dir, stems=STEMS) -> Iterator[None]:
     import types
 
     import torch
-    from cpu_vision_tpu_torch.ops.kernels import (_build, depthwise, flash_attention, int8_matmul, int8_transformer, nms,
-                                                  swin_attention, transformer_block)
+    from cpu_vision_tpu_torch.ops.kernels import (_build, conv_block, depthwise, flash_attention, int8_matmul,
+                                                  int8_transformer, nms, stencil, swin_attention, transformer_block)
 
     wgrad = importlib.import_module("cpu_vision_tpu_torch.ops.kernels.wgrad_matmul")  # the package exports its function
-    modules = (flash_attention, transformer_block, swin_attention, depthwise, nms, int8_matmul, int8_transformer, wgrad)
+    modules = (flash_attention, transformer_block, swin_attention, depthwise, nms, int8_matmul, int8_transformer, wgrad,
+               conv_block, stencil)
 
     build_dir = Path(build_dir)
     if not all((build_dir / f"lib{stem}.so").exists() for stem in stems):
@@ -138,7 +143,7 @@ def main() -> int:
 
     sys.path.insert(0, str(REPO))
     from cpu_vision_tpu_torch.ops import kernels
-    from cpu_vision_tpu_torch.ops.kernels import swin_attention
+    from cpu_vision_tpu_torch.ops.kernels import conv_block, stencil, swin_attention
 
     gen = torch.Generator().manual_seed(0)
     yardsticks = {}  # name: float64 result of the float32 v2 window blocks (split-TF32 products at logit scale 100)
@@ -230,11 +235,25 @@ def main() -> int:
                 x, dy = normal((m, cin), dtype), normal((m, cout), dtype)
                 pairs.append((f"wgrad_matmul {m}x{cin}x{cout}", kernels.wgrad_matmul(x, dy),
                               kernels.wgrad_matmul_plain(x, dy)))
+            if dtype == torch.float32:  # the fused conv stage (split TF32, Cin 3 and 40: two chunks) and Harris
+                for shape, cout in (((1, 6, 20, 3), 5), ((1, 4, 6, 40), 70)):
+                    xc = torch.rand(shape, generator=gen)
+                    wc, bc = normal((3, 3, shape[-1], cout), dtype, 0.3), normal((cout,), dtype, 0.1)
+                    pairs.append((f"fused_conv3x3_relu_pool {list(shape)} -> {cout}",
+                                  kernels.fused_conv3x3_relu_pool(xc, wc, bc),
+                                  conv_block.fused_conv3x3_relu_pool_plain(xc, wc, bc)))
+                maps = torch.rand((2, 70, 140), generator=gen)
+                pairs.append(("harris_response_fused 2x70x140", kernels.harris_response_fused(maps[..., None])[..., 0],
+                              stencil.harris_response_fused_plain(maps, stencil.gaussian_taps(5, 1.0), 0.04)))
             for name, out, ref in pairs:
                 err = (out.float() - ref.float()).abs()
                 note = ""
                 if name.startswith("wgrad_matmul"):  # the weight gradient's rule on the card: 1e-5 max |twin|
                     ok = float(err.max()) <= 1e-5 * float(ref.abs().max())
+                elif name.startswith("harris"):  # bit for bit, as on the card
+                    ok = torch.equal(out, ref)
+                elif name.startswith("fused_conv"):  # the conv stage's rule
+                    ok = bool((err <= 1e-5 + 1e-5 * ref.abs()).all())
                 elif dtype == torch.float32 and name in yardsticks:
                     # the float32 v2 window blocks, held as on the card: within 2e-4 (1 + |twin|) of the twin and no
                     # further from float64 than twice the twin (at v2's logit scale 100 the split-TF32 kernel and the

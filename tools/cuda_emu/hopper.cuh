@@ -37,6 +37,8 @@
 
 namespace cvt {
 
+constexpr int MAX_GRID_YZ = 65535;
+
 inline uint32_t smem_addr(const void* p) {
   return (uint32_t)((const char*)p - (const char*)emu_shared);
 }
@@ -65,6 +67,15 @@ inline void cp_async16(uint32_t dst, const void* src, bool valid) {
       memcpy(to, src, 16);
     else
       memset(to, 0, 16);
+  });
+}
+inline void cp_async4(uint32_t dst, const void* src, bool valid) {
+  if (dst % 4 || dst + 4 > EMU_MAX_SHARED) abort();
+  emu_copies.open.push_back([=] {
+    if (valid)
+      memcpy((char*)emu_shared + dst, src, 4);
+    else
+      memset((char*)emu_shared + dst, 0, 4);
   });
 }
 inline void cp_async_commit() { emu_copies.commit(); }
