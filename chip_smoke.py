@@ -28,8 +28,9 @@ printed), then:
 1. drives the main paths through the public entry points, each with the
    kernels' launch counts set to 0 just before it and read just after:
    ``ops.canny`` on the synthetic 1080p scene at batch 8 (the headline
-   benchmark's workload), and the same with ``canny_stage1``'s in-tile
-   hysteresis; ``ops.kernels.fused_blur_sobel`` on one 512x512 image;
+   benchmark's workload; the hysteresis passes it launched and the host's
+   reads of their device flags are printed beside the call's time), and the
+   same with ``canny_stage1``'s in-tile hysteresis; ``ops.kernels.fused_blur_sobel`` on one 512x512 image;
    ``ops.kernels.harris_response_fused`` on 2 MP images at batch 32;
    ``ops.cnn_forward`` at batch 256 on 28x28x1 and 224x224x3 images with
    channels (32, 64) and 128 hidden units; and the 4-level Laplacian
@@ -72,7 +73,9 @@ printed), then:
 2. holds every kernel against its plain PyTorch twin on the card at every
    shape and dtype those paths handed it (the wrappers count their launches
    by input shape, and the script fails if a Swin or ConvNeXt path ran a
-   shape that was not held) and times both with CUDA events at the heaviest;
+   shape that was not held) and times both with CUDA events at the heaviest
+   (``canny_stage1`` and ``hysteresis_sweeps`` also on the class map of
+   uniform noise, with the sweeps' two device flags against the twin's);
 3. prints one JSON line of per-kernel results (``launches`` of an entry and
    of each of its ``other_shapes`` are counts read after a main path, named
    in ``launches_on`` or listed by path in ``launches_by_path`` (an entry's
@@ -519,6 +522,7 @@ def main() -> int:
     kernels.reset_launch_counts()
     edges = ops.canny(frames, low_threshold=0.1, high_threshold=0.2)  # numpy in: runs on the card
     canny_counts = read_counts("canny 1080p b8")
+    canny_reads = stencil.hysteresis_fixpoint.host_reads  # the fixpoint's reads of its device flags
     print(f"canny main path launches: {canny_counts}")
     require(canny_counts["canny_stage1"] >= 1 and canny_counts["hysteresis_sweeps"] >= 1,
             "ops.canny did not go through canny_stage1 and hysteresis_sweeps")
@@ -547,7 +551,9 @@ def main() -> int:
     print(f"canny small inputs: noise exact, step mismatch {step_frac:.4f}")
 
     canny_ms = time_ms(lambda: ops.canny(x, 0.1, 0.2), iters=20)
-    print(f"canny 1080p b8: {canny_ms:.4f} ms/batch, {b * h * w / canny_ms / 1e6:.3f} GPix/s ({card})")
+    print(f"canny 1080p b8: {canny_ms:.4f} ms/batch, {b * h * w / canny_ms / 1e6:.3f} GPix/s, "
+          f"{canny_counts['hysteresis_sweeps']} hysteresis passes of {stencil.SWEEPS_PER_PASS} sweeps, "
+          f"{canny_reads} host flag reads ({card})")
 
     # -------------------- main path 1b: Canny with the in-tile hysteresis, 1080p b8
     def passes_to_fixpoint(cls_map):
@@ -1488,7 +1494,9 @@ def main() -> int:
     rows.append(row("canny_stage1", f"{PALLAS}:446", canny_counts["canny_stage1"], err,
                     time_ms(lambda: kernels.canny_stage1(maps, 0.1, 0.2), 50),
                     time_ms(lambda: stencil.canny_stage1_plain(maps, t14, 0.1, 0.2), 5),
-                    px * (4 + 1), px * (blur_ops + sobel_ops + 15)))
+                    px * (4 + 1), px * (blur_ops + sobel_ops + 15), kernel="canny_strip_kernel<5>"))
+    cls_noise = kernels.canny_stage1(noise8, 0.3, 0.6)
+    exact(cls_noise, stencil.canny_stage1_plain(noise8, t14, 0.3, 0.6), "canny_stage1 on noise")
 
     # the in-tile rounds depend on the data and add integer work only: bytes bound it either way
     err = exact(cls_tile, stencil.canny_stage1_plain(maps, t14, 0.1, 0.2, in_tile=stencil.IN_TILE),
@@ -1502,15 +1510,24 @@ def main() -> int:
           stencil.canny_stage1_plain(noise8, t14, 0.3, 0.6, in_tile=stencil.IN_TILE), "in-tile hysteresis on noise")
     del cls_tile, noise8
 
-    sweeps = stencil.SWEEPS_PER_PASS
+    # the sweeps and both device flags (any pixel changed; the last sweep changed one) on the scene's and noise's
+    # class maps, against the twin's maps and flags; the fixpoint against the op-by-op hysteresis
+    sweeps, err = stencil.SWEEPS_PER_PASS, 0.0
     buf = torch.empty_like(cls)
-    swept = kernels.hysteresis_sweeps(cls, sweeps)
-    err = exact(swept, stencil.hysteresis_sweeps_plain(cls, sweeps), f"hysteresis_sweeps x{sweeps}")
-    exact(kernels.hysteresis_fixpoint(cls) == 2, ops.hysteresis(cls == 2, cls >= 1), "hysteresis fixpoint")
+    for what, cmap in (("scene", cls), ("noise", cls_noise)):
+        flags = torch.zeros(2, dtype=torch.int32, device=dev)
+        swept = kernels.hysteresis_sweeps(cmap, sweeps, changed=flags[:1], last_changed=flags[1:])
+        before, twin = stencil._sweeps_plain(cmap, sweeps)
+        err = max(err, exact(swept, twin, f"hysteresis_sweeps x{sweeps} on {what}"))
+        twin_flags = [int(bool((twin != cmap).any())), int(bool((twin != before).any()))]
+        require(flags.tolist() == twin_flags, f"hysteresis flags on {what}: {flags.tolist()}, twin {twin_flags}")
+        exact(kernels.hysteresis_fixpoint(cmap) == 2, ops.hysteresis(cmap == 2, cmap >= 1), f"hysteresis fixpoint, {what}")
+    del cls_noise, before, twin
     rows.append(row("hysteresis_sweeps", f"{PALLAS}:404", canny_counts["hysteresis_sweeps"], err,
                     time_ms(lambda: kernels.hysteresis_sweeps(cls, sweeps, out=buf), 50),
                     time_ms(lambda: stencil.hysteresis_sweeps_plain(cls, sweeps), 5),
-                    px * 2, px * sweeps * 8))
+                    px * 2, px * sweeps * 8, kernel=f"hysteresis_bits_kernel<{sweeps}>",
+                    sweeps=sweeps, host_flag_reads=canny_reads))
 
     m512 = x512[None]  # (N, H, W) for the twin; the wrapper takes the HW image
     err = max_err_f32(kernels.fused_blur_sobel(x512), stencil.fused_blur_sobel_plain(m512, t15)[0], "blur_sobel 512")

@@ -11,23 +11,26 @@
 // and _halo_stencil_call_rowfused, stencil.py:171).
 //
 // Design.  The input is one (N, H, W) map, channels folded into N.  Every
-// block of the Canny, hysteresis, blur+Sobel and blur kernels owns one
-// TILE_H x TILE_W output tile of one image: it loads the
+// block of the blur+Sobel and blur kernels, and of Canny's in-tile option,
+// owns one TILE_H x TILE_W output tile of one image: it loads the
 // (TILE_H + 2*halo) x (TILE_W + 2*halo) window around it into shared memory
 // with reflect indexing (numpy "reflect": edge not repeated, periodic for
 // pads longer than the image), runs the whole pipeline in shared memory and
-// writes its tile, masking the ragged edge.  Intermediates (blur, gradients,
-// magnitude, structure tensor) never reach device memory: one read of the
-// input and one write of the output per call.
+// writes its tile, masking the ragged edge.  Canny's main kernel, the
+// hysteresis sweeps and Harris are strip kernels instead: each warp walks
+// (frame, strip) tiles on a persistent grid and streams a strip's rows
+// through a cp.async ring in its own shared memory, with the stages between
+// in registers (their own notes below).  Intermediates (blur, gradients,
+// magnitude, structure tensor, the sweeps' masks) never reach device memory:
+// one read of the input and one write of the output per call.
 //
 // Bound.  All of them read f32 (or the u8 class map) once and write once, and
-// do a few tens of f32 operations per pixel, well under the H100's
-// 67 TFLOP/s f32 rate against 3.35 TB/s, so device memory bounds them.  The
-// halo windows overlap, so neighbouring blocks re-read up to ~1.6x the tile
-// from L2, not from HBM.  Those four use plain loads, one tile per block,
-// many blocks per SM to hide latency; Harris streams rows through cp.async on
-// a persistent grid (its own note below).
-//
+// do a few tens of f32 operations per pixel (the sweeps a few integer
+// operations for 32 pixels), well under the H100's 67 TFLOP/s f32 rate
+// against 3.35 TB/s, so device memory bounds them.  The halo windows overlap,
+// so neighbouring tiles re-read up to ~1.6x the tile (the strips 1.03-1.25x)
+// from L2, not from HBM.
+
 // Exactness.  Sums run in the order of the Pallas kernels (blur taps j=0..k-1
 // along W, then i=0..k-1 along H; Sobel in stencil.py:327-339's order), with
 // every product and sum rounded on its own: build with --fmad=false and
@@ -52,8 +55,6 @@ constexpr int MAX_SWEEPS = 16;
 constexpr int THREADS = 256;
 constexpr int TILE_H = 32;
 constexpr int TILE_W = 32;
-constexpr int HYST_TILE_H = 32;
-constexpr int HYST_TILE_W = 64;
 
 struct Taps {
   float v[MAX_TAPS];
@@ -127,6 +128,26 @@ __device__ __forceinline__ void sobel_at(const float* s, int cols, float& gx, fl
   gy = gy + s22;
 }
 
+// gx, gy of the 3 x 3 window at column c of v (rows top to bottom), in sobel_at's order
+template <int W>
+__device__ __forceinline__ void sobel3(const float (&v)[3][W], int c, float& gx, float& gy) {
+  gx = v[0][c] * -1.0f;
+  gx = gx + v[0][c + 2];
+  gx = gx + v[1][c] * -2.0f;
+  gx = gx + v[1][c + 2] * 2.0f;
+  gx = gx + v[2][c] * -1.0f;
+  gx = gx + v[2][c + 2];
+  gy = v[0][c] * -1.0f;
+  gy = gy + v[0][c + 1] * -2.0f;
+  gy = gy + v[0][c + 2] * -1.0f;
+  gy = gy + v[2][c];
+  gy = gy + v[2][c + 1] * 2.0f;
+  gy = gy + v[2][c + 2];
+}
+
+// the reflected index of i (numpy "reflect"), without a division where it lies inside
+__device__ __forceinline__ int reflect_fast(int i, int n) { return (unsigned)i < (unsigned)n ? i : reflect(i, n); }
+
 // ------------------------------------------------------------ canny_stage1
 // blur -> Sobel -> |g| -> 4-bin NMS -> double threshold; halo = K/2 + 2.
 struct CannyDims {
@@ -140,21 +161,20 @@ struct CannyDims {
   }
 };
 
-//
-// IN_TILE (the in_tile_hysteresis option): before the tile is written, strong
-// grows through 8-connected weak to a fixpoint inside the block's own
-// TILE_H x TILE_W output tile, confined to real image pixels.  The class map
-// then depends on the tiling; the fixpoint of the global hysteresis that
-// follows does not.  The tile's classes sit in shared memory (in the input
-// window's space, free after the blur) inside a ring of zeros; every thread
-// promotes its weak pixels that touch a strong one, in place, until a whole
-// round changes nothing.  A round may or may not see a neighbour's promotion
-// of the same round: promotions only ever turn 1 into 2, so every order
-// reaches the same fixpoint.
-template <bool IN_TILE>
+// The in_tile_hysteresis option (IN_TILE in the wrapper), the tile kernel of
+// the port's first design, kept for this option alone: its class map depends
+// on the TILE_H x TILE_W tiling.  Before the tile is written, strong grows
+// through 8-connected weak to a fixpoint inside the block's own tile, confined
+// to real image pixels.  The fixpoint of the global hysteresis that follows
+// does not depend on the tiling.  The tile's classes sit in shared memory (in
+// the input window's space, free after the blur) inside a ring of zeros;
+// every thread promotes its weak pixels that touch a strong one, in place,
+// until a whole round changes nothing.  A round may or may not see a
+// neighbour's promotion of the same round: promotions only ever turn 1 into
+// 2, so every order reaches the same fixpoint.
 __global__ void __launch_bounds__(THREADS)
-canny_stage1_kernel(const float* __restrict__ in, uint8_t* __restrict__ out, int h, int w,
-                    Taps taps, int K, float low, float high) {
+canny_in_tile_kernel(const float* __restrict__ in, uint8_t* __restrict__ out, int h, int w, Taps taps, int K,
+                     float low, float high) {
   extern __shared__ float smem[];
   __shared__ float s_k[MAX_TAPS];
   const CannyDims d(K);
@@ -186,8 +206,7 @@ canny_stage1_kernel(const float* __restrict__ in, uint8_t* __restrict__ out, int
   // zero outside the image and in the ring around the tile
   constexpr int CLS_W = TILE_W + 2;
   uint8_t* s_cls = reinterpret_cast<uint8_t*>(s_in);
-  if (IN_TILE)
-    for (int i = threadIdx.x; i < (TILE_H + 2) * CLS_W; i += blockDim.x) s_cls[i] = 0;
+  for (int i = threadIdx.x; i < (TILE_H + 2) * CLS_W; i += blockDim.x) s_cls[i] = 0;
   __syncthreads();
   for (int i = threadIdx.x; i < TILE_H * TILE_W; i += blockDim.x) {
     const int r = i / TILE_W, c = i - r * TILE_W;
@@ -205,14 +224,8 @@ canny_stage1_kernel(const float* __restrict__ in, uint8_t* __restrict__ out, int
     const float nb1 = s_mag[ci + dy * d.g_w + dx];
     const float nb2 = s_mag[ci - dy * d.g_w - dx];
     const float sup = (m0 >= nb1 && m0 > nb2) ? m0 : 0.0f;
-    const uint8_t cls = sup >= high ? 2 : (sup >= low ? 1 : 0);
-    if (IN_TILE) {
-      s_cls[(1 + r) * CLS_W + 1 + c] = cls;
-    } else {
-      out[blockIdx.z * plane + (size_t)y * w + x] = cls;
-    }
+    s_cls[(1 + r) * CLS_W + 1 + c] = sup >= high ? 2 : (sup >= low ? 1 : 0);
   }
-  if (!IN_TILE) return;
   int changed;
   do {
     __syncthreads();
@@ -237,49 +250,451 @@ canny_stage1_kernel(const float* __restrict__ in, uint8_t* __restrict__ out, int
   }
 }
 
+// The main path's Canny front half, redesigned for Hopper.  The tile kernel
+// above (which this kernel replaced on the main path) loaded a 1.56x window a
+// tile with two integer % a pixel, ran its taps in runtime loops and its
+// stages through shared memory with six barriers a tile: 11x its bytes bound.
+// Here, as in harris_kernel, every warp works alone on a persistent grid,
+// walking (frame, strip) tiles: a lane blurs C neighbouring columns, a strip
+// is 32 C blurred columns and 30 C output columns (lanes 1..30; at C 1 lanes
+// 2..29: the Sobel and NMS windows of the others would reach past the strip),
+// CS_TILE_H rows deep.  The warp streams the strip's rows of the
+// reflect-padded frame through a ring of CS_RING rows in its own shared
+// memory, CS_AHEAD rows ahead of the row it reads: 16-byte cp.async on
+// interior strips, 4-byte ones from reflected columns computed once a tile on
+// border strips.  A lane reads its C + 2 PAD input
+// values of a row in vectors of C and blurs its C columns along W; the
+// W-blurred rows of the last K rows sit in a register ring, and each new one
+// completes the H blur of a row of C columns.  The Sobel pair comes from a
+// 3-row register ring of blurred rows, the column before and after a lane's
+// from the neighbouring lanes by shuffles; NMS from a 3-row ring of
+// magnitudes (neighbours by shuffles again) and of gradients.  Lanes store in
+// pairs: the first of each pair stores the pair's 4 classes as one word where
+// the rows allow it.  One __syncwarp a row, no block barrier.  K and C are
+// template arguments (C 2 up to K 15, else 1: a wider lane holds more
+// registers, and fewer warps an SM hide the rows' latency), so every loop over
+// taps unrolls with the taps in the kernel's parameter space.  Every product and
+// sum in the twin's order (_sep_blur, _sobel_pair, canny_stage1_plain), the
+// correctly rounded sqrtf.
+constexpr int CS_WARPS = 4;
+constexpr int CS_THREADS = 32 * CS_WARPS;
+constexpr int CS_TILE_H = 32;          // output rows of a strip
+constexpr int CS_MIN_BLOCKS = 5;       // blocks an SM the registers must allow (tools/torch_canny_variants_ab.py)
+constexpr int CS_RING = 8;             // input rows in a warp's shared memory
+constexpr int CS_AHEAD = CS_RING - 1;  // rows copied ahead of the row read
+
+template <int K>
+struct CannyShape {
+  static constexpr int C = K <= 15 ? 2 : 1;  // blurred (and output) columns a lane
+  static constexpr int R = K / 2, HALO = R + 2;
+  static constexpr int PAD = 4 * ((R + 3) / 4);  // input columns a lane reads beyond its C, each side (>= R)
+  static constexpr int BW = 32 * C;              // blurred columns of a strip
+  // the first lane with outputs: the magnitudes beside a lane's columns need the blurred columns 2 away
+  static constexpr int LANE0 = C == 1 ? 2 : 1;
+  static constexpr int OW = (32 - 2 * LANE0) * C;  // output columns of a strip: lanes LANE0 .. 31 - LANE0
+  static constexpr int IW = BW + 2 * PAD + 4;    // a staged row: the strip's input columns from up to 3 before
+  static constexpr int CHUNKS = IW / 4;          // 16-byte chunks of an interior row
+  static constexpr int LOADS = (IW + 31) / 32;   // 4-byte copies a lane of a border row
+  static_assert(CHUNKS <= 64, "a strip");
+  static constexpr size_t SMEM = sizeof(float) * CS_WARPS * CS_RING * IW;
+};
+
+// n floats from p into v, in vectors of C floats (p aligned to them)
+template <int C, int N>
+__device__ __forceinline__ void read_row(const float* p, float (&v)[N]) {
+  static_assert(N % C == 0, "whole vectors");
+  if constexpr (C == 2) {
+#pragma unroll
+    for (int q = 0; q < N / 2; ++q) {
+      const float2 t = reinterpret_cast<const float2*>(p)[q];
+      v[2 * q] = t.x;
+      v[2 * q + 1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < N; ++q) v[q] = p[q];
+  }
+}
+
+// the 4-bin NMS and double threshold of column c + 1 of the middle row m1 (m0 above, m2 below)
+template <int W>
+__device__ __forceinline__ uint8_t nms_class(const float (&m0)[W], const float (&m1)[W], const float (&m2)[W], int c,
+                                             float gx0, float gy0, float low, float high) {
+  const float mc = m1[c + 1];
+  const float ax = fabsf(gx0), ay = fabsf(gy0);
+  const bool d0 = ay < 0.41421356f * ax;   // tan 22.5 deg
+  const bool d90 = ay >= 2.4142137f * ax;  // tan 67.5 deg
+  const bool d45 = !d0 && !d90 && (gx0 * gy0 >= 0.0f);
+  const float nb1 = d0 ? m1[c + 2] : (d45 ? m0[c + 2] : (d90 ? m0[c + 1] : m0[c]));
+  const float nb2 = d0 ? m1[c] : (d45 ? m2[c] : (d90 ? m2[c + 1] : m2[c + 2]));
+  const float sup = (mc >= nb1 && mc > nb2) ? mc : 0.0f;
+  return sup >= high ? 2 : (sup >= low ? 1 : 0);
+}
+
+// gx, gy of the 3 x 3 window at column c of the rows r0, r1, r2 (top to bottom), in sobel_at's order
+template <int W>
+__device__ __forceinline__ void sobel_rows(const float (&r0)[W], const float (&r1)[W], const float (&r2)[W], int c,
+                                           float& gx, float& gy) {
+  gx = r0[c] * -1.0f;
+  gx = gx + r0[c + 2];
+  gx = gx + r1[c] * -2.0f;
+  gx = gx + r1[c + 2] * 2.0f;
+  gx = gx + r2[c] * -1.0f;
+  gx = gx + r2[c + 2];
+  gy = r0[c] * -1.0f;
+  gy = gy + r0[c + 1] * -2.0f;
+  gy = gy + r0[c + 2] * -1.0f;
+  gy = gy + r2[c];
+  gy = gy + r2[c + 1] * 2.0f;
+  gy = gy + r2[c + 2];
+}
+
+template <int K>
+__global__ void __launch_bounds__(CS_THREADS, CS_MIN_BLOCKS)
+canny_strip_kernel(const float* __restrict__ in, uint8_t* __restrict__ out, int frames, int h, int w, int tiles_x,
+                   int tiles_y, int vec_rows, int vec_out, Taps taps, float low, float high) {
+  using S = CannyShape<K>;
+  constexpr int C = S::C, NV = C + 2 * S::PAD;
+  // rows in runs of 3, unrolled.  The three-row windows (blurred rows, magnitudes, gradients) are rings of 3
+  // slots, so a row's slot is fixed for each position of the run and no window moves.  The ring of W-blurred rows
+  // shifts a row at a time (K - 1 moves a column), unless K divides 3 and its slots are fixed the same way (runs
+  // of lcm(K, 3) rows, which would fix them for every K, take more registers and twice the code).
+  constexpr int RUN = 3;
+  constexpr bool RING_FIXED = RUN % K == 0;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* const s_in = smem + warp * CS_RING * S::IW;  // [CS_RING][IW]
+  const int per_frame = tiles_x * tiles_y;
+  const size_t plane = (size_t)h * w;
+  const bool stores = lane >= S::LANE0 && lane <= 31 - S::LANE0;
+
+  for (long long tile = (long long)blockIdx.x * CS_WARPS + warp; tile < (long long)frames * per_frame;
+       tile += (long long)gridDim.x * CS_WARPS) {
+    const int f = (int)(tile / per_frame), rem = (int)(tile - (long long)f * per_frame);
+    const int ty = rem / tiles_x, tx = rem - ty * tiles_x;
+    const int y0 = ty * CS_TILE_H, xs = tx * S::OW;  // first output row and column
+    const int out_rows = min(CS_TILE_H, h - y0), rows_in = out_rows + K + 3;
+    const float* const img = in + f * plane;
+    // lane l blurs columns xs + C (l - LANE0) ..: the strip's first blurred column is xs - C LANE0, its first
+    // input column xs - C LANE0 - PAD; a staged row holds input columns from first (that one, or up to 3 before it:
+    // a 16-byte boundary); interior: the row as it lies
+    const int x_first = xs - C * S::LANE0 - S::PAD, shift = vec_rows ? (x_first & 3) : 0, first = x_first - shift;
+    const bool interior = vec_rows && first >= 0 && first + S::IW <= w;
+    int col[S::LOADS];
+#pragma unroll
+    for (int c = 0; c < S::LOADS; ++c)
+      col[c] = lane + 32 * c < S::IW ? reflect_fast(first + lane + 32 * c, w) : -1;
+    auto load = [&](int i) {  // padded row i of the tile: frame row y0 - HALO + i, reflected
+      const float* row = img + (size_t)reflect_fast(y0 - S::HALO + i, h) * w;
+      const uint32_t dst = smem_addr(s_in + (i % CS_RING) * S::IW);
+      if (interior) {
+#pragma unroll
+        for (int c = 0; c < (S::CHUNKS + 31) / 32; ++c)
+          if (lane + 32 * c < S::CHUNKS) cp_async16(dst + 16 * (lane + 32 * c), row + first + 4 * (lane + 32 * c), true);
+      } else {
+#pragma unroll
+        for (int c = 0; c < S::LOADS; ++c)
+          if (col[c] >= 0) cp_async4(dst + 4 * (lane + 32 * c), row + col[c], true);
+      }
+    };
+    // this lane's first output column, and its classes' first byte in the tile's first row
+    const int x = xs + C * (lane - S::LANE0);
+    uint8_t* const o_tile = out + f * plane + (size_t)y0 * w + x;
+
+    float ring[C][K];               // W-blurred rows of the last K rows
+    float bw[3][C + 2], mw[3][C + 2];  // rings of blurred rows and magnitudes, the column before this lane's to the one after
+    float gx[3][C], gy[3][C];       // the gradients of mw's rows
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+      for (int b = 0; b < C + 2; ++b) bw[a][b] = mw[a][b] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) gx[a][c] = gy[a][c] = 0.0f;
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int j = 0; j < K; ++j) ring[c][j] = 0.0f;
+
+    __syncwarp();  // every lane's reads of the last tile's ring rows end before this tile's first copies
+#pragma unroll
+    for (int i = 0; i < CS_AHEAD; ++i) {
+      if (i < rows_in) load(i);
+      cp_async_commit();
+    }
+    for (int i0 = 0; i0 < rows_in; i0 += RUN) {
+#pragma unroll
+      for (int u = 0; u < RUN; ++u) {
+        const int i = i0 + u;
+        if (i >= rows_in) break;
+        cp_async_wait<CS_AHEAD - 1>();  // this lane's copies of row i
+        __syncwarp();                   // the warp's; and every read of the slot reused below is done
+        if (i + CS_AHEAD < rows_in) load(i + CS_AHEAD);
+        cp_async_commit();
+        float v[NV];  // input columns C lane - PAD .. C lane + C + PAD - 1 of the strip's blurred ones
+        read_row<C>(s_in + (i % CS_RING) * S::IW + shift + C * lane, v);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          float acc = v[S::PAD - S::R + c] * taps.v[0];
+#pragma unroll
+          for (int j = 1; j < K; ++j) acc = acc + v[S::PAD - S::R + c + j] * taps.v[j];
+          if (RING_FIXED) {
+            ring[c][u % K] = acc;
+          } else {
+#pragma unroll
+            for (int j = 0; j < K - 1; ++j) ring[c][j] = ring[c][j + 1];
+            ring[c][K - 1] = acc;
+          }
+        }
+        if (i < K - 1) continue;
+        // the blurred row of frame row y0 + i - K - 1 (its ring slot: row i - K + 1 of the blurred rows, mod 3)
+        auto oldest = [&](int j) { return RING_FIXED ? (u + 1 + j) % K : j; };  // the slot of the j-th oldest row
+        const int bq = ((u - K + 1) % 3 + 3) % 3;  // fixed for each position of the run, as i0 % 3 == 0
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          float acc = ring[c][oldest(0)] * taps.v[0];
+#pragma unroll
+          for (int j = 1; j < K; ++j) acc = acc + ring[c][oldest(j)] * taps.v[j];
+          bw[bq][c + 1] = acc;
+        }
+        bw[bq][0] = __shfl_up_sync(0xffffffffu, bw[bq][C], 1);
+        bw[bq][C + 1] = __shfl_down_sync(0xffffffffu, bw[bq][1], 1);
+        if (i < K + 1) continue;
+        // the gradients and magnitude of frame row y0 + i - K - 2: the blurred rows bq - 2, bq - 1, bq; the
+        // magnitude's slot mq (row i - K - 1 of the magnitudes, mod 3)
+        const int mq = ((u - K - 1) % 3 + 3) % 3;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          sobel_rows(bw[(bq + 1) % 3], bw[(bq + 2) % 3], bw[bq], c, gx[mq][c], gy[mq][c]);
+          mw[mq][c + 1] = sqrtf(gx[mq][c] * gx[mq][c] + gy[mq][c] * gy[mq][c]);
+        }
+        mw[mq][0] = __shfl_up_sync(0xffffffffu, mw[mq][C], 1);
+        mw[mq][C + 1] = __shfl_down_sync(0xffffffffu, mw[mq][1], 1);
+        if (i < K + 3) continue;
+        // NMS and thresholds of output row i - K - 3 of the tile (the magnitudes' middle row, mq - 1)
+        const int top = (mq + 1) % 3, mid = (mq + 2) % 3;
+        uint8_t cls[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) cls[c] = nms_class(mw[top], mw[mid], mw[mq], c, gx[mid][c], gy[mid][c], low, high);
+        uint8_t* const o = o_tile + (size_t)(i - K - 3) * w;
+        if constexpr (C == 2) {
+          // lanes in pairs (1, 2), (3, 4), ..: the first of each stores both lanes' 4 classes as one word
+          const uint32_t mine = (uint32_t)cls[0] | (uint32_t)cls[1] << 8;
+          const uint32_t word = mine | __shfl_down_sync(0xffffffffu, mine, 1) << 16;
+          if (!stores || !(lane & 1)) continue;
+          if (vec_out && x + 4 <= w) {
+            *reinterpret_cast<uint32_t*>(o) = word;
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (x + c < w) o[c] = (uint8_t)(word >> (8 * c));
+          }
+        } else {
+          if (stores && x < w) o[0] = cls[0];
+        }
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------- hysteresis_sweeps
 // `sweeps` steps of: a weak pixel (1) with a strong (2) 8-neighbour becomes
-// strong.  halo = sweeps: each step leaves the outermost ring stale.
-__global__ void __launch_bounds__(THREADS)
-hysteresis_sweeps_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int h, int w,
-                         int sweeps, int* __restrict__ changed) {
-  extern __shared__ uint8_t s_cls[];
-  const int rows = HYST_TILE_H + 2 * sweeps, cols = HYST_TILE_W + 2 * sweeps;
-  uint8_t* a = s_cls;
-  uint8_t* b = s_cls + rows * cols;
-  const int y0 = blockIdx.y * HYST_TILE_H, x0 = blockIdx.x * HYST_TILE_W;
+// strong, on the class map reflected by `sweeps`: each step leaves the
+// outermost ring stale.
+//
+// Redesigned for Hopper: the byte-wise tile kernel it replaced made 9
+// shared-memory reads a weak pixel a sweep and a reflect % a byte, and read
+// its input a second time for the changed flag: 21x its bytes bound.  The
+// class map holds {0, 1, 2}, so a step is S' = S | (W & dilate8(S)) on two
+// bit masks, a few integer operations for 32 pixels.  Every warp works alone
+// on a persistent grid, walking (frame, strip) tiles: a strip is 1,024
+// columns, a 32-bit word a lane, of which the middle HY_OW are output (a halo
+// of HY_EDGE >= sweeps each side), HY_TILE_H output rows deep.  Rows of the
+// reflected frame stream through a ring of HY_RING rows in the warp's shared
+// memory by 16-byte cp.async (32 bytes a lane), HY_AHEAD rows ahead; a lane
+// packs its 32 bytes of a row into the strong and weak masks by byte
+// arithmetic.  Columns past the image's edges are reflected on the masks: a
+// reflected column is a copy of an inner one, so the bits of the 16 columns
+// past an edge are the strip's own bits mirrored about it (two shuffles, a
+// funnel shift and a bit reversal).  Images whose rows are not whole 16-byte
+// chunks take plain byte loads from reflected columns.  The sweeps run as a
+// wavefront in registers: when row i arrives, sweep t computes row i - t from
+// the last three rows of sweep t - 1 (the dilation's carries across words by
+// shuffles, the rows above and below in registers), so each row is read once
+// and every sweep's rows stay on chip.  The last sweep's rows are unpacked
+// and stored 16 bytes a lane.  The flags come from the masks: a changed pixel
+// is a weak one that is strong now, and the last sweep changed one where the
+// last two sweeps' masks differ on the tile's output.  `sweeps` is a template
+// argument, so every sweep's registers are named.
+constexpr int HY_WARPS = 4;
+constexpr int HY_THREADS = 32 * HY_WARPS;
+constexpr int HY_TILE_H = 20;                 // output rows of a strip (tools/torch_canny_variants_ab.py)
+constexpr int HY_RING = 8;                    // rows in a warp's shared memory
+constexpr int HY_AHEAD = HY_RING - 1;         // rows copied ahead of the row read
+constexpr int HY_SPAN = 32 * 32;              // columns of a strip: a 32-bit word a lane
+constexpr int HY_EDGE = 16;                   // halo columns each side (MAX_SWEEPS)
+constexpr int HY_OW = HY_SPAN - 2 * HY_EDGE;  // output columns of a strip
+constexpr size_t HY_SMEM = (size_t)HY_WARPS * HY_RING * HY_SPAN;
+static_assert(HY_EDGE >= MAX_SWEEPS && HY_EDGE % 16 == 0 && HY_OW % 16 == 0, "whole 16-byte chunks");
+
+// bits [lo, hi) of a word, clamped to [0, 32)
+__device__ __forceinline__ uint32_t bit_range(int lo, int hi) {
+  lo = max(lo, 0);
+  hi = min(hi, 32);
+  if (hi <= lo) return 0u;
+  return (hi - lo == 32 ? 0xffffffffu : (1u << (hi - lo)) - 1u) << lo;
+}
+
+// bits 0, 8, 16, 24 of x to bits 0..3; and back
+__device__ __forceinline__ uint32_t gather4(uint32_t x) { return (x * 0x10204080u) >> 28; }
+__device__ __forceinline__ uint32_t spread4(uint32_t n) { return (n * 0x00204081u) & 0x01010101u; }
+
+// the strong (2) and weak (1) masks of 32 class bytes, 4 to a word, in column order
+__device__ __forceinline__ void pack_classes(const uint32_t (&v)[8], uint32_t& strong, uint32_t& weak) {
+  strong = weak = 0u;
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+    strong |= gather4((v[g] >> 1) & 0x01010101u) << (4 * g);
+    weak |= gather4(v[g] & 0x01010101u) << (4 * g);
+  }
+}
+
+// the class bytes (2 strong, 1 weak, 0 else) of the 16 columns of bits b .. b + 15, 4 to a word
+__device__ __forceinline__ uint4 unpack_classes(uint32_t strong, uint32_t weak, int b) {
+  const uint32_t s = strong >> b, wk = (weak & ~strong) >> b;
+  uint32_t o[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) o[g] = spread4((s >> (4 * g)) & 15u) << 1 | spread4((wk >> (4 * g)) & 15u);
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// word with its bits at the strip's positions [lo, hi) replaced by the bit at position 2 P - p (a reflection
+// about position P); every lane of the warp calls it, and the sources must hold real columns of the strip
+__device__ __forceinline__ uint32_t mirror(uint32_t word, int lane, int P, int lo, int hi) {
+  const int a0 = 2 * P - 32 * lane - 31;  // the source of this lane's bit 31
+  const int a = a0 >> 5;
+  const uint32_t w0 = __shfl_sync(0xffffffffu, word, a & 31), w1 = __shfl_sync(0xffffffffu, word, (a + 1) & 31);
+  const uint32_t rev = __brev(__funnelshift_r(w0, w1, a0 & 31));  // bit j: source 2 P - 32 lane - j
+  const uint32_t m = bit_range(lo - 32 * lane, hi - 32 * lane);
+  return (word & ~m) | (rev & m);
+}
+
+template <int SW>
+__global__ void __launch_bounds__(HY_THREADS)
+hysteresis_bits_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int frames, int h, int w,
+                       int tiles_x, int tiles_y, int vec, int* __restrict__ changed, int* __restrict__ last_changed) {
+  extern __shared__ __align__(16) uint8_t s_rows[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint8_t* const ring = s_rows + warp * HY_RING * HY_SPAN;  // [HY_RING][HY_SPAN]
+  const int per_frame = tiles_x * tiles_y;
   const size_t plane = (size_t)h * w;
-  const uint8_t* src = in + blockIdx.z * plane;
-  load_window(src, h, w, y0 - sweeps, x0 - sweeps, a, rows, cols);
-  __syncthreads();
-  for (int s = 1; s <= sweeps; ++s) {
-    const int rr = rows - 2 * s, cc = cols - 2 * s;
-    for (int i = threadIdx.x; i < rr * cc; i += blockDim.x) {
-      const int r = s + i / cc, c = s + i % cc;
-      const uint8_t t = a[r * cols + c];
-      bool grow = false;
-      if (t == 1) {
-        for (int dr = -1; dr <= 1; ++dr)
-          for (int dc = -1; dc <= 1; ++dc) grow |= a[(r + dr) * cols + c + dc] == 2;
+  bool any = false, any_last = false;
+
+  for (long long tile = (long long)blockIdx.x * HY_WARPS + warp; tile < (long long)frames * per_frame;
+       tile += (long long)gridDim.x * HY_WARPS) {
+    const int f = (int)(tile / per_frame), rem = (int)(tile - (long long)f * per_frame);
+    const int ty = rem / tiles_x, tx = rem - ty * tiles_x;
+    const int y0 = ty * HY_TILE_H, x0 = tx * HY_OW;  // first output row and column
+    const int base = x0 - HY_EDGE;                   // the column of the strip's position 0
+    const int out_rows = min(HY_TILE_H, h - y0), rows_in = out_rows + 2 * SW;
+    const uint8_t* const img = in + f * plane;
+    // this lane's output bits: positions HY_EDGE .. HY_EDGE + HY_OW - 1 whose columns lie in the image
+    const uint32_t outmask = bit_range(HY_EDGE - 32 * lane, min(HY_EDGE + HY_OW, w - base) - 32 * lane);
+    const int p0 = -base, pw = w - 1 - base;  // the positions of columns 0 and w - 1
+    const bool left = vec && p0 > 0, right = vec && pw + 1 < HY_SPAN;
+    auto load = [&](int i) {  // padded row i of the tile: frame row y0 - SW + i, reflected; chunks past the image 0
+      const uint8_t* row = img + (size_t)reflect_fast(y0 - SW + i, h) * w;
+      const uint32_t dst = smem_addr(ring + (i % HY_RING) * HY_SPAN + 32 * lane);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int c = base + 32 * lane + 16 * k;
+        const bool inside = c >= 0 && c + 16 <= w;
+        cp_async16(dst + 16 * k, inside ? row + c : row, inside);
       }
-      b[r * cols + c] = grow ? 2 : t;
+    };
+
+    uint32_t sw[SW][3];  // strong masks after sweeps 0 .. SW - 1 of the last three rows each, top to bottom
+    uint32_t wk[SW + 1];  // weak masks of rows i, i - 1, .., i - SW
+#pragma unroll
+    for (int t = 0; t < SW; ++t) sw[t][0] = sw[t][1] = sw[t][2] = 0u;
+#pragma unroll
+    for (int t = 0; t <= SW; ++t) wk[t] = 0u;
+
+    if (vec) {
+      __syncwarp();  // every lane's reads of the last tile's ring rows end before this tile's first copies
+#pragma unroll
+      for (int i = 0; i < HY_AHEAD; ++i) {
+        if (i < rows_in) load(i);
+        cp_async_commit();
+      }
     }
-    __syncthreads();
-    uint8_t* t = a;
-    a = b;
-    b = t;
+    for (int i = 0; i < rows_in; ++i) {
+      uint32_t s0 = 0u, w0 = 0u;
+      if (vec) {
+        cp_async_wait<HY_AHEAD - 1>();  // this lane's copies of row i
+        __syncwarp();                   // and every read of the slot reused below is done
+        if (i + HY_AHEAD < rows_in) load(i + HY_AHEAD);
+        cp_async_commit();
+        const uint4* p = reinterpret_cast<const uint4*>(ring + (i % HY_RING) * HY_SPAN + 32 * lane);
+        const uint4 a = p[0], b = p[1];
+        const uint32_t v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+        pack_classes(v, s0, w0);
+        if (left) {  // columns -16 .. -1 are columns 16 .. 1
+          s0 = mirror(s0, lane, p0, p0 - HY_EDGE, p0);
+          w0 = mirror(w0, lane, p0, p0 - HY_EDGE, p0);
+        }
+        if (right) {  // columns w .. w + 15 are columns w - 2 .. w - 17
+          s0 = mirror(s0, lane, pw, pw + 1, pw + 1 + HY_EDGE);
+          w0 = mirror(w0, lane, pw, pw + 1, pw + 1 + HY_EDGE);
+        }
+      } else {  // byte loads from reflected columns, those within SW of the image only
+        const uint8_t* row = img + (size_t)reflect_fast(y0 - SW + i, h) * w;
+#pragma unroll 4
+        for (int j = 0; j < 32; ++j) {
+          const int c = base + 32 * lane + j;
+          if (c < -SW || c >= w + SW) continue;
+          const uint32_t cls = row[reflect_fast(c, w)];
+          s0 |= (cls >> 1 & 1u) << j;
+          w0 |= (cls & 1u) << j;
+        }
+      }
+#pragma unroll
+      for (int t = SW; t > 0; --t) wk[t] = wk[t - 1];
+      wk[0] = w0;
+      sw[0][0] = sw[0][1];
+      sw[0][1] = sw[0][2];
+      sw[0][2] = s0;
+#pragma unroll
+      for (int t = 1; t <= SW; ++t) {  // sweep t on row i - t
+        const uint32_t v = sw[t - 1][0] | sw[t - 1][1] | sw[t - 1][2];
+        const uint32_t l = __shfl_up_sync(0xffffffffu, v, 1), r = __shfl_down_sync(0xffffffffu, v, 1);
+        const uint32_t grown = sw[t - 1][1] | (wk[t] & (v | __funnelshift_l(l, v, 1) | __funnelshift_r(v, r, 1)));
+        if (t < SW) {
+          sw[t][0] = sw[t][1];
+          sw[t][1] = sw[t][2];
+          sw[t][2] = grown;
+          continue;
+        }
+        if (i < 2 * SW) continue;  // row i - SW is an output row from here on: frame row y0 + i - 2 SW
+        any |= (grown & wk[SW] & outmask) != 0u;
+        any_last |= (grown & ~sw[SW - 1][1] & outmask) != 0u;
+        uint8_t* const o = out + f * plane + (size_t)(y0 + i - 2 * SW) * w + base + 32 * lane;
+        if (vec) {
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+            if ((outmask >> (16 * k)) & 1u) reinterpret_cast<uint4*>(o)[k] = unpack_classes(grown, wk[SW], 16 * k);
+        } else {
+#pragma unroll 4
+          for (int j = 0; j < 32; ++j)
+            if ((outmask >> j) & 1u) o[j] = (uint8_t)((grown >> j & 1u) << 1 | (wk[SW] & ~grown) >> j & 1u);
+        }
+      }
+    }
   }
-  int any = 0;
-  for (int i = threadIdx.x; i < HYST_TILE_H * HYST_TILE_W; i += blockDim.x) {
-    const int r = i / HYST_TILE_W, c = i - r * HYST_TILE_W;
-    const int y = y0 + r, x = x0 + c;
-    if (y >= h || x >= w) continue;
-    const uint8_t v = a[(sweeps + r) * cols + sweeps + c];
-    const size_t o = (size_t)y * w + x;
-    any |= v != src[o];
-    out[blockIdx.z * plane + o] = v;
-  }
-  if (__syncthreads_or(any) && threadIdx.x == 0 && changed != nullptr) *changed = 1;
+  any = __any_sync(0xffffffffu, any);
+  any_last = __any_sync(0xffffffffu, any_last);
+  if (lane == 0 && any && changed != nullptr) *changed = 1;
+  if (lane == 0 && any_last && last_changed != nullptr) *last_changed = 1;
 }
 
 // --------------------------------------------------------- fused_blur_sobel
@@ -364,26 +779,6 @@ struct HarrisShape {
   static_assert(OW >= 1 && CHUNKS <= 64, "a strip");
   static constexpr size_t SMEM = sizeof(float) * HR_WARPS * HR_RING * IW;
 };
-
-// gx, gy of the 3 x 3 window at column c of v (rows top to bottom), in sobel_at's order
-template <int W>
-__device__ __forceinline__ void sobel3(const float (&v)[3][W], int c, float& gx, float& gy) {
-  gx = v[0][c] * -1.0f;
-  gx = gx + v[0][c + 2];
-  gx = gx + v[1][c] * -2.0f;
-  gx = gx + v[1][c + 2] * 2.0f;
-  gx = gx + v[2][c] * -1.0f;
-  gx = gx + v[2][c + 2];
-  gy = v[0][c] * -1.0f;
-  gy = gy + v[0][c + 1] * -2.0f;
-  gy = gy + v[0][c + 2] * -1.0f;
-  gy = gy + v[2][c];
-  gy = gy + v[2][c + 1] * 2.0f;
-  gy = gy + v[2][c + 2];
-}
-
-// the reflected index of i (numpy "reflect"), without a division where it lies inside
-__device__ __forceinline__ int reflect_fast(int i, int n) { return (unsigned)i < (unsigned)n ? i : reflect(i, n); }
 
 template <int K>
 __global__ void __launch_bounds__(HR_THREADS)
@@ -579,19 +974,61 @@ cudaError_t over_frames(int n, Launch launch) {
 
 bool bad_shape(int n, int h, int w) { return n < 1 || h < 1 || w < 1; }
 
+// grid for tiles warp tiles, a strip a warp, at most what is resident at once on sms multiprocessors
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, long long tiles, int warps, int sms, int& grid) {
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1 || sms < 1) return cudaErrorInvalidValue;
+  const long long blocks = (tiles + warps - 1) / warps;
+  grid = (int)(blocks < (long long)per_sm * sms ? blocks : (long long)per_sm * sms);
+  return cudaSuccess;
+}
+
+template <int K>
+cudaError_t launch_canny(const float* in, uint8_t* out, int n, int h, int w, const Taps& taps, float low,
+                         float high, int sms, cudaStream_t stream) {
+  using S = CannyShape<K>;
+  const int tiles_x = (w + S::OW - 1) / S::OW, tiles_y = (h + CS_TILE_H - 1) / CS_TILE_H;
+  int grid = 0;
+  cudaError_t err = persistent_grid(canny_strip_kernel<K>, CS_THREADS, S::SMEM, (long long)n * tiles_x * tiles_y,
+                                    CS_WARPS, sms, grid);
+  if (err != cudaSuccess) return err;
+  const int vec_rows = w % 4 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0;  // every input row 16-byte aligned
+  const int vec_out = w % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0;   // every output row 4-byte aligned
+  canny_strip_kernel<K><<<grid, CS_THREADS, S::SMEM, stream>>>(in, out, n, h, w, tiles_x, tiles_y, vec_rows, vec_out,
+                                                              taps, low, high);
+  return cudaGetLastError();
+}
+
+template <int SW>
+cudaError_t launch_hysteresis(const uint8_t* in, uint8_t* out, int n, int h, int w, int* changed, int* last_changed,
+                              int sms, cudaStream_t stream) {
+  const int tiles_x = (w + HY_OW - 1) / HY_OW, tiles_y = (h + HY_TILE_H - 1) / HY_TILE_H;
+  int grid = 0;
+  cudaError_t err = persistent_grid(hysteresis_bits_kernel<SW>, HY_THREADS, HY_SMEM,
+                                    (long long)n * tiles_x * tiles_y, HY_WARPS, sms, grid);
+  if (err != cudaSuccess) return err;
+  // rows of whole 16-byte chunks, 16-byte aligned, and wide enough that the 16 columns past an edge mirror real ones
+  const int vec = w % 16 == 0 && w >= 32 && reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  hysteresis_bits_kernel<SW><<<grid, HY_THREADS, HY_SMEM, stream>>>(in, out, n, h, w, tiles_x, tiles_y, vec, changed,
+                                                                   last_changed);
+  return cudaGetLastError();
+}
+
 template <int K>
 cudaError_t launch_harris(const float* in, float* out, int n, int h, int w, const Taps& taps, float k, int sms,
                           cudaStream_t stream) {
   using S = HarrisShape<K>;
-  cudaError_t err = prepare(harris_kernel<K>, S::SMEM);
+  const int tiles_x = (w + S::OW - 1) / S::OW, tiles_y = (h + HR_TILE_H - 1) / HR_TILE_H;
+  int grid = 0;
+  cudaError_t err = persistent_grid(harris_kernel<K>, HR_THREADS, S::SMEM, (long long)n * tiles_x * tiles_y, HR_WARPS,
+                                    sms, grid);
   if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)harris_kernel<K>, HR_THREADS, S::SMEM);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1 || sms < 1) return cudaErrorInvalidValue;
-  const int tiles_x = (w + HarrisShape<K>::OW - 1) / HarrisShape<K>::OW, tiles_y = (h + HR_TILE_H - 1) / HR_TILE_H;
-  const long long blocks = ((long long)n * tiles_x * tiles_y + HR_WARPS - 1) / HR_WARPS;  // a strip a warp
-  const int grid = (int)(blocks < (long long)per_sm * sms ? blocks : (long long)per_sm * sms);
   const int vec_rows = w % 4 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0;  // every row 16-byte aligned
   harris_kernel<K><<<grid, HR_THREADS, S::SMEM, stream>>>(in, out, n, h, w, tiles_x, tiles_y, vec_rows, taps, k);
   return cudaGetLastError();
@@ -605,19 +1042,35 @@ cudaError_t launch_harris(const float* in, float* out, int n, int h, int w, cons
 // each 65,535 frames; Harris walks its frames on a persistent grid.
 extern "C" {
 
-int cvt_canny_stage1(const float* in, uint8_t* out, int n, int h, int w, const float* taps,
-                     int ksize, float low, float high, int in_tile, void* stream) {
+// sms (here and below): the card's multiprocessors, which size the persistent grids
+int cvt_canny_stage1(const float* in, uint8_t* out, int n, int h, int w, const float* taps, int ksize, float low,
+                     float high, int in_tile, int sms, void* stream) {
   if (bad_shape(n, h, w) || ksize < 1 || ksize > MAX_TAPS) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * CannyDims(ksize).floats();
-  auto kernel = in_tile ? canny_stage1_kernel<true> : canny_stage1_kernel<false>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const size_t plane = (size_t)h * w;
   const Taps t = make_taps(taps, ksize);
-  return (int)over_frames(n, [&](int f0, int frames) {
-    kernel<<<grid_for(frames, h, w, TILE_H, TILE_W), THREADS, smem, (cudaStream_t)stream>>>(
-        in + f0 * plane, out + f0 * plane, h, w, t, ksize, low, high);
-  });
+  cudaStream_t st = (cudaStream_t)stream;
+  if (in_tile) {
+    const size_t smem = sizeof(float) * CannyDims(ksize).floats();
+    cudaError_t err = prepare(canny_in_tile_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    const size_t plane = (size_t)h * w;
+    return (int)over_frames(n, [&](int f0, int frames) {
+      canny_in_tile_kernel<<<grid_for(frames, h, w, TILE_H, TILE_W), THREADS, smem, st>>>(
+          in + f0 * plane, out + f0 * plane, h, w, t, ksize, low, high);
+    });
+  }
+  switch (ksize) {
+#define CVT_CANNY_K(K) \
+  case K:              \
+    return (int)launch_canny<K>(in, out, n, h, w, t, low, high, sms, st);
+    CVT_CANNY_K(1) CVT_CANNY_K(2) CVT_CANNY_K(3) CVT_CANNY_K(4) CVT_CANNY_K(5) CVT_CANNY_K(6) CVT_CANNY_K(7)
+    CVT_CANNY_K(8) CVT_CANNY_K(9) CVT_CANNY_K(10) CVT_CANNY_K(11) CVT_CANNY_K(12) CVT_CANNY_K(13) CVT_CANNY_K(14)
+    CVT_CANNY_K(15) CVT_CANNY_K(16) CVT_CANNY_K(17) CVT_CANNY_K(18) CVT_CANNY_K(19) CVT_CANNY_K(20) CVT_CANNY_K(21)
+    CVT_CANNY_K(22) CVT_CANNY_K(23) CVT_CANNY_K(24) CVT_CANNY_K(25) CVT_CANNY_K(26) CVT_CANNY_K(27) CVT_CANNY_K(28)
+    CVT_CANNY_K(29) CVT_CANNY_K(30) CVT_CANNY_K(31)
+#undef CVT_CANNY_K
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 int cvt_gaussian_blur(const float* in, float* out, int n, int h, int w, const float* taps, int ksize,
@@ -634,17 +1087,22 @@ int cvt_gaussian_blur(const float* in, float* out, int n, int h, int w, const fl
   });
 }
 
-int cvt_hysteresis_sweeps(const uint8_t* in, uint8_t* out, int n, int h, int w, int sweeps,
-                          int* changed, void* stream) {
-  if (bad_shape(n, h, w) || sweeps < 1 || sweeps > MAX_SWEEPS) return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)(HYST_TILE_H + 2 * sweeps) * (HYST_TILE_W + 2 * sweeps);
-  cudaError_t err = prepare(hysteresis_sweeps_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const size_t plane = (size_t)h * w;
-  return (int)over_frames(n, [&](int f0, int frames) {
-    hysteresis_sweeps_kernel<<<grid_for(frames, h, w, HYST_TILE_H, HYST_TILE_W), THREADS, smem,
-                               (cudaStream_t)stream>>>(in + f0 * plane, out + f0 * plane, h, w, sweeps, changed);
-  });
+// changed: set to 1 where a pixel changed; last_changed: where the last sweep changed a pixel (either may be null)
+int cvt_hysteresis_sweeps(const uint8_t* in, uint8_t* out, int n, int h, int w, int sweeps, int* changed,
+                          int* last_changed, int sms, void* stream) {
+  if (bad_shape(n, h, w)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (sweeps) {
+#define CVT_HYST_S(S) \
+  case S:             \
+    return (int)launch_hysteresis<S>(in, out, n, h, w, changed, last_changed, sms, st);
+    CVT_HYST_S(1) CVT_HYST_S(2) CVT_HYST_S(3) CVT_HYST_S(4) CVT_HYST_S(5) CVT_HYST_S(6) CVT_HYST_S(7) CVT_HYST_S(8)
+    CVT_HYST_S(9) CVT_HYST_S(10) CVT_HYST_S(11) CVT_HYST_S(12) CVT_HYST_S(13) CVT_HYST_S(14) CVT_HYST_S(15)
+    CVT_HYST_S(16)
+#undef CVT_HYST_S
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 int cvt_blur_sobel(const float* in, float* out, int n, int h, int w, const float* taps, int ksize,
@@ -661,7 +1119,6 @@ int cvt_blur_sobel(const float* in, float* out, int n, int h, int w, const float
   });
 }
 
-// sms: the card's multiprocessors, which size the persistent grid
 int cvt_harris(const float* in, float* out, int n, int h, int w, const float* taps, int ksize,
                float k, int sms, void* stream) {
   if (bad_shape(n, h, w) || ksize < 1 || ksize > MAX_TAPS) return (int)cudaErrorInvalidValue;

@@ -96,6 +96,7 @@ def launch_counts_by_shape() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         _build.reset_count(fn)
+    _stencil.hysteresis_fixpoint.host_reads = 0
     attention_block.kernel_launches = 0
     mlp_block.kernel_launches = 0
     cn_mlp_block.kernel_launches = 0

@@ -17,6 +17,7 @@ the CUDA kernel (built with ``--fmad=false``) equals the twin on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -49,10 +50,11 @@ __all__ = [
 ]
 
 # Sweeps per hysteresis pass in the fixpoint, and passes per host check of
-# the device-side "changed" flags (tools/torch_canny_breakdown.py times the
-# alternatives on the card).
+# the device-side flags (tools/torch_canny_breakdown.py times the
+# alternatives on the card: on the 1080p b8 scene one pass of 4 sweeps and
+# one read were the fastest call).
 SWEEPS_PER_PASS = 4
-PASSES_PER_CHECK = 2
+PASSES_PER_CHECK = 1
 MAX_SWEEPS = 16  # csrc/stencil.cu MAX_SWEEPS
 MAX_TAPS = 31    # csrc/stencil.cu MAX_TAPS
 IN_TILE = (32, 32)  # csrc/stencil.cu TILE_H, TILE_W: the tile of the in-tile hysteresis
@@ -80,9 +82,9 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("stencil")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         sigs = {
-            "cvt_canny_stage1": [p, p, i, i, i, p, i, f, f, i, p],
+            "cvt_canny_stage1": [p, p, i, i, i, p, i, f, f, i, i, p],
             "cvt_gaussian_blur": [p, p, i, i, i, p, i, p],
-            "cvt_hysteresis_sweeps": [p, p, i, i, i, i, p, p],
+            "cvt_hysteresis_sweeps": [p, p, i, i, i, i, p, p, i, p],
             "cvt_blur_sobel": [p, p, i, i, i, p, i, p],
             "cvt_harris": [p, p, i, i, i, p, i, f, i, p],
         }
@@ -102,6 +104,31 @@ def _c_taps(taps: np.ndarray) -> ctypes.Array:
     if not 1 <= len(taps) <= MAX_TAPS:
         raise ValueError(f"kernel_size must be in 1..{MAX_TAPS}, got {len(taps)}")
     return (ctypes.c_float * len(taps))(*taps.tolist())
+
+
+def _frozen_taps(build: Callable[[int, float], np.ndarray], kernel_size: int,
+                 sigma: float) -> Tuple[np.ndarray, ctypes.Array]:
+    """``build(kernel_size, sigma)``, made read-only (a cache hands the same array to every caller), and its ctypes
+    array."""
+    if not 1 <= kernel_size <= MAX_TAPS:
+        raise ValueError(f"kernel_size must be in 1..{MAX_TAPS}, got {kernel_size}")
+    taps = build(kernel_size, sigma)
+    c_taps = _c_taps(taps)
+    taps.flags.writeable = False
+    return taps, c_taps
+
+
+@functools.lru_cache(maxsize=32)
+def _kernel_taps(kernel_size: int, sigma: float) -> Tuple[np.ndarray, ctypes.Array]:
+    """``gaussian_taps(kernel_size, sigma)`` and its ctypes array, built once a ``(kernel_size, sigma)``."""
+    return _frozen_taps(gaussian_taps, kernel_size, sigma)
+
+
+@functools.lru_cache(maxsize=32)
+def _canny_taps(kernel_size: int, sigma: float) -> Tuple[np.ndarray, ctypes.Array]:
+    """The op-by-op path's taps (``get_gaussian_kernel1d``, which ``fused_canny`` takes) and their ctypes array,
+    built once a ``(kernel_size, sigma)``."""
+    return _frozen_taps(lambda k, s: get_gaussian_kernel1d(k, s, device="cpu").numpy(), kernel_size, sigma)
 
 
 def _check_maps(maps: torch.Tensor, dtype: torch.dtype, name: str) -> torch.Tensor:
@@ -199,16 +226,20 @@ def _grow_in_tiles(cls: torch.Tensor, tile: Tuple[int, int]) -> torch.Tensor:
 
 
 def canny_stage1_plain(maps: torch.Tensor, taps: np.ndarray, low_threshold: float,
-                       high_threshold: float, in_tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                       high_threshold: float, in_tile: Optional[Tuple[int, int]] = None,
+                       root: Callable[[torch.Tensor], torch.Tensor] = torch.sqrt) -> torch.Tensor:
     """Twin of ``cvt_canny_stage1``: (N,H,W) f32 -> uint8 class map.  With
     ``in_tile`` = (rows, cols), strong then grows through weak to a fixpoint
-    inside each such tile (the kernel's option at its ``IN_TILE``)."""
+    inside each such tile (the kernel's option at its ``IN_TILE``).  ``root``
+    takes the magnitude's square root (on the CPU ``torch.sqrt`` may stray
+    from the correctly rounded root, which the kernel's ``sqrtf`` is, in the
+    last bit)."""
     k = taps.tolist()
     h, w = maps.shape[-2:]
     padded = reflect_pad_hw(maps, len(k) // 2 + 2)  # +1 Sobel, +1 NMS
     b = _sep_blur(padded, k, h + 4, w + 4)
     gx, gy = _sobel_pair(b, h + 2, w + 2)
-    mag = torch.sqrt(gx * gx + gy * gy)
+    mag = root(gx * gx + gy * gy)
 
     c = lambda a, i, j: a[..., 1 + i : 1 + i + h, 1 + j : 1 + j + w]  # noqa: E731
     m0, gx0, gy0 = c(mag, 0, 0), c(gx, 0, 0), c(gy, 0, 0)
@@ -226,17 +257,24 @@ def canny_stage1_plain(maps: torch.Tensor, taps: np.ndarray, low_threshold: floa
     return cls if in_tile is None else _grow_in_tiles(cls, in_tile)
 
 
-def hysteresis_sweeps_plain(cls: torch.Tensor, sweeps: int = 4) -> torch.Tensor:
-    """Twin of ``cvt_hysteresis_sweeps``: ``sweeps`` steps in which a weak
-    pixel (1) with a strong (2) 8-neighbour turns strong, on the class map
-    reflected by ``sweeps``; each step consumes one ring of the halo."""
+def _sweeps_plain(cls: torch.Tensor, sweeps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The class map after ``sweeps - 1`` and after ``sweeps`` steps of ``hysteresis_sweeps_plain``."""
     t = reflect_pad_hw(cls, sweeps)
+    before = t
     for _ in range(sweeps):
+        before = t
         v = torch.maximum(t[..., 1:-1, :], torch.maximum(t[..., :-2, :], t[..., 2:, :]))
         n = torch.maximum(v[..., 1:-1], torch.maximum(v[..., :-2], v[..., 2:]))
         center = t[..., 1:-1, 1:-1]
         t = torch.where((center == 1) & (n == 2), 2, center).to(cls.dtype)
-    return t
+    return before[..., 1:-1, 1:-1], t
+
+
+def hysteresis_sweeps_plain(cls: torch.Tensor, sweeps: int = 4) -> torch.Tensor:
+    """Twin of ``cvt_hysteresis_sweeps``: ``sweeps`` steps in which a weak
+    pixel (1) with a strong (2) 8-neighbour turns strong, on the class map
+    reflected by ``sweeps``; each step consumes one ring of the halo."""
+    return _sweeps_plain(cls, sweeps)[1]
 
 
 def fused_blur_sobel_plain(maps: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
@@ -279,7 +317,7 @@ def canny_stage1(maps: torch.Tensor, low_threshold: float, high_threshold: float
     """
     if in_tile_hysteresis:
         return canny_stage1_in_tile(maps, low_threshold, high_threshold, kernel_size, sigma)
-    return _canny_stage1(maps, gaussian_taps(kernel_size, sigma), low_threshold, high_threshold)
+    return _canny_stage1(maps, *_kernel_taps(kernel_size, sigma), low_threshold, high_threshold)
 
 
 def canny_stage1_in_tile(maps: torch.Tensor, low_threshold: float, high_threshold: float,
@@ -291,34 +329,36 @@ def canny_stage1_in_tile(maps: torch.Tensor, low_threshold: float, high_threshol
     (``hysteresis_fixpoint``) does not.  Chains that cross tiles still take
     their global sweeps: on the inputs measured on the card the option saved
     no global pass (``PERF.md``)."""
-    return _canny_stage1(maps, gaussian_taps(kernel_size, sigma), low_threshold, high_threshold, in_tile=True)
+    return _canny_stage1(maps, *_kernel_taps(kernel_size, sigma), low_threshold, high_threshold, in_tile=True)
 
 
-def _canny_stage1(maps: torch.Tensor, taps: np.ndarray, low_threshold: float,
+def _canny_stage1(maps: torch.Tensor, taps: np.ndarray, c_taps: ctypes.Array, low_threshold: float,
                   high_threshold: float, in_tile: bool = False) -> torch.Tensor:
     maps = _check_maps(maps, torch.float32, "canny_stage1")
-    c_taps = _c_taps(taps)
     if not _build.on_card(maps):
         return canny_stage1_plain(maps, taps, low_threshold, high_threshold, IN_TILE if in_tile else None)
     n, h, w = maps.shape
     out = torch.empty((n, h, w), dtype=torch.uint8, device=maps.device)
     _launch("cvt_canny_stage1", maps, maps.data_ptr(), out.data_ptr(), n, h, w, c_taps,
-            len(taps), _f32(low_threshold), _f32(high_threshold), int(in_tile))
+            len(taps), _f32(low_threshold), _f32(high_threshold), int(in_tile), _build.sm_count(maps))
     _build.count_launch(canny_stage1_in_tile if in_tile else canny_stage1, maps)
     return out
 
 
 def hysteresis_sweeps(cls: torch.Tensor, sweeps: int = 4, changed: Optional[torch.Tensor] = None,
-                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      out: Optional[torch.Tensor] = None,
+                      last_changed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``sweeps`` hysteresis dilation steps in one pass over a (N,H,W)
-    uint8 class map (0 = suppressed, 1 = weak, 2 = strong).
+    uint8 class map (0 = suppressed, 1 = weak, 2 = strong; no other value).
 
     Each step grows strong into 8-connected weak, exactly one step of
     ``ops.edges.hysteresis``: reflection maps a row or column beyond the
     border onto one already inside the 3x3 neighbourhood, so it adds no
     growth.  ``changed`` (an int32 tensor of one element) is set to 1 when
-    any pixel changed and never cleared; ``out`` receives the result (it
-    must not be ``cls``).
+    any pixel changed and never cleared; ``last_changed`` (the same kind) is
+    set to 1 when the last step changed any pixel, and never cleared: when it
+    stays 0, the map before the last step was already the fixpoint, and so
+    is the result.  ``out`` receives the result (it must not be ``cls``).
     """
     cls = _check_maps(cls, torch.uint8, "hysteresis_sweeps")
     if not 1 <= sweeps <= MAX_SWEEPS:
@@ -327,16 +367,20 @@ def hysteresis_sweeps(cls: torch.Tensor, sweeps: int = 4, changed: Optional[torc
         out = torch.empty_like(cls)
     elif out.shape != cls.shape or out.dtype != torch.uint8 or not out.is_contiguous() or out.data_ptr() == cls.data_ptr():
         raise ValueError("out must be a contiguous uint8 tensor of cls's shape, distinct from cls")
-    if changed is not None and (changed.dtype != torch.int32 or changed.numel() != 1 or changed.device != cls.device):
-        raise ValueError("changed must be a one-element int32 tensor on cls's device")
+    for name, flag in (("changed", changed), ("last_changed", last_changed)):
+        if flag is not None and (flag.dtype != torch.int32 or flag.numel() != 1 or flag.device != cls.device):
+            raise ValueError(f"{name} must be a one-element int32 tensor on cls's device")
     if not _build.on_card(cls):
-        res = hysteresis_sweeps_plain(cls, sweeps)
+        before, res = _sweeps_plain(cls, sweeps)
         if changed is not None:
             changed |= (res != cls).any().to(torch.int32)
+        if last_changed is not None:
+            last_changed |= (res != before).any().to(torch.int32)
         return out.copy_(res)
     n, h, w = cls.shape
     _launch("cvt_hysteresis_sweeps", cls, cls.data_ptr(), out.data_ptr(), n, h, w, sweeps,
-            None if changed is None else changed.data_ptr())
+            None if changed is None else changed.data_ptr(),
+            None if last_changed is None else last_changed.data_ptr(), _build.sm_count(cls))
     _build.count_launch(hysteresis_sweeps, cls)
     return out
 
@@ -347,8 +391,7 @@ def fused_gaussian_blur(image, kernel_size: int = 5, sigma: float = 1.5) -> torc
     (``gaussian_taps``).  HW / HWC / NHWC of any dtype in, float32 of the
     same rank out."""
     maps, restore = _as_nhw(image)
-    taps = gaussian_taps(kernel_size, sigma)
-    c_taps = _c_taps(taps)
+    taps, c_taps = _kernel_taps(kernel_size, sigma)
     if not _build.on_card(maps):
         return restore(fused_gaussian_blur_plain(maps, taps))
     n, h, w = maps.shape
@@ -363,8 +406,7 @@ def fused_blur_sobel(image, kernel_size: int = 5, sigma: float = 1.5) -> torch.T
     ``sobel(gaussian_blur(img, k, sigma))`` of the op-by-op path.
     HW / HWC / NHWC in, float32 of the same rank out."""
     maps, restore = _as_nhw(image)
-    taps = gaussian_taps(kernel_size, sigma)
-    c_taps = _c_taps(taps)
+    taps, c_taps = _kernel_taps(kernel_size, sigma)
     if not _build.on_card(maps):
         return restore(fused_blur_sobel_plain(maps, taps))
     n, h, w = maps.shape
@@ -379,8 +421,7 @@ def harris_response_fused(image, k: float = 0.04, window_size: int = 5, sigma: f
     det - k·tr² in one pass; matches ``ops.harris_response`` (Gaussian
     window).  Multi-channel images are converted to grayscale first."""
     maps, restore = _gray_maps(image)
-    taps = gaussian_taps(window_size, sigma)
-    c_taps = _c_taps(taps)
+    taps, c_taps = _kernel_taps(window_size, sigma)
     if not _build.on_card(maps):
         return restore(harris_response_fused_plain(maps, taps, k))
     n, h, w = maps.shape
@@ -407,26 +448,37 @@ def hysteresis_fixpoint(cls: torch.Tensor, max_sweeps: Optional[int] = None) -> 
 
     Passes of ``SWEEPS_PER_PASS`` sweeps ping-pong between two buffers, so
     no pass reads what it writes.  Each pass sets its own device-side flag
-    when it changed anything; the host reads the flags once every
-    ``PASSES_PER_CHECK`` passes and stops after a pass that changed nothing.
+    when its last sweep changed anything (``hysteresis_sweeps``'s
+    ``last_changed``); the host reads the flags once every
+    ``PASSES_PER_CHECK`` passes and stops after a pass whose last sweep
+    changed nothing: the map before that sweep was already the fixpoint.
+    ``hysteresis_fixpoint.host_reads`` counts the reads (``kernels.reset_launch_counts`` sets it to 0).
     """
     cls = _check_maps(cls, torch.uint8, "hysteresis_fixpoint")
-    bufs = (torch.empty_like(cls), torch.empty_like(cls))
+    bufs = [torch.empty_like(cls), None]  # the second at the second pass
     flags = torch.zeros(PASSES_PER_CHECK, dtype=torch.int32, device=cls.device)
     cur, done, nxt = cls, 0, 0
     while True:
-        flags.zero_()
         last = -1
         for p in range(PASSES_PER_CHECK):
             k = SWEEPS_PER_PASS if max_sweeps is None else min(SWEEPS_PER_PASS, max_sweeps - done)
             if k <= 0:
                 break
-            cur = hysteresis_sweeps(cur, k, changed=flags[p : p + 1], out=bufs[nxt])
+            if bufs[nxt] is None:
+                bufs[nxt] = torch.empty_like(cls)
+            cur = hysteresis_sweeps(cur, k, out=bufs[nxt], last_changed=flags[p : p + 1])
             nxt ^= 1
             done += k
             last = p
-        if last < 0 or not bool(flags[last]):
+        if last < 0:
             return cur
+        hysteresis_fixpoint.host_reads += 1
+        if not bool(flags[last]):
+            return cur
+        flags.zero_()
+
+
+hysteresis_fixpoint.host_reads = 0
 
 
 def fused_canny(image, low_threshold: float = 0.1, high_threshold: float = 0.2, kernel_size: int = 5,
@@ -441,7 +493,7 @@ def fused_canny(image, low_threshold: float = 0.1, high_threshold: float = 0.2, 
     magnitudes that flips NMS decisions.  With the same taps, ``ops.canny``
     gives the same edges on either backend."""
     maps, restore = _gray_maps(image)
-    taps = get_gaussian_kernel1d(kernel_size, sigma, device="cpu").numpy()
-    cls = _canny_stage1(maps, taps, low_threshold, high_threshold)
+    cls = _canny_stage1(maps, *_canny_taps(kernel_size, sigma), low_threshold, high_threshold)
     cls = hysteresis_fixpoint(cls, max_hysteresis_iters)
-    return restore((cls == 2).to(torch.float32))
+    edges = torch.empty(cls.shape, dtype=torch.float32, device=cls.device)
+    return restore(torch.eq(cls, 2, out=edges))  # one pass: the comparison written as float32

@@ -201,6 +201,48 @@ def test_fixpoint_matches_op_by_op(cuda, rng, max_sweeps):
     assert torch.equal(out == 2, ops.hysteresis(cls == 2, cls >= 1, max_sweeps))
 
 
+# Canny's kernels (canny_strip_kernel, hysteresis_bits_kernel): maps under the halo, one row, one column, widths
+# on and off multiples of 4, 16 and 32, strips at the edges and between them, and the 1080p b8 scene's shape
+CANNY_SHAPES = [(1, 5, 7), (1, 1, 40), (1, 33, 1), (2, 20, 37), (1, 40, 100), (1, 12, 32), (1, 9, 48),
+                (1, 70, 392), (1, 7, 3008), (9, 10, 64), (8, 1080, 1920)]
+
+
+@pytest.mark.parametrize("shape", CANNY_SHAPES)
+def test_canny_kernels_match_twins(cuda, rng, shape):
+    """canny_stage1 and hysteresis_sweeps at 1-16 sweeps equal their twins bit for bit, and both flags equal the
+    twin's: any pixel changed, and the last sweep changed one."""
+    maps = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(cuda)
+    cls = kernels.canny_stage1(maps, 0.05, 0.2)
+    assert torch.equal(cls, stencil.canny_stage1_plain(maps, stencil.gaussian_taps(5, 1.4), 0.05, 0.2))
+    for sweeps in range(1, 17):
+        changed, last = torch.zeros(1, dtype=torch.int32, device=cuda), torch.zeros(1, dtype=torch.int32, device=cuda)
+        out = kernels.hysteresis_sweeps(cls, sweeps, changed=changed, last_changed=last)
+        before, twin = stencil._sweeps_plain(cls, sweeps)
+        assert torch.equal(out, twin), sweeps
+        assert int(changed) == int(bool((twin != cls).any())) and int(last) == int(bool((twin != before).any()))
+    assert kernels.launch_counts()["canny_stage1"] == 1 and kernels.launch_counts()["hysteresis_sweeps"] == 16
+
+
+@pytest.mark.parametrize("ks", range(1, 32))
+def test_canny_stage1_every_window(cuda, rng, ks):
+    """K 1-31 (2 columns a lane, or 1 past K 15; the ring of W-blurred rows fixed or shifting), interior and border
+    strips, rows aligned and not."""
+    for shape in ((2, 70, 392), (1, 37, 131)):
+        maps = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(cuda)
+        assert torch.equal(kernels.canny_stage1(maps, 0.02, 0.1, ks, 0.4 + 0.2 * ks),
+                           stencil.canny_stage1_plain(maps, stencil.gaussian_taps(ks, 0.4 + 0.2 * ks), 0.02, 0.1))
+
+
+@pytest.mark.parametrize("max_sweeps", [None, 0, 1, 3, 9])
+def test_fixpoint_matches_op_by_op_at_full_size(cuda, rng, max_sweeps):
+    """Noise at 1080p b8 takes tens of sweeps to its fixpoint: every pass but the last has a last sweep that
+    changes something."""
+    maps = torch.from_numpy(rng.random((8, 1080, 1920), dtype=np.float32)).to(cuda)
+    cls = kernels.canny_stage1(maps, 0.3, 0.6)
+    out = kernels.hysteresis_fixpoint(cls, max_sweeps)
+    assert torch.equal(out == 2, ops.hysteresis(cls == 2, cls >= 1, max_sweeps))
+
+
 @pytest.mark.parametrize("shape", [(70, 90), (2, 70, 90, 1), (40, 50, 3)])
 def test_canny_runs_kernels_and_matches_op_by_op(cuda, rng, shape):
     img = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(cuda)

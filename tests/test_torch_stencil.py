@@ -202,3 +202,31 @@ def test_wrappers_reject_bad_arguments():
         kernels.hysteresis_sweeps(cls, 2, out=cls)
     with pytest.raises(ValueError):
         kernels.fused_blur_sobel(torch.empty(8, 8, device="meta"))
+
+
+@pytest.mark.parametrize("ks,sigma", [(5, 1.4), (3, 0.8), (7, 2.0), (31, 6.0)])
+def test_taps_are_built_once_with_their_bits(ks, sigma):
+    """fused_canny's taps are get_gaussian_kernel1d's and the other wrappers' gaussian_taps', bit for bit, in the
+    ctypes array the kernels take too; both are built once a (kernel_size, sigma) and cannot be written."""
+    for cached, ref in ((stencil._canny_taps, tops.get_gaussian_kernel1d(ks, sigma, device="cpu").numpy()),
+                        (stencil._kernel_taps, stencil.gaussian_taps(ks, sigma))):
+        taps, c_taps = cached(ks, sigma)
+        assert taps.dtype == ref.dtype == np.float32 and np.array_equal(taps.view(np.uint32), ref.view(np.uint32))
+        assert np.array_equal(np.ctypeslib.as_array(c_taps).view(np.uint32), ref.view(np.uint32))
+        assert cached(ks, sigma)[1] is c_taps and not taps.flags.writeable
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_fixpoint_stops_after_a_pass_whose_last_sweep_changed_nothing(class_maps, which):
+    """With N sweeps that change something, pass p's last sweep (sweep p·SWEEPS_PER_PASS) changes nothing from the
+    first p with p·SWEEPS_PER_PASS > N: the fixpoint reads the flags that many times, one pass a read."""
+    cls = _t(class_maps[which])
+    states = [cls]
+    while len(states) < 2 or not torch.equal(states[-1], states[-2]):
+        states.append(stencil.hysteresis_sweeps_plain(states[-1], 1))
+    changing = len(states) - 2
+    kernels.reset_launch_counts()
+    out = kernels.hysteresis_fixpoint(cls)
+    assert torch.equal(out, states[-1])
+    passes = changing // stencil.SWEEPS_PER_PASS + 1
+    assert stencil.hysteresis_fixpoint.host_reads == -(-passes // stencil.PASSES_PER_CHECK)

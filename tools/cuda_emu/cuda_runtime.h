@@ -47,6 +47,7 @@ inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
 
 inline float __int2float_rn(int v) { return (float)v; }  // to nearest, as the host rounds
 inline unsigned __float_as_uint(float v) {
@@ -87,7 +88,6 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, co
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline std::barrier<>* emu_block_barrier;
 inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
-inline float emu_shuffle[1024];
 alignas(1024) inline float emu_shared[EMU_MAX_SHARED / sizeof(float)];  // dynamic shared memory of the running block
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
@@ -105,25 +105,66 @@ inline int __syncthreads_or(int p) {
   return any;
 }
 
-// Every lane of the warp must call it (as the kernels do: their shuffles sit
-// under warp-uniform conditions only).
-inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+// The shuffles and votes: every lane of the warp must call them (as the kernels do: they sit under warp-uniform
+// conditions only), and in the same order.  The shuffles move any 4-byte value (float, int, unsigned) through one
+// word a thread, in one of two buffers by turns: one barrier an exchange is enough, since a lane that writes a
+// buffer again has passed the next exchange's barrier, which every lane reaches only after its last read of it.
+inline uint32_t emu_shuffle[2][1024];
+inline thread_local unsigned emu_turn = 0;
+template <typename T> inline uint32_t emu_word(T v) {
+  static_assert(sizeof(T) == 4, "4-byte shuffles");
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  return u;
+}
+template <typename T> inline T emu_value(uint32_t u) {
+  T v;
+  memcpy(&v, &u, 4);
+  return v;
+}
+// every lane's value of the warp's lane src(lane) (a lane of the warp's 32)
+template <typename T, typename Src> inline T emu_exchange(T v, Src src) {
   const int t = threadIdx.x, w = t >> 5;
-  emu_shuffle[t] = v;
+  uint32_t* const buf = emu_shuffle[emu_turn++ & 1];
+  buf[t] = emu_word(v);
   emu_warp_barriers[w]->arrive_and_wait();
-  const float r = emu_shuffle[t ^ lane_mask];
+  return emu_value<T>(buf[(w << 5) | src(t & 31)]);
+}
+template <typename T> inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  return emu_exchange(v, [=](int l) { return l ^ lane_mask; });
+}
+// lanes past the warp's last (or before its first) read their own value, as on the card
+template <typename T> inline T __shfl_down_sync(unsigned, T v, int delta) {
+  return emu_exchange(v, [=](int l) { return l + delta < 32 ? l + delta : l; });
+}
+template <typename T> inline T __shfl_up_sync(unsigned, T v, int delta) {
+  return emu_exchange(v, [=](int l) { return l - delta >= 0 ? l - delta : l; });
+}
+template <typename T> inline T __shfl_sync(unsigned, T v, int src_lane) {
+  return emu_exchange(v, [=](int) { return src_lane & 31; });
+}
+// bit l: lane l's predicate
+inline unsigned __ballot_sync(unsigned, int p) {
+  const int t = threadIdx.x, w = t >> 5;
+  uint32_t* const buf = emu_shuffle[emu_turn++ & 1];
+  buf[t] = p != 0;
   emu_warp_barriers[w]->arrive_and_wait();
+  unsigned bits = 0;
+  for (int l = 0; l < 32; ++l) bits |= buf[(w << 5) | l] << l;
+  return bits;
+}
+inline int __any_sync(unsigned mask, int p) { return __ballot_sync(mask, p) != 0; }
+inline unsigned __brev(unsigned x) {
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= ((x >> i) & 1u) << (31 - i);
   return r;
 }
-
-// lanes past the warp's last read their own value, as on the card
-inline float __shfl_down_sync(unsigned, float v, int delta) {
-  const int t = threadIdx.x, w = t >> 5;
-  emu_shuffle[t] = v;
-  emu_warp_barriers[w]->arrive_and_wait();
-  const float r = (t & 31) + delta < 32 ? emu_shuffle[t + delta] : v;
-  emu_warp_barriers[w]->arrive_and_wait();
-  return r;
+// the high word of (hi:lo) << (shift & 31), the low word of (hi:lo) >> (shift & 31)
+inline unsigned __funnelshift_l(unsigned lo, unsigned hi, unsigned shift) {
+  return (unsigned)((((uint64_t)hi << 32 | lo) << (shift & 31)) >> 32);
+}
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
+  return (unsigned)(((uint64_t)hi << 32 | lo) >> (shift & 31));
 }
 
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
@@ -135,6 +176,7 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
 
 // kernel<<<grid, block, shared, stream>>>(args) becomes
 // emu_launch(grid, block, shared, stream, [=] { kernel(args); }).  The block

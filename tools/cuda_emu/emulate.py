@@ -23,17 +23,20 @@ or, from the repository root, ``python3 tools/cuda_emu/emulate.py`` for a
 self-check of the kernels against their plain twins.
 
 Covered: ``__global__`` templates, ``threadIdx``/``blockIdx``, ``__syncthreads``,
-``__syncthreads_or``, ``__shfl_xor_sync`` on floats, dynamic shared memory
+``__syncthreads_or``, ``__syncwarp``, the shuffles ``__shfl_sync``, ``__shfl_xor_sync``, ``__shfl_up_sync`` and
+``__shfl_down_sync`` on 4-byte values, ``__ballot_sync``, ``__any_sync``, ``__brev``, ``__funnelshift_l`` and
+``__funnelshift_r``, dynamic shared memory
 declared as ``extern __shared__ [__align__(16)] T name[];`` of any type T,
 static ``__shared__`` arrays,
-``float4``, ``int4``, ``uint4``, ``__int2float_rn``, ``__float_as_int``, ``__fmul_rn`` and its kin, ``__nv_bfloat16`` with its conversions (a pair too),
+``float4``, ``int4``, ``uint4`` (``make_uint4``), ``__int2float_rn``, ``__float_as_int``, ``__fmul_rn`` and its kin, ``__nv_bfloat16`` with its conversions (a pair too),
 ``cudaFuncSetAttribute``, ``cudaFuncGetAttributes`` and ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (stubs: no
 registers, one block an SM),
 ``blockDim``, ``gridDim``, the ``<<<...>>>`` launch, ``make_float4``, and the functions of ``csrc/hopper.cuh`` (``cp.async``
 of 16 and 4 bytes, ``wgmma`` of bf16 and of tf32, ``cvt.rna.tf32.f32``; the stand-in ``hopper.cuh`` here replaces that
 header).  Not covered: everything else; extend the headers as a source needs.  The CPU twins of the blur+Sobel
 and Canny kernels take ``torch.sqrt``, which on the CPU may differ from the correctly rounded square root in the last
-bit: hold those to the twins on the card, or through their class maps.
+bit: hold those to the twins on the card, or to the twins with a root taken in float64 and rounded (Canny's
+``root``).
 """
 
 from __future__ import annotations
@@ -245,12 +248,25 @@ def main() -> int:
                 maps = torch.rand((2, 70, 140), generator=gen)
                 pairs.append(("harris_response_fused 2x70x140", kernels.harris_response_fused(maps[..., None])[..., 0],
                               stencil.harris_response_fused_plain(maps, stencil.gaussian_taps(5, 1.0), 0.04)))
+                # Canny's two kernels: the strip kernel against the twin with a correctly rounded root, and the
+                # sweeps on bit masks (rows of 16-byte chunks at W 1920, byte loads at W 140) with their flags
+                root = lambda v: torch.sqrt(v.double()).float()  # noqa: E731
+                cls = stencil.canny_stage1_plain(maps, stencil.gaussian_taps(5, 1.4), 0.05, 0.2, root=root)
+                pairs.append(("canny_stage1 2x70x140", kernels.canny_stage1(maps, 0.05, 0.2), cls))
+                for cmap in (cls, stencil.canny_stage1_plain(torch.rand((1, 9, 1920), generator=gen),
+                                                             stencil.gaussian_taps(5, 1.4), 0.05, 0.2)):
+                    flags = torch.zeros(2, dtype=torch.int32)
+                    swept = kernels.hysteresis_sweeps(cmap, 4, changed=flags[:1], last_changed=flags[1:])
+                    before, twin = stencil._sweeps_plain(cmap, 4)
+                    twin_flags = torch.tensor([bool((twin != cmap).any()), bool((twin != before).any())]).int()
+                    pairs.append((f"hysteresis_sweeps x4 {list(cmap.shape)} and flags",
+                                  torch.cat([swept.flatten(), flags]), torch.cat([twin.flatten(), twin_flags])))
             for name, out, ref in pairs:
                 err = (out.float() - ref.float()).abs()
                 note = ""
                 if name.startswith("wgrad_matmul"):  # the weight gradient's rule on the card: 1e-5 max |twin|
                     ok = float(err.max()) <= 1e-5 * float(ref.abs().max())
-                elif name.startswith("harris"):  # bit for bit, as on the card
+                elif name.startswith(("harris", "canny", "hysteresis")):  # bit for bit, as on the card
                     ok = torch.equal(out, ref)
                 elif name.startswith("fused_conv"):  # the conv stage's rule
                     ok = bool((err <= 1e-5 + 1e-5 * ref.abs()).all())
