@@ -84,7 +84,8 @@ printed), then:
    time at the memory rate of the intermediates that a kernel split into
    several launches passes through device memory; ``kernel_launches`` counts
    those launches and ``launch_ms`` times each of them apart on the bf16 rows
-   of the transformer blocks and on every window attention row, from
+   of the transformer blocks, on every window attention row and on the blur's
+   and the NMS's rows (the NMS's mask pass and scan), from
    ``torch.profiler``'s kernel intervals (null where five profiler windows saw
    no kernel); the rows of ``attention_block``, ``attention_block_int8`` and
    ``window_attention_block`` carry their attention core's own launch apart:
@@ -660,7 +661,8 @@ def main() -> int:
     require(rot.shape == x3.shape and bool(torch.isfinite(rot).all()) and rot_err <= 1e-4,
             f"rotate vs F.grid_sample: max |err| {rot_err}")
     blur_err = float((blurred - ops.gaussian_blur(x3, 5, 1.5)).abs().max())
-    require(blurred.shape == x3.shape and blur_err <= 1e-5, f"fused blur vs ops.gaussian_blur: max |err| {blur_err}")
+    require(blurred.shape == x3.shape and blurred.is_contiguous() and blur_err <= 1e-5,
+            f"fused blur vs ops.gaussian_blur: max |err| {blur_err}, contiguous {blurred.is_contiguous()}")
     print(f"config 3: reconstruction max |err| {rec_err:.3e}, resize vs F.interpolate {small_err:.3e}, "
           f"rotate vs F.grid_sample {rot_err:.3e}, fused blur vs op-by-op {blur_err:.3e}")
     del levels, small, small_ref, rec, rot, rot_ref, masked, blurred, grid
@@ -1558,20 +1560,32 @@ def main() -> int:
     del m32
 
     # library_ms of the blur and of the conv stage are composites of stock calls
-    # (shifted-slice sums; conv2d + relu + max_pool2d in full f32), not one kernel
+    # (shifted-slice sums; conv2d + relu + max_pool2d in full f32), not one kernel.  The blur reads NHWC frames of
+    # 1, 3 or 4 channels as they lie: one launch a call, no copy, held to the twin bit for bit; launch_ms is the
+    # call's launches apart on the device clock
     def blur_at(img, what):
-        m, restore = stencil._as_nhw(img)  # (N*C, H, W) maps for the kernel and the twin
-        err = max_err_f32(kernels.fused_gaussian_blur(img), restore(stencil.fused_gaussian_blur_plain(m, t15)), what)
+        m, restore = stencil._as_nhw(img)  # (N*C, H, W) maps for the twin
+        out = kernels.fused_gaussian_blur(img)
+        require(out.is_contiguous() and out.shape == img.shape, f"{what}: the blur's output is not contiguous NHWC")
+        err = exact(out, restore(stencil.fused_gaussian_blur_plain(m, t15)), what)
+        del out
+        split = launch_split(lambda: kernels.fused_gaussian_blur(img), 1)
+        print(f"  fused_gaussian_blur {list(img.shape)}'s launches apart (device ms): {split}")
         return row("fused_gaussian_blur", f"{PALLAS}:357", "pyramid/resize/rotate/blur 64x480x640x3", err,
                    time_ms(lambda: kernels.fused_gaussian_blur(img), 20),
                    time_ms(lambda: stencil.fused_gaussian_blur_plain(m, t15), 3),
                    img.numel() * 8, img.numel() * blur_ops,
-                   library_ms=time_ms(lambda: ops.gaussian_blur(img, 5, 1.5), 3), at=(m.shape, m.dtype),
-                   shape=list(img.shape))
+                   library_ms=time_ms(lambda: ops.gaussian_blur(img, 5, 1.5), 3), at=(img.shape, img.dtype),
+                   shape=list(img.shape), kernel=f"blur_strip_kernel<5, {img.shape[-1]}>", launch_ms=split)
 
     rows.append(entry(blur_at(x3, "gaussian_blur 64x480x640x3"), "pyramid/resize/rotate/blur 64x480x640x3",
                       [blur_at(x, "gaussian_blur 1080p b8")]))
     del x3
+    x4 = torch.from_numpy(rng.random((8, 480, 640, 4), dtype=np.float32)).to(dev)
+    m4, restore4 = stencil._as_nhw(x4)
+    hold("fused_gaussian_blur", x4.shape, x4.dtype, exact(kernels.fused_gaussian_blur(x4), restore4(
+        stencil.fused_gaussian_blur_plain(m4, t15)), "gaussian_blur 8x480x640x4"), channels=4)
+    del x4, m4
 
     # row 7 is an implicit GEMM on split TF32 (four tf32 products a product): its bound takes the products at
     # TF32X3_OPS_PER_S, as the split-TF32 products', and fma_floor_ms is the same work on the FMA units
@@ -2203,11 +2217,14 @@ def main() -> int:
             hold("nms_sorted", boxes.shape, boxes.dtype, err, threshold=thr, case=what, kept=int(kept.sum()))
             return None
         nops, meeting, disjoint = nms_needed_ops(boxes, keep)
+        split = launch_split(lambda: kernels.nms_sorted(boxes, thr), 2, keep=lambda name: "nms_" in name)
+        print(f"  nms_sorted {list(boxes.shape)}'s launches apart (device ms): {split}")
         return row("nms_sorted", f"{PALLAS_NMS}:93", path, err, time_ms(lambda: kernels.nms_sorted(boxes, thr), 20),
                    time_ms(lambda: nms_kernel.nms_sorted_plain(boxes, thr), 3), p_ * n_ * (16 + 1), nops,
                    source=NMS, at=(boxes.shape, boxes.dtype), shape=list(boxes.shape), threshold=thr,
                    kept=int(kept.sum()), iou_pairs_needed={"meeting": meeting, "disjoint": disjoint}, ops_needed=nops,
-                   split_bytes_ms=2 * p_ * n_ * -(-n_ // nms_kernel.MASK_BITS) * 8 / HBM_BYTES_PER_S * 1e3)
+                   launch_ms=split, kernel_launches=2,
+                   split_bytes_ms=2 * p_ * nms_kernel.mask_words(n_) * 8 / HBM_BYTES_PER_S * 1e3)
 
     require({(shape, torch.float32) for shape, _ in nms_inputs} == set(det_nms_shapes),
             f"captured nms_sorted inputs {list(nms_inputs)}")
@@ -2217,6 +2234,10 @@ def main() -> int:
     nms_case(torch.cat([crowd_ctr - crowd_wh / 2, crowd_ctr + crowd_wh / 2], -1), 0.5, what="dense overlaps")
     odd = torch.rand((3, 333, 4), generator=gen, device=dev) * 50
     nms_case(torch.cat([odd[..., :2], odd[..., :2] + odd[..., 2:] + 1], -1), 0.7, what="N off the tile of 64")
+    # past the scan's staged words (csrc/nms.cu NMS_STAGE_WORDS, 64 x 64 boxes): the later words from device memory
+    far = torch.rand((1, 8500, 4), generator=gen, device=dev) * torch.tensor([900.0, 900.0, 60.0, 60.0], device=dev)
+    nms_case(torch.cat([far[..., :2], far[..., :2] + far[..., 2:] + 2], -1), 0.5, what="N past the staged words")
+    del far
     main = next(r for r in nms_rows if r["shape"] == [8, 4096, 4])
     nms_entry = entry(main, DET_F32, [r for r in nms_rows if r is not main])
     rows.append(nms_entry)

@@ -10,17 +10,18 @@
 // and the halo row-band engine they share (_halo_stencil_call, stencil.py:66,
 // and _halo_stencil_call_rowfused, stencil.py:171).
 //
-// Design.  The input is one (N, H, W) map, channels folded into N.  Every
-// block of the blur+Sobel and blur kernels, and of Canny's in-tile option,
-// owns one TILE_H x TILE_W output tile of one image: it loads the
-// (TILE_H + 2*halo) x (TILE_W + 2*halo) window around it into shared memory
-// with reflect indexing (numpy "reflect": edge not repeated, periodic for
-// pads longer than the image), runs the whole pipeline in shared memory and
-// writes its tile, masking the ragged edge.  Canny's main kernel, the
-// hysteresis sweeps and Harris are strip kernels instead: each warp walks
-// (frame, strip) tiles on a persistent grid and streams a strip's rows
-// through a cp.async ring in its own shared memory, with the stages between
-// in registers (their own notes below).  Intermediates (blur, gradients,
+// Design.  The input is one (N, H, W) map, channels folded into N; the
+// blur's is (N, H, W, C) frames as they lie.  Every block of the blur+Sobel
+// kernel, and of Canny's in-tile option, owns one TILE_H x TILE_W output tile
+// of one image: it loads the (TILE_H + 2*halo) x (TILE_W + 2*halo) window
+// around it into shared memory with reflect indexing (numpy "reflect": edge
+// not repeated, periodic for pads longer than the image), runs the whole
+// pipeline in shared memory and writes its tile, masking the ragged edge.
+// Canny's main kernel, the hysteresis sweeps, Harris and the blur are strip
+// kernels instead: each warp walks (frame, strip) tiles on a persistent grid
+// and streams a strip's rows through a cp.async ring in its own shared memory
+// (Canny's and the blur's through StripRows), with the stages between in
+// registers (their own notes below).  Intermediates (blur, gradients,
 // magnitude, structure tensor, the sweeps' masks) never reach device memory:
 // one read of the input and one write of the output per call.
 //
@@ -147,6 +148,48 @@ __device__ __forceinline__ void sobel3(const float (&v)[3][W], int c, float& gx,
 
 // the reflected index of i (numpy "reflect"), without a division where it lies inside
 __device__ __forceinline__ int reflect_fast(int i, int n) { return (unsigned)i < (unsigned)n ? i : reflect(i, n); }
+
+// The row staging of the strip kernels (Canny's front half, the blur): IW floats of a frame row, from its element
+// `first` on, into a slot of a ring in the warp's own shared memory.  A row is w columns of CH channels, w CH
+// floats.  Interior strips (the frame's rows 16-byte aligned, the staged span inside the row) copy 16-byte chunks
+// as the row lies; border strips copy 4 bytes an element from the element of the reflected column (numpy
+// "reflect", the channel kept: element x CH + c reads reflect(x) CH + c), found once a tile.  Every lane of the
+// warp constructs it for a tile and calls copy() for each row.
+template <int IW, int CH>
+struct StripRows {
+  static constexpr int CHUNKS = IW / 4;         // 16-byte chunks of an interior row
+  static constexpr int LOADS = (IW + 31) / 32;  // 4-byte copies a lane of a border row
+  const float* frame;
+  float* ring;  // [slots][IW]
+  int row_len, first, lane;
+  bool interior;
+  int src[LOADS];  // border strips: the row's element that each of this lane's copies reads, -1 past the span
+
+  __device__ __forceinline__ StripRows(const float* frame, float* ring, int w, int first, bool interior, int lane)
+      : frame(frame), ring(ring), row_len(w * CH), first(first), lane(lane), interior(interior) {
+#pragma unroll
+    for (int c = 0; c < LOADS; ++c) {
+      const int e = first + lane + 32 * c;                   // an element of the reflect-padded row
+      const int x = e >= 0 ? e / CH : -((CH - 1 - e) / CH);  // its column, rounded down
+      src[c] = lane + 32 * c < IW ? reflect_fast(x, w) * CH + (e - x * CH) : -1;
+    }
+  }
+
+  // frame row y (already reflected) into ring slot `slot`
+  __device__ __forceinline__ void copy(int y, int slot) const {
+    const float* row = frame + (size_t)y * row_len;
+    const uint32_t dst = smem_addr(ring + slot * IW);
+    if (interior) {
+#pragma unroll
+      for (int c = 0; c < (CHUNKS + 31) / 32; ++c)
+        if (lane + 32 * c < CHUNKS) cp_async16(dst + 16 * (lane + 32 * c), row + first + 4 * (lane + 32 * c), true);
+    } else {
+#pragma unroll
+      for (int c = 0; c < LOADS; ++c)
+        if (src[c] >= 0) cp_async4(dst + 4 * (lane + 32 * c), row + src[c], true);
+    }
+  }
+};
 
 // ------------------------------------------------------------ canny_stage1
 // blur -> Sobel -> |g| -> 4-bin NMS -> double threshold; halo = K/2 + 2.
@@ -293,9 +336,6 @@ struct CannyShape {
   static constexpr int LANE0 = C == 1 ? 2 : 1;
   static constexpr int OW = (32 - 2 * LANE0) * C;  // output columns of a strip: lanes LANE0 .. 31 - LANE0
   static constexpr int IW = BW + 2 * PAD + 4;    // a staged row: the strip's input columns from up to 3 before
-  static constexpr int CHUNKS = IW / 4;          // 16-byte chunks of an interior row
-  static constexpr int LOADS = (IW + 31) / 32;   // 4-byte copies a lane of a border row
-  static_assert(CHUNKS <= 64, "a strip");
   static constexpr size_t SMEM = sizeof(float) * CS_WARPS * CS_RING * IW;
 };
 
@@ -374,29 +414,12 @@ canny_strip_kernel(const float* __restrict__ in, uint8_t* __restrict__ out, int 
     const int ty = rem / tiles_x, tx = rem - ty * tiles_x;
     const int y0 = ty * CS_TILE_H, xs = tx * S::OW;  // first output row and column
     const int out_rows = min(CS_TILE_H, h - y0), rows_in = out_rows + K + 3;
-    const float* const img = in + f * plane;
     // lane l blurs columns xs + C (l - LANE0) ..: the strip's first blurred column is xs - C LANE0, its first
     // input column xs - C LANE0 - PAD; a staged row holds input columns from first (that one, or up to 3 before it:
     // a 16-byte boundary); interior: the row as it lies
     const int x_first = xs - C * S::LANE0 - S::PAD, shift = vec_rows ? (x_first & 3) : 0, first = x_first - shift;
-    const bool interior = vec_rows && first >= 0 && first + S::IW <= w;
-    int col[S::LOADS];
-#pragma unroll
-    for (int c = 0; c < S::LOADS; ++c)
-      col[c] = lane + 32 * c < S::IW ? reflect_fast(first + lane + 32 * c, w) : -1;
-    auto load = [&](int i) {  // padded row i of the tile: frame row y0 - HALO + i, reflected
-      const float* row = img + (size_t)reflect_fast(y0 - S::HALO + i, h) * w;
-      const uint32_t dst = smem_addr(s_in + (i % CS_RING) * S::IW);
-      if (interior) {
-#pragma unroll
-        for (int c = 0; c < (S::CHUNKS + 31) / 32; ++c)
-          if (lane + 32 * c < S::CHUNKS) cp_async16(dst + 16 * (lane + 32 * c), row + first + 4 * (lane + 32 * c), true);
-      } else {
-#pragma unroll
-        for (int c = 0; c < S::LOADS; ++c)
-          if (col[c] >= 0) cp_async4(dst + 4 * (lane + 32 * c), row + col[c], true);
-      }
-    };
+    const StripRows<S::IW, 1> rows(in + f * plane, s_in, w, first, vec_rows && first >= 0 && first + S::IW <= w, lane);
+    auto load = [&](int i) { rows.copy(reflect_fast(y0 - S::HALO + i, h), i % CS_RING); };  // padded row i of the tile
     // this lane's first output column, and its classes' first byte in the tile's first row
     const int x = xs + C * (lane - S::LANE0);
     uint8_t* const o_tile = out + f * plane + (size_t)y0 * w + x;
@@ -908,38 +931,154 @@ harris_kernel(const float* __restrict__ in, float* __restrict__ out, int frames,
 }
 
 // ------------------------------------------------------ fused_gaussian_blur
-// Separable K-tap blur, taps along W then along H; halo = K/2.
-struct BlurDims {
-  int halo, in_h, in_w;
-  __host__ __device__ explicit BlurDims(int K)
-      : halo(K / 2), in_h(TILE_H + 2 * halo), in_w(TILE_W + 2 * halo) {}
-  __host__ __device__ int floats() const { return in_h * in_w + in_h * TILE_W; }
+// Separable K-tap blur of NHWC frames, taps along W then along H; halo = K/2.
+//
+// Redesigned for Hopper on Canny's strip engine.  The tile kernel it replaced
+// took (N C, H, W) maps, which the wrapper made with a permuting copy of the
+// whole batch, staged a 1.27x window a tile with two integer % a pixel, ran
+// its taps in runtime loops and put its W-blurred rows through shared memory
+// behind a block barrier: 5.8x its bytes bound with the copy.  Here the
+// kernel reads the frames as they lie.  Row y of an (N, H, W, CH) frame is
+// W CH floats, and along W the tap j of element e = x CH + c is element
+// e + (j - R) CH: the W blur is a 1-D stencil over the row's elements with
+// its taps CH apart, and the column past an edge is reflected with the
+// channel kept (StripRows).  Every warp works alone on a persistent grid,
+// walking (frame, strip) tiles: a strip is 32 Q elements of a row (Q a
+// lane), BL_TILE_H output rows deep.  Its rows of the reflect-padded frame
+// stream through a ring of BL_RING rows in the warp's shared memory,
+// BL_AHEAD rows ahead of the row read (StripRows: 16-byte copies on interior
+// strips, 4-byte ones on border strips).  A lane blurs its Q elements along
+// W from the staged row (read in 16-byte vectors where Q is 4 and the window
+// is short); the W-blurred rows of the last K rows sit in a register ring
+// (in runs of K rows up to K 8, so no slot moves; a shifting ring past it),
+// and each new row completes the H blur of Q outputs, stored as one vector.
+// One __syncwarp a row, no block barrier.  K and CH are template arguments
+// (CH 1, 3 and 4; other channel counts run at CH 1 on (N C, H, W) maps), so
+// every loop over taps unrolls with the taps in the kernel's parameter space.
+// Every product and sum in the twin's order (_sep_blur), each rounded alone.
+constexpr int BL_WARPS = 4;
+constexpr int BL_THREADS = 32 * BL_WARPS;
+constexpr int BL_TILE_H = 32;          // output rows of a strip
+constexpr int BL_MIN_BLOCKS = 1;       // blocks an SM the registers must allow (tools/torch_canny_variants_ab.py)
+constexpr int BL_RING = 8;             // input rows in a warp's shared memory
+constexpr int BL_AHEAD = BL_RING - 1;  // rows copied ahead of the row read
+
+template <int K, int CH>
+struct BlurShape {
+  static constexpr int R = K / 2;
+  static constexpr int Q = K <= 7 ? 4 : (K <= 15 ? 2 : 1);  // output elements a lane
+  static constexpr int OW = 32 * Q;                         // output elements of a strip
+  static constexpr int PAD = 4 * ((R * CH + 3) / 4);        // staged elements each side of the strip (>= R CH)
+  static constexpr int IW = OW + 2 * PAD;                   // a staged row
+  static constexpr int NV = Q + 2 * PAD;                    // the staged elements a lane's W blur reads from
+  static constexpr bool VEC = Q == 4 && NV <= 32;           // read them in 16-byte vectors
+  static constexpr int RUN = K <= 8 ? K : 1;                // rows unrolled: runs of K fix the ring's slots
+  static constexpr size_t SMEM = sizeof(float) * BL_WARPS * BL_RING * IW;
 };
 
-__global__ void __launch_bounds__(THREADS)
-gaussian_blur_kernel(const float* __restrict__ in, float* __restrict__ out, int h, int w,
-                     Taps taps, int K) {
-  extern __shared__ float smem[];
-  __shared__ float s_k[MAX_TAPS];
-  const BlurDims d(K);
-  float* s_in = smem;
-  float* s_hb = s_in + d.in_h * d.in_w;
+template <int K, int CH>
+__global__ void __launch_bounds__(BL_THREADS, BL_MIN_BLOCKS)
+blur_strip_kernel(const float* __restrict__ in, float* __restrict__ out, int frames, int h, int w, int tiles_x,
+                  int tiles_y, int vec_rows, int vec_out, Taps taps) {
+  using S = BlurShape<K, CH>;
+  constexpr int Q = S::Q, R = S::R, RUN = S::RUN;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* const s_in = smem + warp * BL_RING * S::IW;  // [BL_RING][IW]
+  const int row_len = w * CH, per_frame = tiles_x * tiles_y;
+  const size_t plane = (size_t)h * row_len;
 
-  const int y0 = blockIdx.y * TILE_H, x0 = blockIdx.x * TILE_W;
-  const size_t plane = (size_t)h * w;
-  load_taps(taps, s_k);
-  load_window(in + blockIdx.z * plane, h, w, y0 - d.halo, x0 - d.halo, s_in, d.in_h, d.in_w);
-  __syncthreads();
-  blur_along_w(s_in, d.in_w, s_hb, d.in_h, TILE_W, s_k, K);
-  __syncthreads();
-  for (int i = threadIdx.x; i < TILE_H * TILE_W; i += blockDim.x) {
-    const int r = i / TILE_W, c = i - r * TILE_W;
-    const int y = y0 + r, x = x0 + c;
-    if (y >= h || x >= w) continue;
-    const float* q = s_hb + r * TILE_W + c;
-    float acc = q[0] * s_k[0];
-    for (int t = 1; t < K; ++t) acc = acc + q[t * TILE_W] * s_k[t];
-    out[blockIdx.z * plane + (size_t)y * w + x] = acc;
+  for (long long tile = (long long)blockIdx.x * BL_WARPS + warp; tile < (long long)frames * per_frame;
+       tile += (long long)gridDim.x * BL_WARPS) {
+    const int f = (int)(tile / per_frame), rem = (int)(tile - (long long)f * per_frame);
+    const int ty = rem / tiles_x, tx = rem - ty * tiles_x;
+    const int y0 = ty * BL_TILE_H, es = tx * S::OW;  // first output row and element
+    const int out_rows = min(BL_TILE_H, h - y0), rows_in = out_rows + K - 1;
+    const int first = es - S::PAD;  // the staged row's first element: a multiple of 4
+    const StripRows<S::IW, CH> rows(in + f * plane, s_in, w, first, vec_rows && first >= 0 && first + S::IW <= row_len,
+                                    lane);
+    auto load = [&](int i) { rows.copy(reflect_fast(y0 - R + i, h), i % BL_RING); };  // padded row i of the tile
+    const int e = es + Q * lane;  // this lane's first output element
+    float* const o_tile = out + f * plane + (size_t)y0 * row_len + e;
+    const bool whole = vec_out && e + Q <= row_len;
+
+    float ring[Q][K];  // W-blurred rows of the last K rows
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+#pragma unroll
+      for (int j = 0; j < K; ++j) ring[q][j] = 0.0f;
+
+    __syncwarp();  // every lane's reads of the last tile's ring rows end before this tile's first copies
+#pragma unroll
+    for (int i = 0; i < BL_AHEAD; ++i) {
+      if (i < rows_in) load(i);
+      cp_async_commit();
+    }
+    for (int i0 = 0; i0 < rows_in; i0 += RUN) {
+#pragma unroll
+      for (int u = 0; u < RUN; ++u) {
+        const int i = i0 + u;
+        if (i >= rows_in) break;
+        cp_async_wait<BL_AHEAD - 1>();  // this lane's copies of row i
+        __syncwarp();                   // the warp's; and every read of the slot reused below is done
+        if (i + BL_AHEAD < rows_in) load(i + BL_AHEAD);
+        cp_async_commit();
+        // staged elements Q lane .. Q lane + NV - 1: element e - PAD onward
+        const float* const r = s_in + (i % BL_RING) * S::IW + Q * lane;
+        float v[S::VEC ? S::NV : 1];
+        if constexpr (S::VEC) {
+#pragma unroll
+          for (int g = 0; g < S::NV / 4; ++g) {
+            const float4 t = reinterpret_cast<const float4*>(r)[g];
+            v[4 * g] = t.x;
+            v[4 * g + 1] = t.y;
+            v[4 * g + 2] = t.z;
+            v[4 * g + 3] = t.w;
+          }
+        }
+        auto at = [&](int k) { return S::VEC ? v[S::VEC ? k : 0] : r[k]; };
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          constexpr int B = S::PAD - R * CH;  // tap 0 of element 0
+          float acc = at(B + q) * taps.v[0];
+#pragma unroll
+          for (int j = 1; j < K; ++j) acc = acc + at(B + q + j * CH) * taps.v[j];
+          if (RUN == K) {
+            ring[q][u] = acc;
+          } else {
+#pragma unroll
+            for (int j = 0; j < K - 1; ++j) ring[q][j] = ring[q][j + 1];
+            ring[q][K - 1] = acc;
+          }
+        }
+        if (i < K - 1) continue;
+        // output row i - K + 1 of the tile: the W-blurred rows i - K + 1 .. i, oldest first
+        auto oldest = [&](int j) { return RUN == K ? (u + 1 + j) % K : j; };  // the slot of the j-th oldest row
+        float o[Q];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          float acc = ring[q][oldest(0)] * taps.v[0];
+#pragma unroll
+          for (int j = 1; j < K; ++j) acc = acc + ring[q][oldest(j)] * taps.v[j];
+          o[q] = acc;
+        }
+        float* const dst = o_tile + (size_t)(i - K + 1) * row_len;
+        if constexpr (Q == 4) {
+          if (whole) {
+            *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+            continue;
+          }
+        } else if constexpr (Q == 2) {
+          if (whole) {
+            *reinterpret_cast<float2*>(dst) = make_float2(o[0], o[1]);
+            continue;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+          if (e + q < row_len) dst[q] = o[q];
+      }
+    }
   }
 }
 
@@ -1004,6 +1143,41 @@ cudaError_t launch_canny(const float* in, uint8_t* out, int n, int h, int w, con
   return cudaGetLastError();
 }
 
+template <int K, int CH>
+cudaError_t launch_blur(const float* in, float* out, int n, int h, int w, const Taps& taps, int sms,
+                        cudaStream_t stream) {
+  using S = BlurShape<K, CH>;
+  const int row_len = w * CH;
+  const int tiles_x = (row_len + S::OW - 1) / S::OW, tiles_y = (h + BL_TILE_H - 1) / BL_TILE_H;
+  int grid = 0;
+  cudaError_t err = persistent_grid(blur_strip_kernel<K, CH>, BL_THREADS, S::SMEM, (long long)n * tiles_x * tiles_y,
+                                    BL_WARPS, sms, grid);
+  if (err != cudaSuccess) return err;
+  const int vec_rows = row_len % 4 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0;   // every row 16-byte aligned
+  const int vec_out = row_len % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  blur_strip_kernel<K, CH><<<grid, BL_THREADS, S::SMEM, stream>>>(in, out, n, h, w, tiles_x, tiles_y, vec_rows,
+                                                                  vec_out, taps);
+  return cudaGetLastError();
+}
+
+template <int CH>
+cudaError_t launch_blur_k(const float* in, float* out, int n, int h, int w, const Taps& taps, int ksize, int sms,
+                          cudaStream_t stream) {
+  switch (ksize) {
+#define CVT_BLUR_K(K) \
+  case K:             \
+    return launch_blur<K, CH>(in, out, n, h, w, taps, sms, stream);
+    CVT_BLUR_K(1) CVT_BLUR_K(2) CVT_BLUR_K(3) CVT_BLUR_K(4) CVT_BLUR_K(5) CVT_BLUR_K(6) CVT_BLUR_K(7) CVT_BLUR_K(8)
+    CVT_BLUR_K(9) CVT_BLUR_K(10) CVT_BLUR_K(11) CVT_BLUR_K(12) CVT_BLUR_K(13) CVT_BLUR_K(14) CVT_BLUR_K(15)
+    CVT_BLUR_K(16) CVT_BLUR_K(17) CVT_BLUR_K(18) CVT_BLUR_K(19) CVT_BLUR_K(20) CVT_BLUR_K(21) CVT_BLUR_K(22)
+    CVT_BLUR_K(23) CVT_BLUR_K(24) CVT_BLUR_K(25) CVT_BLUR_K(26) CVT_BLUR_K(27) CVT_BLUR_K(28) CVT_BLUR_K(29)
+    CVT_BLUR_K(30) CVT_BLUR_K(31)
+#undef CVT_BLUR_K
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <int SW>
 cudaError_t launch_hysteresis(const uint8_t* in, uint8_t* out, int n, int h, int w, int* changed, int* last_changed,
                               int sms, cudaStream_t stream) {
@@ -1039,7 +1213,7 @@ cudaError_t launch_harris(const float* in, float* out, int n, int h, int w, cons
 // Each entry point launches on `stream` and returns the first failed
 // launch's cudaError_t (0 on success); it never synchronises.  Any number of
 // frames: past 65,535 (cvt::MAX_GRID_YZ) the tiled kernels launch once for
-// each 65,535 frames; Harris walks its frames on a persistent grid.
+// each 65,535 frames; the strip kernels walk theirs on a persistent grid.
 extern "C" {
 
 // sms (here and below): the card's multiprocessors, which size the persistent grids
@@ -1073,18 +1247,22 @@ int cvt_canny_stage1(const float* in, uint8_t* out, int n, int h, int w, const f
   }
 }
 
-int cvt_gaussian_blur(const float* in, float* out, int n, int h, int w, const float* taps, int ksize,
-                      void* stream) {
+// in, out (n, h, w, channels) f32, contiguous; channels 1, 3 or 4 (other counts: (n channels, h, w) maps at 1)
+int cvt_gaussian_blur(const float* in, float* out, int n, int h, int w, int channels, const float* taps, int ksize,
+                      int sms, void* stream) {
   if (bad_shape(n, h, w) || ksize < 1 || ksize > MAX_TAPS) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * BlurDims(ksize).floats();
-  cudaError_t err = prepare(gaussian_blur_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const size_t plane = (size_t)h * w;
   const Taps t = make_taps(taps, ksize);
-  return (int)over_frames(n, [&](int f0, int frames) {
-    gaussian_blur_kernel<<<grid_for(frames, h, w, TILE_H, TILE_W), THREADS, smem, (cudaStream_t)stream>>>(
-        in + f0 * plane, out + f0 * plane, h, w, t, ksize);
-  });
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (channels) {
+    case 1:
+      return (int)launch_blur_k<1>(in, out, n, h, w, t, ksize, sms, st);
+    case 3:
+      return (int)launch_blur_k<3>(in, out, n, h, w, t, ksize, sms, st);
+    case 4:
+      return (int)launch_blur_k<4>(in, out, n, h, w, t, ksize, sms, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // changed: set to 1 where a pixel changed; last_changed: where the last sweep changed a pixel (either may be null)

@@ -12,7 +12,8 @@ rounds a Python float against a float32 array.
 
 ``nms_sorted`` given a CUDA tensor launches the hand-written kernel (all
 problems in one call of two launches: the pairs' suppression bits over the
-whole card, then one warp a problem walking them in score order), adds one to
+whole card, then one block a problem walking them in score order, its tiles
+staged in shared memory), adds one to
 its ``launches`` count, and raises if the launch fails or the input is off
 the kernel's domain (more than ``MAX_BOXES`` boxes or ``MAX_PROBLEMS``
 problems); given a CPU tensor it runs the twin.  Nothing falls back from one
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import math
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -35,8 +37,8 @@ import torch
 
 from . import _build
 
-__all__ = ["nms_sorted", "nms_sorted_plain", "kernel_takes", "require_kernel", "recording", "MAX_BOXES",
-           "MAX_PROBLEMS", "MASK_BITS"]
+__all__ = ["nms_sorted", "nms_sorted_plain", "kernel_takes", "require_kernel", "recording", "mask_words",
+           "MAX_BOXES", "MAX_PROBLEMS", "MASK_BITS"]
 
 MAX_BOXES = 13600     # csrc/nms.cu NMS_MAX_BOXES: a problem's removed bits in shared memory
 MAX_PROBLEMS = 65535  # the mask launch's gridDim.z
@@ -51,7 +53,7 @@ def _lib() -> ctypes.CDLL:
     if _c_lib is None:
         lib = _build.load("nms")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.cvt_nms_sorted.argtypes = [p, p, p, i, i, ctypes.c_float, p]
+        lib.cvt_nms_sorted.argtypes = [p, p, p, i, i, ctypes.c_float, i, p]
         lib.cvt_nms_sorted.restype = ctypes.c_int
         _c_lib = lib
     return _c_lib
@@ -84,16 +86,23 @@ def kernel_takes(boxes: torch.Tensor) -> bool:
     """Whether the kernel takes boxes of this shape: at most ``MAX_BOXES`` a
     problem and ``MAX_PROBLEMS`` problems (whatever the device)."""
     _check(boxes)
-    return boxes.shape[-2] <= MAX_BOXES and int(np.prod(boxes.shape[:-2], dtype=np.int64)) <= MAX_PROBLEMS
+    return boxes.shape[-2] <= MAX_BOXES and math.prod(boxes.shape[:-2]) <= MAX_PROBLEMS
+
+
+def _problems(boxes: torch.Tensor) -> int:
+    """The problems in ``boxes`` (checked); raise unless the kernel takes their shape."""
+    if boxes.shape[-2] > MAX_BOXES:
+        raise ValueError(f"the NMS kernel takes at most {MAX_BOXES} boxes a problem, got {boxes.shape[-2]}")
+    p = math.prod(boxes.shape[:-2])
+    if p > MAX_PROBLEMS:
+        raise ValueError(f"the NMS kernel takes at most {MAX_PROBLEMS} problems a call, got {tuple(boxes.shape[:-2])}")
+    return p
 
 
 def require_kernel(boxes: torch.Tensor) -> None:
     """Raise unless ``nms_sorted`` would launch its kernel on ``boxes``."""
     _check(boxes)
-    if boxes.shape[-2] > MAX_BOXES:
-        raise ValueError(f"the NMS kernel takes at most {MAX_BOXES} boxes a problem, got {boxes.shape[-2]}")
-    if int(np.prod(boxes.shape[:-2], dtype=np.int64)) > MAX_PROBLEMS:
-        raise ValueError(f"the NMS kernel takes at most {MAX_PROBLEMS} problems a call, got {tuple(boxes.shape[:-2])}")
+    _problems(boxes)
     if not _build.on_card(boxes):
         raise ValueError("the NMS kernel runs on CUDA tensors; this one is on the CPU")
 
@@ -129,22 +138,27 @@ def nms_sorted_plain(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     return keep
 
 
+def mask_words(n: int) -> int:
+    """64-bit words of the kernel's suppression bits for a problem of ``n`` boxes: the 64 x 64 blocks on and above
+    the diagonal of its (N, N) matrix, W (W + 1) / 2 of them for W = ceil(N / 64) (``csrc/nms.cu``)."""
+    words = -(-n // MASK_BITS)
+    return words * (words + 1) // 2 * MASK_BITS
+
+
 def nms_sorted(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     """Keep mask (..., N) bool for boxes (..., N, 4) pre-sorted by descending
     score; on the card every problem in one call."""
     _check(boxes)
     if not _build.on_card(boxes):
         return nms_sorted_plain(boxes, iou_threshold)
-    require_kernel(boxes)
-    lead, n = boxes.shape[:-2], boxes.shape[-2]
-    p = int(np.prod(lead, dtype=np.int64))
+    p, lead, n = _problems(boxes), boxes.shape[:-2], boxes.shape[-2]
     keep = torch.empty((p, n), dtype=torch.bool, device=boxes.device)
     if p == 0 or n == 0:
         return keep.reshape(*lead, n)
     b = boxes.float().reshape(p, n, 4).contiguous()
-    mask = torch.empty((p, n, -(-n // MASK_BITS)), dtype=torch.int64, device=b.device)  # the kernel's scratch
+    mask = torch.empty((p, mask_words(n)), dtype=torch.int64, device=b.device)  # the kernel's scratch
     _build.launch(_lib(), "cvt_nms_sorted", b, b.data_ptr(), mask.data_ptr(), keep.data_ptr(), p, n,
-                  _threshold(iou_threshold))
+                  _threshold(iou_threshold), _build.sm_count(b))
     _build.count_launch(nms_sorted, b)
     for calls in _recorders:
         calls.append((b.clone(), iou_threshold))

@@ -2,7 +2,8 @@
 plain PyTorch twins.
 
 Counterpart of the JAX package's ``ops/pallas/stencil.py``.  The inputs are
-single-channel ``(N, H, W)`` float32 maps (channels fold into N).  A wrapper
+single-channel ``(N, H, W)`` float32 maps (channels fold into N), apart from
+the blur's, NHWC frames read as they lie (``fused_gaussian_blur``).  A wrapper
 given a CUDA tensor launches its hand-written kernel, adds one to its
 ``launches`` count, and raises if the launch fails; given a CPU tensor it
 runs its plain twin.  Nothing falls back from one to the other.
@@ -58,6 +59,7 @@ PASSES_PER_CHECK = 1
 MAX_SWEEPS = 16  # csrc/stencil.cu MAX_SWEEPS
 MAX_TAPS = 31    # csrc/stencil.cu MAX_TAPS
 IN_TILE = (32, 32)  # csrc/stencil.cu TILE_H, TILE_W: the tile of the in-tile hysteresis
+BLUR_CHANNELS = (1, 3, 4)  # channel counts the blur kernel reads as NHWC frames (csrc/stencil.cu blur_strip_kernel)
 
 
 def gaussian_taps(kernel_size: int, sigma: float) -> np.ndarray:
@@ -83,7 +85,7 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         sigs = {
             "cvt_canny_stage1": [p, p, i, i, i, p, i, f, f, i, i, p],
-            "cvt_gaussian_blur": [p, p, i, i, i, p, i, p],
+            "cvt_gaussian_blur": [p, p, i, i, i, i, p, i, i, p],
             "cvt_hysteresis_sweeps": [p, p, i, i, i, i, p, p, i, p],
             "cvt_blur_sobel": [p, p, i, i, i, p, i, p],
             "cvt_harris": [p, p, i, i, i, p, i, f, i, p],
@@ -388,17 +390,29 @@ def hysteresis_sweeps(cls: torch.Tensor, sweeps: int = 4, changed: Optional[torc
 def fused_gaussian_blur(image, kernel_size: int = 5, sigma: float = 1.5) -> torch.Tensor:
     """Separable Gaussian blur in one pass (the float path of
     ``ops.gaussian_blur``; reflect padding), with the kernels' taps
-    (``gaussian_taps``).  HW / HWC / NHWC of any dtype in, float32 of the
-    same rank out."""
-    maps, restore = _as_nhw(image)
+    (``gaussian_taps``).  HW / HWC / NHWC of any dtype in, a contiguous
+    float32 tensor of the same shape out.
+
+    On the card, NHWC float32 frames of 1, 3 or 4 channels go to the kernel as
+    they lie (a non-contiguous input is made contiguous first), and its output
+    is the result: no permuting copy on either side.  Other channel counts run
+    the same kernel on (N·C, H, W) maps, permuted there and back."""
+    fimg, _ = cast_to_float(as_tensor(image), torch.float32)
+    nhwc, restore4 = ensure_nhwc(fimg)
     taps, c_taps = _kernel_taps(kernel_size, sigma)
-    if not _build.on_card(maps):
-        return restore(fused_gaussian_blur_plain(maps, taps))
-    n, h, w = maps.shape
-    out = torch.empty_like(maps)
-    _launch("cvt_gaussian_blur", maps, maps.data_ptr(), out.data_ptr(), n, h, w, c_taps, kernel_size)
-    _build.count_launch(fused_gaussian_blur, maps)
-    return restore(out)
+    n, h, w, c = nhwc.shape
+    to_nhwc = lambda maps: maps.reshape(n, c, h, w).permute(0, 2, 3, 1).contiguous()  # noqa: E731
+    if not _build.on_card(nhwc):
+        return restore4(to_nhwc(fused_gaussian_blur_plain(nhwc.permute(0, 3, 1, 2).reshape(n * c, h, w), taps)))
+    if c in BLUR_CHANNELS:
+        x, channels = nhwc.contiguous(), c
+    else:
+        x, channels = nhwc.permute(0, 3, 1, 2).reshape(n * c, h, w).contiguous(), 1
+    out = torch.empty_like(x)
+    _launch("cvt_gaussian_blur", x, x.data_ptr(), out.data_ptr(), x.shape[0], h, w, channels, c_taps, kernel_size,
+            _build.sm_count(x))
+    _build.count_launch(fused_gaussian_blur, x)
+    return restore4(out if channels == c else to_nhwc(out))
 
 
 def fused_blur_sobel(image, kernel_size: int = 5, sigma: float = 1.5) -> torch.Tensor:

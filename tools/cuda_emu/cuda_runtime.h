@@ -154,6 +154,18 @@ inline unsigned __ballot_sync(unsigned, int p) {
   return bits;
 }
 inline int __any_sync(unsigned mask, int p) { return __ballot_sync(mask, p) != 0; }
+// the OR of every lane's v
+inline unsigned __reduce_or_sync(unsigned, unsigned v) {
+  const int t = threadIdx.x, w = t >> 5;
+  uint32_t* const buf = emu_shuffle[emu_turn++ & 1];
+  buf[t] = v;
+  emu_warp_barriers[w]->arrive_and_wait();
+  unsigned bits = 0;
+  for (int l = 0; l < 32; ++l) bits |= buf[(w << 5) | l];
+  return bits;
+}
+// the 1-based position of the lowest set bit of x, 0 for none
+inline int __ffsll(long long x) { return x ? __builtin_ctzll((unsigned long long)x) + 1 : 0; }
 inline unsigned __brev(unsigned x) {
   unsigned r = 0;
   for (int i = 0; i < 32; ++i) r |= ((x >> i) & 1u) << (31 - i);

@@ -24,8 +24,8 @@ self-check of the kernels against their plain twins.
 
 Covered: ``__global__`` templates, ``threadIdx``/``blockIdx``, ``__syncthreads``,
 ``__syncthreads_or``, ``__syncwarp``, the shuffles ``__shfl_sync``, ``__shfl_xor_sync``, ``__shfl_up_sync`` and
-``__shfl_down_sync`` on 4-byte values, ``__ballot_sync``, ``__any_sync``, ``__brev``, ``__funnelshift_l`` and
-``__funnelshift_r``, dynamic shared memory
+``__shfl_down_sync`` on 4-byte values, ``__ballot_sync``, ``__any_sync``, ``__reduce_or_sync``, ``__brev``,
+``__ffsll``, ``__funnelshift_l`` and ``__funnelshift_r``, dynamic shared memory
 declared as ``extern __shared__ [__align__(16)] T name[];`` of any type T,
 static ``__shared__`` arrays,
 ``float4``, ``int4``, ``uint4`` (``make_uint4``), ``__int2float_rn``, ``__float_as_int``, ``__fmul_rn`` and its kin, ``__nv_bfloat16`` with its conversions (a pair too),

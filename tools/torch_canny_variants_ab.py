@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Time Canny's two kernels (``csrc/stencil.cu``: ``canny_strip_kernel<5>``, ``hysteresis_bits_kernel<4>`` and
-``<8>``) under other constants of ``stencil.cu``, in turns on one card, and check the bits.
+``<8>``) and the blur (``blur_strip_kernel<5, C>``) under other constants of ``stencil.cu``, in turns on one card,
+and check the bits.
 
     python3 tools/torch_canny_variants_ab.py [VARIANT ...] [--rounds N] [--json PATH]
 
 A VARIANT is ``NAME=VALUE[,NAME=VALUE...]`` over the ``constexpr int`` constants of ``stencil.cu``
-(``CS_TILE_H``, ``CS_MIN_BLOCKS``, ``CS_RING``, ``HY_TILE_H``, ...), or ``base`` for the file as it is.  Each is a
-copy of ``stencil.cu`` under ``build/canny_variants/`` with only those instantiations (Canny at K 5, the sweeps at
-4 and 8, Harris at K 5), all built in parallel with the flags of ``_build``; the registers and spills of the
-strip kernel and its SASS instructions by opcode (``cuobjdump``) are printed.  On the headline scene (8 x 1080 x
-1920, thresholds 0.1/0.2) every variant's class map and swept maps must equal the twins' bit for bit; then ``cvt_canny_stage1`` and ``cvt_hysteresis_sweeps`` of each
-are timed with CUDA events, ``--rounds`` rounds of 20 launches, the order of the variants reversed every other
-round, and the least of each printed with the card's name and power limit, one line a variant, and a JSON line
+(``CS_TILE_H``, ``CS_MIN_BLOCKS``, ``CS_RING``, ``HY_TILE_H``, ``BL_TILE_H``, ``BL_MIN_BLOCKS``, ...), or ``base``
+for the file as it is.  Each is a copy of ``stencil.cu`` under ``build/canny_variants/`` with only those
+instantiations (Canny at K 5, the sweeps at 4 and 8, Harris and the blur at K 5), all built in parallel with the
+flags of ``_build``; the registers and spills of the strip kernels and Canny's SASS instructions by opcode
+(``cuobjdump``) are printed.  On the headline scene (8 x 1080 x 1920, thresholds 0.1/0.2) every variant's class
+map and swept maps, and its blur there and of 64 x 480 x 640 x 3 frames, must equal the twins' bit for bit; then
+``cvt_canny_stage1``, ``cvt_hysteresis_sweeps`` and ``cvt_gaussian_blur`` of each are timed with CUDA events,
+``--rounds`` rounds of 20 launches, the order of the variants reversed every other round, and the least of each
+printed with the card's name and power limit, one line a variant, and a JSON line
 (also written to ``--json``).  Exits 1 if a variant fails to build or to keep the bits.  No test imports it.
 Default: ``base CS_MIN_BLOCKS=1 CS_MIN_BLOCKS=6 CS_TILE_H=48 HY_TILE_H=12 HY_TILE_H=32``.
 """
@@ -34,7 +37,7 @@ from chip_smoke import scene  # noqa: E402
 from cpu_vision_tpu_torch.ops.kernels import _build, stencil  # noqa: E402
 
 DEFAULT = ["base", "CS_MIN_BLOCKS=1", "CS_MIN_BLOCKS=6", "CS_TILE_H=48", "HY_TILE_H=12", "HY_TILE_H=32"]
-KEEP = {"CVT_CANNY_K": {5}, "CVT_HYST_S": {4, 8}, "CVT_HARRIS_K": {5}}  # the instantiations each variant builds
+KEEP = {"CVT_CANNY_K": {5}, "CVT_HYST_S": {4, 8}, "CVT_HARRIS_K": {5}, "CVT_BLUR_K": {5}}  # what a variant builds
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -76,8 +79,10 @@ def build(variants):
         for line in log.splitlines():
             named = re.search(r"Compiling entry function '(\S+)'", line)
             fn = named.group(1) if named else fn
-            if ("Used" in line or "spill" in line) and "canny_strip_kernel" in fn:
-                lines.append(line.split(":", 1)[-1].strip())
+            if ("Used" in line or "spill" in line) and ("canny_strip_kernel" in fn or "blur_strip_kernel" in fn):
+                channels = re.search(r"ILi5ELi(\d)E", fn)
+                kernel = f"blur C {channels.group(1)}" if channels else "canny"
+                lines.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
         if proc.returncode != 0:
             print(f"{spec}: nvcc failed\n{log}", file=sys.stderr)
             built[spec] = (None, lines)
@@ -85,7 +90,8 @@ def build(variants):
         lines.append(sass_opcodes(lib))
         built[spec] = (ctypes.CDLL(str(lib)), lines)
         for fn_name, args in (("cvt_canny_stage1", [P, P, I, I, I, P, I, F, F, I, I, P]),
-                              ("cvt_hysteresis_sweeps", [P, P, I, I, I, I, P, P, I, P])):
+                              ("cvt_hysteresis_sweeps", [P, P, I, I, I, I, P, P, I, P]),
+                              ("cvt_gaussian_blur", [P, P, I, I, I, I, P, I, I, P])):
             getattr(built[spec][0], fn_name).argtypes = args
     return built
 
@@ -152,27 +158,50 @@ def main() -> int:
                                                sms, stream)
         assert err == 0, err
 
+    # the blur (K 5, sigma 1.5) of the scene (C 1) and of 64 RGB 640 x 480 frames (C 3), NHWC as they lie
+    frames = {1: maps[..., None], 3: torch.rand((64, 480, 640, 3), generator=torch.Generator("cuda").manual_seed(0),
+                                                device="cuda")}
+    blur_taps = stencil._c_taps(stencil.gaussian_taps(5, 1.5))
+    blurred = {spec: {c: torch.empty_like(x) for c, x in frames.items()} for spec in libs}
+    twin_blur = {}
+    for c, x in frames.items():
+        m, restore = stencil._as_nhw(x)
+        twin_blur[c] = restore(stencil.fused_gaussian_blur_plain(m, stencil.gaussian_taps(5, 1.5)))
+
+    def blur(spec, c):
+        x = frames[c]
+        err = libs[spec].cvt_gaussian_blur(x.data_ptr(), blurred[spec][c].data_ptr(), *x.shape[:3], c, blur_taps, 5,
+                                           sms, stream)
+        assert err == 0, err
+
     for spec in libs:
         canny(spec)
         same = torch.equal(cls[spec], twin_cls)
         for s in (4, 8):
             sweeps(spec, s)
             same = same and torch.equal(swept[spec], twin_swept[s])
+        for c in frames:
+            blur(spec, c)
+            same = same and torch.equal(blurred[spec][c], twin_blur[c])
         if not same:
             faults.append(f"{spec}: bits differ from the twins'")
-    times = {spec: {"canny_ms": [], "sweeps4_ms": [], "sweeps8_ms": []} for spec in libs}
+    times = {spec: {"canny_ms": [], "sweeps4_ms": [], "sweeps8_ms": [], "blur_c1_ms": [], "blur_c3_ms": []}
+             for spec in libs}
     for r in range(args.rounds):
         for spec in (list(libs) if r % 2 == 0 else list(libs)[::-1]):
             times[spec]["canny_ms"].append(device_ms(lambda: canny(spec)))
             times[spec]["sweeps4_ms"].append(device_ms(lambda: sweeps(spec, 4)))
             times[spec]["sweeps8_ms"].append(device_ms(lambda: sweeps(spec, 8)))
+            for c in frames:
+                times[spec][f"blur_c{c}_ms"].append(device_ms(lambda: blur(spec, c)))
     rows = []
     for spec in libs:
         row = dict(variant=spec, ptxas=built[spec][1], **{k: min(v) for k, v in times[spec].items()},
                    rounds=times[spec])
         rows.append(row)
         print(f"{spec}: canny_stage1 {row['canny_ms']:.4f} ms, hysteresis x4 {row['sweeps4_ms']:.4f} ms, "
-              f"x8 {row['sweeps8_ms']:.4f} ms (least of {args.rounds} rounds); strip kernel {built[spec][1]}")
+              f"x8 {row['sweeps8_ms']:.4f} ms, blur 8x1080x1920x1 {row['blur_c1_ms']:.4f} ms, 64x480x640x3 "
+              f"{row['blur_c3_ms']:.4f} ms (least of {args.rounds} rounds); strip kernels {built[spec][1]}")
     summary = {"card": card, "variants": rows, "failures": faults}
     Path(args.json).parent.mkdir(parents=True, exist_ok=True)
     Path(args.json).write_text(json.dumps(summary, indent=1))
