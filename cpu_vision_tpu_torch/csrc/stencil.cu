@@ -11,17 +11,17 @@
 // and _halo_stencil_call_rowfused, stencil.py:171).
 //
 // Design.  The input is one (N, H, W) map, channels folded into N; the
-// blur's is (N, H, W, C) frames as they lie.  Every block of the blur+Sobel
-// kernel, and of Canny's in-tile option, owns one TILE_H x TILE_W output tile
-// of one image: it loads the (TILE_H + 2*halo) x (TILE_W + 2*halo) window
-// around it into shared memory with reflect indexing (numpy "reflect": edge
-// not repeated, periodic for pads longer than the image), runs the whole
-// pipeline in shared memory and writes its tile, masking the ragged edge.
-// Canny's main kernel, the hysteresis sweeps, Harris and the blur are strip
-// kernels instead: each warp walks (frame, strip) tiles on a persistent grid
-// and streams a strip's rows through a cp.async ring in its own shared memory
-// (Canny's and the blur's through StripRows), with the stages between in
-// registers (their own notes below).  Intermediates (blur, gradients,
+// blur's is (N, H, W, C) frames as they lie.  Every block of Canny's in-tile
+// option owns one TILE_H x TILE_W output tile of one image: it loads the
+// (TILE_H + 2*halo) x (TILE_W + 2*halo) window around it into shared memory
+// with reflect indexing (numpy "reflect": edge not repeated, periodic for
+// pads longer than the image), runs the whole pipeline in shared memory and
+// writes its tile, masking the ragged edge.  Canny's main kernel, the
+// hysteresis sweeps, Harris, the blur and blur+Sobel are strip kernels
+// instead: each warp walks (frame, strip) tiles on a persistent grid and
+// streams a strip's rows through a cp.async ring in its own shared memory
+// (Canny's, the blur's and blur+Sobel's through StripRows), with the stages
+// between in registers (their own notes below).  Intermediates (blur, gradients,
 // magnitude, structure tensor, the sweeps' masks) never reach device memory:
 // one read of the input and one write of the output per call.
 //
@@ -149,9 +149,9 @@ __device__ __forceinline__ void sobel3(const float (&v)[3][W], int c, float& gx,
 // the reflected index of i (numpy "reflect"), without a division where it lies inside
 __device__ __forceinline__ int reflect_fast(int i, int n) { return (unsigned)i < (unsigned)n ? i : reflect(i, n); }
 
-// The row staging of the strip kernels (Canny's front half, the blur): IW floats of a frame row, from its element
-// `first` on, into a slot of a ring in the warp's own shared memory.  A row is w columns of CH channels, w CH
-// floats.  Interior strips (the frame's rows 16-byte aligned, the staged span inside the row) copy 16-byte chunks
+// The row staging of the strip kernels (Canny's front half, blur+Sobel, the blur): IW floats of a frame row, from
+// its element `first` on, into a slot of a ring in the warp's own shared memory.  A row is w columns of CH channels,
+// w CH floats.  Interior strips (the frame's rows 16-byte aligned, the staged span inside the row) copy 16-byte chunks
 // as the row lies; border strips copy 4 bytes an element from the element of the reflected column (numpy
 // "reflect", the channel kept: element x CH + c reads reflect(x) CH + c), found once a tile.  Every lane of the
 // warp constructs it for a tile and calls copy() for each row.
@@ -303,17 +303,13 @@ canny_in_tile_kernel(const float* __restrict__ in, uint8_t* __restrict__ out, in
 // 2..29: the Sobel and NMS windows of the others would reach past the strip),
 // CS_TILE_H rows deep.  The warp streams the strip's rows of the
 // reflect-padded frame through a ring of CS_RING rows in its own shared
-// memory, CS_AHEAD rows ahead of the row it reads: 16-byte cp.async on
-// interior strips, 4-byte ones from reflected columns computed once a tile on
-// border strips.  A lane reads its C + 2 PAD input
-// values of a row in vectors of C and blurs its C columns along W; the
-// W-blurred rows of the last K rows sit in a register ring, and each new one
-// completes the H blur of a row of C columns.  The Sobel pair comes from a
-// 3-row register ring of blurred rows, the column before and after a lane's
-// from the neighbouring lanes by shuffles; NMS from a 3-row ring of
-// magnitudes (neighbours by shuffles again) and of gradients.  Lanes store in
+// memory (StripRows: 16-byte cp.async on interior strips, 4-byte ones from
+// reflected columns computed once a tile on border strips) and blurs them in
+// registers (BlurFront, which blur_sobel_strip_kernel shares).  The Sobel pair
+// comes from BlurFront's 3-row ring of blurred rows; NMS from a 3-row ring of
+// magnitudes (neighbours by shuffles) and of gradients.  Lanes store in
 // pairs: the first of each pair stores the pair's 4 classes as one word where
-// the rows allow it.  One __syncwarp a row, no block barrier.  K and C are
+// the rows allow it.  K and C are
 // template arguments (C 2 up to K 15, else 1: a wider lane holds more
 // registers, and fewer warps an SM hide the rows' latency), so every loop over
 // taps unrolls with the taps in the kernel's parameter space.  Every product and
@@ -324,7 +320,6 @@ constexpr int CS_THREADS = 32 * CS_WARPS;
 constexpr int CS_TILE_H = 32;          // output rows of a strip
 constexpr int CS_MIN_BLOCKS = 5;       // blocks an SM the registers must allow (tools/torch_canny_variants_ab.py)
 constexpr int CS_RING = 8;             // input rows in a warp's shared memory
-constexpr int CS_AHEAD = CS_RING - 1;  // rows copied ahead of the row read
 
 template <int K>
 struct CannyShape {
@@ -343,7 +338,16 @@ struct CannyShape {
 template <int C, int N>
 __device__ __forceinline__ void read_row(const float* p, float (&v)[N]) {
   static_assert(N % C == 0, "whole vectors");
-  if constexpr (C == 2) {
+  if constexpr (C == 4) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const float4 t = reinterpret_cast<const float4*>(p)[q];
+      v[4 * q] = t.x;
+      v[4 * q + 1] = t.y;
+      v[4 * q + 2] = t.z;
+      v[4 * q + 3] = t.w;
+    }
+  } else if constexpr (C == 2) {
 #pragma unroll
     for (int q = 0; q < N / 2; ++q) {
       const float2 t = reinterpret_cast<const float2*>(p)[q];
@@ -389,18 +393,92 @@ __device__ __forceinline__ void sobel_rows(const float (&r0)[W], const float (&r
   gy = gy + r2[c + 2];
 }
 
+// The front half of the strip kernels that blur a strip and take Sobel's pair of it (canny_strip_kernel,
+// blur_sobel_strip_kernel), for one lane of a warp.  The tile's rows of the reflect-padded frame arrive through a
+// ring of RING slots of IW floats in the warp's own shared memory, RING - 1 rows ahead of the row read (`load(i)`
+// copies padded row i of the tile into slot i % RING).  The lane reads its C + 2 PAD staged values of a row (from
+// `lane_in` in slot 0) in vectors of C and blurs its C columns along W; the W-blurred rows of the last K rows sit in
+// a register ring, and each new one completes the H blur of a row of C columns, kept in a ring of three blurred rows
+// with the column before and after this lane's from the lanes beside it (by shuffles).  Rows come in runs of 3,
+// unrolled: a blurred row's slot is fixed for each position of the run, so no window moves.  The ring of W-blurred
+// rows shifts a row at a time, unless K divides 3 and its slots are fixed the same way (runs of lcm(K, 3) rows,
+// which would fix them for every K, take more registers and twice the code).  Every product and sum in _sep_blur's
+// order.  One __syncwarp a row, no block barrier.
+template <int K, int C, int PAD, int IW, int RING>
+struct BlurFront {
+  static constexpr int R = K / 2, NV = C + 2 * PAD, AHEAD = RING - 1, RUN = 3;
+  static constexpr bool RING_FIXED = RUN % K == 0;
+  float ring[C][K];    // W-blurred rows of the last K rows
+  float bw[3][C + 2];  // blurred rows, the column before this lane's to the one after
+
+  // walks a tile's rows_in staged rows; from row K - 1 on, calls row_done(i, u, bq) at row i, position u of its
+  // run, once bw[bq] holds blurred row i - K + 1 (bq is fixed for each u)
+  template <typename Load, typename RowDone>
+  __device__ __forceinline__ void walk(const Load& load, const float* lane_in, const Taps& taps, int rows_in,
+                                       const RowDone& row_done) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < C + 2; ++b) bw[a][b] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int j = 0; j < K; ++j) ring[c][j] = 0.0f;
+
+    __syncwarp();  // every lane's reads of the last tile's ring rows end before this tile's first copies
+#pragma unroll
+    for (int i = 0; i < AHEAD; ++i) {
+      if (i < rows_in) load(i);
+      cp_async_commit();
+    }
+    for (int i0 = 0; i0 < rows_in; i0 += RUN) {
+#pragma unroll
+      for (int u = 0; u < RUN; ++u) {
+        const int i = i0 + u;
+        if (i >= rows_in) break;
+        cp_async_wait<AHEAD - 1>();  // this lane's copies of row i
+        __syncwarp();                // the warp's; and every read of the slot reused below is done
+        if (i + AHEAD < rows_in) load(i + AHEAD);
+        cp_async_commit();
+        float v[NV];  // input columns C lane - PAD .. C lane + C + PAD - 1 of the strip's blurred ones
+        read_row<C>(lane_in + (i % RING) * IW, v);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          float acc = v[PAD - R + c] * taps.v[0];
+#pragma unroll
+          for (int j = 1; j < K; ++j) acc = acc + v[PAD - R + c + j] * taps.v[j];
+          if (RING_FIXED) {
+            ring[c][u % K] = acc;
+          } else {
+#pragma unroll
+            for (int j = 0; j < K - 1; ++j) ring[c][j] = ring[c][j + 1];
+            ring[c][K - 1] = acc;
+          }
+        }
+        if (i < K - 1) continue;
+        auto oldest = [&](int j) { return RING_FIXED ? (u + 1 + j) % K : j; };  // the slot of the j-th oldest row
+        const int bq = ((u - K + 1) % 3 + 3) % 3;  // fixed for each position of the run, as i0 % 3 == 0
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          float acc = ring[c][oldest(0)] * taps.v[0];
+#pragma unroll
+          for (int j = 1; j < K; ++j) acc = acc + ring[c][oldest(j)] * taps.v[j];
+          bw[bq][c + 1] = acc;
+        }
+        bw[bq][0] = __shfl_up_sync(0xffffffffu, bw[bq][C], 1);
+        bw[bq][C + 1] = __shfl_down_sync(0xffffffffu, bw[bq][1], 1);
+        row_done(i, u, bq);
+      }
+    }
+  }
+};
+
 template <int K>
 __global__ void __launch_bounds__(CS_THREADS, CS_MIN_BLOCKS)
 canny_strip_kernel(const float* __restrict__ in, uint8_t* __restrict__ out, int frames, int h, int w, int tiles_x,
                    int tiles_y, int vec_rows, int vec_out, Taps taps, float low, float high) {
   using S = CannyShape<K>;
-  constexpr int C = S::C, NV = C + 2 * S::PAD;
-  // rows in runs of 3, unrolled.  The three-row windows (blurred rows, magnitudes, gradients) are rings of 3
-  // slots, so a row's slot is fixed for each position of the run and no window moves.  The ring of W-blurred rows
-  // shifts a row at a time (K - 1 moves a column), unless K divides 3 and its slots are fixed the same way (runs
-  // of lcm(K, 3) rows, which would fix them for every K, take more registers and twice the code).
-  constexpr int RUN = 3;
-  constexpr bool RING_FIXED = RUN % K == 0;
+  constexpr int C = S::C;
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* const s_in = smem + warp * CS_RING * S::IW;  // [CS_RING][IW]
@@ -424,99 +502,52 @@ canny_strip_kernel(const float* __restrict__ in, uint8_t* __restrict__ out, int 
     const int x = xs + C * (lane - S::LANE0);
     uint8_t* const o_tile = out + f * plane + (size_t)y0 * w + x;
 
-    float ring[C][K];               // W-blurred rows of the last K rows
-    float bw[3][C + 2], mw[3][C + 2];  // rings of blurred rows and magnitudes, the column before this lane's to the one after
-    float gx[3][C], gy[3][C];       // the gradients of mw's rows
+    BlurFront<K, C, S::PAD, S::IW, CS_RING> front;  // at row i, the blurred row of frame row y0 + i - K - 1
+    float mw[3][C + 2];        // ring of magnitudes, the column before this lane's to the one after
+    float gx[3][C], gy[3][C];  // the gradients of mw's rows
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
 #pragma unroll
-      for (int b = 0; b < C + 2; ++b) bw[a][b] = mw[a][b] = 0.0f;
+      for (int b = 0; b < C + 2; ++b) mw[a][b] = 0.0f;
 #pragma unroll
       for (int c = 0; c < C; ++c) gx[a][c] = gy[a][c] = 0.0f;
     }
+    const auto& bw = front.bw;
+    front.walk(load, s_in + shift + C * lane, taps, rows_in, [&](int i, int u, int bq) {
+      if (i < K + 1) return;
+      // the gradients and magnitude of frame row y0 + i - K - 2: the blurred rows bq - 2, bq - 1, bq; the
+      // magnitude's slot mq (row i - K - 1 of the magnitudes, mod 3)
+      const int mq = ((u - K - 1) % 3 + 3) % 3;
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-#pragma unroll
-      for (int j = 0; j < K; ++j) ring[c][j] = 0.0f;
-
-    __syncwarp();  // every lane's reads of the last tile's ring rows end before this tile's first copies
-#pragma unroll
-    for (int i = 0; i < CS_AHEAD; ++i) {
-      if (i < rows_in) load(i);
-      cp_async_commit();
-    }
-    for (int i0 = 0; i0 < rows_in; i0 += RUN) {
-#pragma unroll
-      for (int u = 0; u < RUN; ++u) {
-        const int i = i0 + u;
-        if (i >= rows_in) break;
-        cp_async_wait<CS_AHEAD - 1>();  // this lane's copies of row i
-        __syncwarp();                   // the warp's; and every read of the slot reused below is done
-        if (i + CS_AHEAD < rows_in) load(i + CS_AHEAD);
-        cp_async_commit();
-        float v[NV];  // input columns C lane - PAD .. C lane + C + PAD - 1 of the strip's blurred ones
-        read_row<C>(s_in + (i % CS_RING) * S::IW + shift + C * lane, v);
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          float acc = v[S::PAD - S::R + c] * taps.v[0];
-#pragma unroll
-          for (int j = 1; j < K; ++j) acc = acc + v[S::PAD - S::R + c + j] * taps.v[j];
-          if (RING_FIXED) {
-            ring[c][u % K] = acc;
-          } else {
-#pragma unroll
-            for (int j = 0; j < K - 1; ++j) ring[c][j] = ring[c][j + 1];
-            ring[c][K - 1] = acc;
-          }
-        }
-        if (i < K - 1) continue;
-        // the blurred row of frame row y0 + i - K - 1 (its ring slot: row i - K + 1 of the blurred rows, mod 3)
-        auto oldest = [&](int j) { return RING_FIXED ? (u + 1 + j) % K : j; };  // the slot of the j-th oldest row
-        const int bq = ((u - K + 1) % 3 + 3) % 3;  // fixed for each position of the run, as i0 % 3 == 0
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          float acc = ring[c][oldest(0)] * taps.v[0];
-#pragma unroll
-          for (int j = 1; j < K; ++j) acc = acc + ring[c][oldest(j)] * taps.v[j];
-          bw[bq][c + 1] = acc;
-        }
-        bw[bq][0] = __shfl_up_sync(0xffffffffu, bw[bq][C], 1);
-        bw[bq][C + 1] = __shfl_down_sync(0xffffffffu, bw[bq][1], 1);
-        if (i < K + 1) continue;
-        // the gradients and magnitude of frame row y0 + i - K - 2: the blurred rows bq - 2, bq - 1, bq; the
-        // magnitude's slot mq (row i - K - 1 of the magnitudes, mod 3)
-        const int mq = ((u - K - 1) % 3 + 3) % 3;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          sobel_rows(bw[(bq + 1) % 3], bw[(bq + 2) % 3], bw[bq], c, gx[mq][c], gy[mq][c]);
-          mw[mq][c + 1] = sqrtf(gx[mq][c] * gx[mq][c] + gy[mq][c] * gy[mq][c]);
-        }
-        mw[mq][0] = __shfl_up_sync(0xffffffffu, mw[mq][C], 1);
-        mw[mq][C + 1] = __shfl_down_sync(0xffffffffu, mw[mq][1], 1);
-        if (i < K + 3) continue;
-        // NMS and thresholds of output row i - K - 3 of the tile (the magnitudes' middle row, mq - 1)
-        const int top = (mq + 1) % 3, mid = (mq + 2) % 3;
-        uint8_t cls[C];
-#pragma unroll
-        for (int c = 0; c < C; ++c) cls[c] = nms_class(mw[top], mw[mid], mw[mq], c, gx[mid][c], gy[mid][c], low, high);
-        uint8_t* const o = o_tile + (size_t)(i - K - 3) * w;
-        if constexpr (C == 2) {
-          // lanes in pairs (1, 2), (3, 4), ..: the first of each stores both lanes' 4 classes as one word
-          const uint32_t mine = (uint32_t)cls[0] | (uint32_t)cls[1] << 8;
-          const uint32_t word = mine | __shfl_down_sync(0xffffffffu, mine, 1) << 16;
-          if (!stores || !(lane & 1)) continue;
-          if (vec_out && x + 4 <= w) {
-            *reinterpret_cast<uint32_t*>(o) = word;
-          } else {
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              if (x + c < w) o[c] = (uint8_t)(word >> (8 * c));
-          }
-        } else {
-          if (stores && x < w) o[0] = cls[0];
-        }
+      for (int c = 0; c < C; ++c) {
+        sobel_rows(bw[(bq + 1) % 3], bw[(bq + 2) % 3], bw[bq], c, gx[mq][c], gy[mq][c]);
+        mw[mq][c + 1] = sqrtf(gx[mq][c] * gx[mq][c] + gy[mq][c] * gy[mq][c]);
       }
-    }
+      mw[mq][0] = __shfl_up_sync(0xffffffffu, mw[mq][C], 1);
+      mw[mq][C + 1] = __shfl_down_sync(0xffffffffu, mw[mq][1], 1);
+      if (i < K + 3) return;
+      // NMS and thresholds of output row i - K - 3 of the tile (the magnitudes' middle row, mq - 1)
+      const int top = (mq + 1) % 3, mid = (mq + 2) % 3;
+      uint8_t cls[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) cls[c] = nms_class(mw[top], mw[mid], mw[mq], c, gx[mid][c], gy[mid][c], low, high);
+      uint8_t* const o = o_tile + (size_t)(i - K - 3) * w;
+      if constexpr (C == 2) {
+        // lanes in pairs (1, 2), (3, 4), ..: the first of each stores both lanes' 4 classes as one word
+        const uint32_t mine = (uint32_t)cls[0] | (uint32_t)cls[1] << 8;
+        const uint32_t word = mine | __shfl_down_sync(0xffffffffu, mine, 1) << 16;
+        if (!stores || !(lane & 1)) return;
+        if (vec_out && x + 4 <= w) {
+          *reinterpret_cast<uint32_t*>(o) = word;
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (x + c < w) o[c] = (uint8_t)(word >> (8 * c));
+        }
+      } else {
+        if (stores && x < w) o[0] = cls[0];
+      }
+    });
   }
 }
 
@@ -722,40 +753,100 @@ hysteresis_bits_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out
 
 // --------------------------------------------------------- fused_blur_sobel
 // sqrt(gx^2 + gy^2) of the Gaussian-blurred image; halo = K/2 + 1.
-struct BlurSobelDims {
-  int halo, in_h, in_w, hb_h, bw, vb_h;
-  __host__ __device__ explicit BlurSobelDims(int K)
-      : halo(K / 2 + 1), in_h(TILE_H + 2 * halo), in_w(TILE_W + 2 * halo),
-        hb_h(TILE_H + 2 + K - 1), bw(TILE_W + 2), vb_h(TILE_H + 2) {}
-  __host__ __device__ int floats() const { return in_h * in_w + hb_h * bw + vb_h * bw; }
+//
+// Redesigned for Hopper: the tile kernel it replaced loaded a 1.4x window a
+// 32 x 32 tile with two integer % a pixel, ran its taps in runtime loops out
+// of shared memory and its stages behind three block barriers: 6.0x its
+// bytes bound at 1080p b8.  It computes the front half of canny_strip_kernel
+// (blur along W, along H, Sobel, magnitude) on the same engine: warps of
+// CS_WARPS a block walk (frame, strip) tiles on a persistent grid, the
+// strip's rows staged by StripRows through a ring of BS_RING rows and blurred
+// by BlurFront.  A strip is 32 C blurred columns and 30 C output columns
+// (lanes 1..30: the Sobel of a lane's columns takes the blurred column before
+// and after from the lanes beside it), BS_TILE_H rows deep, or fewer, down to
+// BS_LOW_TILE_H, where the frames would leave warps idle: a small image's time
+// is one strip's latency, the rows of its strip one after another.  The
+// magnitude is the correctly rounded sqrtf of Canny's sobel_rows, stored as C
+// floats at once where the row allows it.  K is a template argument and C
+// follows it (4 up to K 7, 2 up to K 15, else 1: the f32 output is 4x
+// Canny's bytes, so a lane takes Canny's C or more).  Every product and sum
+// in the twin's order (_sep_blur, _sobel_pair, fused_blur_sobel_plain), each
+// rounded alone: the same bits as Canny's front half and as the twin.
+constexpr int BS_TILE_H = 16;          // output rows of a strip, unless the frames make too few strips
+constexpr int BS_LOW_TILE_H = 2;       // the fewest output rows of a strip
+constexpr int BS_MIN_BLOCKS = 4;       // blocks an SM the registers must allow
+constexpr int BS_RING = 6;             // input rows in a warp's shared memory
+constexpr int BS_WIDE_K = 7;           // the largest K at four columns a lane
+
+template <int K>
+struct BlurSobelShape {
+  static constexpr int C = K <= BS_WIDE_K ? 4 : (K <= 15 ? 2 : 1);  // blurred (and output) columns a lane
+  static constexpr int R = K / 2, HALO = R + 1;
+  static constexpr int PAD = 4 * ((R + 3) / 4);  // input columns a lane reads beyond its C, each side (>= R)
+  static constexpr int BW = 32 * C;              // blurred columns of a strip
+  static constexpr int OW = 30 * C;              // output columns of a strip: lanes 1 .. 30
+  static constexpr int IW = BW + 2 * PAD + 4;    // a staged row: the strip's input columns from up to 3 before
+  static constexpr size_t SMEM = sizeof(float) * CS_WARPS * BS_RING * IW;
 };
 
-__global__ void __launch_bounds__(THREADS)
-blur_sobel_kernel(const float* __restrict__ in, float* __restrict__ out, int h, int w,
-                  Taps taps, int K) {
-  extern __shared__ float smem[];
-  __shared__ float s_k[MAX_TAPS];
-  const BlurSobelDims d(K);
-  float* s_in = smem;
-  float* s_hb = s_in + d.in_h * d.in_w;
-  float* s_vb = s_hb + d.hb_h * d.bw;
-
-  const int y0 = blockIdx.y * TILE_H, x0 = blockIdx.x * TILE_W;
+template <int K>
+__global__ void __launch_bounds__(CS_THREADS, BS_MIN_BLOCKS)
+blur_sobel_strip_kernel(const float* __restrict__ in, float* __restrict__ out, int frames, int h, int w, int tiles_x,
+                        int tiles_y, int tile_h, int vec_rows, int vec_out, Taps taps) {
+  using S = BlurSobelShape<K>;
+  constexpr int C = S::C;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* const s_in = smem + warp * BS_RING * S::IW;  // [BS_RING][IW]
+  const int per_frame = tiles_x * tiles_y;
   const size_t plane = (size_t)h * w;
-  load_taps(taps, s_k);
-  load_window(in + blockIdx.z * plane, h, w, y0 - d.halo, x0 - d.halo, s_in, d.in_h, d.in_w);
-  __syncthreads();
-  blur_along_w(s_in, d.in_w, s_hb, d.hb_h, d.bw, s_k, K);
-  __syncthreads();
-  blur_along_h(s_hb, d.bw, s_vb, d.vb_h, d.bw, s_k, K);
-  __syncthreads();
-  for (int i = threadIdx.x; i < TILE_H * TILE_W; i += blockDim.x) {
-    const int r = i / TILE_W, c = i - r * TILE_W;
-    const int y = y0 + r, x = x0 + c;
-    if (y >= h || x >= w) continue;
-    float gx, gy;
-    sobel_at(s_vb + r * d.bw + c, d.bw, gx, gy);
-    out[blockIdx.z * plane + (size_t)y * w + x] = sqrtf(gx * gx + gy * gy);
+  const bool stores = lane >= 1 && lane <= 30;
+
+  for (long long tile = (long long)blockIdx.x * CS_WARPS + warp; tile < (long long)frames * per_frame;
+       tile += (long long)gridDim.x * CS_WARPS) {
+    const int f = (int)(tile / per_frame), rem = (int)(tile - (long long)f * per_frame);
+    const int ty = rem / tiles_x, tx = rem - ty * tiles_x;
+    const int y0 = ty * tile_h, xs = tx * S::OW;  // first output row and column
+    const int out_rows = min(tile_h, h - y0), rows_in = out_rows + K + 1;
+    // lane l blurs columns xs + C (l - 1) ..: the strip's first blurred column is xs - C, its first input column
+    // xs - C - PAD; a staged row holds input columns from first (that one, or up to 3 before it: a 16-byte
+    // boundary); interior: the row as it lies
+    const int x_first = xs - C - S::PAD, shift = vec_rows ? (x_first & 3) : 0, first = x_first - shift;
+    const StripRows<S::IW, 1> rows(in + f * plane, s_in, w, first, vec_rows && first >= 0 && first + S::IW <= w, lane);
+    auto load = [&](int i) { rows.copy(reflect_fast(y0 - S::HALO + i, h), i % BS_RING); };  // padded row i of the tile
+    const int x = xs + C * (lane - 1);  // this lane's first output column
+    float* const o_tile = out + f * plane + (size_t)y0 * w + x;
+    const bool whole = vec_out && x + C <= w;
+
+    BlurFront<K, C, S::PAD, S::IW, BS_RING> front;  // at row i, the blurred row of frame row y0 + i - K
+    const auto& bw = front.bw;
+    front.walk(load, s_in + shift + C * lane, taps, rows_in, [&](int i, int, int bq) {
+      if (i < K + 1) return;
+      // output row i - K - 1 of the tile: the blurred rows bq - 2, bq - 1, bq
+      float m[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        float gx, gy;
+        sobel_rows(bw[(bq + 1) % 3], bw[(bq + 2) % 3], bw[bq], c, gx, gy);
+        m[c] = sqrtf(gx * gx + gy * gy);
+      }
+      if (!stores) return;
+      float* const dst = o_tile + (size_t)(i - K - 1) * w;
+      if constexpr (C == 4) {
+        if (whole) {
+          *reinterpret_cast<float4*>(dst) = make_float4(m[0], m[1], m[2], m[3]);
+          return;
+        }
+      } else if constexpr (C == 2) {
+        if (whole) {
+          *reinterpret_cast<float2*>(dst) = make_float2(m[0], m[1]);
+          return;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (x + c < w) dst[c] = m[c];
+    });
   }
 }
 
@@ -1178,6 +1269,32 @@ cudaError_t launch_blur_k(const float* in, float* out, int n, int h, int w, cons
   }
 }
 
+template <int K>
+cudaError_t launch_blur_sobel(const float* in, float* out, int n, int h, int w, const Taps& taps, int sms,
+                              cudaStream_t stream) {
+  using S = BlurSobelShape<K>;
+  const int tiles_x = (w + S::OW - 1) / S::OW;
+  // strips BS_TILE_H rows deep, halved while there are fewer than the warps the card holds at once
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)blur_sobel_strip_kernel<K>,
+                                                                  CS_THREADS, S::SMEM);
+  if (err != cudaSuccess) return err;
+  int tile_h = BS_TILE_H;
+  while (tile_h > BS_LOW_TILE_H &&
+         (long long)n * tiles_x * ((h + tile_h - 1) / tile_h) < (long long)per_sm * sms * CS_WARPS)
+    tile_h /= 2;
+  const int tiles_y = (h + tile_h - 1) / tile_h;
+  int grid = 0;
+  err = persistent_grid(blur_sobel_strip_kernel<K>, CS_THREADS, S::SMEM, (long long)n * tiles_x * tiles_y, CS_WARPS,
+                        sms, grid);
+  if (err != cudaSuccess) return err;
+  const int vec_rows = w % 4 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0;  // every input row 16-byte aligned
+  const int vec_out = w % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;  // every output row too
+  blur_sobel_strip_kernel<K><<<grid, CS_THREADS, S::SMEM, stream>>>(in, out, n, h, w, tiles_x, tiles_y, tile_h,
+                                                                   vec_rows, vec_out, taps);
+  return cudaGetLastError();
+}
+
 template <int SW>
 cudaError_t launch_hysteresis(const uint8_t* in, uint8_t* out, int n, int h, int w, int* changed, int* last_changed,
                               int sms, cudaStream_t stream) {
@@ -1212,8 +1329,9 @@ cudaError_t launch_harris(const float* in, float* out, int n, int h, int w, cons
 
 // Each entry point launches on `stream` and returns the first failed
 // launch's cudaError_t (0 on success); it never synchronises.  Any number of
-// frames: past 65,535 (cvt::MAX_GRID_YZ) the tiled kernels launch once for
-// each 65,535 frames; the strip kernels walk theirs on a persistent grid.
+// frames: past 65,535 (cvt::MAX_GRID_YZ) the tile kernel of Canny's in-tile
+// option launches once for each 65,535 frames; the strip kernels walk theirs
+// on a persistent grid.
 extern "C" {
 
 // sms (here and below): the card's multiprocessors, which size the persistent grids
@@ -1283,18 +1401,26 @@ int cvt_hysteresis_sweeps(const uint8_t* in, uint8_t* out, int n, int h, int w, 
   }
 }
 
-int cvt_blur_sobel(const float* in, float* out, int n, int h, int w, const float* taps, int ksize,
+int cvt_blur_sobel(const float* in, float* out, int n, int h, int w, const float* taps, int ksize, int sms,
                    void* stream) {
   if (bad_shape(n, h, w) || ksize < 1 || ksize > MAX_TAPS) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * BlurSobelDims(ksize).floats();
-  cudaError_t err = prepare(blur_sobel_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const size_t plane = (size_t)h * w;
   const Taps t = make_taps(taps, ksize);
-  return (int)over_frames(n, [&](int f0, int frames) {
-    blur_sobel_kernel<<<grid_for(frames, h, w, TILE_H, TILE_W), THREADS, smem, (cudaStream_t)stream>>>(
-        in + f0 * plane, out + f0 * plane, h, w, t, ksize);
-  });
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (ksize) {
+#define CVT_BLUR_SOBEL_K(K) \
+  case K:                   \
+    return (int)launch_blur_sobel<K>(in, out, n, h, w, t, sms, st);
+    CVT_BLUR_SOBEL_K(1) CVT_BLUR_SOBEL_K(2) CVT_BLUR_SOBEL_K(3) CVT_BLUR_SOBEL_K(4) CVT_BLUR_SOBEL_K(5)
+    CVT_BLUR_SOBEL_K(6) CVT_BLUR_SOBEL_K(7) CVT_BLUR_SOBEL_K(8) CVT_BLUR_SOBEL_K(9) CVT_BLUR_SOBEL_K(10)
+    CVT_BLUR_SOBEL_K(11) CVT_BLUR_SOBEL_K(12) CVT_BLUR_SOBEL_K(13) CVT_BLUR_SOBEL_K(14) CVT_BLUR_SOBEL_K(15)
+    CVT_BLUR_SOBEL_K(16) CVT_BLUR_SOBEL_K(17) CVT_BLUR_SOBEL_K(18) CVT_BLUR_SOBEL_K(19) CVT_BLUR_SOBEL_K(20)
+    CVT_BLUR_SOBEL_K(21) CVT_BLUR_SOBEL_K(22) CVT_BLUR_SOBEL_K(23) CVT_BLUR_SOBEL_K(24) CVT_BLUR_SOBEL_K(25)
+    CVT_BLUR_SOBEL_K(26) CVT_BLUR_SOBEL_K(27) CVT_BLUR_SOBEL_K(28) CVT_BLUR_SOBEL_K(29) CVT_BLUR_SOBEL_K(30)
+    CVT_BLUR_SOBEL_K(31)
+#undef CVT_BLUR_SOBEL_K
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 int cvt_harris(const float* in, float* out, int n, int h, int w, const float* taps, int ksize,

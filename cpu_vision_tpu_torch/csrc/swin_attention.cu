@@ -40,8 +40,9 @@
 //       memory by strides out of that buffer, computes all S x S scores as
 //       one tile (64 keys at most, so no streaming softmax), adds bias and
 //       mask, masks keys >= S with -inf, takes the softmax, multiplies by v
-//       and writes the joined heads as (nw S, C) of T: window_core_kernel,
-//       scalar f32 FMAs, in float32; window_tc_kernel, wgmma, in bf16 (below);
+//       and writes the joined heads as (nw S, C) of T: window_x3_kernel,
+//       split TF32 on wgmma, in float32; window_tc_kernel, wgmma, in bf16
+//       (both below);
 //   (3) v1: output projection + bias + residual into out.
 //       v2: output projection + bias into an (nw S, C) buffer of f32, then
 //   (4) v2: LayerNorm of each branch row + residual, a warp a row
@@ -56,9 +57,9 @@
 // S (4 hd + 5) a token and head for the core; at Swin-T's first stage
 // (802,816 tokens, C 96) 59 GFLOP + 30 GFLOP against 308 MB of x and out in
 // bf16.  The intermediates add 2.16 GB there: traffic of this split into
-// launches, not of the function, so no part of its bound.  The products run
-// on the tensor cores in either type (float32 by split TF32); the core on
-// them in bf16, as scalar f32 FMAs in float32.
+// launches, not of the function, so no part of its bound.  The products and
+// the core run on the tensor cores in either type (float32 by split TF32,
+// tf32x3.cuh).
 //
 // The bf16 core (window_tc_kernel).  At Swin-T's first stage it reads 925 MB
 // of the f32 QKV buffer and writes 154 MB of joined heads, 0.32 ms at the
@@ -81,6 +82,42 @@
 // MN-major.  Rows < S of the joined heads are stored in pairs.  One pair a
 // block: several a block, the next pair's rows copied with cp.async while
 // one is computed, ran slower (fewer pairs in flight an SM).
+//
+// The float32 core (window_x3_kernel).  At Swin-T's first stage it reads the
+// same 925 MB and writes 308 MB of f32 joined heads, 0.37 ms at the memory
+// rate, against 47 GFLOP of tf32 products (3 x 15.7), 0.10 ms at 495 TFLOP/s:
+// bytes bind it.  The scalar core it replaced multiplied f32 FMAs out of
+// shared memory on a tile padded to 64 tokens and divided each probability
+// by its sum, an IEEE division that took its slow path on the denormals the
+// shift mask leaves (4.6x its bound).  Here one warpgroup a pair, as the bf16
+// core: thread t stages half a row of q, k and v of token t / 2 (float4
+// reads, v1's scale or v2's norms by one shuffle, rows >= S zero); Q is
+// stored as it will be multiplied (64 x 32 f32, K-major, 128-byte swizzle)
+// and read back as this thread's tf32 A fragments, split hi and lo in
+// registers; K hi and lo are stored K-major in the same swizzle; V is
+// transposed and split while it is stored, V^T hi and lo as rows of head
+// dims with the keys of each group of 8 at ax_key_column's places.  Every lo
+// half is rounded to tf32 (an unbiased rest; the tensor cores would truncate
+// it).  The tensor cores sum a chain of wgmma by truncation, each k8 step
+// rounding toward zero at the chain's magnitude, so no chain of the large
+// terms is longer than two k8 steps: S = Q K^T and P V run by halves of the
+// 64 keys (wgmma m64n32k8), a half's hi hi products as two chains of two k8
+// steps and its products with a lo half (2^-11 of them) as a third (P V's
+// over both halves), each added to sums set to zero in registers, the
+// chains added in registers.  Chains of twelve, as the flash core takes,
+// stood up to 2.7x further from float64 than the twin at Swin-T's first
+// stage, past the 2x the checks allow (PERF.md).  A half at a time
+// keeps 80 registers of fragments and sums in flight, and ptxas still
+// serialises the products at 128 registers a thread; at 168 (3 blocks an SM)
+// it does not, and the core ran no faster.  The sums start from explicit
+// zeros, not from scale_d 0: with undefined sums in the unrolled halves the
+// card returned near-zero products that the emulator did not show.  rel_bias
+// + mask of a thread's 32 scores are read in one loop, all loads in flight at
+// once.  The softmax is taken in the accumulator layout, p = exp(s - m)
+// unnormalised: each output row is scaled by one reciprocal of its sum at
+// the end, 32 products a row in place of 64 divisions.  P is split into A
+// fragments where it was computed (no round trip through shared memory).
+// Rows < S are stored in pairs.  No atomics: every call gives the same bits.
 
 #include "ln_gemm.cuh"
 #include "tf32x3.cuh"
@@ -88,169 +125,240 @@
 namespace {
 
 using cvt::bf16;
-using cvt::from_f32;
 using cvt::launch_ln_residual;
 using cvt::launch_ln_rows;
 using cvt::launch_tc_gemm;
 using cvt::launch_x3_rows;
 using cvt::ResidEpi;
-using cvt::round_to;
 using cvt::TC_BIAS;
 using cvt::TC_RESID;
 
 constexpr int W_S = 64;  // most tokens a window
-constexpr int W_THREADS = 256;
-constexpr int W_LDP = W_S + 4;
 
-template <int HD> constexpr size_t window_smem_bytes() {
-  return sizeof(float) * ((size_t)3 * W_S * (HD + 4) + (size_t)W_S * W_LDP);
-}
+constexpr int WX_THREADS = 128;   // one warpgroup a (window, head)
+constexpr int WX_MIN_BLOCKS = 4;  // blocks an SM the registers must allow (at most 128 registers a thread)
+constexpr int WX_TILE = W_S * 128;  // bytes of a 64 x 32 f32 tile of 128-byte rows
+// shared memory: Q as read, K hi, K lo (64 keys x 32 head dims each), V^T hi, V^T lo (32 head dims x 64 keys, two
+// halves of 32 keys, 4 KB each); + room to align
+constexpr size_t WX_SMEM = 5 * (size_t)WX_TILE + 1024;  // 41 KB: no opt-in past 48 KB
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(W_THREADS)
-window_core_kernel(const float* __restrict__ qkv, const float* __restrict__ rel_bias,
-                   const float* __restrict__ mask, const float* __restrict__ logit_scale,
-                   T* __restrict__ joined, int s_len, int c, int heads, int nw_img, float scale, int v2) {
-  static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int LD = HD + 4;
-  constexpr int DPT = HD / 16;  // head dims a thread owns
+using WxRawQ = cvt::X3RawA<true, W_S, WX_THREADS>;  // Q: 64 rows x 32 head dims, K-major, read as A fragments
+
+__global__ void __launch_bounds__(WX_THREADS, WX_MIN_BLOCKS)
+window_x3_kernel(const float* __restrict__ qkv, const float* __restrict__ rel_bias, const float* __restrict__ mask,
+                 const float* __restrict__ logit_scale, float* __restrict__ joined, int s_len, int c, int heads,
+                 int nw_img, float scale, int v2) {
+  constexpr int HD = 32;
   extern __shared__ __align__(16) float smem[];
-  float* s_q = smem;               // [W_S][LD]
-  float* s_k = s_q + W_S * LD;     // [W_S][LD]
-  float* s_v = s_k + W_S * LD;     // [W_S][LD]
-  float* s_p = s_v + W_S * LD;     // [W_S][W_LDP]
+  const uint32_t base = (cvt::smem_addr(smem) + 1023u) & ~1023u;
+  char* const tiles = reinterpret_cast<char*>(smem) + (base - cvt::smem_addr(smem));  // base as a generic address
+  const uint32_t k_hi = base + WX_TILE, k_lo = k_hi + WX_TILE, v_hi = k_lo + WX_TILE, v_lo = v_hi + WX_TILE;
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int win = blockIdx.x / heads, head = blockIdx.x - win * heads;
   const size_t row_words = (size_t)3 * c;
-  const float* base = qkv + (size_t)win * s_len * row_words + head * HD;
+  auto split = [](float v, float& hi, float& lo) {  // lo rounded to tf32 too: an unbiased rest
+    cvt::split_tf32(v, hi, lo);
+    lo = cvt::tf32_rna(lo);
+  };
 
-  for (int e = tid; e < W_S * HD; e += W_THREADS) {
-    const int r = e / HD, d = e - r * HD;
-    float qv = 0.0f, kv = 0.0f, vv = 0.0f;
+  // staging: thread t owns head dims 16 (t % 2) .. + 15 of token t / 2 in q, k and v; rows >= S are zeros
+  {
+    const int r = tid >> 1, half = tid & 1;
+    float qv[16], kv[16], vv[16];
     if (r < s_len) {
-      const float* p = base + r * row_words + d;
-      qv = p[0];
-      kv = p[c];
-      vv = p[2 * c];
-    }
-    if (!v2) {
-      qv = round_to<T>(qv * scale);
-      kv = round_to<T>(kv);
-    }
-    s_q[r * LD + d] = qv;
-    s_k[r * LD + d] = kv;
-    s_v[r * LD + d] = round_to<T>(vv);
-  }
-  if (v2) {
-    // cosine attention: a thread normalises one row of q or of k
-    __syncthreads();
-    if (tid < 2 * W_S) {
-      float* p = (tid < W_S ? s_q : s_k) + (tid & (W_S - 1)) * LD;
-      float ss = 0.0f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) ss += p[d] * p[d];
-      const float inv = rsqrtf(fmaxf(ss, 1e-12f));
-#pragma unroll
-      for (int d = 0; d < HD; ++d) p[d] = round_to<T>(p[d] * inv);
-    }
-  }
-  __syncthreads();
-
-  float sc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 qa[4], ka[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(s_q + (4 * ty + i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) ka[j] = *reinterpret_cast<const float4*>(s_k + (tx + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sc[i][j] += qa[i].x * ka[j].x;
-        sc[i][j] += qa[i].y * ka[j].y;
-        sc[i][j] += qa[i].z * ka[j].z;
-        sc[i][j] += qa[i].w * ka[j].w;
-      }
-  }
-
-  const float ls = v2 ? expf(fminf(logit_scale[head], 4.605170185988092f)) : 1.0f;  // ln 100
-  const float* bias_h = rel_bias + (size_t)head * s_len * s_len;
-  const float* mask_w = mask != nullptr ? mask + (size_t)(win % nw_img) * s_len * s_len : nullptr;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = 4 * ty + i;
-    const bool row_in = row < s_len;  // rows past S are computed on zeros and not stored
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = tx + 16 * j;
-      float val = -INFINITY;
-      if (key < s_len) {
-        val = v2 ? sc[i][j] * ls : sc[i][j];
-        if (row_in) {
-          val += bias_h[row * s_len + key];
-          if (mask_w != nullptr) val += mask_w[row * s_len + key];
-        }
-      }
-      sc[i][j] = val;
-      mx = fmaxf(mx, val);
-    }
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    // key 0 is always real, so mx is finite
-    float sum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      sc[i][j] = expf(sc[i][j] - mx);
-      sum += sc[i][j];
-    }
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s_p[row * W_LDP + tx + 16 * j] = round_to<T>(sc[i][j] / sum);
-  }
-  __syncthreads();
-
-  float acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < DPT; ++e) acc[i][e] = 0.0f;
-#pragma unroll 2
-  for (int kk = 0; kk < W_S; kk += 4) {
-    float4 pa[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pa[i] = *reinterpret_cast<const float4*>(s_p + (4 * ty + i) * W_LDP + kk);
-#pragma unroll
-    for (int e = 0; e < DPT; ++e) {
-      const float v0 = s_v[(kk + 0) * LD + tx + 16 * e];
-      const float v1 = s_v[(kk + 1) * LD + tx + 16 * e];
-      const float v2_ = s_v[(kk + 2) * LD + tx + 16 * e];
-      const float v3 = s_v[(kk + 3) * LD + tx + 16 * e];
+      const float* p = qkv + ((size_t)win * s_len + r) * row_words + head * HD + 16 * half;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        acc[i][e] += pa[i].x * v0;
-        acc[i][e] += pa[i].y * v1;
-        acc[i][e] += pa[i].z * v2_;
-        acc[i][e] += pa[i].w * v3;
+        const float4 a = *reinterpret_cast<const float4*>(p + 4 * i);
+        const float4 b = *reinterpret_cast<const float4*>(p + c + 4 * i);
+        const float4 d = *reinterpret_cast<const float4*>(p + 2 * c + 4 * i);
+        qv[4 * i] = a.x, qv[4 * i + 1] = a.y, qv[4 * i + 2] = a.z, qv[4 * i + 3] = a.w;
+        kv[4 * i] = b.x, kv[4 * i + 1] = b.y, kv[4 * i + 2] = b.z, kv[4 * i + 3] = b.w;
+        vv[4 * i] = d.x, vv[4 * i + 1] = d.y, vv[4 * i + 2] = d.z, vv[4 * i + 3] = d.w;
       }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) qv[i] = kv[i] = vv[i] = 0.0f;
+    }
+    float q_mul = scale, k_mul = 1.0f;
+    if (v2) {  // cosine attention: the row's sum of squares over the thread pair
+      float qs = 0.0f, ks = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        qs += qv[i] * qv[i];
+        ks += kv[i] * kv[i];
+      }
+      qs += __shfl_xor_sync(0xffffffffu, qs, 1);
+      ks += __shfl_xor_sync(0xffffffffu, ks, 1);
+      q_mul = rsqrtf(fmaxf(qs, 1e-12f));
+      k_mul = rsqrtf(fmaxf(ks, 1e-12f));
+    }
+    // Q as it will be multiplied (split when read back as A fragments); K split, K-major
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int at = cvt::kmajor_at(r, 16 * half + 4 * i);
+      float4 h, l;
+      split(kv[4 * i] * k_mul, h.x, l.x);
+      split(kv[4 * i + 1] * k_mul, h.y, l.y);
+      split(kv[4 * i + 2] * k_mul, h.z, l.z);
+      split(kv[4 * i + 3] * k_mul, h.w, l.w);
+      *reinterpret_cast<float4*>(tiles + at) =
+          make_float4(qv[4 * i] * q_mul, qv[4 * i + 1] * q_mul, qv[4 * i + 2] * q_mul, qv[4 * i + 3] * q_mul);
+      *reinterpret_cast<float4*>(tiles + (k_hi - base) + at) = h;
+      *reinterpret_cast<float4*>(tiles + (k_lo - base) + at) = l;
+    }
+    // V transposed and split: V^T's row d holds head dim d of the keys of its half, key r at its permuted column
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int d = 16 * half + i;
+      const int at = (r >> 5) * (WX_TILE / 2) + cvt::kmajor_at(d, cvt::ax_key_column(r) & 31);
+      float h, l;
+      split(vv[i], h, l);
+      *reinterpret_cast<float*>(tiles + (v_hi - base) + at) = h;
+      *reinterpret_cast<float*>(tiles + (v_lo - base) + at) = l;
     }
   }
+  cvt::fence_proxy_async();  // the generic stores before wgmma's reads
+  __syncthreads();
 
-  T* ob = joined + (size_t)win * s_len * c + head * HD;
+  // S = Q K^T by halves of the 64 keys, wgmma m64n32k8 tf32: a half's hi hi products of k8 steps 0-1 and 2-3 as two
+  // chains, its 8 products with a lo half as a third, each added to a zero set in registers (scale_d 1 throughout:
+  // no sum of a chain is left undefined), the chains added in registers.  A half at a time, so that 80 registers are
+  // in flight, not 128.
+  uint32_t q_hi[HD / 8][4], q_lo[HD / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = 4 * ty + i;
+  for (int kk = 0; kk < HD / 8; ++kk) WxRawQ::fragment<true>(tiles, 0, kk, q_hi[kk], q_lo[kk]);
+  float sc[32];  // sc[4 j + 2 h + e]: row 16 warp + lane / 4 + 8 h, key 8 j + 2 (lane % 4) + e
+  float ca[16], cb[16], cx[16];  // the chains of a half
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const uint32_t kh = k_hi + half * (WX_TILE / 2), kl = k_lo + half * (WX_TILE / 2);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) ca[i] = cb[i] = cx[i] = 0.0f;
+    cvt::wgmma_fence();  // after writing the fragments and the sums, before the products
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      cvt::wgmma_tf32(cx, q_lo[kk], kh + kk * 32, 1);
+      cvt::wgmma_tf32(cx, q_hi[kk], kl + kk * 32, 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) cvt::wgmma_tf32(ca, q_hi[kk], kh + kk * 32, 1);
+#pragma unroll
+    for (int kk = 2; kk < 4; ++kk) cvt::wgmma_tf32(cb, q_hi[kk], kh + kk * 32, 1);
+    cvt::wgmma_commit();
+    cvt::wgmma_wait<0>();
+    cvt::fence_sums(ca);
+    cvt::fence_sums(cb);
+    cvt::fence_sums(cx);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sc[16 * half + i] = cx[i] + (ca[i] + cb[i]);
+  }
+  cvt::keep_fragments(q_hi, q_lo);  // the products read them until the last wait
+
+  // the softmax in the accumulator layout: rel_bias + mask of this thread's scores read first, all at once (0 on
+  // rows or keys >= S), then v2's scale, the bias, keys >= S at -inf, the row maximum over the quad that shares the row
+  const float* bias_h = rel_bias + (size_t)head * s_len * s_len;
+  const float* mask_w = mask != nullptr ? mask + (size_t)(win % nw_img) * s_len * s_len : nullptr;
+  const float ls = v2 ? expf(fminf(logit_scale[head], 4.605170185988092f)) : 1.0f;  // ln 100
+  const int key0 = 2 * (lane & 3);
+  float add[32];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = 16 * warp + (lane >> 2) + 8 * h;  // rows past S are computed on zeros and not stored
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = key0 + 8 * j + e;
+        float a = 0.0f;
+        if (row < s_len && key < s_len) {
+          a = bias_h[row * s_len + key];
+          if (mask_w != nullptr) a += mask_w[row * s_len + key];
+        }
+        add[4 * j + 2 * h + e] = a;
+      }
+  }
+  float mx[2], sum[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = -INFINITY;
+    sum[h] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& val = sc[4 * j + 2 * h + e];
+        val = key0 + 8 * j + e < s_len ? (v2 ? val * ls : val) + add[4 * j + 2 * h + e] : -INFINITY;
+        mx[h] = fmaxf(mx[h], val);
+      }
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));  // key 0 is always real, so it is finite
+  }
+
+  // O = P V by halves of the keys, wgmma m64n32k8 tf32: p = exp(s - m) left unnormalised (each output row is scaled
+  // by 1 / its sum at the end) and split into P's A fragments where it was computed: k8 step j's registers (row, key
+  // 2 t), (row + 8, key 2 t), (row, key 2 t + 1), (row + 8, key 2 t + 1) of its group of 8, t = lane % 4, which
+  // V^T's permuted columns match.  A half's hi hi products as two chains of two k8 steps, the products with a lo
+  // half as one chain over both halves, each added to a zero set in registers, the chains added in registers.
+  auto v_at = [&](uint32_t v, int j) { return v + (j >> 2) * (WX_TILE / 2) + (j & 3) * 32; };  // k8 step j of V^T
+  float o[16], ox[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) ox[i] = 0.0f;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    uint32_t p_hi[4][4], p_lo[4][4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int h = r & 1, e = r >> 1;
+        const float pv = expf(sc[4 * (4 * half + jj) + 2 * h + e] - mx[h]);
+        sum[h] += pv;
+        float hi, lo;
+        split(pv, hi, lo);
+        p_hi[jj][r] = __float_as_uint(hi);
+        p_lo[jj][r] = __float_as_uint(lo);
+      }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) ca[i] = cb[i] = 0.0f;
+    cvt::wgmma_fence();  // after writing the fragments and the sums, before the products
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      cvt::wgmma_tf32(ox, p_lo[jj], v_at(v_hi, 4 * half + jj), 1);
+      cvt::wgmma_tf32(ox, p_hi[jj], v_at(v_lo, 4 * half + jj), 1);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) cvt::wgmma_tf32(ca, p_hi[jj], v_at(v_hi, 4 * half + jj), 1);
+#pragma unroll
+    for (int jj = 2; jj < 4; ++jj) cvt::wgmma_tf32(cb, p_hi[jj], v_at(v_hi, 4 * half + jj), 1);
+    cvt::wgmma_commit();
+    cvt::wgmma_wait<0>();
+    cvt::fence_sums(ca);
+    cvt::fence_sums(cb);
+    cvt::fence_sums(ox);
+    cvt::keep_fragments(p_hi, p_lo);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o[i] = half == 0 ? ca[i] + cb[i] : o[i] + (ca[i] + cb[i]);
+  }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    inv[h] = 1.0f / sum[h];
+  }
+
+  float* ob_ = joined + (size_t)win * s_len * c + head * HD;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = 16 * warp + (lane >> 2) + 8 * h;
     if (row >= s_len) continue;
 #pragma unroll
-    for (int e = 0; e < DPT; ++e) ob[(size_t)row * c + tx + 16 * e] = from_f32<T>(acc[i][e]);
+    for (int j = 0; j < HD / 8; ++j) {
+      const int i = 4 * j + 2 * h;
+      cvt::store2(ob_ + (size_t)row * c + 8 * j + key0, (o[i] + ox[i]) * inv[h], (o[i + 1] + ox[i + 1]) * inv[h]);
+    }
   }
 }
 
@@ -408,12 +516,12 @@ window_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ rel_bi
   }
 }
 
-// the window core: wgmma in bf16, scalar f32 FMAs in float32
+// the window core on the tensor cores: split TF32 in float32, bf16 in bf16
 cudaError_t window_core(const float* qkv, const float* rel_bias, const float* mask, const float* logit_scale,
                         float* joined, int nw, int s_len, int c, int heads, int nw_img, float scale, int v2,
                         cudaStream_t stream) {
-  window_core_kernel<float, 32><<<nw * heads, W_THREADS, window_smem_bytes<32>(), stream>>>(
-      qkv, rel_bias, mask, logit_scale, joined, s_len, c, heads, nw_img, scale, v2);
+  window_x3_kernel<<<nw * heads, WX_THREADS, WX_SMEM, stream>>>(qkv, rel_bias, mask, logit_scale, joined, s_len, c,
+                                                                heads, nw_img, scale, v2);
   return cudaGetLastError();
 }
 
@@ -504,6 +612,30 @@ int cvt_window_attention_block(const void* x, const float* ln_g, const float* ln
                                             (const float*)w_o, b_o, rel_bias, mask, logit_scale, qkv, (float*)joined,
                                             branch, (float*)ln_buf, (float*)out, nw, s_len, c, heads, nw_img, scale,
                                             eps, v2, ln_count, st);
+}
+
+// What the card gives a window core: its registers a thread, its dynamic shared memory a block and the blocks an SM
+// can hold (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  which: 0 the float32 core (window_x3_kernel), 1 the
+// bf16 core (window_tc_kernel).
+int cvt_window_core_info(int which, int* regs, int* smem_bytes, int* blocks_per_sm) {
+  const void* fn;
+  int threads, smem;
+  switch (which) {
+    case 0:
+      fn = (const void*)window_x3_kernel, threads = WX_THREADS, smem = (int)WX_SMEM;
+      break;
+    case 1:
+      fn = (const void*)window_tc_kernel, threads = WT_THREADS, smem = (int)WT_SMEM;
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, threads, smem);
+  *regs = attr.numRegs;
+  *smem_bytes = smem;
+  return (int)err;
 }
 
 }  // extern "C"

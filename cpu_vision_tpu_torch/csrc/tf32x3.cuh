@@ -91,6 +91,12 @@ __device__ __forceinline__ void split_tf32(float v, float& hi, float& lo) {
   lo = v - hi;
 }
 
+// The column at which a P V product stages key k of a tile of V^T, so that P's A fragment is the sums of S = Q K^T
+// as this thread holds them: the m64k8 tf32 A fragment holds columns t and t + 4 of each group of 8 keys (t = lane %
+// 4), the sums columns 2 t and 2 t + 1; so the keys of each group of 8 are taken in the order 0 2 4 6 1 3 5 7
+// (tf32x3_attention.cuh, swin_attention.cu)
+__device__ __forceinline__ int ax_key_column(int k) { return (k & ~7) | ((k & 7) >> 1) | ((k & 1) << 2); }
+
 template <int WGS, int BN>
 struct X3Shape {
   static constexpr int THREADS = 256;                // two warpgroups
@@ -132,7 +138,9 @@ struct X3RawA {
     }
   }
 
-  // this thread's A fragment of the k8 step kk for the 64 rows from r0 (hopper.cuh), split into tf32 hi and lo
+  // this thread's A fragment of the k8 step kk for the 64 rows from r0 (hopper.cuh), split into tf32 hi and lo;
+  // ROUND_LO: lo rounded to tf32 too (cvt.rna), not left to the tensor cores' truncation
+  template <bool ROUND_LO = false>
   static __device__ __forceinline__ void fragment(const char* raw, int r0, int kk, uint32_t (&hi)[4],
                                                   uint32_t (&lo)[4]) {
     const int lane = threadIdx.x & 31, row = r0 + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
@@ -141,6 +149,7 @@ struct X3RawA {
       float h, l;
       const int k = 8 * kk + (lane & 3) + 4 * (r >> 1);
       split_tf32(*reinterpret_cast<const float*>(raw + at(row + 8 * (r & 1), k)), h, l);
+      if (ROUND_LO) l = tf32_rna(l);
       hi[r] = __float_as_uint(h);
       lo[r] = __float_as_uint(l);
     }

@@ -80,9 +80,6 @@ using AxRawQ = X3RawA<true, AX_BQ, AX_THREADS>;  // a half of Q: 64 rows x 32 he
 using AxRawK = X3RawA<true, AX_BK, AX_THREADS>;  // a half of K: 32 keys x 32 head dims, K-major
 using AxRawV = X3RawB<AX_HD, AX_THREADS>;        // V: 32 keys (rows of k) x 64 head dims
 
-// the staged column of key k of a tile: the keys of each group of 8 in the order 0 2 4 6 1 3 5 7
-__device__ __forceinline__ int ax_key_column(int k) { return (k & ~7) | ((k & 7) >> 1) | ((k & 1) << 2); }
-
 template <typename OutT>
 __global__ void __launch_bounds__(AX_THREADS)
 attention_x3_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,

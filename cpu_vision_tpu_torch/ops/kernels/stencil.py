@@ -87,7 +87,7 @@ def _lib() -> ctypes.CDLL:
             "cvt_canny_stage1": [p, p, i, i, i, p, i, f, f, i, i, p],
             "cvt_gaussian_blur": [p, p, i, i, i, i, p, i, i, p],
             "cvt_hysteresis_sweeps": [p, p, i, i, i, i, p, p, i, p],
-            "cvt_blur_sobel": [p, p, i, i, i, p, i, p],
+            "cvt_blur_sobel": [p, p, i, i, i, p, i, i, p],
             "cvt_harris": [p, p, i, i, i, p, i, f, i, p],
         }
         for name, argtypes in sigs.items():
@@ -279,14 +279,16 @@ def hysteresis_sweeps_plain(cls: torch.Tensor, sweeps: int = 4) -> torch.Tensor:
     return _sweeps_plain(cls, sweeps)[1]
 
 
-def fused_blur_sobel_plain(maps: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
-    """Twin of ``cvt_blur_sobel``: |Sobel| of the blurred (N,H,W) maps."""
+def fused_blur_sobel_plain(maps: torch.Tensor, taps: np.ndarray,
+                           root: Callable[[torch.Tensor], torch.Tensor] = torch.sqrt) -> torch.Tensor:
+    """Twin of ``cvt_blur_sobel``: |Sobel| of the blurred (N,H,W) maps.  ``root`` takes the square root of the
+    squared magnitude (``canny_stage1_plain``'s ``root``)."""
     k = taps.tolist()
     h, w = maps.shape[-2:]
     padded = reflect_pad_hw(maps, len(k) // 2 + 1)
     b = _sep_blur(padded, k, h + 2, w + 2)
     gx, gy = _sobel_pair(b, h, w)
-    return torch.sqrt(gx * gx + gy * gy)
+    return root(gx * gx + gy * gy)
 
 
 def harris_response_fused_plain(maps: torch.Tensor, taps: np.ndarray, k: float) -> torch.Tensor:
@@ -425,7 +427,8 @@ def fused_blur_sobel(image, kernel_size: int = 5, sigma: float = 1.5) -> torch.T
         return restore(fused_blur_sobel_plain(maps, taps))
     n, h, w = maps.shape
     out = torch.empty_like(maps)
-    _launch("cvt_blur_sobel", maps, maps.data_ptr(), out.data_ptr(), n, h, w, c_taps, kernel_size)
+    _launch("cvt_blur_sobel", maps, maps.data_ptr(), out.data_ptr(), n, h, w, c_taps, kernel_size,
+            _build.sm_count(maps))
     _build.count_launch(fused_blur_sobel, maps)
     return restore(out)
 

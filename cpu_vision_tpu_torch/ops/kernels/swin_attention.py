@@ -34,8 +34,10 @@ the twin from the saved inputs and differentiates it (``_grad``); the mask is
 a constant there and gets no gradient.  On the card the float32 QKV product
 (12·C bytes a token), the joined heads, v2's branch rows and v1's LN rows
 pass through device memory once each, which the Pallas kernels keep in VMEM.
-Both projections run on the tensor cores: in bfloat16 the product of
-``transformer_block.bf16_product``, in float32 split TF32 (``csrc/tf32x3.cuh``).
+Both projections and the window core run on the tensor cores: in bfloat16
+the product of ``transformer_block.bf16_product`` and ``window_tc_kernel``, in
+float32 split TF32 (``csrc/tf32x3.cuh``) and ``window_x3_kernel``; the cores'
+occupancy on the card is ``kernel_info``.
 """
 
 from __future__ import annotations
@@ -50,10 +52,12 @@ from ..._dtype import full_float32
 from . import _build, _grad
 from .transformer_block import _check_card, _check_float, _dot_f32, _f32c, _ln_f32, _ptr
 
-__all__ = ["window_attention_block", "window_attention_block_plain", "kernel_takes", "HEAD_DIM", "MAX_TOKENS"]
+__all__ = ["window_attention_block", "window_attention_block_plain", "kernel_takes", "kernel_info", "HEAD_DIM",
+           "MAX_TOKENS", "KERNEL_INFO"]
 
 HEAD_DIM = 32     # the instantiation in csrc/swin_attention.cu
 MAX_TOKENS = 64   # tokens of a window the core holds as one tile
+KERNEL_INFO = {"window_x3_kernel": 0, "window_tc_kernel": 1}  # the cores kernel_info reports on: float32, bf16
 
 _c_lib: Optional[ctypes.CDLL] = None
 
@@ -65,6 +69,8 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.cvt_window_attention_block.argtypes = [p] * 15 + [i, i, i, i, i, f, f, i, i, i, p]
         lib.cvt_window_attention_block.restype = ctypes.c_int
+        lib.cvt_window_core_info.argtypes = [i, p, p, p]
+        lib.cvt_window_core_info.restype = ctypes.c_int
         _c_lib = lib
     return _c_lib
 
@@ -148,6 +154,18 @@ def _window_attention_block_f64(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias,
         scores = scores.reshape(nw, heads, s, s)
     o = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(scores, dim=-1), v).reshape(nw, s, c) @ w_o + b_o
     return x + (_ln_f32(o, ln_g, ln_b, eps, ln_count) if v2 else o)
+
+
+def kernel_info(name: str, device=None) -> dict:
+    """``{"regs", "smem_bytes", "blocks_per_sm"}`` of the window core ``name`` of ``KERNEL_INFO`` on the card: its
+    registers a thread, its dynamic shared memory a block, and the blocks an SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        err = _lib().cvt_window_core_info(KERNEL_INFO[name], *(ctypes.addressof(x) for x in vals))
+    if err != 0:
+        raise RuntimeError(f"cvt_window_core_info({name}) failed with CUDA error {err}")
+    return dict(zip(("regs", "smem_bytes", "blocks_per_sm"), (x.value for x in vals)))
 
 
 def kernel_takes(c: int, heads: int, s: int) -> bool:

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Rows 6 and 8 of the PyTorch port, ``fused_gaussian_blur`` and
-``nms_sorted``, against an older tree's, in turns, on one NVIDIA card.
+"""Rows 4, 6 and 8 of the PyTorch port, ``fused_blur_sobel``,
+``fused_gaussian_blur`` and ``nms_sorted``, against an older tree's, in turns,
+on one NVIDIA card.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 tools/torch_blur_nms_ab.py --old-tree DIR [--rounds N] [--json PATH]
+    python3 tools/torch_blur_nms_ab.py --old-tree DIR [--rounds N] [--json PATH] [--cases blur_sobel,blur,nms]
 
 ``--old-tree`` is the root of an older checkout (a ``git archive`` of its
 ``cpu_vision_tpu_torch`` unpacked under ``build/``).  Its ``stencil.cu`` and
 ``nms.cu`` are built with its own headers and this tree's flags (this tree's
-libraries at the same time, their ``ptxas`` reports for the blur's kernels
-at K 5 and the NMS's printed), and its
+libraries at the same time, their ``ptxas`` reports for the blur's and
+blur + Sobel's kernels at K 5 and the NMS's printed), and its
 ``ops/kernels/stencil.py`` and ``ops/kernels/nms.py`` are loaded beside this
 tree's, on those libraries, so each tree's wrapper drives its own C
 interface.  It prints the card's name and power limit first, then:
 
+* ``fused_blur_sobel`` (K 5, sigma 1.5) at 512x512 and at the headline scene
+  8x1080x1920x1, timed as the blur below; both trees' outputs must equal the
+  twin bit for bit there and, at 1080p b8, at K 3, 7 and 9;
 * ``fused_gaussian_blur`` (K 5, sigma 1.5) at 64x480x640x3 and at the
   headline scene 8x1080x1920x1: either tree's wrapper in ``--rounds`` rounds
   of 20 calls, the order reversed every other round, the least of each; the
@@ -33,8 +37,9 @@ interface.  It prints the card's name and power limit first, then:
   calls on either tree's kernel, in turns (CUDA events around single calls,
   5 a round), its detections equal on both trees and on the plain NMS route.
 
-One line a case and a JSON line of every figure (also written to
-``--json``); exits 1 if a check fails.  No test imports it.
+``--cases`` runs some of the three groups (all by default).  One line a case
+and a JSON line of every figure (also written to ``--json``); exits 1 if a
+check fails.  No test imports it.
 """
 
 import argparse
@@ -68,13 +73,15 @@ DET_SIZES = [(480, 640), (640, 427), (512, 512), (427, 640), (640, 480), (375, 5
 
 
 def ptxas_lines(logs: dict) -> list:
-    """The registers, shared memory and spills ``ptxas`` reports for the blur's kernels at K 5 and the NMS's."""
+    """The registers, shared memory and spills ``ptxas`` reports for the blur's and blur + Sobel's kernels at K 5 and
+    the NMS's."""
     lines, fn = [], ""
     for stem in STEMS:
         for line in logs.get(stem, "").splitlines():
             named = re.search(r"Compiling entry function '(\S+)'", line)
             fn = named.group(1) if named else fn
-            if ("blur_strip_kernelILi5E" in fn or "nms_" in fn) and ("Used" in line or "spill" in line):
+            if (any(k in fn for k in ("blur_strip_kernelILi5E", "blur_sobel_strip_kernelILi5E", "nms_"))
+                    and ("Used" in line or "spill" in line)):
                 lines.append(f"{stem}: {fn}: {line.strip()}")
     return lines
 
@@ -173,6 +180,27 @@ def timed_pair(name, new_fn, old_fn, rounds, nbytes=None, calls=20):
         print(f"  {label}, device ms a call by launch: "
               + "; ".join(f"{n} x {k}: {ms:.4f}" for k, n, ms in row[key]))
     return row
+
+
+def blur_sobel_cases(older_stencil, rounds, faults):
+    """Row 4 at 512x512 and 1080p b8: both trees bit for bit against the twin (at 1080p also at K 3, 7, 9), timed."""
+    images = {"512x512": torch.from_numpy(np.random.default_rng(0).random((512, 512), dtype=np.float32)).cuda(),
+              "8x1080x1920x1": torch.from_numpy(scene(1080, 1920, 8)).cuda()}
+    cases = []
+    for name, img in images.items():
+        maps, restore = stencil._as_nhw(img)
+        checks = {}
+        for ks in (5,) if name == "512x512" else (5, 3, 7, 9):
+            twin = restore(stencil.fused_blur_sobel_plain(maps, stencil.gaussian_taps(ks, 1.5)))
+            checks[f"K {ks} equals the twin"] = torch.equal(stencil.fused_blur_sobel(img, ks, 1.5), twin)
+            checks[f"K {ks} older equals the twin"] = torch.equal(older_stencil.fused_blur_sobel(img, ks, 1.5), twin)
+        faults += [f"fused_blur_sobel {name}: {k}" for k, v in checks.items() if not v]
+        print(f"fused_blur_sobel {name}: {checks}")
+        row = timed_pair(f"fused_blur_sobel (row 4) {name}", lambda: stencil.fused_blur_sobel(img),
+                         lambda: older_stencil.fused_blur_sobel(img), rounds, img.numel() * 8)
+        cases.append(dict(row, checks=checks))
+        del maps, twin
+    return cases
 
 
 def blur_cases(older_stencil, rounds, faults):
@@ -302,6 +330,7 @@ def main() -> int:
     ap.add_argument("--old-tree", required=True, help="root of an older checkout, under build/")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--json", default=str(REPO / "build" / "blur_nms_ab.json"))
+    ap.add_argument("--cases", default="blur_sobel,blur,nms", help="comma-separated groups of cases to run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_blur_nms_ab: no CUDA card", file=sys.stderr)
@@ -312,7 +341,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     faults = []
-    cases = blur_cases(older_stencil, args.rounds, faults) + nms_cases(older_nms, args.rounds, faults)
+    groups = {"blur_sobel": lambda: blur_sobel_cases(older_stencil, args.rounds, faults),
+              "blur": lambda: blur_cases(older_stencil, args.rounds, faults),
+              "nms": lambda: nms_cases(older_nms, args.rounds, faults)}
+    cases = [case for name in args.cases.split(",") for case in groups[name]()]
     summary = {"card": card, "cases": cases, "failures": faults}
     json_path = Path(args.json)
     json_path.parent.mkdir(parents=True, exist_ok=True)

@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
 """Time Canny's two kernels (``csrc/stencil.cu``: ``canny_strip_kernel<5>``, ``hysteresis_bits_kernel<4>`` and
-``<8>``) and the blur (``blur_strip_kernel<5, C>``) under other constants of ``stencil.cu``, in turns on one card,
-and check the bits.
+``<8>``), the blur (``blur_strip_kernel<5, C>``) and blur + Sobel (``blur_sobel_strip_kernel<5>``) under other
+constants of ``stencil.cu``, in turns on one card, and check the bits.
 
     python3 tools/torch_canny_variants_ab.py [VARIANT ...] [--rounds N] [--json PATH]
 
 A VARIANT is ``NAME=VALUE[,NAME=VALUE...]`` over the ``constexpr int`` constants of ``stencil.cu``
-(``CS_TILE_H``, ``CS_MIN_BLOCKS``, ``CS_RING``, ``HY_TILE_H``, ``BL_TILE_H``, ``BL_MIN_BLOCKS``, ...), or ``base``
-for the file as it is.  Each is a copy of ``stencil.cu`` under ``build/canny_variants/`` with only those
-instantiations (Canny at K 5, the sweeps at 4 and 8, Harris and the blur at K 5), all built in parallel with the
+(``CS_TILE_H``, ``CS_MIN_BLOCKS``, ``CS_RING``, ``HY_TILE_H``, ``BL_TILE_H``, ``BL_MIN_BLOCKS``, ``BS_TILE_H``,
+``BS_MIN_BLOCKS``, ``BS_WIDE_K``, ...), or ``base`` for the file as it is.  Each is a copy of ``stencil.cu`` under
+``build/canny_variants/`` with only those instantiations (Canny at K 5, the sweeps at 4 and 8, Harris, the blur and
+blur + Sobel at K 5), all built in parallel with the
 flags of ``_build``; the registers and spills of the strip kernels and Canny's SASS instructions by opcode
 (``cuobjdump``) are printed.  On the headline scene (8 x 1080 x 1920, thresholds 0.1/0.2) every variant's class
-map and swept maps, and its blur there and of 64 x 480 x 640 x 3 frames, must equal the twins' bit for bit; then
-``cvt_canny_stage1``, ``cvt_hysteresis_sweeps`` and ``cvt_gaussian_blur`` of each are timed with CUDA events,
+map and swept maps, its blur there and of 64 x 480 x 640 x 3 frames, and its blur + Sobel there and of one
+512 x 512 map, must equal the twins' bit for bit; then ``cvt_canny_stage1``, ``cvt_hysteresis_sweeps``,
+``cvt_gaussian_blur`` and ``cvt_blur_sobel`` of each are timed with CUDA events,
 ``--rounds`` rounds of 20 launches, the order of the variants reversed every other round, and the least of each
-printed with the card's name and power limit, one line a variant, and a JSON line
+printed (blur + Sobel's 512 x 512 launch also alone, from the profiler's device interval: the events time the
+host's launches there) with the card's name and power limit, one line a variant, and a JSON line
 (also written to ``--json``).  Exits 1 if a variant fails to build or to keep the bits.  No test imports it.
 Default: ``base CS_MIN_BLOCKS=1 CS_MIN_BLOCKS=6 CS_TILE_H=48 HY_TILE_H=12 HY_TILE_H=32``.
 """
@@ -34,10 +37,12 @@ sys.path.insert(0, str(REPO))
 import torch  # noqa: E402
 
 from chip_smoke import scene  # noqa: E402
+from tools.torch_blur_nms_ab import launches_apart  # noqa: E402
 from cpu_vision_tpu_torch.ops.kernels import _build, stencil  # noqa: E402
 
 DEFAULT = ["base", "CS_MIN_BLOCKS=1", "CS_MIN_BLOCKS=6", "CS_TILE_H=48", "HY_TILE_H=12", "HY_TILE_H=32"]
-KEEP = {"CVT_CANNY_K": {5}, "CVT_HYST_S": {4, 8}, "CVT_HARRIS_K": {5}, "CVT_BLUR_K": {5}}  # what a variant builds
+KEEP = {"CVT_CANNY_K": {5}, "CVT_HYST_S": {4, 8}, "CVT_HARRIS_K": {5}, "CVT_BLUR_K": {5},  # what a variant builds
+        "CVT_BLUR_SOBEL_K": {5}}
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -79,9 +84,11 @@ def build(variants):
         for line in log.splitlines():
             named = re.search(r"Compiling entry function '(\S+)'", line)
             fn = named.group(1) if named else fn
-            if ("Used" in line or "spill" in line) and ("canny_strip_kernel" in fn or "blur_strip_kernel" in fn):
+            if ("Used" in line or "spill" in line) and any(k in fn for k in ("canny_strip_kernel", "blur_strip_kernel",
+                                                                              "blur_sobel_strip_kernel")):
                 channels = re.search(r"ILi5ELi(\d)E", fn)
-                kernel = f"blur C {channels.group(1)}" if channels else "canny"
+                kernel = (f"blur C {channels.group(1)}" if channels else
+                          "blur_sobel" if "blur_sobel" in fn else "canny")
                 lines.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
         if proc.returncode != 0:
             print(f"{spec}: nvcc failed\n{log}", file=sys.stderr)
@@ -91,7 +98,8 @@ def build(variants):
         built[spec] = (ctypes.CDLL(str(lib)), lines)
         for fn_name, args in (("cvt_canny_stage1", [P, P, I, I, I, P, I, F, F, I, I, P]),
                               ("cvt_hysteresis_sweeps", [P, P, I, I, I, I, P, P, I, P]),
-                              ("cvt_gaussian_blur", [P, P, I, I, I, I, P, I, I, P])):
+                              ("cvt_gaussian_blur", [P, P, I, I, I, I, P, I, I, P]),
+                              ("cvt_blur_sobel", [P, P, I, I, I, P, I, I, P])):
             getattr(built[spec][0], fn_name).argtypes = args
     return built
 
@@ -174,7 +182,22 @@ def main() -> int:
                                            sms, stream)
         assert err == 0, err
 
+    # blur + Sobel (K 5, sigma 1.5) of the scene and of one 512 x 512 map
+    bs_maps = {"1080p": maps, "512": torch.rand((1, 512, 512), generator=torch.Generator("cuda").manual_seed(1),
+                                                 device="cuda")}
+    bs_out = {spec: {k: torch.empty_like(m) for k, m in bs_maps.items()} for spec in libs}
+    twin_bs = {k: stencil.fused_blur_sobel_plain(m, stencil.gaussian_taps(5, 1.5)) for k, m in bs_maps.items()}
+
+    def blur_sobel(spec, k):
+        m = bs_maps[k]
+        err = libs[spec].cvt_blur_sobel(m.data_ptr(), bs_out[spec][k].data_ptr(), *m.shape, blur_taps, 5, sms, stream)
+        assert err == 0, err
+
     for spec in libs:
+        for k in bs_maps:
+            blur_sobel(spec, k)
+        if not all(torch.equal(bs_out[spec][k], twin_bs[k]) for k in bs_maps):
+            faults.append(f"{spec}: blur + Sobel's bits differ from the twin's")
         canny(spec)
         same = torch.equal(cls[spec], twin_cls)
         for s in (4, 8):
@@ -185,8 +208,8 @@ def main() -> int:
             same = same and torch.equal(blurred[spec][c], twin_blur[c])
         if not same:
             faults.append(f"{spec}: bits differ from the twins'")
-    times = {spec: {"canny_ms": [], "sweeps4_ms": [], "sweeps8_ms": [], "blur_c1_ms": [], "blur_c3_ms": []}
-             for spec in libs}
+    times = {spec: {"canny_ms": [], "sweeps4_ms": [], "sweeps8_ms": [], "blur_c1_ms": [], "blur_c3_ms": [],
+                    "blur_sobel_1080p_ms": [], "blur_sobel_512_ms": []} for spec in libs}
     for r in range(args.rounds):
         for spec in (list(libs) if r % 2 == 0 else list(libs)[::-1]):
             times[spec]["canny_ms"].append(device_ms(lambda: canny(spec)))
@@ -194,14 +217,22 @@ def main() -> int:
             times[spec]["sweeps8_ms"].append(device_ms(lambda: sweeps(spec, 8)))
             for c in frames:
                 times[spec][f"blur_c{c}_ms"].append(device_ms(lambda: blur(spec, c)))
+            for k in bs_maps:
+                times[spec][f"blur_sobel_{k}_ms"].append(device_ms(lambda: blur_sobel(spec, k)))
     rows = []
     for spec in libs:
+        # the 512 x 512 map's launch alone (the profiler's device interval): the events above time the host's
+        # launches there
+        kernel_512 = [ms for name, _, ms in launches_apart(lambda: blur_sobel(spec, "512"))
+                      if "blur_sobel_strip_kernel" in name]
         row = dict(variant=spec, ptxas=built[spec][1], **{k: min(v) for k, v in times[spec].items()},
-                   rounds=times[spec])
+                   blur_sobel_512_kernel_ms=kernel_512[0] if kernel_512 else None, rounds=times[spec])
         rows.append(row)
         print(f"{spec}: canny_stage1 {row['canny_ms']:.4f} ms, hysteresis x4 {row['sweeps4_ms']:.4f} ms, "
               f"x8 {row['sweeps8_ms']:.4f} ms, blur 8x1080x1920x1 {row['blur_c1_ms']:.4f} ms, 64x480x640x3 "
-              f"{row['blur_c3_ms']:.4f} ms (least of {args.rounds} rounds); strip kernels {built[spec][1]}")
+              f"{row['blur_c3_ms']:.4f} ms, blur + Sobel 8x1080x1920 {row['blur_sobel_1080p_ms']:.4f} ms, 512x512 "
+              f"{row['blur_sobel_512_ms']:.4f} ms (least of {args.rounds} rounds; the kernel alone "
+              f"{row['blur_sobel_512_kernel_ms']} ms); strip kernels {built[spec][1]}")
     summary = {"card": card, "variants": rows, "failures": faults}
     Path(args.json).parent.mkdir(parents=True, exist_ok=True)
     Path(args.json).write_text(json.dumps(summary, indent=1))
