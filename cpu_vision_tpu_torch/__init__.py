@@ -19,12 +19,14 @@ Subpackages
           on stock operators, Faster R-CNN (``models.detection``, its NMS
           on the ``nms_sorted`` kernel), and the carriers of the JAX
           package's parameters
-``parallel``  ``make_train_step``: one training step on one device (the
-          ViT's and the CNN's kernels differentiate by recomputing their twins)
+``parallel``  ``make_train_step``: one training step on one device (ViT,
+          ResNet, Swin, ConvNeXt and the CNN)
+``train``  metrics (``MetricLogger``, ``accuracy``), the model EMA and
+          checkpoints on ``torch.save``
 ``graft_entry``  ``entry()``: the ResNet-50 forward step
 """
 
 __version__ = "0.1.0"
 
-from . import _dtype, _layout, graft_entry, models, ops, parallel  # noqa: F401
+from . import _dtype, _layout, graft_entry, models, ops, parallel, train  # noqa: F401
 from ._dtype import to_dtype  # noqa: F401

@@ -77,6 +77,16 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
+// D (16 x 8) += A (16 x 8) B (8 x 8) in float64 on the FP64 tensor cores, one warp (mma.sync m16n8k8, sm_90):
+// with g = l / 4 and t = l % 4, lane l holds a[e] = A[g + 8 (e % 2)][t + 4 (e / 2)], b[e] = B[t + 4 e][g] and
+// d[e] = D[g + 8 (e / 2)][2 t + e % 2]
+__device__ __forceinline__ void dmma_m16n8k8(double (&d)[4], const double (&a)[4], const double (&b)[2]) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+               "{%0, %1, %2, %3};\n"
+               : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+               : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
 // 16 bytes from src (global) to dst (shared), or 16 zero bytes where !valid;
 // src must be a readable address either way
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {

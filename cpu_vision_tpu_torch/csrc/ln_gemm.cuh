@@ -524,7 +524,7 @@ template <int EPI, typename OutT>
 __global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_PER_SM)
 tc_gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w, const float* __restrict__ bias,
                const bf16* __restrict__ resid, const float* __restrict__ gamma, OutT* __restrict__ out, int m, int k,
-               int n, int row_tile0) {
+               int n, int ld, int row_tile0) {
   extern __shared__ __align__(16) float smem[];
   const uint32_t base = (smem_addr(smem) + 1023u) & ~1023u;
   const int tid = threadIdx.x, wg = tid >> 7;
@@ -552,7 +552,7 @@ tc_gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w, const flo
       const int kk = k0 + r, col = n0 + c * 8;
       const bool ok = kk < k && col < n;
       cp_async16(sb + (c >> 3) * (TC_BK * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4),
-                 w + (ok ? (size_t)kk * n + col : 0), ok);
+                 w + (ok ? (size_t)kk * ld + col : 0), ok);
     }
   };
 
@@ -601,7 +601,7 @@ tc_gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w, const flo
     for (int h = 0; h < 2; ++h) {
       const int row = r0 + 8 * h;
       if (row >= m) continue;
-      const size_t at = (size_t)row * n + col;
+      const size_t at = (size_t)row * ld + col;
       float v0 = acc[4 * j + 2 * h] + b0, v1 = acc[4 * j + 2 * h + 1] + b1;
       if (EPI == TC_GELU) {
         v0 = gelu_erf(v0);
@@ -620,18 +620,20 @@ tc_gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w, const flo
   }
 }
 
-// resid (TC_RESID) is (m, n) of bf16, gamma (TC_RESID) may be null
+// resid (TC_RESID) is (m, n) of bf16, gamma (TC_RESID) may be null.  w, out and resid are n columns of rows ld
+// apart (ld = n where 0): a product into some columns of a wider buffer, of the same columns of a wider weight.
 template <int EPI, typename OutT>
 cudaError_t launch_tc_gemm(const bf16* a, const bf16* w, const float* bias, const bf16* resid, const float* gamma,
-                           OutT* out, int m, int k, int n, cudaStream_t stream) {
+                           OutT* out, int m, int k, int n, cudaStream_t stream, int ld = 0) {
   const int rows = (m + TC_BM - 1) / TC_BM, cols = (n + TC_BN - 1) / TC_BN;
-  if (m < 1 || n < 8 || n % 8 || k < 16 || k % 16) return cudaErrorInvalidValue;
+  if (ld == 0) ld = n;
+  if (m < 1 || n < 8 || n % 8 || k < 16 || k % 16 || ld < n || ld % 8) return cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(tc_gemm_kernel<EPI, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TC_SMEM);
   if (err != cudaSuccess) return err;
   for (int r0 = 0; r0 < rows; r0 += MAX_GRID_YZ) {  // row tiles past the grid's y in further launches
     tc_gemm_kernel<EPI, OutT><<<dim3(cols, min(MAX_GRID_YZ, rows - r0)), TC_THREADS, TC_SMEM, stream>>>(
-        a, w, bias, resid, gamma, out, m, k, n, r0);
+        a, w, bias, resid, gamma, out, m, k, n, ld, r0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

@@ -35,6 +35,8 @@
 //       v1 scales q and v2 normalises q and k before the cast), of (0)'s rows
 //       (v1) or of x (v2): bf16 tc_gemm_kernel (wgmma), float32
 //       x3_gemm_kernel (split TF32 on wgmma, launch_x3_rows of tf32x3.cuh);
+//       bf16 v2 takes its q and k columns in a second launch, in float64
+//       (qkv_f64_kernel, below);
 //   (2) the window core, one block a (window, head), the windows on
 //       gridDim.x: it stages the head's q, k, v (S x 32 each) in shared
 //       memory by strides out of that buffer, computes all S x S scores as
@@ -47,7 +49,7 @@
 //       v2: output projection + bias into an (nw S, C) buffer of f32, then
 //   (4) v2: LayerNorm of each branch row + residual, a warp a row
 //       (ln_residual_kernel of ln_gemm.cuh).
-// Four launches in either type, v1 or v2.  The QKV buffer
+// Four launches in either type, v1 or v2, five in bf16 v2.  The QKV buffer
 // (12 C bytes a token), the joined heads, v2's branch rows and the LN rows
 // are the intermediates that now touch device memory, each written once and
 // read once; the TPU kernels keep them in VMEM.  The mask holds -100, not
@@ -381,6 +383,20 @@ __device__ __forceinline__ void store_half_row(char* tile, int r, int half, cons
   }
 }
 
+// The sum of the squares of x[0..15] as a pairwise tree, (x0² + x1²) + (x2² + x3²) and so on up, with no fused
+// multiply-add: the order of swin_attention._sum_of_squares over one half of a head, so that, with the halves
+// added last (one shuffle), the bf16 v2 core takes the twin's float32 sum bit for bit.
+__device__ __forceinline__ float sum_of_squares16(const float (&x)[16]) {
+  float t[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) t[i] = __fadd_rn(__fmul_rn(x[2 * i], x[2 * i]), __fmul_rn(x[2 * i + 1], x[2 * i + 1]));
+#pragma unroll
+  for (int w = 4; w >= 1; w /= 2)
+#pragma unroll
+    for (int i = 0; i < w; ++i) t[i] = __fadd_rn(t[2 * i], t[2 * i + 1]);
+  return t[0];
+}
+
 __global__ void __launch_bounds__(WT_THREADS)
 window_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ rel_bias, const float* __restrict__ mask,
                  const float* __restrict__ logit_scale, bf16* __restrict__ joined, int s_len, int c, int heads,
@@ -414,15 +430,10 @@ window_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ rel_bi
       for (int i = 0; i < 16; ++i) qv[i] = kv[i] = vv[i] = 0.0f;
     }
     float q_mul = scale, k_mul = 1.0f;
-    if (v2) {  // cosine attention: the row's sum of squares over the thread pair
-      float qs = 0.0f, ks = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        qs += qv[i] * qv[i];
-        ks += kv[i] * kv[i];
-      }
-      qs += __shfl_xor_sync(0xffffffffu, qs, 1);
-      ks += __shfl_xor_sync(0xffffffffu, ks, 1);
+    if (v2) {  // cosine attention: the row's sum of squares over the thread pair, in the twin's order
+      float qs = sum_of_squares16(qv), ks = sum_of_squares16(kv);
+      qs = __fadd_rn(qs, __shfl_xor_sync(0xffffffffu, qs, 1));
+      ks = __fadd_rn(ks, __shfl_xor_sync(0xffffffffu, ks, 1));
       q_mul = rsqrtf(fmaxf(qs, 1e-12f));
       k_mul = rsqrtf(fmaxf(ks, 1e-12f));
     }
@@ -533,9 +544,110 @@ cudaError_t window_core(const float* qkv, const float* rel_bias, const float* ma
   return cudaGetLastError();
 }
 
+// The q and k columns of the bf16 v2 block's QKV rows: qkv[i][j] = RN_f32(sum_k x[i][k] w[k][j]) + bias[j] for
+// j < 2 C, the sum of the exact bf16 products taken in float64 and rounded to float32 once, then the bias added in
+// float32.  That float32 sum does not depend on the order of the products (a float64 sum of at most a few hundred
+// products of 16-bit significands is exact unless their exponents span more than about 30 bits), so the kernel
+// gives its twin's rows bit for bit (swin_attention._qkv_rows: the same product by a float64 matrix product),
+// where a float32 sum in another order flips the bf16 rounding of q/|q| and k/|k| that follows, and the logit
+// scale (up to 100) carries one such flip past the block's rule (fault 1, tools/torch_window_fault1.py).  No TPU
+// kernel is its counterpart: the Pallas kernel sums in float32 on the MXU (ops/pallas/swin_attention.py:177-183).
+// Operations bind it: 2 m K N of FP64 work on the FP64 tensor cores (67 TFLOP/s on an H100 SXM; the FMA pipes
+// give 34).  A block of eight warps computes a 128 x 64 tile, a warp 32 x 32 as 2 x 4 products m16n8k8
+// (dmma_m16n8k8), over k tiles of 16 staged in shared memory as doubles, k-major with rows padded by 4 doubles so
+// that a fragment's 16 lanes a phase read 16 banks; the next tile's x and w wait in registers while the products
+// of this one run.  x is (m, K) bf16, w N columns of bf16 rows ld apart (K of them) and out N columns of rows ld
+// apart, K a multiple of 16, N and ld of 4.  The v columns are not amplified (a flip there moves an output by one
+// bf16 step of v): tc_gemm_kernel computes them.
+constexpr int Q64_BM = 128, Q64_BN = 64, Q64_BK = 16, Q64_THREADS = 256, Q64_PAD = 4;
+
+__global__ void __launch_bounds__(Q64_THREADS)
+qkv_f64_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, const float* __restrict__ bias,
+               float* __restrict__ out, int m, int k_dim, int n, int ld) {
+  __shared__ double a_s[Q64_BK][Q64_BM + Q64_PAD];  // x's tile, k-major
+  __shared__ double b_s[Q64_BK][Q64_BN + Q64_PAD];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;                  // a fragment's row (or column) and k
+  const int wm = 32 * (warp & 3), wn = 32 * (warp >> 2);  // the warp's 32 x 32 of the tile
+  const int row0 = blockIdx.x * Q64_BM, col0 = blockIdx.y * Q64_BN;
+  const int xr = tid / 2, xk = 8 * (tid % 2);   // x: 8 values (16 bytes) of one row a thread
+  const int wk = tid / 16, wc = 4 * (tid % 16);  // w: 4 values (8 bytes) of one row a thread
+  const bool x_in = row0 + xr < m, w_in = col0 + wc < n;
+  const bf16* xp = x + (size_t)(x_in ? row0 + xr : 0) * k_dim + xk;
+  const bf16* wp = w + (size_t)wk * ld + (w_in ? col0 + wc : 0);
+  uint4 xu = x_in ? *reinterpret_cast<const uint4*>(xp) : make_uint4(0u, 0u, 0u, 0u);
+  float2 wu = w_in ? *reinterpret_cast<const float2*>(wp) : make_float2(0.0f, 0.0f);
+  double acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0;
+  for (int k0 = 0; k0 < k_dim; k0 += Q64_BK) {
+    {
+      const bf16* v = reinterpret_cast<const bf16*>(&xu);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) a_s[xk + e][xr] = (double)__bfloat162float(v[e]);
+      const bf16* u = reinterpret_cast<const bf16*>(&wu);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) b_s[wk][wc + e] = (double)__bfloat162float(u[e]);
+    }
+    __syncthreads();
+    if (k0 + Q64_BK < k_dim) {  // the next tile, in flight while this one's products run
+      if (x_in) xu = *reinterpret_cast<const uint4*>(xp + k0 + Q64_BK);
+      if (w_in) wu = *reinterpret_cast<const float2*>(wp + (size_t)(k0 + Q64_BK) * ld);
+    }
+#pragma unroll
+    for (int k8 = 0; k8 < Q64_BK; k8 += 8) {
+      double a[2][4], b[4][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[i][e] = a_s[k8 + t + 4 * (e >> 1)][wm + 16 * i + g + 8 * (e & 1)];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) b[j][e] = b_s[k8 + t + 4 * e][wn + 8 * j + g];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) cvt::dmma_m16n8k8(acc[i][j], a[i], b[j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = col0 + wn + 8 * j + 2 * t;  // even, and N a multiple of 4: col + 1 < N where col < N
+    if (col >= n) continue;
+    const float2 bv = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + wm + 16 * i + g + 8 * h;
+        if (row < m)
+          *reinterpret_cast<float2*>(out + (size_t)row * ld + col) =
+              make_float2(__fadd_rn(__double2float_rn(acc[i][j][2 * h]), bv.x),
+                          __fadd_rn(__double2float_rn(acc[i][j][2 * h + 1]), bv.y));
+      }
+  }
+}
+
+cudaError_t launch_qkv_f64(const bf16* x, const bf16* w, const float* bias, float* out, int m, int k_dim, int n,
+                           int ld, cudaStream_t stream) {
+  if (m < 1 || k_dim % Q64_BK || n % 4 || ld < n || ld % 4 || (n + Q64_BN - 1) / Q64_BN > cvt::MAX_GRID_YZ)
+    return cudaErrorInvalidValue;
+  const dim3 grid((m + Q64_BM - 1) / Q64_BM, (n + Q64_BN - 1) / Q64_BN);
+  qkv_f64_kernel<<<grid, Q64_THREADS, 0, stream>>>(x, w, bias, out, m, k_dim, n, ld);
+  return cudaGetLastError();
+}
+
 // The products of window_attention_block in T: QKV (f32 out, of LN(x) for
-// v1, of x for v2) and the output projection (+ residual into out for v1,
-// f32 branch for v2).  ln_buf: scratch of m c values of T (v1 only).
+// v1, of x for v2: in bf16 v2 the q and k columns by the float64 product
+// above, v on the tensor cores) and the output projection (+ residual into
+// out for v1, f32 branch for v2).  ln_buf: scratch of m c values of T (v1
+// only).
 cudaError_t qkv_product(const float* x, const float* ln_g, const float* ln_b, const float* w_qkv, const float* b_qkv,
                         float* qkv, float* ln_buf, int m, int c, float eps, int v2, int ln_count, cudaStream_t stream) {
   if (!v2) {
@@ -547,11 +659,15 @@ cudaError_t qkv_product(const float* x, const float* ln_g, const float* ln_b, co
 
 cudaError_t qkv_product(const bf16* x, const float* ln_g, const float* ln_b, const bf16* w_qkv, const float* b_qkv,
                         float* qkv, bf16* ln_buf, int m, int c, float eps, int v2, int ln_count, cudaStream_t stream) {
-  if (!v2) {
-    cudaError_t err = launch_ln_rows<bf16>(x, ln_g, ln_b, ln_buf, m, c, eps, ln_count, stream);
+  if (v2) {
+    cudaError_t err = launch_tc_gemm<TC_BIAS, float>(x, w_qkv + 2 * c, b_qkv + 2 * c, nullptr, nullptr, qkv + 2 * c,
+                                                     m, c, c, stream, 3 * c);
     if (err != cudaSuccess) return err;
+    return launch_qkv_f64(x, w_qkv, b_qkv, qkv, m, c, 2 * c, 3 * c, stream);
   }
-  return launch_tc_gemm<TC_BIAS, float>(v2 ? x : ln_buf, w_qkv, b_qkv, nullptr, nullptr, qkv, m, c, 3 * c, stream);
+  cudaError_t err = launch_ln_rows<bf16>(x, ln_g, ln_b, ln_buf, m, c, eps, ln_count, stream);
+  if (err != cudaSuccess) return err;
+  return launch_tc_gemm<TC_BIAS, float>(ln_buf, w_qkv, b_qkv, nullptr, nullptr, qkv, m, c, 3 * c, stream);
 }
 
 cudaError_t out_product(const float* joined, const float* w_o, const float* b_o, const float* x, float* out,

@@ -3,9 +3,10 @@ a 7×7 depthwise convolution, LayerNorm, a 4× MLP with a per-channel layer
 scale and a residual; a patchify stem; LayerNorm + 2×2 downsampling between
 the stages.
 
-Counterpart of the JAX package's ``models/convnext.py``, serving
-(``train=False``) only.  Input is NHWC, parameters are float32 under
-torchvision's ``state_dict`` keys (``features.0.{0,1}``,
+Counterpart of the JAX package's ``models/convnext.py``: serving
+(``forward(x)``, under ``no_grad``) and training (``forward(x, train=True,
+generator=g)``, with stochastic depth drawn from ``g``).  Input is NHWC,
+parameters are float32 under torchvision's ``state_dict`` keys (``features.0.{0,1}``,
 ``features.{s}.{j}.block.{0,2,3,5}`` and ``.layer_scale`` (C, 1, 1),
 downsampling ``features.{s}.{0,1}``, ``classifier.{0,2}``), and ``dtype``
 (float32 or bfloat16) is the compute dtype of activations and weights.
@@ -14,8 +15,13 @@ Routes of each block, chosen with ``mlp=`` and ``depthwise=``:
 
 * ``mlp="block"``: ``kernels.cn_mlp_block``, everything after the depthwise
   convolution (LayerNorm, both products, gelu, layer scale, residual) in one
-  kernel; ``"plain"``: stock PyTorch operators, its oracle; ``None``: what
-  the JAX package runs when serving, the fused kernel.
+  kernel; ``"plain"``: stock PyTorch operators, its oracle, with the block's
+  stochastic depth on the branch; ``None``: the JAX package's rule
+  (``models/convnext.py:32``), the fused kernel when serving, and under
+  training wherever the block's stochastic depth is 0 (block ``i`` of
+  ``total`` drops its branch with probability
+  ``sd_prob · i / max(total − 1, 1)``), the plain tail elsewhere.  Under
+  training ``"block"`` raises on a block whose stochastic depth is above 0.
 * ``depthwise="kernel"``: ``kernels.depthwise_conv2d``; ``"stock"``:
   ``F.conv2d(groups=C)``; ``None``: the JAX package's rule, where its
   depthwise kernel is opt-in, so stock.
@@ -25,12 +31,13 @@ element once; they run as space-to-depth and one stock matrix product
 (``PatchifyDense``), as the JAX package leaves them to its compiler.  A
 kernel route launches its kernel on CUDA tensors, or raises where the kernel
 does not take the widths, and runs the kernel's plain twin on CPU tensors; no
-route gives way to another.
+route gives way to another.  The stochastic depth of the blocks that drop
+is drawn from ``generator`` in block order.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,15 +74,23 @@ class CNBlock(nn.Module):
         self.stochastic_depth = StochasticDepth(sd_prob, "row")
         self._packed = Packed()
 
-    def route(self) -> str:
-        return self.mlp_route or "block"
+    def route(self, train: bool = False) -> str:
+        """The tail's route, serving or under training (``train``)."""
+        drops = train and self.stochastic_depth.p > 0.0
+        if self.mlp_route is None:
+            return "plain" if drops else "block"
+        if drops and self.mlp_route == "block":
+            raise ValueError(f'mlp="block" has no branch to drop: under training at stochastic depth '
+                             f'{self.stochastic_depth.p} use mlp=None or "plain"')
+        return self.mlp_route
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         c = self.dim
         out = self.block[0](x)
         ln, fc1, fc2 = self.block[2], self.block[3], self.block[5]
         scale = self.layer_scale.reshape(c)
-        if self.route() == "block":
+        if self.route(train) == "block":
             w1, w2 = self._packed.transposed(self.dtype, fc1.weight, fc2.weight)
             fused = cn_mlp_block(out.reshape(-1, c), x.reshape(-1, c), ln.weight, ln.bias, w1, fc1.bias, w2,
                                  fc2.bias, scale, LN_EPS)
@@ -83,7 +98,7 @@ class CNBlock(nn.Module):
         out = layer_norm(out, ln, self.dtype)
         out = F.gelu(F.linear(out, fc1.weight.to(self.dtype), fc1.bias.to(self.dtype)))
         out = F.linear(out, fc2.weight.to(self.dtype), fc2.bias.to(self.dtype))
-        return x + out * scale.to(self.dtype)
+        return x + self.stochastic_depth(out * scale.to(self.dtype), train, generator)
 
 
 class ConvNeXt(nn.Module):
@@ -136,18 +151,22 @@ class ConvNeXt(nn.Module):
                 lecun_normal_(module.weight, module.in_features, generator)
                 nn.init.zeros_(module.bias)
 
-    def routes(self) -> Tuple[str, str]:
-        """(mlp route, depthwise route) the blocks take."""
-        block = self.blocks()[0]
-        dw = block.block[0]
-        return block.route(), "kernel" if dw.backend == "kernel" else "stock"
+    def routes(self, train: bool = False) -> List[Tuple[str, str]]:
+        """[(mlp route, depthwise route)] of every block, serving or under training (``train``)."""
+        return [(block.route(train), "kernel" if block.block[0].backend == "kernel" else "stock")
+                for block in self.blocks()]
 
-    @torch.no_grad()
-    def forward(self, x, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError("serving only: ConvNeXt training (stochastic depth, the training forward of the "
-                                      "model) is ROADMAP queue 1 item 2; cn_mlp_block and depthwise_conv2d are "
-                                      "differentiable")
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits of NHWC images ``x``.  Serving (``train=False``) runs under
+        ``no_grad``; ``train=True`` records the graph for a backward and draws
+        the stochastic depth of each block from ``generator`` (on ``x``'s
+        device; torch's default generator without one)."""
+        if not train:
+            with torch.no_grad():
+                return self._forward(x, False, None)
+        return self._forward(x, True, generator)
+
+    def _forward(self, x, train: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
         x = as_tensor(x)
         with full_float32():
             for i, stage in enumerate(self.features):
@@ -157,20 +176,23 @@ class ConvNeXt(nn.Module):
                     x = layer_norm(x, stage[0], self.dtype)
                     x = stage[1](x[:, : x.shape[1] // 2 * 2, : x.shape[2] // 2 * 2])
                 else:
-                    x = stage(x)
+                    for block in stage:
+                        x = block(x, train, generator)
             x = layer_norm(x.mean(dim=(1, 2)), self.classifier[0], self.dtype)
             head = self.classifier[2]
             return F.linear(x, head.weight.to(self.dtype), head.bias.to(self.dtype))
 
 
 def _make(name: str, dims: Sequence[int], depths: Sequence[int], sd: float):
-    def build(*, num_classes: int = 1000, dtype: torch.dtype = torch.float32, device=None, **kwargs):
-        model = ConvNeXt(dims, depths, sd, num_classes=num_classes, dtype=dtype, **kwargs)
+    def build(*, num_classes: int = 1000, dtype: torch.dtype = torch.float32, device=None, sd_prob: float = sd,
+              **kwargs):
+        model = ConvNeXt(dims, depths, sd_prob, num_classes=num_classes, dtype=dtype, **kwargs)
         return model.to("cuda" if device is None else device)
 
     build.__name__ = name
     build.__doc__ = (f"{name}: ``dtype`` float32 or bfloat16, ``generator`` seeds the parameters, ``device`` "
-                     "defaults to the first CUDA card; other keywords go to ``ConvNeXt``.")
+                     f"defaults to the first CUDA card, ``sd_prob`` (default {sd}) is the stochastic depth of the "
+                     "last block; other keywords go to ``ConvNeXt``.")
     return register_model(name)(build)
 
 

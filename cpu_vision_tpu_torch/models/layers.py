@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.depthwise import depthwise_conv2d
+from ..ops.regularizers import stochastic_depth
 
 __all__ = ["PatchifyDense", "DepthwiseConv", "StochasticDepth", "MaskedLayerNorm", "Packed", "dropout", "layer_norm",
            "lecun_normal_"]
@@ -118,9 +119,10 @@ class PatchifyDense(nn.Module):
 
 
 class StochasticDepth(nn.Module):
-    """Drops the residual branch of whole rows with probability ``p`` while
-    training (reference ``torchvision/ops/stochastic_depth.py``); the identity
-    when serving, which is all the port does so far."""
+    """Drops the residual branch of whole rows (``mode`` "row") or of the
+    whole batch with probability ``p`` while training, the rest scaled by
+    1 / (1 - p) (JAX ``layers.StochasticDepth`` over ``ops.stochastic_depth``);
+    the identity when serving or at ``p`` 0, where it draws nothing."""
 
     def __init__(self, p: float, mode: str = "row"):
         super().__init__()
@@ -128,11 +130,9 @@ class StochasticDepth(nn.Module):
             raise ValueError(f"p lies in [0, 1] and mode is 'row' or 'batch', got {p} and {mode!r}")
         self.p, self.mode = p, mode
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train and self.p > 0.0:
-            raise NotImplementedError("serving only: stochastic depth lands with Swin and ConvNeXt training "
-                                      "(ROADMAP queue 1 item 3)")
-        return x
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return stochastic_depth(x, self.p, self.mode, train, generator)
 
 
 class MaskedLayerNorm(nn.Module):

@@ -2,9 +2,10 @@
 ``torchvision/models/swin_transformer.py``): shifted-window attention with a
 relative position bias, patch merging between the stages.
 
-Counterpart of the JAX package's ``models/swin.py``, serving (``train=False``)
-only.  Input is NHWC, parameters are float32 under torchvision's
-``state_dict`` keys (``features.0.{0,2}``, blocks
+Counterpart of the JAX package's ``models/swin.py``: serving
+(``forward(x)``, under ``no_grad``) and training (``forward(x, train=True,
+generator=g)``, with stochastic depth drawn from ``g``).  Input is NHWC,
+parameters are float32 under torchvision's ``state_dict`` keys (``features.0.{0,2}``, blocks
 ``features.{2i+1}.{j}.{norm1,attn.qkv,attn.proj,norm2,mlp.0,mlp.3}`` with
 ``attn.relative_position_bias_table`` (v1) or ``attn.logit_scale`` and
 ``attn.cpb_mlp.{0,2}`` (v2), merging ``features.{2i}.{reduction,norm}``,
@@ -30,17 +31,25 @@ chosen with ``attention=`` and ``mlp=`` (the counterparts of the JAX module's
 * ``"plain"``: stock PyTorch operators only, the oracle of the other routes;
 * ``None``: what the JAX package would run for the same configuration and
   batch, by a copy of its rules (``attn_fusable``, ``mlp_fusable``; a map
-  that needs padding takes the plain attention route), where the kernel takes
+  that needs padding takes the plain attention route; under training a block
+  is fused only where its stochastic depth is 0), where the kernel takes
   the widths: attention needs a head dim of 32 and at most 64 tokens a window
   (``swin_attention.kernel_takes``), the MLP a C in ``MLP_DIMS``
   (``transformer_block.mlp_kernel_takes``); else the plain route, by shape.
 
 A kernel route launches its kernel on CUDA tensors, or raises where the
-kernel does not take the widths, and runs the kernel's plain twin on CPU
-tensors; no route gives way to another.  What a block derives from its
-parameters (the gathered (heads, S, S) bias, v2's 16·sigmoid of the position
-MLP, (in, out) weight copies in the compute dtype, v2's zeroed key bias) is
-built once and rebuilt when a parameter changes.
+kernel does not take the widths (or, under training, where the block's
+stochastic depth is above 0: the kernels have no branch to drop), and runs
+the kernel's plain twin on CPU tensors; no route gives way to another.  What
+a block derives from its parameters (the gathered (heads, S, S) bias, v2's
+16·sigmoid of the position MLP, (in, out) weight copies in the compute
+dtype, v2's zeroed key bias) is built once and rebuilt when a parameter
+changes when serving, and inside the graph at every call under training
+(``layers.Packed``).  Block ``i`` of ``total`` drops its two branches with
+probability ``sd_prob · i / max(total − 1, 1)``; the draws come from
+``generator`` in block order, the attention branch's before the MLP's, and
+only in blocks whose probability is above 0, so two routes of one seeded
+model drop the same rows.
 """
 
 from __future__ import annotations
@@ -174,28 +183,30 @@ class WindowAttention(nn.Module):
         self._packed = Packed()
 
     def _build(self):
-        n = self.window_size ** 2
+        n, c = self.window_size ** 2, self.dim
         dt = self.dtype
-        b_qkv = self.qkv.bias.detach().clone()
-        if self.v2:
-            b_qkv[self.dim : 2 * self.dim] = 0.0  # the reference zeroes the key bias at use
+        b_qkv = self.qkv.bias
+        if self.v2:  # the reference zeroes the key bias at use
+            b_qkv = torch.cat([b_qkv[:c], torch.zeros_like(b_qkv[c:2 * c]), b_qkv[2 * c:]])
             fc1, fc2 = self.cpb_mlp[0], self.cpb_mlp[2]
             hidden = torch.relu(F.linear(self.coords.to(dt), fc1.weight.to(dt), fc1.bias.to(dt)))
             table = F.linear(hidden, fc2.weight.to(dt))
             bias = 16.0 * torch.sigmoid(table[self.index].reshape(n, n, self.num_heads).permute(2, 0, 1))
-            logit_scale = self.logit_scale.detach().reshape(self.num_heads).float()
+            logit_scale = self.logit_scale.reshape(self.num_heads).float()
         else:
             bias = self.relative_position_bias_table[self.index].reshape(n, n, self.num_heads).permute(2, 0, 1)
             logit_scale = None
-        return (self.qkv.weight.detach().to(dt).t().contiguous(), b_qkv, self.proj.weight.detach().to(dt).t().contiguous(),
-                bias.detach().float().contiguous(), logit_scale)
+        return (self.qkv.weight.to(dt).t().contiguous(), b_qkv, self.proj.weight.to(dt).t().contiguous(),
+                bias.float().contiguous(), logit_scale)
 
     def constants(self):
         """(w_qkv (C, 3C), b_qkv with v2's key bias zeroed, w_o (C, C),
-        rel_bias (heads, S, S) float32, logit_scale (heads,) or None), detached
-        and cached in any grad mode: Swin does not train yet."""
-        with torch.no_grad():
-            return self._packed.get(self._build, self.dtype, *self.parameters())
+        rel_bias (heads, S, S) float32, logit_scale (heads,) or None): cached
+        when serving, built in the graph under training (``Packed.get``), so
+        that the bias table, v2's position MLP and logit scale get their
+        gradients (none for the key bias, nor for a logit scale above ln 100,
+        as in JAX)."""
+        return self._packed.get(self._build, self.dtype, *self.parameters())
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, n, c = x.shape  # (windows, ws*ws, C)
@@ -254,15 +265,18 @@ class SwinBlock(nn.Module):
         ph, pw = (h + ws - 1) // ws * ws, (w + ws - 1) // ws * ws
         return ph, pw, self.shift if ws < ph else 0, self.shift if ws < pw else 0
 
-    def routes(self, n: int, h: int, w: int) -> Tuple[str, str]:
-        """(attention route, mlp route) for (``n``, ``h``, ``w``, dim) input."""
+    def routes(self, n: int, h: int, w: int, train: bool = False) -> Tuple[str, str]:
+        """(attention route, mlp route) for (``n``, ``h``, ``w``, dim) input,
+        serving or under training (``train``), where JAX fuses a sub-block only
+        if the block's stochastic depth is 0 (``models/swin.py:265``, ``:322``)."""
         ws, c = self.window_size, self.dim
         ph, pw, shift_h, shift_w = self.geometry(h, w)
         itemsize = torch.empty((), dtype=self.dtype).element_size()
         attention, mlp = self.attention_route, self.mlp_route
         padded = (ph, pw) != (h, w)
+        drops = train and self.stochastic_depth.p > 0.0
         if attention is None:
-            fits = (not padded and window_kernel_takes(c, self.num_heads, ws * ws)
+            fits = (not drops and not padded and window_kernel_takes(c, self.num_heads, ws * ws)
                     and attn_fusable(c, self.num_heads, ws, n, (ph // ws) * (pw // ws), shift_h + shift_w > 0,
                                      itemsize))
             attention = "block" if fits else "plain"
@@ -270,7 +284,11 @@ class SwinBlock(nn.Module):
             raise ValueError(f'attention="block" takes maps of whole windows; a {h}x{w} map in windows of {ws} '
                              f'needs padding (use attention=None or "plain")')
         if mlp is None:
-            mlp = "block" if mlp_fusable(c, self.mlp_dim, itemsize) and mlp_kernel_takes(c, self.mlp_dim) else "plain"
+            fits = not drops and mlp_fusable(c, self.mlp_dim, itemsize) and mlp_kernel_takes(c, self.mlp_dim)
+            mlp = "block" if fits else "plain"
+        if drops and "block" in (attention, mlp):
+            raise ValueError(f"a block route has no branch to drop: under training at stochastic depth "
+                             f"{self.stochastic_depth.p} use attention and mlp None or \"plain\"")
         return attention, mlp
 
     def _mask(self, ph: int, pw: int, shift_h: int, shift_w: int, device) -> torch.Tensor:
@@ -279,12 +297,13 @@ class SwinBlock(nn.Module):
             self._masks[key] = _shift_mask(ph, pw, self.window_size, shift_h, shift_w).to(device)
         return self._masks[key]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         n, h, w, c = x.shape
         ws = self.window_size
         ph, pw, shift_h, shift_w = self.geometry(h, w)
         shifted = shift_h + shift_w > 0
-        attention, mlp = self.routes(n, h, w)
+        attention, mlp = self.routes(n, h, w, train)
         ln_count = self.real_dim if self.real_dim != c else 0
         mask = self._mask(ph, pw, shift_h, shift_w, x.device) if shifted else None
 
@@ -310,7 +329,7 @@ class SwinBlock(nn.Module):
             y = y[:, :h, :w, :]
             if self.v2:
                 y = layer_norm(y, self.norm1, self.dtype)
-            x = x + y
+            x = x + self.stochastic_depth(y, train, generator)
 
         fc1, fc2 = self.mlp[0], self.mlp[3]
         if mlp == "block":
@@ -323,7 +342,7 @@ class SwinBlock(nn.Module):
         y = F.linear(y, fc2.weight.to(self.dtype), fc2.bias.to(self.dtype))
         if self.v2:
             y = layer_norm(y, self.norm2, self.dtype)
-        return x + y
+        return x + self.stochastic_depth(y, train, generator)
 
 
 class PatchMerging(nn.Module):
@@ -423,8 +442,9 @@ class SwinTransformer(nn.Module):
                     table.copy_(0.02 * torch.randn(table.shape, generator=generator,
                                                    device=generator.device if generator is not None else "cpu"))
 
-    def routes(self, n: int, h: int, w: int):
-        """[(attention route, mlp route)] of every block for ``n`` images of (``h``, ``w``)."""
+    def routes(self, n: int, h: int, w: int, train: bool = False):
+        """[(attention route, mlp route)] of every block for ``n`` images of (``h``, ``w``), serving or under
+        training (``train``)."""
         h, w = h // 4, w // 4
         out = []
         for i, stage in enumerate(self.features):
@@ -433,33 +453,44 @@ class SwinTransformer(nn.Module):
             if isinstance(stage, PatchMerging):
                 h, w = (h + 1) // 2, (w + 1) // 2
             else:
-                out += [block.routes(n, h, w) for block in stage]
+                out += [block.routes(n, h, w, train) for block in stage]
         return out
 
-    @torch.no_grad()
-    def forward(self, x, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError("serving only: Swin training (stochastic depth, the training forward of the "
-                                      "model) is ROADMAP queue 1 item 2; window_attention_block and mlp_block are "
-                                      "differentiable")
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits of NHWC images ``x``.  Serving (``train=False``) runs under
+        ``no_grad``; ``train=True`` records the graph for a backward and draws
+        the stochastic depth of each block from ``generator`` (on ``x``'s
+        device; torch's default generator without one)."""
+        if not train:
+            with torch.no_grad():
+                return self._forward(x, False, None)
+        return self._forward(x, True, generator)
+
+    def _forward(self, x, train: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
         x = as_tensor(x)
         with full_float32():
             stem = self.features[0]
             x = layer_norm(stem[0](x), stem[2], self.dtype)
             for stage in self.features[1:]:
-                x = stage(x)
+                if isinstance(stage, PatchMerging):
+                    x = stage(x)
+                else:
+                    for block in stage:
+                        x = block(x, train, generator)
             x = layer_norm(x, self.norm, self.dtype).mean(dim=(1, 2))
             return F.linear(x, self.head.weight.to(self.dtype), self.head.bias.to(self.dtype))
 
 
 def _make(name: str, dim: int, depths, heads, sd: float, v2: bool = False, window: int = 7):
-    def build(*, num_classes: int = 1000, dtype: torch.dtype = torch.float32, device=None, **kwargs):
-        model = SwinTransformer(dim, depths, heads, window, sd, num_classes, v2, dtype, **kwargs)
+    def build(*, num_classes: int = 1000, dtype: torch.dtype = torch.float32, device=None, sd_prob: float = sd,
+              **kwargs):
+        model = SwinTransformer(dim, depths, heads, window, sd_prob, num_classes, v2, dtype, **kwargs)
         return model.to("cuda" if device is None else device)
 
     build.__name__ = name
     build.__doc__ = (f"{name}: ``dtype`` float32 or bfloat16, ``generator`` seeds the parameters, ``device`` "
-                     "defaults to the first CUDA card; other keywords go to ``SwinTransformer``.")
+                     f"defaults to the first CUDA card, ``sd_prob`` (default {sd}) is the stochastic depth of the "
+                     "last block; other keywords go to ``SwinTransformer``.")
     return register_model(name)(build)
 
 

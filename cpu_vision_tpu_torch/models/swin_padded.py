@@ -102,12 +102,14 @@ def pad_swin_state_dict(state_dict: Mapping[str, torch.Tensor], embed_dim: int =
 
 @register_model("swin_t_padded")
 def swin_t_padded(*, num_classes: int = 1000, dtype: torch.dtype = torch.float32, device=None,
-                  generator: Optional[torch.Generator] = None, **kwargs) -> SwinTransformer:
+                  generator: Optional[torch.Generator] = None, sd_prob: float = _SWIN_T["sd_prob"],
+                  **kwargs) -> SwinTransformer:
     """Swin-T with channels padded to multiples of 128: ``dtype`` float32 or
     bfloat16, ``generator`` seeds a native Swin-T whose parameters are padded,
-    ``device`` defaults to the first CUDA card; other keywords go to
-    ``SwinTransformer``."""
-    native = SwinTransformer(**_SWIN_T, num_classes=num_classes, generator=generator)
-    model = SwinTransformer(**_SWIN_T, num_classes=num_classes, dtype=dtype, pad_channels=True, **kwargs)
+    ``device`` defaults to the first CUDA card, ``sd_prob`` is the stochastic
+    depth of the last block; other keywords go to ``SwinTransformer``."""
+    cfg = {**_SWIN_T, "sd_prob": sd_prob}
+    native = SwinTransformer(**cfg, num_classes=num_classes, generator=generator)
+    model = SwinTransformer(**cfg, num_classes=num_classes, dtype=dtype, pad_channels=True, **kwargs)
     model.load_state_dict(pad_swin_state_dict(native.state_dict()))
     return model.to("cuda" if device is None else device)

@@ -52,6 +52,12 @@ from .filters import (  # noqa: F401
     spatial_gradient,
     unsharp_mask,
 )
+from .losses import (  # noqa: F401
+    complete_box_iou_loss,
+    distance_box_iou_loss,
+    generalized_box_iou_loss,
+    sigmoid_focal_loss,
+)
 from .pointwise import PointwiseConv, conv1x1  # noqa: F401
 from .poolers import LevelMapper, MultiScaleRoIAlign, multiscale_roi_align  # noqa: F401
 from .quantized import dequantize, qnms, qroi_align, quantize  # noqa: F401
@@ -62,6 +68,7 @@ from .pyramid import (  # noqa: F401
     pyr_up,
     reconstruct_from_laplacian,
 )
+from .regularizers import drop_block2d, drop_block3d, stochastic_depth  # noqa: F401
 from .resize import rescale, resize, resize_weight_matrix  # noqa: F401
 from .roi import roi_align, roi_align_pyramid  # noqa: F401
 from .warp import (  # noqa: F401

@@ -23,9 +23,10 @@ taken per head: the JAX package's head-packed kernel and its per-head one are
 one function here.
 
 Given CUDA tensors the wrapper launches its kernels, adds one to ``launches``
-and the number of kernel launches (4 in either dtype; v1: LN rows, QKV
-product, the window core, the output projection + residual; v2: QKV product,
-core, output projection, LayerNorm + residual) to ``kernel_launches``, and raises if a launch fails or the kernels do not take
+and the number of kernel launches (4 in either dtype, 5 in bf16 v2; v1: LN
+rows, QKV product, the window core, the output projection + residual; v2: QKV
+product (bf16: v, then q and k in float64), core, output projection, LayerNorm
++ residual) to ``kernel_launches``, and raises if a launch fails or the kernels do not take
 the arguments (head dim ``HEAD_DIM``, S ≤ ``MAX_TOKENS``, C a multiple of 16,
 ``x`` in the weights' dtype); given CPU tensors it runs the twin.  Nothing
 falls back from one to the other.  It is differentiable as the JAX
@@ -37,7 +38,10 @@ pass through device memory once each, which the Pallas kernels keep in VMEM.
 Both projections and the window core run on the tensor cores: in bfloat16
 the product of ``transformer_block.bf16_product`` and ``window_tc_kernel``, in
 float32 split TF32 (``csrc/tf32x3.cuh``) and ``window_x3_kernel``; the cores'
-occupancy on the card is ``kernel_info``.
+occupancy on the card is ``kernel_info``.  The q and k columns of bfloat16
+v2's QKV product are summed in float64 on the FP64 tensor cores
+(``qkv_f64_kernel``), and the v2 norms in the twin's order, so that q/|q| and
+k/|k| rounded to bf16 are the twin's bits.
 """
 
 from __future__ import annotations
@@ -99,22 +103,48 @@ def _check(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask, logit_scale, h
         raise ValueError(f"ln_count must lie in 0..C, got {ln_count}")
 
 
+def _qkv_rows(h: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor, exact: bool) -> torch.Tensor:
+    """The float32 QKV rows ``h @ w_qkv + b_qkv`` of values in the compute dtype, summed in float32; with
+    ``exact`` the q and k columns (the first two thirds) summed in float64 and rounded to float32 once before the
+    float32 bias, a sum that does not depend on the order of its products (the bf16 v2 kernel's,
+    ``csrc/swin_attention.cu:qkv_f64_kernel``)."""
+    qkv = _dot_f32(h, w_qkv) + b_qkv.float()
+    if exact:
+        n = 2 * w_qkv.shape[1] // 3
+        qkv[..., :n] = (h.double() @ w_qkv[:, :n].double()).float() + b_qkv[:n].float()
+    return qkv
+
+
+def _sum_of_squares(t: torch.Tensor) -> torch.Tensor:
+    """Σ t² over the last dim (a power of two) as a pairwise tree of float32 additions of neighbours, the squares
+    unfused: the order of the bf16 v2 kernel's norms (``csrc/swin_attention.cu:sum_of_squares16``), keepdim."""
+    t = t * t
+    while t.shape[-1] > 1:
+        t = t[..., 0::2] + t[..., 1::2]
+    return t
+
+
 def window_attention_block_plain(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask, logit_scale, heads: int,
                                  scale: float, eps: float, v2: bool, nw_img: int, ln_count: int = 0) -> torch.Tensor:
-    """Twin of ``cvt_window_attention_block``: the same math in plain PyTorch operators."""
+    """Twin of ``cvt_window_attention_block``: the same math in plain PyTorch operators.  In bfloat16 v2 the q and k
+    columns of the QKV rows are summed in float64 and rounded to float32 once, and the norms of q and k summed as a pairwise tree,
+    which the kernel gives bit for bit: a float32 sum in another order flips the bf16 rounding of q/|q| and
+    k/|k| that follows, and the logit scale carries one flip past the kernel's rule (``ROADMAP.md``, fault 1)."""
     _check(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask, logit_scale, heads, v2, nw_img, ln_count)
     nw, s, c = x.shape
     hd = c // heads
     dtype = w_qkv.dtype
+    exact = v2 and dtype == torch.bfloat16
     x32, g32, b32 = x.float(), ln_g.float(), ln_b.float()
     with full_float32():
         h = x32.to(dtype) if v2 else _ln_f32(x32, g32, b32, eps, ln_count).to(dtype)
-        qkv = _dot_f32(h, w_qkv) + b_qkv.float()
+        qkv = _qkv_rows(h, w_qkv, b_qkv, exact)
         q, k, v = (a.reshape(nw, s, heads, hd) for a in qkv.split(c, dim=-1))
         v = v.to(dtype).float()
         if v2:
-            q = q * torch.rsqrt((q * q).sum(dim=-1, keepdim=True).clamp_min(1e-12))
-            k = k * torch.rsqrt((k * k).sum(dim=-1, keepdim=True).clamp_min(1e-12))
+            sum_sq = _sum_of_squares if exact else (lambda t: (t * t).sum(dim=-1, keepdim=True))
+            q = q * torch.rsqrt(sum_sq(q).clamp_min(1e-12))
+            k = k * torch.rsqrt(sum_sq(k).clamp_min(1e-12))
             scores = torch.einsum("bnhd,bmhd->bhnm", q.to(dtype).float(), k.to(dtype).float())
             scores = scores * torch.exp(logit_scale.float().reshape(1, heads, 1, 1).clamp_max(math.log(100.0)))
         else:
@@ -212,7 +242,7 @@ def _kernel(x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask, logit_scale, 
                   _ptr(logit_scale), qkv.data_ptr(), joined.data_ptr(), _ptr(branch), _ptr(ln_rows), out.data_ptr(),
                   nw, s, c, heads, nw_img, float(scale), float(eps), int(bool(v2)), int(ln_count), int(bf16))
     _build.count_launch(window_attention_block, x)
-    window_attention_block.kernel_launches += 4
+    window_attention_block.kernel_launches += 5 if bf16 and v2 else 4
     return out
 
 

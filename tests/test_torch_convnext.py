@@ -107,7 +107,7 @@ def test_routes_agree_with_jax(rng, images, monkeypatch, mlp, depthwise):
     sd = _randomised_state(rng, model)
     ref = np.asarray(_jax().apply(torch_weights.convnext_from_torch(sd), jnp.asarray(images)))
     np.testing.assert_allclose(model(torch.from_numpy(images)).numpy(), ref, atol=1e-4)
-    assert model.routes() == (mlp or "block", depthwise or "stock")
+    assert model.routes() == [(mlp or "block", depthwise or "stock")] * 3
 
 
 @pytest.mark.parametrize("mlp,depthwise", [(None, None), ("block", "kernel"), ("plain", "stock")])
@@ -154,7 +154,7 @@ def test_registered_models_have_the_references_parameter_counts(name, params, bl
     model = models.get_model(name, device="cpu")  # the counts torchvision publishes for the same names
     assert sum(p.numel() for p in model.parameters()) == params
     assert len(model.blocks()) == blocks and model.blocks()[-1].dim == width
-    assert model.routes() == ("block", "stock") and not model.training
+    assert model.routes() == [("block", "stock")] * blocks and not model.training
 
 
 def test_registry_and_bad_arguments():
@@ -163,7 +163,7 @@ def test_registry_and_bad_arguments():
     model = models.get_model("convnext_tiny", device="cpu", num_classes=5, depthwise="kernel",
                              generator=torch.Generator().manual_seed(0))
     assert isinstance(model, models.ConvNeXt) and next(model.parameters()).device.type == "cpu" and not model.training
-    assert len(model.blocks()) == 18 and model.routes() == ("block", "kernel")
+    assert len(model.blocks()) == 18 and model.routes() == [("block", "kernel")] * 18
     assert model.classifier[2].weight.shape == (5, 768) and model.blocks()[17].dim == 768
     assert all(models.get_model_builder(n) is getattr(models, n) for n in models.list_models("convnext*"))
     with pytest.raises(ValueError):
@@ -174,5 +174,8 @@ def test_registry_and_bad_arguments():
         _port(torch.float16)
     with pytest.raises(ValueError):
         _port()(torch.zeros(1, 30, 30, 3))  # sides must be multiples of the 4x4 patch
-    with pytest.raises(NotImplementedError):
-        _port()(torch.zeros(1, 32, 32, 3), train=True)
+    # training: the blocks that drop (stochastic depth above 0) take the plain tail, and "block" raises on them
+    trained = _port()(torch.zeros(1, 32, 32, 3), train=True, generator=torch.Generator().manual_seed(0))
+    assert trained.shape == (1, CLASSES) and trained.requires_grad
+    with pytest.raises(ValueError, match="no branch to drop"):
+        _port(mlp="block")(torch.zeros(1, 32, 32, 3), train=True)

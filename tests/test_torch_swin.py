@@ -239,14 +239,20 @@ def test_constants_are_built_once_and_follow_the_parameters(rng, images):
     x = torch.from_numpy(images)
     block = model.blocks()[1]
     first = model(x)
-    w_qkv, b_qkv, w_o, bias, logit_scale = block.attn.constants()
+    with torch.no_grad():  # serving: the constants are cached (under grad mode they are built in the graph)
+        w_qkv, b_qkv, w_o, bias, logit_scale = block.attn.constants()
     assert w_qkv.shape == (16, 48) and w_o.shape == (16, 16) and bias.shape == (2, 16, 16) and logit_scale.shape == (2,)
     assert torch.equal(w_qkv, block.attn.qkv.weight.t()) and bool((b_qkv[16:32] == 0).all())  # v2 zeroes the key bias
     assert float(bias.min()) >= 0 and float(bias.max()) <= 16  # 16 · sigmoid
     model(x)
-    assert block.attn.constants()[0] is w_qkv  # not rebuilt at every forward
+    with torch.no_grad():
+        assert block.attn.constants()[0] is w_qkv  # not rebuilt at every forward
     sd = _randomised_state(rng, model)  # in-place writes, as load_state_dict makes them
-    assert block.attn.constants()[0] is not w_qkv
+    with torch.no_grad():
+        assert block.attn.constants()[0] is not w_qkv
+    trained = block.attn.constants()  # under grad mode, in the graph: the key bias gets no gradient
+    trained[1].sum().backward()
+    assert bool((block.attn.qkv.bias.grad[16:32] == 0).all()) and bool((block.attn.qkv.bias.grad[:16] == 1).all())
     assert not torch.equal(model(x), first)
     other = _port(True)
     other.load_state_dict(sd)
@@ -311,8 +317,11 @@ def test_registry_and_bad_arguments():
         _port(dtype=torch.float16)
     with pytest.raises(ValueError):
         _port()(torch.zeros(1, 30, 30, 3))  # sides must be multiples of the 4x4 patch
-    with pytest.raises(NotImplementedError):
-        _port()(torch.zeros(1, 32, 32, 3), train=True)
-    with pytest.raises(NotImplementedError):
-        models.StochasticDepth(0.1)(torch.zeros(1), train=True)
+    # training: the blocks that drop (stochastic depth above 0) take the plain routes, and "block" raises on them
+    trained = _port()(torch.zeros(1, 32, 32, 3), train=True, generator=torch.Generator().manual_seed(0))
+    assert trained.shape == (1, CLASSES) and trained.requires_grad
+    with pytest.raises(ValueError, match="no branch to drop"):
+        _port(attention="block")(torch.zeros(1, 32, 32, 3), train=True)
+    dropped = models.StochasticDepth(1.0)(torch.ones(3, 2), train=True)
+    assert torch.equal(dropped, torch.zeros(3, 2))
     assert models.StochasticDepth(0.1)(torch.ones(2)).sum() == 2

@@ -134,3 +134,35 @@ def test_scalar_window_core_is_gone():
     source = (_REPO / "cpu_vision_tpu_torch" / "csrc" / "swin_attention.cu").read_text()
     assert re.search(r"\bwindow_core_kernel\b", source) is None
     assert "window_x3_kernel<<<" in source
+
+
+@pytest.mark.parametrize("nw,s,c,ln_count", [(6, 49, 96, 0), (3, 49, 128, 96), (2, 64, 64, 0)],
+                         ids=["c96_ragged_tiles", "c128_ln_count", "s64"])
+def test_bf16_v2_qk_rows_are_the_twins_bits(emulated, nw, s, c, ln_count):
+    """The q and k columns of the bf16 v2 block's QKV rows (``qkv_f64_kernel``: float64 sums rounded to float32
+    once, then the bias) equal the twin's (``swin_attention._qkv_rows``) bit for bit, with rows and columns off the
+    kernel's 128 x 64 tiles; its v columns (``tc_gemm_kernel``, float32 sums in another order) stand within
+    1e-5·(1 + |twin|), and the rest of the block within the bf16 rule (2e-2·(1 + |twin|)) of the twin."""
+    args = _args(s, True, True, ln_count, nw=nw, c=c)
+    for i in (0, 3, 5):
+        args[i] = args[i].to(torch.bfloat16)
+    args[4][c:2 * c] = 0  # the key bias, zeroed as the model zeroes it
+    x, ln_g, ln_b, w_qkv, b_qkv, w_o, b_o, rel_bias, mask, logit_scale = args[:10]
+    tokens = nw * s
+    qkv = torch.full((tokens, 3 * c), float("nan"))
+    joined, out = torch.empty_like(x), torch.empty_like(x)
+    branch = torch.empty((tokens, c))
+    emulate, build_dir = emulated
+    with emulate.kernels_on_cpu(build_dir, STEMS):
+        err = swin_attention._lib().cvt_window_attention_block(
+            x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), w_o.data_ptr(),
+            b_o.data_ptr(), rel_bias.data_ptr(), mask.data_ptr(), logit_scale.data_ptr(), qkv.data_ptr(),
+            joined.data_ptr(), branch.data_ptr(), None, out.data_ptr(), nw, s, c, c // 32, nw // 2, 32 ** -0.5, 1e-5,
+            1, ln_count, 1, None)
+    assert err == 0
+    rows = swin_attention._qkv_rows(x.reshape(tokens, c), w_qkv, b_qkv, True)
+    assert torch.equal(qkv[:, :2 * c], rows[:, :2 * c])
+    assert bool(((qkv[:, 2 * c:] - rows[:, 2 * c:]).abs() <= 1e-5 * (1 + rows[:, 2 * c:].abs())).all())
+    twin = kernels.window_attention_block_plain(*args)
+    diff = (out.float() - twin.float()).abs()
+    assert bool((diff <= 2e-2 * (1 + twin.float().abs())).all()), float(diff.max())

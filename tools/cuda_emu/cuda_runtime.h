@@ -187,6 +187,7 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __double2float_rn(double a) { return (float)a; }  // to nearest, as the host rounds
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 

@@ -28,7 +28,8 @@ Covered: ``__global__`` templates, ``threadIdx``/``blockIdx``, ``__syncthreads``
 ``__ffsll``, ``__funnelshift_l`` and ``__funnelshift_r``, dynamic shared memory
 declared as ``extern __shared__ [__align__(16)] T name[];`` of any type T,
 static ``__shared__`` arrays,
-``float4``, ``int4``, ``uint4`` (``make_uint4``), ``__int2float_rn``, ``__float_as_int``, ``__fmul_rn`` and its kin, ``__nv_bfloat16`` with its conversions (a pair too),
+``float4``, ``int4``, ``uint4`` (``make_uint4``), ``__int2float_rn``, ``__float_as_int``, ``__fmul_rn`` and its kin,
+``__double2float_rn``, ``__nv_bfloat16`` with its conversions (a pair too),
 ``cudaFuncSetAttribute``, ``cudaFuncGetAttributes`` and ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (stubs: no
 registers, one block an SM),
 ``blockDim``, ``gridDim``, the ``<<<...>>>`` launch, ``make_float4``, and the functions of ``csrc/hopper.cuh`` (``cp.async``

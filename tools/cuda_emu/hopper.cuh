@@ -43,6 +43,29 @@ inline uint32_t smem_addr(const void* p) {
   return (uint32_t)((const char*)p - (const char*)emu_shared);
 }
 
+// mma.sync m16n8k8 f64: the warp's A and B fragments by shuffles (a double as two words), then each lane's four
+// sums of eight products in float64
+inline double emu_shfl_f64(double v, int src) {
+  uint64_t u;
+  memcpy(&u, &v, 8);
+  const uint32_t lo = __shfl_sync(0xffffffffu, (uint32_t)u, src);
+  const uint32_t hi = __shfl_sync(0xffffffffu, (uint32_t)(u >> 32), src);
+  u = ((uint64_t)hi << 32) | lo;
+  memcpy(&v, &u, 8);
+  return v;
+}
+inline void dmma_m16n8k8(double (&d)[4], const double (&a)[4], const double (&b)[2]) {
+  const int l = threadIdx.x & 31, g = l >> 2, t = l & 3;
+  double av[2][8], bv[2][8];  // A[g + 8 h][k] and B[k][2 t + i]
+  for (int h = 0; h < 2; ++h)
+    for (int k = 0; k < 8; ++k) av[h][k] = emu_shfl_f64(a[h + 2 * (k / 4)], 4 * g + k % 4);
+  for (int i = 0; i < 2; ++i)
+    for (int k = 0; k < 8; ++k) bv[i][k] = emu_shfl_f64(b[k / 4], 4 * (2 * t + i) + k % 4);
+  for (int h = 0; h < 2; ++h)
+    for (int i = 0; i < 2; ++i)
+      for (int k = 0; k < 8; ++k) d[2 * h + i] = fma(av[h][k], bv[i][k], d[2 * h + i]);
+}
+
 struct EmuQueue {
   std::vector<std::function<void()>> open;
   std::deque<std::vector<std::function<void()>>> groups;
