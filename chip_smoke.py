@@ -43,7 +43,11 @@ window cores' registers, shared memory and blocks an SM are printed), then:
    of 64 RGB 640x480 images; ``models.get_model("vit_b_16")`` at full depth
    and width on 224x224x3 images, in bfloat16 at batch 256 (``attention_block``
    and ``mlp_block`` in each of the 12 layers) and in float32 at batch 64
-   (``flash_mha`` and ``mlp_block``); and ResNet-50 in float32 through
+   (``flash_mha`` and ``mlp_block``); ``models.get_model("vit_h_14")`` at full depth and
+   width (32 layers, D 1280, 16 heads of 80, S 257) in bfloat16 at batch 64 and in
+   float32 at batch 16 (``flash_mha``, on the tensor-core cores at head dim 80, and
+   ``mlp_block`` in each layer), against the plain routes on the same weights, the
+   core's own time beside its bound and SDPA; and ResNet-50 in float32 through
    ``graft_entry.entry()`` (batch 4) and at batch 256, which runs stock
    operators only; ``models.get_model`` of ``swin_t`` (bfloat16 batch 256 and
    float32 batch 32 at 224x224), ``swin_v2_t`` (bfloat16 batch 64 at 256x256),
@@ -84,8 +88,8 @@ window cores' registers, shared memory and blocks an SM are printed), then:
    statistics and ``F.conv2d`` autograd;
 2. holds every kernel against its plain PyTorch twin on the card at every
    shape and dtype those paths handed it (the wrappers count their launches
-   by input shape, and the script fails if a Swin or ConvNeXt path ran a
-   shape that was not held) and times both with CUDA events at the heaviest
+   by input shape, and the script fails if a Swin, ConvNeXt or ViT-H/14 path
+   ran a shape that was not held) and times both with CUDA events at the heaviest
    (``canny_stage1`` and ``hysteresis_sweeps`` also on the class map of
    uniform noise, with the sweeps' two device flags against the twin's);
 3. prints one JSON line of per-kernel results (``launches`` of an entry and
@@ -133,7 +137,11 @@ window cores' registers, shared memory and blocks an SM are printed), then:
    hidden and its ``IGMMA`` count; ``attention_block_int8`` the same way, its
    four launches (LN rows to int8, the QKV product, the core, the output
    product) apart, ``split_bytes_ms`` for its int8 LN rows, QKV buffer and
-   joined heads; ``int8_matmul_requant`` at every one of the 15 distinct shapes
+   joined heads, and the joined heads themselves (the core's int8 output)
+   within one int8 step of the twin's, at most ``JOINED_FLIPS`` of them apart
+   (``joined_steps``, ``joined_share``), as in every int8-out core case;
+   ``mlp_block`` at ViT-H/14's two shapes is held as at ViT-B/16's (float64,
+   the same bits twice); ``int8_matmul_requant`` at every one of the 15 distinct shapes
    of the int8 ResNet-50 path, on its own inputs, with the sum over the 36
    launches of a forward (``forward_ms``) beside the composite's and the
    bound's; the bf16 blocks' backward kernels
@@ -151,7 +159,10 @@ window cores' registers, shared memory and blocks an SM are printed), then:
    ``depthwise_conv2d`` (rows 12-14) against their twins' on the card;
    ``held_untimed`` lists the checks that were not timed); the bf16 v2 window
    block on the 24 draws of fault 1 (fixed) and the float32 block on the draw of
-   fault 2 (open, printed); then, last,
+   fault 2 (fixed, held to its float64 rule); the attention cores at head dims 16,
+   64 and 80 in bfloat16, float32 and into int8 (ViT-H/14's shapes as rows, S 257 and
+   every key-tile tail held to the twins, the same bits twice, the float32 cores to
+   float64 within twice the scalar yardstick); then, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -249,6 +260,11 @@ CONV_ATOL, CONV_RTOL = 1e-5, 1e-5
 LOGIT_TOL = 1e-4
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 VIT_TOL = {torch.float32: 1e-3, torch.bfloat16: 8e-2}
+# attention_block_int8's joined heads (its core's int8 output) against the twin's quantize_i8(o): every value within
+# one int8 step, and at most this share of them, and one more, a step apart (bf16's core rounds the probabilities
+# before the division by their sum, the twin after it: 0.9-5.9% on an H100, the most at S 5; float32's split-TF32
+# sums differ from the twin's in order only: at most 1.9e-4)
+JOINED_FLIPS = {torch.bfloat16: 0.125, torch.float32: 1e-3}
 BF16_SLACK = 1.5
 WGRAD_TOL = 1e-5
 C1_BF16_TOL = 1e-2
@@ -446,15 +462,16 @@ def main() -> int:
             # a thread), the int8 MLP's s8 products, the LayerNorm backward's rows held in registers and the float32
             # window core: no spill, and no wgmma that ptxas serialises
             if any(k in fn for k in ("x3_gemm_kernel", "wgrad_bf16_kernel", "depthwise_kernel", "i8_tc_gemm_kernel",
-                                     "ln_backward_vec_kernel", "window_x3_kernel")) and "spill" in line:
+                                     "ln_backward_vec_kernel", "window_x3_kernel", "attention_x3_kernel",
+                                     "attention_tc_kernel")) and "spill" in line:
                 require(" 0 bytes spill stores, 0 bytes spill loads" in line, f"{stem}: {fn} spills: {line.strip()}")
             if "serialized" in line and any(k in line for k in ("x3_gemm_kernel", "wgrad_bf16_kernel",
                                                                  "i8_tc_gemm_kernel", "conv3x3_x3_kernel")):
                 raise AssertionError(f"{stem}: {line.strip()}")
     # the bf16 products of rows 10-13 and the bf16 attention cores of rows 9, 11, 13 and 16 run on the tensor cores:
-    # HGMMA (wgmma) in every instantiation of the product and of the cores, and no bf16 instantiation of the scalar
-    # kernels they replaced is left in the libraries (the scalar attention core stays for float32 and for bf16 at
-    # head dims 16 and 80, the scalar window core for float32)
+    # HGMMA (wgmma) in every instantiation of the product and of the cores (the attention core at head dims 16,
+    # 64 and 80), and no bf16 instantiation of the scalar kernels they replaced is left in the libraries
+    # (the scalar attention core stays only as the float32 yardstick, below)
     hgmma, core_hgmma = {}, {}
     for stem in ("attention", "transformer_block", "int8_transformer", "swin_attention"):
         counts_by_fn = _build.sass_counts(stem, "HGMMA")
@@ -469,6 +486,15 @@ def main() -> int:
         require(not any("bfloat16" in fn and (("attention_core_kernel" in fn and "Li64E" in fn)
                                               or "window_core_kernel" in fn) for fn in counts_by_fn),
                 f"{stem}: a bf16 head-dim-64 attention_core_kernel or a bf16 window_core_kernel is left")
+        # no route reaches the scalar attention core: its only instantiations are the float32 yardstick's
+        # (cvt_attention_core_scalar in the attention library, float32 in and out at head dims 16, 64 and 80)
+        scalar_cores = [fn for fn in counts_by_fn if "attention_core_kernel" in fn]
+        yardsticks = [f"attention_core_kernelIfLi{hd}EfE" for hd in (16, 64, 80)] if stem == "attention" else []
+        require(len(scalar_cores) == len(yardsticks) and all(any(y in fn for fn in scalar_cores) for y in yardsticks),
+                f"{stem}: an attention_core_kernel other than the float32 yardstick's: {scalar_cores}")
+        require(sum(1 for fn in cores if "attention_tc_kernel" in fn) == {"attention": 3, "transformer_block": 3,
+                                                                          "int8_transformer": 3}.get(stem, 0),
+                f"{stem}: the bf16 attention core is not at head dims 16, 64 and 80: {sorted(cores)}")
         hgmma[stem] = sum(products.values())
         core_hgmma[stem] = sum(cores.values())
     # every int8 product runs on the int8 tensor cores: IGMMA (wgmma s8) and no IDP4A in every instantiation of
@@ -486,14 +512,20 @@ def main() -> int:
                 f"{stem}: a dp4a kernel (mlp_int8_kernel, i8_gemm_kernel) is left")
     i8_products = i8_sass["int8_transformer"]
     # the attention core's backward (Kernel B: query-tile blocks with and without O, key-tile blocks) runs on the
-    # tensor cores in all three instantiations; the float32 core at head dim 64 on split TF32 (HGMMA ... .TF32)
+    # tensor cores in all three instantiations; the float32 core at head dims 16, 64 and 80 on split TF32 (HGMMA ...
+    # .TF32), into float32 and, in the int8 block's library, into int8
     bwd_hgmma = {fn: c for fn, c in _build.sass_counts("attention", "HGMMA").items() if "attention_bwd_" in fn}
     print(f"  attention: HGMMA in the core's backward {bwd_hgmma}")
     require(len(bwd_hgmma) == 3 and all(bwd_hgmma.values()), "attention: a core backward without HGMMA")
     x3_core_hgmma = {fn: c for fn, c in _build.sass_counts("attention", "HGMMA", ".TF32").items()
                      if "attention_x3_kernel" in fn}
     print(f"  attention: HGMMA .TF32 in the float32 core {x3_core_hgmma}")
-    require(len(x3_core_hgmma) == 1 and all(x3_core_hgmma.values()), "attention: the float32 core without HGMMA .TF32")
+    require(len(x3_core_hgmma) == 3 and all(x3_core_hgmma.values()), "attention: a float32 core without HGMMA .TF32")
+    x3_int8_hgmma = {fn: c for fn, c in _build.sass_counts("int8_transformer", "HGMMA", ".TF32").items()
+                     if "attention_x3_kernel" in fn}
+    print(f"  int8_transformer: HGMMA .TF32 in the float32 core into int8 {x3_int8_hgmma}")
+    require(len(x3_int8_hgmma) == 3 and all(x3_int8_hgmma.values()),
+            "int8_transformer: a float32 core into int8 without HGMMA .TF32")
     for name in flash_attention.KERNEL_INFO:
         print(f"  {name}: {flash_attention.kernel_info(name)} (registers a thread, dynamic shared memory a block, "
               f"blocks an SM)")
@@ -765,6 +797,66 @@ def main() -> int:
         vit[dtype] = counts
         del model, plain, logits, ref, xv
     del vit_state, vit_images
+
+    # ------- main paths 29 and 30: ViT-H/14 serving, bf16 batch 64 and f32 batch 16, at full width and depth
+    # (32 layers, D 1280, 16 heads of 80, MLP 5120, 224x224 at patch 14: S 257), weights from seed 0.  The None routes
+    # take flash_mha (the tensor-core cores at head dim 80) and mlp_block in every layer; held to the same weights on
+    # the plain routes (bf16 within 8e-2 (1 + |ref|) and no further from the float32 logits than BF16_SLACK times the
+    # plain bf16 route; f32 within 1e-3 (1 + |ref|), TF32 off), and the core's own launch timed beside its bound and
+    # SDPA at the path's shape
+    vith_images = np.random.default_rng(1).random((64, 224, 224, 3), dtype=np.float32)
+    vith_state = None
+    vith_expected = {"flash_mha": 32, "mlp_block": 32, "attention_block": 0}
+    for dtype, batch in ((torch.bfloat16, 64), (torch.float32, 16)):
+        name = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+        path = f"vit_h_14 {name} b{batch}"
+        model = models.get_model("vit_h_14", dtype=dtype, generator=torch.Generator().manual_seed(0))
+        plain = models.get_model("vit_h_14", dtype=dtype, attention="plain", mlp="plain")
+        if vith_state is None:
+            vith_state = {k: v.float() for k, v in model.state_dict().items()}
+        model.load_state_dict(vith_state)  # one set of weights for both dtypes
+        plain.load_state_dict(vith_state)
+        kernels.reset_launch_counts()
+        logits = model(vith_images[:batch])  # numpy in: runs on the card
+        counts = read_counts(path)
+        print(f"{path} main path launches: {counts} (routes {model.routes()}, "
+              f"{kernels.mlp_block.kernel_launches} kernel launches in mlp_block)")
+        require(model.routes() == ("flash", "block"), f"{path}: routes {model.routes()}, not flash_mha and mlp_block")
+        require({k: counts[k] for k in vith_expected} == vith_expected, f"{path}: expected launches {vith_expected}")
+        require(logits.device.type == "cuda" and logits.shape == (batch, 1000) and logits.dtype == dtype
+                and bool(torch.isfinite(logits.float()).all()), f"{path}: logits shape/dtype/device or not finite")
+        xv = torch.from_numpy(vith_images[:batch]).to(dev)
+        ref = plain(xv)
+        err = max_err_f32(logits, ref, f"{path} vs the plain routes", VIT_TOL[dtype], VIT_TOL[dtype])
+        top1 = float((logits.argmax(dim=1) == ref.argmax(dim=1)).float().mean())
+        if dtype == torch.bfloat16:
+            exact32 = models.get_model("vit_h_14", attention="plain", mlp="plain")
+            exact32.load_state_dict(vith_state)
+            truth = exact32(xv)
+            err_kernel, err_plain = (float((o.float() - truth).abs().max()) for o in (logits, ref))
+            print(f"{path} against the float32 logits: kernel routes max |err| {err_kernel:.3e} (scaled "
+                  f"{scaled_err(logits, truth):.3e}), plain bf16 routes {err_plain:.3e} (scaled "
+                  f"{scaled_err(ref, truth):.3e})")
+            require(err_kernel <= BF16_SLACK * err_plain, f"{path}: the kernel routes stray further from float32 "
+                    f"than {BF16_SLACK} times the plain bf16 routes")
+            del exact32, truth
+        ms, ms_least, ms_most = spread_ms(lambda: model(xv), 10, warmup=2)
+        plain_ms, plain_least, plain_most = spread_ms(lambda: plain(xv), 10, warmup=2)
+        # the core's own launch at the path's shape: q, k, v and o once at the memory rate, 4 S^2 hd + 5 S^2
+        # operations a head at the rate of its dtype's products (bf16, or split TF32 at 165 TFLOP/s)
+        qc, kc, vc = (torch.randn((batch, 257, 16, 80), device=dev).to(dtype) for _ in range(3))
+        core_ms = time_ms(lambda: kernels.flash_mha(qc, kc, vc, 80 ** -0.5), 20)
+        core_bound = bound(4 * qc.numel() * qc.element_size(), batch * 16 * 257 * 257 * (4 * 80 + 5),
+                           BF16_OPS_PER_S if dtype == torch.bfloat16 else TF32X3_OPS_PER_S)
+        qh, kh, vh = (a.permute(0, 2, 1, 3) for a in (qc, kc, vc))
+        core_library_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=80 ** -0.5), 20)
+        print(f"{path}: {ms:.4f} ms/batch ({ms_least:.4f} to {ms_most:.4f} over 10 calls), {batch / ms * 1e3:.1f} "
+              f"img/s; plain routes {plain_ms:.4f} ms/batch ({plain_least:.4f} to {plain_most:.4f}); logits max |err| "
+              f"vs the plain routes {err:.3e} (max |logit| {float(ref.abs().max()):.3f}), top-1 agreement {top1:.4f}; "
+              f"core_ms {core_ms:.4f}, core_bound_ms {core_bound[0]:.4f} ({core_bound[1]}), core_library_ms "
+              f"{core_library_ms:.4f} (SDPA), 32 cores a forward ({card})")
+        del model, plain, logits, ref, xv, qc, kc, vc, qh, kh, vh
+    del vith_state, vith_images
 
     # ------------- main path 8: ResNet-50 f32, stock operators only (no kernel of the port)
     kernels.reset_launch_counts()
@@ -1879,6 +1971,16 @@ def main() -> int:
     def normal(shape, dtype, std=1.0, mean=0.0):
         return (torch.randn(shape, generator=draw_gens[-1], device=dev) * std + mean).to(dtype)
 
+    def hold_joined(args, what):
+        """attention_block_int8's joined heads against the twin's by JOINED_FLIPS' rule: the block's output is x plus
+        a small projection of them, where a wrong head or scale column could hide.  (most steps apart, share apart)"""
+        steps = (int8_transformer.attention_block_int8_joined(*args).int()
+                 - int8_transformer.attention_block_int8_joined_plain(*args).int()).abs()
+        most, share = int(steps.max()), float((steps > 0).float().mean())
+        require(most <= 1 and int((steps > 0).sum()) <= 1 + JOINED_FLIPS[args[0].dtype] * steps.numel(),
+                f"{what}: joined heads up to {most} int8 steps from the twin's, {share:.3e} of them apart")
+        return most, share
+
     def attention_ops(n):  # QK^T and PV, plus scale, max, exp, sum and divide per score
         return n * heads * seq * seq * (4 * hd + 5)
 
@@ -1928,7 +2030,7 @@ def main() -> int:
                            library_f64_err=f64_err(sdpa, ref64),
                            scalar_core_ms=time_ms(lambda: flash_attention._flash_mha_scalar(q, k, v, scale), 20),
                            hgmma_tf32_in_sass=sum(x3_core_hgmma.values()),
-                           occupancy=flash_attention.kernel_info("attention_x3_kernel"))
+                           occupancy=flash_attention.kernel_info("attention_x3_kernel<64>"))
             print(f"  flash_mha f32, max|a - f64| / max|f64|: split-TF32 core {figures['f64_err']:.3e}, scalar core "
                   f"{figures['scalar_f64_err']:.3e}, SDPA {figures['library_f64_err']:.3e}; scalar core "
                   f"{figures['scalar_core_ms']:.4f} ms")
@@ -1946,7 +2048,95 @@ def main() -> int:
                               source=ATTENTION, ops_per_s=core_rate[dtype], at=(q.shape, dtype), shape=list(q.shape),
                               dtype=str(dtype).replace("torch.", ""), **figures))
         del q, k, v, qh, kh, vh, out, sdpa
-    rows.append(entry(flash_rows[0], "vit_b_16 f32 b64", flash_rows[1:], core_hgmma_in_sass=core_hgmma["attention"]))
+    # Every head dim of the cores runs on the tensor cores (bf16 wgmma; float32 split TF32), head dim 80
+    # being ViT-H/14's.  Its two paths' shapes as rows (their launches from the vit_h_14 paths), the float32 one held
+    # to float64 no further than twice the scalar yardstick at head dim 80; then, drawn from a generator of their own,
+    # the cores at head dims 16, 64 and 80 in bf16, float32 and into int8 (attention_block_int8, both dtypes): S 257
+    # and S 65-128 (every tail of a 64-key tile, so every tail of the float32 core's 32-key tiles too), each within
+    # its twin's rule and the same bits twice, and the float32 cores no further from float64 than twice the scalar
+    # yardstick at their head dim (at (4, 257, 4, hd))
+    core_draws = torch.Generator(device=dev).manual_seed(22)
+    with drawing_from(core_draws):
+        for c_dtype, c_n in ((torch.bfloat16, 64), (torch.float32, 16)):
+            c_path = f"vit_h_14 {'bf16' if c_dtype == torch.bfloat16 else 'f32'} b{c_n}"
+            cq, ck, cv = (normal((c_n, 257, 16, 80), c_dtype) for _ in range(3))
+            c_scale = 80 ** -0.5
+            c_out = kernels.flash_mha(cq, ck, cv, c_scale)
+            c_err = max_err_f32(c_out, flash_attention.flash_mha_plain(cq, ck, cv, c_scale), f"flash_mha {c_path}", TOL[c_dtype],
+                              TOL[c_dtype])
+            require(torch.equal(kernels.flash_mha(cq, ck, cv, c_scale), c_out), f"flash_mha {c_path}: two calls differ")
+            cqh, ckh, cvh = (a.permute(0, 2, 1, 3) for a in (cq, ck, cv))
+            c_fig = {}
+            if c_dtype == torch.float32:
+                c_ref64 = torch.einsum("nhqk,nkhd->nhqd", torch.softmax(
+                    torch.einsum("nqhd,nkhd->nhqk", cq.double(), ck.double()) * c_scale, dim=-1), cv.double())
+                c_scalar = flash_attention._flash_mha_scalar(cq, ck, cv, c_scale)
+                c_fig = dict(f64_err=f64_err(c_out, c_ref64), scalar_f64_err=f64_err(c_scalar, c_ref64),
+                               scalar_core_ms=time_ms(lambda: flash_attention._flash_mha_scalar(cq, ck, cv, c_scale), 20),
+                               occupancy=flash_attention.kernel_info("attention_x3_kernel<80>"))
+                print(f"  flash_mha {c_path}, max|a - f64| / max|f64|: split-TF32 core {c_fig['f64_err']:.3e}, scalar "
+                      f"core {c_fig['scalar_f64_err']:.3e}; scalar core {c_fig['scalar_core_ms']:.4f} ms")
+                require(c_fig["f64_err"] <= 2 * c_fig["scalar_f64_err"],
+                        f"flash_mha {c_path} strays from float64 past twice the scalar core")
+                del c_ref64, c_scalar
+            else:
+                c_fig = dict(occupancy=flash_attention.kernel_info("attention_tc_kernel<80>"))
+            flash_rows.append(row("flash_mha", f"{PALLAS_FLASH}:56", c_path, c_err,
+                                  time_ms(lambda: kernels.flash_mha(cq, ck, cv, c_scale), 20),
+                                  time_ms(lambda: flash_attention.flash_mha_plain(cq, ck, cv, c_scale), 5),
+                                  4 * cq.numel() * cq.element_size(), c_n * 16 * 257 * 257 * (4 * 80 + 5),
+                                  library_ms=time_ms(lambda: F.scaled_dot_product_attention(cqh, ckh, cvh, scale=c_scale),
+                                                     20),
+                                  source=ATTENTION, ops_per_s=core_rate[c_dtype], at=(cq.shape, c_dtype),
+                                  shape=list(cq.shape), dtype=str(c_dtype).replace("torch.", ""), **c_fig))
+            del cq, ck, cv, cqh, ckh, cvh, c_out
+        held_cores, core_f64, joined_share = 0, {}, {}
+        for c_hd in (16, 64, 80):
+            for c_dtype in (torch.bfloat16, torch.float32):
+                for c_s in (257, *range(65, 129)):
+                    cq, ck, cv = (normal((1, c_s, 2, c_hd), c_dtype) for _ in range(3))
+                    c_out = kernels.flash_mha(cq, ck, cv, c_hd ** -0.5)
+                    max_err_f32(c_out, flash_attention.flash_mha_plain(cq, ck, cv, c_hd ** -0.5),
+                                f"flash_mha (1, {c_s}, 2, {c_hd}) {c_dtype}", TOL[c_dtype], TOL[c_dtype])
+                    require(torch.equal(kernels.flash_mha(cq, ck, cv, c_hd ** -0.5), c_out),
+                            f"flash_mha (1, {c_s}, 2, {c_hd}) {c_dtype}: two calls differ")
+                    held_cores += 1
+                if c_dtype == torch.float32:
+                    cq, ck, cv = (normal((4, 257, 4, c_hd), c_dtype) for _ in range(3))
+                    c_ref64 = torch.einsum("nhqk,nkhd->nhqd", torch.softmax(
+                        torch.einsum("nqhd,nkhd->nhqk", cq.double(), ck.double()) * c_hd ** -0.5, dim=-1), cv.double())
+                    core_f64[c_hd] = (f64_err(kernels.flash_mha(cq, ck, cv, c_hd ** -0.5), c_ref64),
+                                    f64_err(flash_attention._flash_mha_scalar(cq, ck, cv, c_hd ** -0.5), c_ref64))
+                    require(core_f64[c_hd][0] <= 2 * core_f64[c_hd][1],
+                            f"flash_mha f32 at head dim {c_hd} strays from float64 past twice the scalar core")
+            for c_dtype in (torch.bfloat16, torch.float32):  # into int8: the int8 block, 2 heads
+                c_d8 = 2 * c_hd
+                for c_s in (257, 70):
+                    c_a1, c_ao = normal((c_d8,), torch.float32, 0.005, 0.02), normal((c_d8,), torch.float32, 0.005, 0.02)
+                    c_wqkv, c_sqkv = kernels.quantize_weight(normal((c_d8, 3 * c_d8), torch.float32, c_d8 ** -0.5) * c_a1[:, None])
+                    c_wo, c_so = kernels.quantize_weight(normal((c_d8, c_d8), torch.float32, c_d8 ** -0.5) * c_ao[:, None])
+                    c_args = (normal((2, c_s, c_d8), c_dtype), normal((c_d8,), torch.float32, 0.2, 1.0),
+                               normal((c_d8,), torch.float32, 0.1), c_wqkv, c_sqkv, normal((3 * c_d8,), torch.float32, 0.1),
+                               c_wo, c_so, normal((c_d8,), torch.float32, 0.1), c_a1, c_ao, 2, c_hd ** -0.5)
+                    c_got = kernels.attention_block_int8(*c_args)
+                    c_want = int8_transformer.attention_block_int8_plain(*c_args)
+                    require(scaled_err(c_got, c_want) <= TOL[torch.bfloat16],
+                            f"attention_block_int8 (2, {c_s}, {c_d8}) {c_dtype}: {scaled_err(c_got, c_want):.3e} from its twin")
+                    require(torch.equal(kernels.attention_block_int8(*c_args), c_got),
+                            f"attention_block_int8 (2, {c_s}, {c_d8}) {c_dtype}: two calls differ")
+                    c_share = hold_joined(c_args, f"attention_block_int8 (2, {c_s}, {c_d8}) {c_dtype}")[1]
+                    joined_share[c_dtype] = max(joined_share.get(c_dtype, 0.0), c_share)
+                    held_cores += 1
+        print(f"the attention cores at head dims 16, 64 and 80: {held_cores} cases held to their twins and the same "
+              f"bits twice (bf16 and f32 at S 257 and 65-128, int8 out at S 257 and 70); float32 max|a - f64| / "
+              f"max|f64| against the scalar yardstick's at (4, 257, 4, hd): "
+              f"{ {c_hd: (f'{a:.3e}', f'{b:.3e}') for c_hd, (a, b) in core_f64.items()} }; int8 out, the most of "
+              f"the joined heads a step from the twin's: bf16 {joined_share[torch.bfloat16]:.3e}, f32 "
+              f"{joined_share[torch.float32]:.3e} (at most {JOINED_FLIPS[torch.bfloat16]}, "
+              f"{JOINED_FLIPS[torch.float32]})")
+    rows.append(entry(flash_rows[0], "vit_b_16 f32 b64", flash_rows[1:], core_hgmma_in_sass=core_hgmma["attention"],
+                      head_dims_held=held_cores,
+                      int8_joined_share={str(k).replace("torch.", ""): v for k, v in joined_share.items()}))
 
     def ln_params():
         return normal((d_model,), torch.float32, 0.2, 1.0), normal((d_model,), torch.float32, 0.1)
@@ -2101,12 +2291,12 @@ def main() -> int:
                              TOL[dtype], TOL[dtype]))
             del args128
         del x, out, args, w1, w2
-    rows.append(entry(mlp_rows[-1], "vit_b_16 bf16 b256", mlp_rows[:-1]))
 
-    # mlp_block and cn_mlp_block at every shape the Swin and ConvNeXt paths hand them, and their options
-    def mlp_case(tokens, d, dtype, path=None, cn=False, post_norm=False, ln_count=0):
+    # mlp_block and cn_mlp_block at every shape the Swin, ConvNeXt and ViT-H/14 paths hand them, and their options
+    def mlp_case(tokens, d, dtype, path=None, cn=False, post_norm=False, ln_count=0, eps=None, strict=False):
         """Kernel against twin on (tokens, d) in ``dtype``; timed, and a row returned, where ``path`` names the
-        main path that runs this shape; else held only."""
+        main path that runs this shape; else held only.  ``strict`` (mlp_block without options) also requires the
+        same bits twice and, in float32, no further from float64 than twice the twin."""
         dh = 4 * (ln_count or d)
         x = normal((tokens, d), dtype)
         ln_g, ln_b = normal((d,), torch.float32, 0.2, 1.0), normal((d,), torch.float32, 0.1)
@@ -2117,7 +2307,7 @@ def main() -> int:
                 t[..., ln_count:] = 0
             w1[ln_count:] = 0
             w2[:, ln_count:] = 0
-        eps = 1e-6 if cn else 1e-5
+        eps = eps or (1e-6 if cn else 1e-5)
         if cn:
             res, gamma = normal((tokens, d), dtype), normal((d,), torch.float32, 0.5)
             args = (x, res, ln_g, ln_b, w1, b1, w2, b2, gamma, eps)
@@ -2130,6 +2320,20 @@ def main() -> int:
         kernel_launches = fn.kernel_launches - kernel_launches  # of this one call, as counted
         what = f"{name} {tokens}x{d} {dtype} post_norm={post_norm} ln_count={ln_count}"
         err = max_err_f32(out, twin(*args), what, TOL[dtype], TOL[dtype])
+        figures = {}
+        if strict:
+            require(torch.equal(fn(*args), out), f"{what}: two calls differ")
+            if dtype == torch.float32:  # the split-TF32 products against the block in float64 (the twin's LN, erf)
+                h64 = transformer_block._ln_f32(x.double(), ln_g.double(), ln_b.double(), eps)
+                h64 = transformer_block._gelu_f32(h64 @ w1.double() + b1.double())
+                ref64 = x.double() + h64 @ w2.double() + b2.double()
+                del h64
+                figures = dict(f64_err=f64_err(out, ref64), twin_f64_err=f64_err(twin(*args), ref64))
+                del ref64
+                print(f"  {what}, max|a - f64| / max|f64|: kernel {figures['f64_err']:.3e}, twin (TF32 off) "
+                      f"{figures['twin_f64_err']:.3e}")
+                require(figures["f64_err"] <= 2 * figures["twin_f64_err"],
+                        f"{what}: strays from float64 past twice the twin")
         if path is None:
             hold(name, x.shape, dtype, err, post_norm=post_norm, ln_count=ln_count, kernel_launches=kernel_launches)
             return None
@@ -2144,7 +2348,7 @@ def main() -> int:
         size = x.element_size()
         products = hgmma if dtype == torch.bfloat16 else tf32_hgmma
         extra = dict(launch_ms=launch_split(lambda: fn(*args), kernel_launches),
-                     hgmma_in_sass=products["transformer_block"])
+                     hgmma_in_sass=products["transformer_block"], **figures)
         return row(name, f"{PALLAS_BLOCK}:{line}", path, err, time_ms(lambda: fn(*args), 5),
                    time_ms(lambda: twin(*args), 3),
                    (3 if cn else 2) * x.numel() * size + (w1.numel() + w2.numel()) * size + 4 * (4 * d + dh),
@@ -2152,6 +2356,13 @@ def main() -> int:
                    ops_per_s=x3_rate[dtype], at=(x.shape, dtype), shape=[tokens, d], dtype=str(dtype).replace("torch.", ""),
                    split_bytes_ms=mlp_split_bytes(tokens, d, dh, size, post_norm) / HBM_BYTES_PER_S * 1e3,
                    kernel_launches=kernel_launches, **extra)
+
+    # ViT-H/14's two paths' shapes (D 1280, MLP 5120, LN eps 1e-6), drawn from a generator of their own so that the
+    # other cases' inputs stay as they were: rows of the ViT entry, their launches from the vit_h_14 paths
+    with drawing_from(torch.Generator(device=dev).manual_seed(14)):
+        mlp_rows += [mlp_case(64 * 257, 1280, torch.bfloat16, "vit_h_14 bf16 b64", eps=1e-6, strict=True),
+                     mlp_case(16 * 257, 1280, torch.float32, "vit_h_14 f32 b16", eps=1e-6, strict=True)]
+    rows.append(entry(mlp_rows[1], "vit_b_16 bf16 b256", mlp_rows[:1] + mlp_rows[2:]))
 
     widths = (96, 192, 384, 768)
     sides = (56, 28, 14, 7)      # Swin-T's and ConvNeXt-T's maps at 224x224
@@ -2328,10 +2539,11 @@ def main() -> int:
         window_case(256 * 64, 49, 96, 64, dtype, masked=False)
         window_case(64 * 64, 64, 96, 64, dtype, v2=True, masked=False)
         window_case(64 * 64, 49, 128, 64, dtype, v2=True, ln_count=96)
-    # fault 2 (open, ROADMAP.md queue 3): where the training paths' held cases drew from the checks' generator ahead
-    # of the next loop, its first case, (2048, 49, 96) masked, stood past its float64 rule.  Its draw is the checks'
-    # generator at this offset plus what those cases drew; it is replayed after the loop and printed, not held here:
-    # tests/test_torch_cuda.py::test_f32_window_block_on_fault_2s_draw holds it, and stands failing until it is fixed
+    # fault 2 (ROADMAP.md queue 3, fixed): where the training paths' held cases drew from the checks'
+    # generator ahead of the next loop, its first case, (2048, 49, 96) masked, stood past its float64 rule.  Its draw
+    # is the checks' generator at this offset plus what those cases drew (seed 0, offset 12968 on an H100 SXM, as
+    # tests/test_torch_cuda.py::test_f32_window_block_on_fault_2s_draw replays it); it is replayed after the loop and
+    # held to the rule
     f2_at = (gen.initial_seed(), gen.get_offset() + train_draws.get_offset())
     for c, side in zip(widths, sides):  # the float32 path's shapes, batch 32 (its last stage takes the plain route)
         nw_img = (side // 7) ** 2
@@ -2347,9 +2559,10 @@ def main() -> int:
     f2_ref64 = swin_attention._window_attention_block_f64(*f2_args)
     f2_err = (f64_err(kernels.window_attention_block(*f2_args), f2_ref64),
               f64_err(swin_attention.window_attention_block_plain(*f2_args), f2_ref64))
-    print(f"fault 2 (open): the f32 window block (2048, 49, 96) masked on the draw at seed {f2_at[0]}, offset "
+    print(f"fault 2 (fixed): the f32 window block (2048, 49, 96) masked on the draw at seed {f2_at[0]}, offset "
           f"{f2_at[1]} of the checks' generator: max|a - f64| / max|f64| kernel {f2_err[0]:.3e}, twin (TF32 off) "
           f"{f2_err[1]:.3e}, {f2_err[0] / f2_err[1]:.3f} times (rule 2)")
+    require(f2_err[0] <= 2 * f2_err[1], "fault 2's draw: the f32 window block strays from float64 past twice the twin")
     del f2_args, f2_ref64
     for c, side in zip(widths, sides_v2):  # Swin-v2-T's, batch 64, windows of 8
         nw_img = (side // 8) ** 2
@@ -2665,6 +2878,9 @@ def main() -> int:
 
     max_err_f32(attention_i8_library(), int8_transformer.attention_block_int8_plain(*vit_attn_args),
                 "attention_block_int8 composite", 5e-2, 5e-2)
+    joined_most, joined_apart = hold_joined(vit_attn_args, "attention_block_int8")
+    print(f"  attention_block_int8's joined heads: at most {joined_most} int8 step from the twin's, {joined_apart:.3e} "
+          f"of them apart")
     tok = xa.shape[0] * xa.shape[1]
     attn_core_ops = 256 * 12 * 197 * 197 * (4 * 64 + 5)
     kernels.reset_launch_counts()
@@ -2697,6 +2913,7 @@ def main() -> int:
                           kernel_launches=vit_i8_kernel_launches,
                           split_bytes_ms=(tok * 768 * 2 + tok * 3 * 768 * 2 * 2 + tok * 768 * 2) / HBM_BYTES_PER_S * 1e3,
                           launch_ms=split, core_hgmma_in_sass=core_hgmma["int8_transformer"],
+                          joined_steps=joined_most, joined_share=joined_apart,
                           igmma_in_sass=sum(ig for fn, (ig, _) in i8_products.items() if "ILi2E" in fn or "ILi3E" in fn),
                           **core),
                       INT8_VIT, []))
@@ -3035,6 +3252,12 @@ def main() -> int:
         for name in new_kernels:
             for shape, dtype in path_shapes[path][name]:
                 require((name, shape, str(dtype).replace("torch.", "")) in checked,
+                        f"{path}: {name} ran on {shape} {dtype}, which was not held against its twin")
+    # and every shape that a ViT-H/14 path handed to its two kernels
+    for path in ("vit_h_14 bf16 b64", "vit_h_14 f32 b16"):
+        for name in ("flash_mha", "mlp_block", "attention_block"):
+            for shape, dtype in path_shapes[path][name]:
+                require((name, shape, str(dtype).replace("torch.", "")) in held_at,
                         f"{path}: {name} ran on {shape} {dtype}, which was not held against its twin")
     # and every shape that a detection path handed to nms_sorted
     held_nms = {tuple(r["shape"]) for r in (nms_entry, *nms_entry["other_shapes"])}

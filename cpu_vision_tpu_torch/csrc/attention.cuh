@@ -1,12 +1,12 @@
 // Shared pieces of the transformer kernels for Hopper (sm_90a): the storage
 // type helpers and the softmax(scale * Q K^T) V core that attention.cu
 // (flash_mha), transformer_block.cu (attention_block) and int8_transformer.cu
-// (attention_block_int8) instantiate.  attention_core() routes by type and
-// head dim: at head dim 64 (ViT-B/16's width, every measured path) bf16 runs
-// the tensor-core core of tc_attention.cuh and float32 with a float32 output
-// the split-TF32 core of tf32x3_attention.cuh; head dims 16 and 80, and
-// float32 into int8 (the int8 block's float32 form, on no measured path), run
-// the scalar attention_core_kernel below.
+// (attention_block_int8) instantiate.  attention_core() routes by type: bf16
+// runs the tensor-core core of tc_attention.cuh, float32 the split-TF32 core
+// of tf32x3_attention.cuh, each at head dims 16, 64 and 80, into T or (the
+// int8 attention block) int8.  The scalar attention_core_kernel below serves
+// no route: it is the float32 yardstick of the split-TF32 core's distance
+// from float64 (attention.cu: cvt_attention_core_scalar).
 //
 // Types.  A kernel is a template over its storage type T, float or
 // __nv_bfloat16.  Every operand is widened to f32 when it is staged in shared
@@ -290,49 +290,53 @@ cudaError_t over_images_heads(int n, int heads, Launch launch) {
   return cudaSuccess;
 }
 
-// One launch, at most MAX_GRID_YZ images and heads (attention_core walks more).
-template <typename T, typename OutT>
-cudaError_t attention_core_piece(const T* q, const T* k, const T* v, OutT* o, int n, int s_len, int heads, int hd,
-                                 float scale, long long in_n, long long in_s, long long in_h, long long o_n,
-                                 long long o_s, long long o_h, cudaStream_t stream, const float* o_inv) {
-#define CVT_ATT_CASE(HD)                                                                              \
-  case HD:                                                                                            \
-    return launch_attention_core<T, HD, OutT>(q, k, v, o, n, s_len, heads, scale, in_n, in_s, in_h, o_n, \
-                                              o_s, o_h, stream, o_inv)
-  switch (hd) {
-    CVT_ATT_CASE(16);
-    case 64:
-      if constexpr (std::is_same<T, __nv_bfloat16>::value)
-        return launch_attention_tc<OutT>(q, k, v, o, n, s_len, heads, scale, in_n, in_s, in_h, o_n, o_s, o_h, stream,
+// One launch of the tensor-core core of T at head dim HD, at most MAX_GRID_YZ images and heads.
+template <int HD, typename T, typename OutT>
+cudaError_t attention_tc_piece(const T* q, const T* k, const T* v, OutT* o, int n, int s_len, int heads, float scale,
+                               long long in_n, long long in_s, long long in_h, long long o_n, long long o_s,
+                               long long o_h, cudaStream_t stream, const float* o_inv) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return launch_attention_tc<HD, OutT>(q, k, v, o, n, s_len, heads, scale, in_n, in_s, in_h, o_n, o_s, o_h, stream,
                                          o_inv);
-      else if constexpr (std::is_same<OutT, float>::value)
-        return launch_attention_x3(q, k, v, o, n, s_len, heads, scale, in_n, in_s, in_h, o_n, o_s, o_h, stream);
-      else
-        return launch_attention_core<T, 64, OutT>(q, k, v, o, n, s_len, heads, scale, in_n, in_s, in_h, o_n, o_s, o_h,
-                                                  stream, o_inv);
-    CVT_ATT_CASE(80);
+  else
+    return launch_attention_x3<HD, OutT>(q, k, v, o, n, s_len, heads, scale, in_n, in_s, in_h, o_n, o_s, o_h, stream,
+                                         o_inv);
+}
+
+// f(std::integral_constant<int, HD>{}) at the cores' head dim hd (16, 64 or 80: HEAD_DIMS of
+// ops/kernels/flash_attention.py); any other hd is refused.  The one list of the instantiated head dims.
+template <class F>
+cudaError_t with_head_dim(int hd, F f) {
+  switch (hd) {
+    case 16:
+      return f(std::integral_constant<int, 16>{});
+    case 64:
+      return f(std::integral_constant<int, 64>{});
+    case 80:
+      return f(std::integral_constant<int, 80>{});
     default:
       return cudaErrorInvalidValue;
   }
-#undef CVT_ATT_CASE
 }
 
-// Head dims with an instantiation; any other is refused.  o_inv: the int8
-// output's inverse scales, one a joined channel (OutT = int8_t only).  At head
-// dim 64 bf16, and float32 into float32, take the tensor-core cores, which
-// need q, k, v and their strides 16-byte aligned and refuse them otherwise.
-// Any number of images and heads: pieces of MAX_GRID_YZ launch one after
-// another on the offset tensors.
+// Head dims 16, 64 and 80; any other is refused.  o_inv: the int8 output's
+// inverse scales, one a joined channel (OutT = int8_t only).  Both cores copy
+// 16 bytes at a time, so q, k, v and their strides must be 16-byte aligned;
+// they are refused otherwise.  Any number of images and heads: pieces of
+// MAX_GRID_YZ launch one after another on the offset tensors.
 template <typename T, typename OutT>
 cudaError_t attention_core(const T* q, const T* k, const T* v, OutT* o, int n, int s_len, int heads, int hd,
                            float scale, long long in_n, long long in_s, long long in_h, long long o_n,
                            long long o_s, long long o_h, cudaStream_t stream, const float* o_inv = nullptr) {
   if (n < 1 || heads < 1 || s_len < 1) return cudaErrorInvalidValue;
-  return over_images_heads(n, heads, [&](int n0, int nc, int h0, int hc) {
-    const long long in0 = n0 * in_n + h0 * in_h;
-    return attention_core_piece<T, OutT>(q + in0, k + in0, v + in0, o + n0 * o_n + h0 * o_h, nc, s_len, hc, hd, scale,
-                                         in_n, in_s, in_h, o_n, o_s, o_h, stream,
-                                         o_inv == nullptr ? nullptr : o_inv + (long long)h0 * hd);
+  return with_head_dim(hd, [&](auto hd_c) {
+    constexpr int HD = decltype(hd_c)::value;
+    return over_images_heads(n, heads, [&](int n0, int nc, int h0, int hc) -> cudaError_t {
+      const long long in0 = n0 * in_n + h0 * in_h;
+      const float* inv = o_inv == nullptr ? nullptr : o_inv + (long long)h0 * HD;
+      return attention_tc_piece<HD>(q + in0, k + in0, v + in0, o + n0 * o_n + h0 * o_h, nc, s_len, hc, scale, in_n,
+                                    in_s, in_h, o_n, o_s, o_h, stream, inv);
+    });
   });
 }
 

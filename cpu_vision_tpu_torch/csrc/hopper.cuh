@@ -1,15 +1,15 @@
 // The few Hopper (sm_90a) instructions the tensor-core kernels are built
 // from, each behind one small function: cp.async (16 bytes with zero fill,
 // or 4 bytes), the async-proxy fence, wgmma's fence, commit and wait, the
-// shared-memory matrix descriptors of the 128- and 64-byte swizzles, and
+// shared-memory matrix descriptors of the 128-, 64- and 32-byte swizzles, and
 // these forms of wgmma.mma_async into f32 sums:
 //   bf16, 64 x 128 x 16, A K-major, B MN-major: the product of ln_gemm.cuh;
 //   bf16, 64 x 64 x 16, A and B K-major: S = Q K^T of the attention cores
 //     (tc_attention.cuh, swin_attention.cu);
-//   bf16, 64 x 64 x 16 and 64 x 32 x 16, A from registers, B MN-major: O += P V;
+//   bf16, 64 x {64, 32, 16} x 16, A from registers, B MN-major: O += P V;
 //   bf16, 64 x {64, 128} x 16, A and B both MN-major: the weight gradient
 //     x^T dy of wgrad_matmul.cu, both operands as their rows lie;
-//   tf32, 64 x {32, 64, 128} x 8, A from registers, B K-major (the only
+//   tf32, 64 x {16, 32, 64, 80, 128} x 8, A from registers, B K-major (the only
 //     layout PTX gives tf32 in shared memory): the split-TF32 products of
 //     tf32x3.cuh;
 //   s8, 64 x 128 x 32 into int32 sums, A and B K-major (PTX has no other
@@ -26,14 +26,17 @@
 // chunks; in each aligned group of eight rows (1024 bytes) chunk c of row r is
 // stored at chunk c ^ (r % 8) (layout 1).  A row of 32 bf16 values is 64
 // bytes, four chunks; in each aligned group of eight rows (512 bytes) chunk c
-// of row r is stored at chunk c ^ (r / 2 % 4) (layout 2).  Both XOR address
-// bits 7-9 (7-8) into bits 4-6 (4-5), so the tiles start 1024-byte aligned.
+// of row r is stored at chunk c ^ (r / 2 % 4) (layout 2).  A row of 16 bf16
+// values is 32 bytes, two chunks; in each aligned group of eight rows (256
+// bytes) chunk c of row r is stored at chunk c ^ (r / 4 % 2) (layout 3).  They
+// XOR address bits 7-9 (7-8, 7) into bits 4-6 (4-5, 4), so the tiles start
+// 1024-byte (512-, 256-byte) aligned.
 // A descriptor holds the start address, the leading and the stride byte
 // offsets (all >> 4) and the layout:
 //   K-major operand (rows of k):   SBO = 8 rows, the next group of 8 rows
-//                                  (1024 or 512 bytes); LBO unused (1);
+//                                  (1024, 512 or 256 bytes); LBO unused (1);
 //   MN-major operand (rows of n):  SBO = the next group of 8 k rows;
-//                                  LBO = the next 64 (32) columns of n.
+//                                  LBO = the next 64 (32, 16) columns of n.
 // A step of 16 k moves a K-major start address by 32 bytes inside the
 // swizzled row, an MN-major one by 16 rows.  A tf32 value is 4 bytes: a
 // 128-byte K-major row holds 32 of them, and a step of 8 k moves the start
@@ -139,6 +142,11 @@ __device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo, uint3
          ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (2ull << 62);
 }
 
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (3ull << 62);
+}
+
 // (lo, hi) rounded to bf16 as one register of an A fragment
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -220,6 +228,20 @@ __device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[8] += A (64 x 16, registers a[0..3]) . B (16 x 16, MN-major, desc b); d as above with j < 2
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -326,6 +348,40 @@ __device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uin
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d[40] (+)= A (64 x 8, tf32 registers a[0..3]) . B (8 x 80, K-major, desc b); d as above with j < 10
+__device__ __forceinline__ void wgmma_m64n80k8_tf32_rs(float (&d)[40], const uint32_t* a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d[8] (+)= A (64 x 8, tf32 registers a[0..3]) . B (8 x 16, K-major, desc b); d as above with j < 2
+__device__ __forceinline__ void wgmma_m64n16k8_tf32_rs(float (&d)[8], const uint32_t* a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 

@@ -67,6 +67,17 @@
 // float64 than torch.mm (bf16 2-3x, float32 5-8x) and the MLP 27x further
 // than its twin, on an H100; with it, 0.3-0.8x.
 //
+// Chain order.  The tensor cores cut a chain's sum toward zero at each k8
+// step, at the running sum's magnitude, so a chain takes its eight products
+// with a lo half (2^-11 of the rest) first and its four hi hi products last:
+// eight of its twelve cuts fall at the lo products' magnitude, not the full
+// one.  The attention blocks' projections (launch_x3_rows) also sum the hi hi
+// products in two chains of two steps where their tiles are 64 columns wide
+// (HI_CHAINS 2, a third set of sums).  On an H100 the float32 window block on
+// ROADMAP.md's fault 2 draw stood 2.10x the twin's float64 distance with the
+// interleaved chain, 1.54x with the lo products first and 0.95x with two hi
+// hi chains, the core alone 0.94x (tools/torch_attention_core_ab.py).
+//
 // Bound.  max(bytes / 3.35 TB/s, 3 x 2 m n k / 495 TFLOP/s): the three tf32
 // products are the work the card does.  No atomics: every call gives the
 // same bits.
@@ -211,12 +222,17 @@ struct X3RawB {
 // d (+)= A . B over one k8 step, A 64 rows from registers, B 2 NACC rows K-major in the 128-byte swizzle
 template <int NACC>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[NACC], const uint32_t (&a)[4], uint32_t b, int scale_d) {
+  static_assert(NACC == 64 || NACC == 40 || NACC == 32 || NACC == 16 || NACC == 8, "n 128, 80, 64, 32 or 16");
   if constexpr (NACC == 64)
     wgmma_m64n128k8_tf32_rs(d, a, sw128_desc(b, 16, 1024), scale_d);
+  else if constexpr (NACC == 40)
+    wgmma_m64n80k8_tf32_rs(d, a, sw128_desc(b, 16, 1024), scale_d);
   else if constexpr (NACC == 32)
     wgmma_m64n64k8_tf32_rs(d, a, sw128_desc(b, 16, 1024), scale_d);
-  else
+  else if constexpr (NACC == 16)
     wgmma_m64n32k8_tf32_rs(d, a, sw128_desc(b, 16, 1024), scale_d);
+  else
+    wgmma_m64n16k8_tf32_rs(d, a, sw128_desc(b, 16, 1024), scale_d);
 }
 
 // The sums of a warpgroup's 64 x (2 NACC) tile at rows r0.., columns n0..:
@@ -249,7 +265,9 @@ __device__ __forceinline__ void keep_fragments(const uint32_t (&hi)[K8][4], cons
 
 // out = Epi(A . B) for rows < m, columns < n: A element (i, kk) is a[i * lda + kk] (A_KMAJOR) or a[kk * lda +
 // i], B element (kk, j) is b[kk * ldb + j].  blockIdx.z sums kk over [z k_slab, min(k, (z + 1) k_slab)).
-template <bool A_KMAJOR, int WGS, int BN, class Epi>
+// HI_CHAINS: the chains a stage's hi hi products are summed in, 1 (four k8 steps) or 2 (two each, a second set of
+// sums: the attention blocks' projections, whose float64 rule needs them; at 128 x 128 tiles they spill).
+template <bool A_KMAJOR, int WGS, int BN, class Epi, int HI_CHAINS = 1>
 __global__ void __launch_bounds__(256, 1)
 x3_gemm_kernel(const float* __restrict__ a, int lda, const float* __restrict__ b, int ldb, int m, int n, int k,
                int k_slab, Epi epi, int row_tile0) {
@@ -280,9 +298,12 @@ x3_gemm_kernel(const float* __restrict__ a, int lda, const float* __restrict__ b
     RawB::split(raw_tiles + stage % X3_RAW * S::RAW_BYTES + S::A_BYTES, st, st + S::B_BYTES);
   };
 
-  float acc[S::WN / 2], sum[S::WN / 2];
+  static_assert(HI_CHAINS == 1 || HI_CHAINS == 2, "one or two chains of hi hi products a stage");
+  float acc[S::WN / 2], acc2[HI_CHAINS == 2 ? S::WN / 2 : 1], sum[S::WN / 2];
 #pragma unroll
   for (int i = 0; i < S::WN / 2; ++i) acc[i] = sum[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < (HI_CHAINS == 2 ? S::WN / 2 : 1); ++i) acc2[i] = 0.0f;
 
   // one cp.async group a stage, empty past the last, so that a wait for all but X3_RAW - 2 groups is one for
   // the stage split next
@@ -308,10 +329,17 @@ x3_gemm_kernel(const float* __restrict__ a, int lda, const float* __restrict__ b
     const uint32_t b_hi = base + (s & 1) * S::SPLIT_BYTES + wg_col * 128, b_lo = b_hi + S::B_BYTES;
     wgmma_fence();  // after writing the fragments, before the products read them
 #pragma unroll
-    for (int kk = 0; kk < X3_BK / 8; ++kk) {  // a step of 8 k: 32 bytes along B's swizzled rows
+    for (int kk = 0; kk < X3_BK / 8; ++kk) {  // a step of 8 k: 32 bytes along B's swizzled rows; lo products first
       wgmma_tf32(acc, a_lo[kk], b_hi + kk * 32, kk > 0);
       wgmma_tf32(acc, a_hi[kk], b_lo + kk * 32, 1);
-      wgmma_tf32(acc, a_hi[kk], b_hi + kk * 32, 1);
+    }
+    // then the hi hi ones: all in acc, or the stage's second half in acc2 from zero
+    constexpr int IN_ACC = HI_CHAINS == 2 ? X3_BK / 16 : X3_BK / 8;
+#pragma unroll
+    for (int kk = 0; kk < IN_ACC; ++kk) wgmma_tf32(acc, a_hi[kk], b_hi + kk * 32, 1);
+    if constexpr (HI_CHAINS == 2) {
+#pragma unroll
+      for (int kk = IN_ACC; kk < X3_BK / 8; ++kk) wgmma_tf32(acc2, a_hi[kk], b_hi + kk * 32, kk > IN_ACC);
     }
     wgmma_commit();
     // the other split stage's products retired before the barrier that closed the step before
@@ -321,9 +349,10 @@ x3_gemm_kernel(const float* __restrict__ a, int lda, const float* __restrict__ b
     }
     wgmma_wait<0>();
     fence_sums(acc);
+    if constexpr (HI_CHAINS == 2) fence_sums(acc2);
     keep_fragments(a_hi, a_lo);  // the products read them until the wait
 #pragma unroll
-    for (int i = 0; i < S::WN / 2; ++i) sum[i] += acc[i];
+    for (int i = 0; i < S::WN / 2; ++i) sum[i] += HI_CHAINS == 2 ? acc[i] + acc2[i] : acc[i];
     fence_proxy_async();
     __syncthreads();
   }
@@ -332,7 +361,7 @@ x3_gemm_kernel(const float* __restrict__ a, int lda, const float* __restrict__ b
 
 // grid (n tiles, m tiles, slabs), the m tiles past the grid's y in further launches; lda and ldb multiples of 4,
 // k_slab of X3_BK
-template <bool A_KMAJOR, int WGS, int BN, class Epi>
+template <bool A_KMAJOR, int WGS, int BN, class Epi, int HI_CHAINS = 1>
 cudaError_t launch_x3_gemm(const float* a, int lda, const float* b, int ldb, int m, int n, int k, int k_slab,
                            Epi epi, cudaStream_t stream) {
   using S = X3Shape<WGS, BN>;
@@ -340,12 +369,12 @@ cudaError_t launch_x3_gemm(const float* a, int lda, const float* b, int ldb, int
     return cudaErrorInvalidValue;
   const int rows = (m + S::BM - 1) / S::BM, cols = (n + BN - 1) / BN, slabs = (k + k_slab - 1) / k_slab;
   if (slabs > MAX_GRID_YZ) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(x3_gemm_kernel<A_KMAJOR, WGS, BN, Epi>,
+  cudaError_t err = cudaFuncSetAttribute(x3_gemm_kernel<A_KMAJOR, WGS, BN, Epi, HI_CHAINS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
   if (err != cudaSuccess) return err;
   for (int r0 = 0; r0 < rows; r0 += MAX_GRID_YZ) {
-    x3_gemm_kernel<A_KMAJOR, WGS, BN, Epi><<<dim3(cols, min(MAX_GRID_YZ, rows - r0), slabs), S::THREADS, S::SMEM,
-                                             stream>>>(a, lda, b, ldb, m, n, k, k_slab, epi, r0);
+    x3_gemm_kernel<A_KMAJOR, WGS, BN, Epi, HI_CHAINS><<<dim3(cols, min(MAX_GRID_YZ, rows - r0), slabs), S::THREADS,
+                                                        S::SMEM, stream>>>(a, lda, b, ldb, m, n, k, k_slab, epi, r0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -381,15 +410,17 @@ struct ResidEpi {
 };
 
 // out = Epi(a . b) for a (m, k) and b (k, n), both row-major (lda k, ldb n: multiples of 4), in one slab (the
-// epilogue needs the whole sum): the attention blocks' projections.  Tiles of 128 rows by BN columns, BN 128 or 64,
-// whichever pads n the less (128 on a tie: A read once a column tile).  N 288 (Swin-T's first QKV) takes 5 tiles of
-// 64, 320 columns, not 3 of 128 (384); N 96 and the multiples of 128 take 128.
+// epilogue needs the whole sum): the attention blocks' projections.  Up to 128 columns, and where 64-column tiles pad
+// n less, tiles of 128 x 64 with the hi hi products in two chains a stage (HI_CHAINS 2: the float64 rule of the
+// narrow blocks, Swin-T's first two stages, needs them, and at 128 x 128 the second set of sums spills); otherwise
+// 128 x 128 tiles, one chain (A read once a column tile; with two chains at 128 x 64 the wider blocks ran 1.15-1.17x
+// slower on an H100).  N 288 (Swin-T's first QKV) takes 5 tiles of 64, 320 columns, not 3 of 128 (384).
 template <class Epi>
 cudaError_t launch_x3_rows(const float* a, const float* b, int m, int n, int k, Epi epi, cudaStream_t stream) {
   const int k_slab = (k + X3_BK - 1) / X3_BK * X3_BK;
-  if ((n + 63) / 64 * 64 < (n + 127) / 128 * 128)
-    return launch_x3_gemm<true, 2, 64>(a, k, b, n, m, n, k, k_slab, epi, stream);
-  return launch_x3_gemm<true, 2, 128>(a, k, b, n, m, n, k, k_slab, epi, stream);
+  if (n <= 128 || (n + 63) / 64 * 64 < (n + 127) / 128 * 128)
+    return launch_x3_gemm<true, 2, 64, Epi, 2>(a, k, b, n, m, n, k, k_slab, epi, stream);
+  return launch_x3_gemm<true, 2, 128, Epi, 1>(a, k, b, n, m, n, k, k_slab, epi, stream);
 }
 
 }  // namespace cvt

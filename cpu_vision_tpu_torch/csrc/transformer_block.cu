@@ -46,9 +46,9 @@
 // (3) the attention core of attention.cuh reading q, k, v out of that buffer
 // by strides and writing the joined heads as (N S, D) of T, (4) output
 // projection + bias + residual.  In float32 both products are x3_gemm_kernel
-// (launch_x3_rows of tf32x3.cuh: one slab, 128 x 128 or 128 x 64 tiles, the
-// ResidEpi epilogue, resid null for the QKV bias) and the core at head dim 64
-// attention_x3_kernel, split TF32 too.  The LN rows, the QKV buffer and the
+// (launch_x3_rows of tf32x3.cuh: one slab, 128 x 64 or 128 x 128 tiles, the
+// ResidEpi epilogue, resid null for the QKV bias) and the core
+// attention_x3_kernel (head dims 16, 64 and 80), split TF32 too.  The LN rows, the QKV buffer and the
 // joined heads are the intermediates that now touch device memory, written
 // once and read once; no transposed copy exists, as on the TPU.
 //

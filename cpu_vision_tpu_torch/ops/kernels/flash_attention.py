@@ -32,13 +32,13 @@ normalised, then rounded), for the gradient of its output projection.
 
 The kernel streams key tiles with an online softmax and divides by the row
 sum at the end; the twin normalises before the cast, as the Pallas kernel
-does.  At head dim 64 the kernel runs on the tensor cores (``wgmma``): bfloat16
-as it is, float32 by split TF32 (``csrc/tf32x3_attention.cuh``: three TF32
-products a product, within twice the scalar float32 core's distance from
-float64, ``_flash_mha_scalar``); head dims 16 and 80 run scalar FMAs.  In
-float32 the two differ by the order and rounding of sums; in bfloat16 also
-by where the probabilities are rounded (before or after the division), both
-within the bfloat16 step.
+does.  At every head dim of ``HEAD_DIMS`` the kernel runs on the tensor
+cores (``wgmma``): bfloat16 as it is (``csrc/tc_attention.cuh``), float32 by
+split TF32 (``csrc/tf32x3_attention.cuh``: three TF32 products a product,
+within twice the scalar float32 core's distance from float64,
+``_flash_mha_scalar``).  In float32 the two differ by the order and rounding
+of sums; in bfloat16 also by where the probabilities are rounded (before or
+after the division), both within the bfloat16 step.
 """
 
 from __future__ import annotations
@@ -54,11 +54,14 @@ from . import _build, _grad
 __all__ = ["flash_mha", "flash_mha_plain", "attention_core_backward",
            "attention_core_backward_plain", "core_backward_takes", "kernel_info", "HEAD_DIMS"]
 
-HEAD_DIMS = (16, 64, 80)  # instantiations in csrc/attention.cuh
-TC_HEAD_DIM = 64  # at this head dim the cores run on the tensor cores (csrc/tc_attention.cuh, tf32x3_attention.cuh)
+HEAD_DIMS = (16, 64, 80)  # instantiations of the cores in csrc/attention.cuh, all on the tensor cores
+BWD_HEAD_DIM = 64  # Kernel B's head dim (csrc/tc_attention_bwd.cuh)
 DTYPES = (torch.float32, torch.bfloat16)
-# the kernels kernel_info reports on: Kernel B's two launches, the split-TF32 float32 core
-KERNEL_INFO = {"attention_bwd_q_kernel": 0, "attention_bwd_kv_kernel": 1, "attention_x3_kernel": 2}
+# the kernels kernel_info reports on, as (which, head dim) of cvt_attention_kernel_info: Kernel B's two launches, the
+# split-TF32 float32 core and the bf16 core at each head dim
+KERNEL_INFO = {"attention_bwd_q_kernel": (0, BWD_HEAD_DIM), "attention_bwd_kv_kernel": (1, BWD_HEAD_DIM),
+               **{f"attention_x3_kernel<{hd}>": (2, hd) for hd in HEAD_DIMS},
+               **{f"attention_tc_kernel<{hd}>": (3, hd) for hd in HEAD_DIMS}}
 
 _c_lib: Optional[ctypes.CDLL] = None
 
@@ -74,9 +77,9 @@ def _lib() -> ctypes.CDLL:
         lib.cvt_attention_core_backward.restype = ctypes.c_int
         lib.cvt_attention_core_backward_stats_floats.argtypes = [i, i, i]
         lib.cvt_attention_core_backward_stats_floats.restype = ctypes.c_longlong
-        lib.cvt_attention_core_scalar.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, p]
+        lib.cvt_attention_core_scalar.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p]
         lib.cvt_attention_core_scalar.restype = ctypes.c_int
-        lib.cvt_attention_kernel_info.argtypes = [i, p, p, p]
+        lib.cvt_attention_kernel_info.argtypes = [i, i, p, p, p]
         lib.cvt_attention_kernel_info.restype = ctypes.c_int
         _c_lib = lib
     return _c_lib
@@ -111,9 +114,9 @@ def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
         raise ValueError(f"the kernel has head dims {HEAD_DIMS}, got {hd}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    if hd == TC_HEAD_DIM and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k and v of head dim 64 must start on 16-byte boundaries (the tensor-core cores copy "
-                         "16 bytes at a time)")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on 16-byte boundaries (the tensor-core cores copy 16 bytes at a "
+                         "time)")
     out = torch.empty((n, h, s, hd), dtype=q.dtype, device=q.device)
     _build.launch(_lib(), "cvt_flash_mha", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   n, s, h, hd, float(scale), int(q.dtype == torch.bfloat16))
@@ -122,18 +125,18 @@ def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
 
 
 def _flash_mha_scalar(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """The scalar float32 core at head dim 64 (``csrc/attention.cuh:attention_core_kernel``) that the split-TF32
-    core replaced, as ``flash_mha`` lays it out: the yardstick of that core's distance from float64, run by no
-    path and counted nowhere.  On CPU tensors the twin."""
+    """The scalar float32 core (``csrc/attention.cuh:attention_core_kernel``, f32 FMAs) that the split-TF32 cores
+    replaced, at a head dim of ``HEAD_DIMS``, as ``flash_mha`` lays it out: the yardstick of those cores' distance
+    from float64, run by no path and counted nowhere.  On CPU tensors the twin."""
     _check(q, k, v)
     if not _build.on_card(q):
         return flash_mha_plain(q, k, v, scale)
     n, s, h, hd = q.shape
-    if q.dtype != torch.float32 or hd != TC_HEAD_DIM or not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError(f"takes contiguous float32 q, k, v of head dim {TC_HEAD_DIM}, got {q.dtype}, head dim {hd}")
+    if q.dtype != torch.float32 or hd not in HEAD_DIMS or not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError(f"takes contiguous float32 q, k, v of head dims {HEAD_DIMS}, got {q.dtype}, head dim {hd}")
     out = torch.empty((n, h, s, hd), dtype=q.dtype, device=q.device)
     _build.launch(_lib(), "cvt_attention_core_scalar", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  n, s, h, float(scale))
+                  n, s, h, hd, float(scale))
     return out
 
 
@@ -143,7 +146,7 @@ def kernel_info(name: str, device=None) -> dict:
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     vals = [ctypes.c_int(0) for _ in range(3)]
     with torch.cuda.device(device):
-        err = _lib().cvt_attention_kernel_info(KERNEL_INFO[name], *(ctypes.addressof(x) for x in vals))
+        err = _lib().cvt_attention_kernel_info(*KERNEL_INFO[name], *(ctypes.addressof(x) for x in vals))
     if err != 0:
         raise RuntimeError(f"cvt_attention_kernel_info({name}) failed with CUDA error {err}")
     return dict(zip(("regs", "smem_bytes", "blocks_per_sm"), (x.value for x in vals)))
@@ -151,7 +154,7 @@ def kernel_info(name: str, device=None) -> dict:
 
 def core_backward_takes(dtype: torch.dtype, s: int, hd: int) -> bool:
     """Whether ``attention_core_backward`` (Kernel B) takes a core of ``dtype``, ``s`` tokens and head dim ``hd``."""
-    return dtype == torch.bfloat16 and hd == TC_HEAD_DIM and s >= 1
+    return dtype == torch.bfloat16 and hd == BWD_HEAD_DIM and s >= 1
 
 
 def _flash_backward(args, grad, needs):
@@ -225,7 +228,7 @@ def attention_core_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d
         return tuple(out)
     n, s, h, hd = q.shape
     if not core_backward_takes(q.dtype, s, hd):
-        raise ValueError(f"the kernel takes bfloat16 at head dim {TC_HEAD_DIM}, got {q.dtype}, head dim {hd}")
+        raise ValueError(f"the kernel takes bfloat16 at head dim {BWD_HEAD_DIM}, got {q.dtype}, head dim {hd}")
     if do.stride(3) != 1:
         do = do.contiguous()
     if out is None:

@@ -55,7 +55,8 @@ from .int8_matmul import int_mm, quantize_i8
 from .transformer_block import _gelu_f32, _ln_f32
 
 __all__ = ["quantize_weight", "mlp_block_int8", "mlp_block_int8_plain", "attention_block_int8",
-           "attention_block_int8_plain", "mlp_kernel_takes", "attention_kernel_takes", "MLP_DIMS"]
+           "attention_block_int8_plain", "attention_block_int8_joined", "attention_block_int8_joined_plain",
+           "mlp_kernel_takes", "attention_kernel_takes", "MLP_DIMS"]
 
 MLP_DIMS = (256, 512, 768, 1024, 1280)  # the widths held on the card (csrc takes D and Dh multiples of 128)
 MLP_HIDDEN_STEP = 256
@@ -188,9 +189,8 @@ def _check_attn(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, heads: int)
         raise ValueError("LayerNorm parameters, scales and biases do not match the weights")
 
 
-def attention_block_int8_plain(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, a1, ao, heads: int,
-                               scale: float, eps: float = 1e-6) -> torch.Tensor:
-    """Twin of ``cvt_attention_block_int8``: the same math in plain PyTorch operators."""
+def _attention_int8_plain(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, a1, ao, heads, scale, eps):
+    """The twin's block output and its int8 joined heads (N, S, D), the output product's input."""
     _check_attn(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, heads)
     n, s, d = x.shape
     x32 = x.float().reshape(n * s, d)
@@ -200,19 +200,28 @@ def attention_block_int8_plain(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b
     with full_float32():
         probs = torch.softmax(torch.einsum("nqhd,nkhd->nhqk", q, k) * scale, dim=-1).to(x.dtype)
         o = torch.einsum("nhqk,nkhd->nqhd", probs.float(), v).reshape(n * s, d)
-    proj = int_mm(quantize_i8(o, _inverse(ao, d, x.device)), qw_o)
-    return ((x32 + proj.float() * s_o.float()) + b_o.float()).to(x.dtype).reshape(n, s, d)
+    joined = quantize_i8(o, _inverse(ao, d, x.device))
+    proj = int_mm(joined, qw_o)
+    return ((x32 + proj.float() * s_o.float()) + b_o.float()).to(x.dtype).reshape(n, s, d), joined.reshape(n, s, d)
 
 
-def attention_block_int8(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, a1, ao, heads: int, scale: float,
-                         eps: float = 1e-6) -> torch.Tensor:
-    """``x + Out(MHA(LN(x)))`` with int8 QKV and output products for 3-D ``x``
-    (N, S, D); on the card four hand-written launches (LN rows to int8, the QKV
-    product, the attention core, the output product)."""
+def attention_block_int8_plain(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, a1, ao, heads: int,
+                               scale: float, eps: float = 1e-6) -> torch.Tensor:
+    """Twin of ``cvt_attention_block_int8``: the same math in plain PyTorch operators."""
+    return _attention_int8_plain(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, a1, ao, heads, scale, eps)[0]
+
+
+def attention_block_int8_joined_plain(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, a1, ao, heads: int,
+                                      scale: float, eps: float = 1e-6) -> torch.Tensor:
+    """The twin's int8 joined heads (N, S, D): ``quantize_i8(o)`` of its attention output ``o``."""
+    return _attention_int8_plain(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, a1, ao, heads, scale, eps)[1]
+
+
+def _attention_int8(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, a1, ao, heads, scale, eps):
+    """The block output and its int8 joined heads: the kernels' on CUDA tensors, the twin's on CPU tensors."""
     _check_attn(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, heads)
     if not _build.on_card(x):
-        return attention_block_int8_plain(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, a1, ao, heads, scale,
-                                          eps)
+        return _attention_int8_plain(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, a1, ao, heads, scale, eps)
     n, s, d = x.shape
     if not attention_kernel_takes(d, heads):
         raise ValueError(f"the kernels take D a multiple of 16 and head dims {HEAD_DIMS}, got D = {d}, {heads} heads")
@@ -231,7 +240,24 @@ def attention_block_int8(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, a1
                   int(x.dtype == torch.bfloat16))
     _build.count_launch(attention_block_int8, x)
     attention_block_int8.kernel_launches += 4
-    return out
+    return out, joined
+
+
+def attention_block_int8(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, a1, ao, heads: int, scale: float,
+                         eps: float = 1e-6) -> torch.Tensor:
+    """``x + Out(MHA(LN(x)))`` with int8 QKV and output products for 3-D ``x``
+    (N, S, D); on the card four hand-written launches (LN rows to int8, the QKV
+    product, the attention core, the output product)."""
+    return _attention_int8(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, a1, ao, heads, scale, eps)[0]
+
+
+def attention_block_int8_joined(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, a1, ao, heads: int,
+                                scale: float, eps: float = 1e-6) -> torch.Tensor:
+    """The int8 joined heads (N, S, D) that ``attention_block_int8``'s output product reads, from the same four
+    launches (counted as that wrapper's) on CUDA tensors, the twin's on CPU tensors.  The block's output is ``x``
+    plus a small projection of them, so they are where a fault of the core into int8 shows: held against
+    ``attention_block_int8_joined_plain``, every value within one int8 step."""
+    return _attention_int8(x, ln_g, ln_b, qw_qkv, s_qkv, b_qkv, qw_o, s_o, b_o, a1, ao, heads, scale, eps)[1]
 
 
 _build.reset_count(attention_block_int8)

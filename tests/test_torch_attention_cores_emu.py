@@ -1,26 +1,27 @@
 """The attention cores' CUDA sources on the tensor cores (bf16
 ``csrc/tc_attention.cuh`` behind ``flash_mha``, ``attention_block`` and
 ``attention_block_int8``; the float32 split-TF32 core
-``csrc/tf32x3_attention.cuh`` behind ``flash_mha`` and ``attention_block``;
-the window core of ``csrc/swin_attention.cu``) run on the CPU through
+``csrc/tf32x3_attention.cuh`` behind the same three; both at head dims 16, 64
+and 80; the window core of ``csrc/swin_attention.cu``) run on the CPU through
 ``tools/cuda_emu``, against the wrappers' plain twins.
 
 The emulator compiles the sources with ``g++`` against stand-in headers and
 runs one thread per CUDA thread; its ``hopper.cuh`` decodes the ``wgmma``
-descriptors (the 128- and 64-byte swizzles, K-major and MN-major operands, A
-from registers) and defers copies and products to their waits, so the cores'
-tiling, masking of keys past S and ragged query tiles are exercised here
-before a card sees them.  The shapes are small and ragged: S 70 is a full key
-tile and one of 6 keys (197: seven key tiles of 32, the last of 5, and four
-query tiles), S 49 and 64 the two window sizes.  Tolerance:
-``2e-2·(1 + |twin|)``, the bf16 kernels' rule on the card (the core rounds
-the probabilities before the division by their sum, the twin after it);
-float32 ``2e-4·(1 + |twin|)``, the card's float32 rule, and no further from
-float64 than twice the scalar float32 core (``_flash_mha_scalar``, emulated
-too).  The emulator sums a product's terms in order in float32, not as the
-tensor cores do, so the float64 check here tests the split, not the card's
-sums: ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold those.
-Without ``g++`` the tests skip.
+descriptors (the 128-, 64- and 32-byte swizzles, K-major and MN-major
+operands, A from registers) and defers copies and products to their waits, so
+the cores' tiling, masking of keys past S and ragged query tiles are exercised
+here before a card sees them.  The shapes are small and ragged: S 70 is a full
+key tile and one of 6 keys (197: seven key tiles of 32, the last of 5, and
+four query tiles), S 49 and 64 the two window sizes; head dims 16 and 80 take
+the 32-byte-swizzled part of a bf16 tile and the half-filled panel of a
+float32 one.  Tolerance: ``2e-2·(1 + |twin|)``, the bf16 kernels' rule on the
+card (the core rounds the probabilities before the division by their sum, the
+twin after it); float32 ``2e-4·(1 + |twin|)``, the card's float32 rule, and no
+further from float64 than twice the scalar float32 core
+(``_flash_mha_scalar``, emulated too).  The emulator's tf32 ``wgmma`` cuts a
+chain's sum toward zero to f32 at each k8 step, as the card's tensor cores
+do, so the float64 check here sees the chains' length and order as well as
+the split.  Without ``g++`` the tests skip.
 """
 
 import importlib.util
@@ -32,10 +33,14 @@ import pytest
 import torch
 
 from cpu_vision_tpu_torch.ops import kernels
-from cpu_vision_tpu_torch.ops.kernels import flash_attention
+from cpu_vision_tpu_torch.ops.kernels import flash_attention, int8_transformer
 
 TOL = 2e-2
 F32_TOL = 2e-4  # the float32 transformer kernels' rule on the card
+# the share of the int8 joined heads that may round one step from the twin's, one value more whatever the size: the
+# card's rule (tests/test_torch_cuda.py); bf16's core rounds the probabilities before the division by their sum (1-2%
+# of the values a step apart here), float32's sums differ in order only
+JOINED_FLIPS = {torch.bfloat16: 0.125, torch.float32: 1e-3}
 _EMULATE = Path(__file__).resolve().parents[1] / "tools" / "cuda_emu" / "emulate.py"
 
 
@@ -106,6 +111,56 @@ def test_flash_mha_float32(emulated, s):
         return float((a.double() - ref64).abs().max() / ref64.abs().max())
 
     assert f64_err(out) <= 2 * f64_err(scalar), (f64_err(out), f64_err(scalar))
+
+
+@pytest.mark.parametrize("hd", [16, 80])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_mha_head_dims(emulated, hd, dtype):
+    """The cores at head dims 16 and 80 (ViT-H/14's) at S 70: within the rule of the twin, the same bits twice, and in
+    float32 no further from float64 than twice the scalar float32 core."""
+    emulate, build_dir = emulated
+    rng = np.random.default_rng(hd)
+    q, k, v = (_normal(rng, (1, 70, 2, hd), dtype) for _ in range(3))
+    scale = hd ** -0.5
+    with emulate.kernels_on_cpu(build_dir):
+        before = kernels.flash_mha.launches
+        out = kernels.flash_mha(q, k, v, scale)
+        assert kernels.flash_mha.launches == before + 1  # the emulated kernel ran, not the twin
+        assert torch.equal(kernels.flash_mha(q, k, v, scale), out)
+        scalar = flash_attention._flash_mha_scalar(q.float(), k.float(), v.float(), scale)
+    _assert_close(out, kernels.flash_mha_plain(q, k, v, scale), F32_TOL if dtype == torch.float32 else TOL)
+    if dtype == torch.float32:
+        p = torch.softmax(torch.einsum("nqhd,nkhd->nhqk", q.double(), k.double()) * scale, dim=-1)
+        ref64 = torch.einsum("nhqk,nkhd->nhqd", p, v.double())
+
+        def f64_err(a):
+            return float((a.double() - ref64).abs().max() / ref64.abs().max())
+
+        assert f64_err(out) <= 2 * f64_err(scalar), (f64_err(out), f64_err(scalar))
+
+
+@pytest.mark.parametrize("hd", [16, 80])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_attention_block_int8_head_dims(emulated, hd, dtype):
+    """The int8 block's core into int8 at head dims 16 and 80, in both dtypes (float32: the split-TF32 core with the
+    int8 epilogue), 2 heads, S 70; and the joined heads themselves, the core's int8 output, against the twin's
+    ``quantize_i8(o)``: every value within one int8 step, at most ``JOINED_FLIPS`` of them (and one more) a step
+    apart."""
+    rng = np.random.default_rng(10 + hd)
+    n, s, d, heads = 1, 70, 2 * hd, 2
+    a1, ao = (torch.from_numpy(rng.uniform(0.01, 0.03, d).astype(np.float32)) for _ in range(2))
+    qw_qkv, s_qkv = kernels.quantize_weight(_normal(rng, (d, 3 * d), std=d ** -0.5) * a1[:, None])
+    qw_o, s_o = kernels.quantize_weight(_normal(rng, (d, d), std=d ** -0.5) * ao[:, None])
+    args = (_normal(rng, (n, s, d), dtype), _normal(rng, (d,), std=0.2, mean=1.0), _normal(rng, (d,), std=0.1),
+            qw_qkv, s_qkv, _normal(rng, (3 * d,), std=0.1), qw_o, s_o, _normal(rng, (d,), std=0.1), a1, ao, heads,
+            hd ** -0.5)
+    _run(emulated, kernels.attention_block_int8, kernels.attention_block_int8_plain, args)
+    emulate, build_dir = emulated
+    with emulate.kernels_on_cpu(build_dir):
+        joined = int8_transformer.attention_block_int8_joined(*args)
+    steps = (joined.int() - int8_transformer.attention_block_int8_joined_plain(*args).int()).abs()
+    assert int(steps.max()) <= 1 and int((steps > 0).sum()) <= 1 + JOINED_FLIPS[dtype] * steps.numel(), (
+        int(steps.max()), int((steps > 0).sum()))
 
 
 def test_attention_block(emulated):

@@ -22,7 +22,7 @@ def _qkv(rng, shape):
 
 
 @pytest.mark.parametrize("s", [17, 50, 197])
-@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("hd", [16, 64, 80])  # 80: ViT-H/14's
 def test_twin_matches_pallas_interpret(rng, s, hd):
     n, h = 2, 3
     qkv = _qkv(rng, (n, s, h, hd))
@@ -35,7 +35,8 @@ def test_twin_matches_pallas_interpret(rng, s, hd):
     assert kernels.launch_counts()["flash_mha"] == 0  # CPU tensors launch nothing
 
 
-@pytest.mark.parametrize("s,hd", [(17, 16), (50, 64), (197, 64)])  # (197, 64): ViT-B/16's, the tensor-core core's
+# (197, 64): ViT-B/16's; (257, 80): ViT-H/14's
+@pytest.mark.parametrize("s,hd", [(17, 16), (50, 64), (197, 64), (17, 80), (257, 80)])
 def test_twin_matches_pallas_interpret_bfloat16(rng, s, hd):
     qkv = _qkv(rng, (1, s, 2, hd))
     ref = jfa.flash_mha(*(jnp.asarray(a).astype(jnp.bfloat16) for a in qkv), 0.3, True)

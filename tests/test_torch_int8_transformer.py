@@ -79,7 +79,16 @@ def test_mlp_block_int8_matches_jax(rng, m_tok, d, dh, per_channel):
 
 @pytest.mark.parametrize("per_channel", [True, False])
 def test_attention_block_int8_matches_jax(rng, per_channel):
-    n, s, d, heads = 2, 33, 256, 4
+    _attention_block_int8_matches_jax(rng, per_channel, 2, 33, 256, 4)
+
+
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_attention_block_int8_at_head_dim_80_matches_jax(rng, per_channel):
+    """ViT-H/14's head dim (80), at D 160 with 2 heads."""
+    _attention_block_int8_matches_jax(rng, per_channel, 1, 17, 160, 2)
+
+
+def _attention_block_int8_matches_jax(rng, per_channel, n, s, d, heads):
     hd = d // heads
     x = jnp.asarray(rng.standard_normal((n, s, d)), jnp.bfloat16)
     g, b = _ln_params(rng, d)

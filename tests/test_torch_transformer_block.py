@@ -128,7 +128,7 @@ def test_cn_mlp_block_matches_pallas_interpret(rng, m, d, dh, block_m, wdtype, x
 
 
 @pytest.mark.parametrize("wdtype,xdtype", [("float32", "float32"), ("bfloat16", "float32"), ("bfloat16", "bfloat16")])
-@pytest.mark.parametrize("n,s,d,heads", [(2, 17, 128, 4), (1, 50, 128, 2), (3, 5, 64, 4)])
+@pytest.mark.parametrize("n,s,d,heads", [(2, 17, 128, 4), (1, 50, 128, 2), (3, 5, 64, 4), (1, 17, 160, 2)])  # hd 80
 def test_attention_block_matches_pallas_interpret(rng, n, s, d, heads, wdtype, xdtype):
     jargs, targs = _both(_attn_inputs(rng, n, s, d), ("w_qkv", "w_o"), wdtype, xdtype)
     scale = (d // heads) ** -0.5

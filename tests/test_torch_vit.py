@@ -125,6 +125,34 @@ def test_bfloat16_matches_jax(rng, images, monkeypatch, attention, mlp):
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)), atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.parametrize("dtype,attention", [(torch.float32, "flash"), (torch.float32, "block"),
+                                             (torch.bfloat16, "flash")])
+def test_head_dim_80_matches_jax(rng, monkeypatch, dtype, attention):
+    """ViT-H/14's head dim (80) in a narrow model: D 160, 2 heads, 2 layers, MLP 320, 56x56 images at patch 14, the
+    same numpy weights in both packages (``vit_state_dict_from_numpy``, ``vit_from_torch``); the JAX side's attention
+    kernels in interpret mode, the MLP plain on both (D 160 is no width of the MLP kernels)."""
+    cfg = dict(patch_size=14, num_layers=2, num_heads=2, hidden_dim=160, mlp_dim=320)
+    monkeypatch.setattr(jvit, "FUSED_ATTENTION", attention == "block")
+    monkeypatch.setattr(jvit, "FUSED_MLP", False)
+    images = rng.random((2, 56, 56, 3), dtype=np.float32)
+    jdtype = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
+    jmodel = jvit.VisionTransformer(**cfg, num_classes=CLASSES, dtype=jdtype)
+    variables = jmodel.init(jax.random.PRNGKey(1), jnp.asarray(images))
+    variables = jax.tree_util.tree_map(lambda a: a + 0.05 * jnp.cos(jnp.arange(a.size).reshape(a.shape)), variables)
+    ref = np.asarray(jmodel.apply(variables, jnp.asarray(images)).astype(jnp.float32))
+    model = models.VisionTransformer(**cfg, num_classes=CLASSES, image_size=56, dtype=dtype, attention=attention,
+                                     mlp="plain")
+    model.load_state_dict(models.vit_state_dict_from_numpy(_numpy_tree(variables), 2, 2))
+    out = model(torch.from_numpy(images))
+    assert out.dtype == dtype and model.routes() == (attention, "plain")
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=tol, rtol=0 if dtype == torch.float32 else tol)
+    sd = {k: v.float().numpy() for k, v in model.state_dict().items()}
+    torch_tree = torch_weights.vit_from_torch(sd, 2, 2)["params"]
+    assert all(np.array_equal(np.asarray(a, np.float32), np.asarray(b, np.float32)) for a, b in zip(
+        jax.tree_util.tree_leaves(torch_tree), jax.tree_util.tree_leaves(_numpy_tree(variables["params"]))))
+
+
 @pytest.mark.parametrize("name,dtype,expected", [
     ("vit_b_16", torch.float32, ("flash", "block")), ("vit_b_16", torch.bfloat16, ("block", "block")),
     ("vit_b_32", torch.float32, ("block", "block")), ("vit_l_16", torch.bfloat16, ("block", "block")),

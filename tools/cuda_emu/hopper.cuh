@@ -9,12 +9,16 @@
 // wait or barrier reads or overwrites a stage too early and shows as a NaN of
 // the poisoned shared memory or a wrong sum.  The products read their shared
 // operands through the descriptors' fields and the 128- or 64-byte swizzle
-// as hopper.cuh describes them, K-major or MN-major by the instruction's
+// as hopper.cuh describes them (the 32-byte one too), K-major or MN-major by the instruction's
 // transpose flags, and A from registers out of the four registers of each
 // thread of the warp that holds the output's row (read at the wait too, so a
-// register changed before its product retired shows as a wrong sum); each
-// output sums its 16 (tf32: 8) products in order, and scale_d 0 drops the sum
-// it held.  A tf32 operand is read as the f32 word it is stored in with its 13
+// register changed before its product retired shows as a wrong sum); a bf16
+// output sums its 16 products in order in f32, and scale_d 0 drops the sum it
+// held.  A tf32 k8 step adds its 8 products (exact in double) to the sum it
+// continues (0 after scale_d 0) and truncates the result toward zero to f32,
+// once a step, as the card's tensor cores round a chain (each step's sum cut
+// at the chain's magnitude): a long chain of large terms drifts toward zero
+// here as there.  A tf32 operand is read as the f32 word it is stored in with its 13
 // low mantissa bits dropped, as the hardware truncates them, so a hi half
 // that was not rounded before it was stored shows as a wrong sum;
 // tf32_rna rounds to nearest, ties away from zero, as cvt.rna.  The s8
@@ -25,6 +29,7 @@
 
 #pragma once
 
+#include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -120,6 +125,7 @@ inline uint64_t emu_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint64_t lay
 }
 inline uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) { return emu_desc(addr, lbo, sbo, 1); }
 inline uint64_t sw64_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) { return emu_desc(addr, lbo, sbo, 2); }
+inline uint64_t sw32_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) { return emu_desc(addr, lbo, sbo, 3); }
 
 inline uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -142,12 +148,14 @@ inline float tf32_rna(float x) {
 }
 
 // Element (mn, k) of a shared operand: K-major (rows of mn, k along the row)
-// or MN-major (rows of k, mn along the row), in the descriptor's swizzle; bf16,
+// or MN-major (rows of k, mn along the row), in the descriptor's swizzle (a
+// row of 128, 64 or 32 bytes; bits 7-9, 7-8 or 7 of the address XORed into
+// bits 4-6, 4-5 or 4); bf16,
 // or tf32 (4 bytes, the 13 low mantissa bits dropped).
 inline float emu_operand(uint64_t desc, int mn, int k, bool k_major, bool tf32 = false) {
   const uint64_t layout = desc >> 62;
-  if (layout != 1 && layout != 2) abort();  // the 128- and the 64-byte swizzle only
-  const uint32_t row_bytes = layout == 1 ? 128 : 64;
+  if (layout == 0) abort();  // the 128-, 64- and 32-byte swizzles only
+  const uint32_t row_bytes = 256u >> layout;  // 1: 128, 2: 64, 3: 32
   const uint32_t start = (uint32_t)(desc & 0x3FFF) << 4, lbo = (uint32_t)((desc >> 16) & 0x3FFF) << 4,
                  sbo = (uint32_t)((desc >> 32) & 0x3FFF) << 4;
   const uint32_t size = tf32 ? 4 : 2;
@@ -159,7 +167,7 @@ inline float emu_operand(uint64_t desc, int mn, int k, bool k_major, bool tf32 =
     const int width = (int)row_bytes / 2;
     addr = start + (mn / width) * lbo + (k / 8) * sbo + (k % 8) * row_bytes + (mn % width) * 2;
   }
-  addr ^= ((addr >> 7) & (layout == 1 ? 7 : 3)) << 4;
+  addr ^= ((addr >> 7) & (row_bytes / 16 - 1)) << 4;
   if (addr + size > EMU_MAX_SHARED) abort();
   if (tf32) {
     uint32_t u;
@@ -169,6 +177,13 @@ inline float emu_operand(uint64_t desc, int mn, int k, bool k_major, bool tf32 =
   __nv_bfloat16 v;
   memcpy(&v, (const char*)emu_shared + addr, 2);
   return __bfloat162float(v);
+}
+
+// x rounded toward zero to f32 (NaN and infinities as they are)
+inline float emu_f32_toward_zero(double x) {
+  float f = (float)x;
+  if (std::isfinite(f) && std::fabs((double)f) > std::fabs(x)) f = std::nextafter(f, 0.0f);
+  return f;
 }
 
 // Queues d[4 j + 2 h + e] (+)= sum over k < K of A(16 w + l / 4 + 8 h, k) B(k, 8 j + 2 (l % 4) + e), j < N / 8, for
@@ -181,9 +196,16 @@ template <int N, int K = 16, typename FA, typename FB> inline void emu_wgmma(flo
       for (int h = 0; h < 2; ++h)
         for (int e = 0; e < 2; ++e) {
           const int row = 16 * w + l / 4 + 8 * h, col = 8 * j + 2 * (l % 4) + e;
-          float sum = 0.0f;
-          for (int k = 0; k < K; ++k) sum += a(row, k) * b(k, col);
-          d[4 * j + 2 * h + e] = (scale_d ? d[4 * j + 2 * h + e] : 0.0f) + sum;
+          float& out = d[4 * j + 2 * h + e];
+          if constexpr (K == 8) {  // tf32: the step's sum cut toward zero to f32
+            double sum = scale_d ? (double)out : 0.0;
+            for (int k = 0; k < K; ++k) sum += (double)a(row, k) * (double)b(k, col);
+            out = emu_f32_toward_zero(sum);
+          } else {
+            float sum = 0.0f;
+            for (int k = 0; k < K; ++k) sum += a(row, k) * b(k, col);
+            out = (scale_d ? out : 0.0f) + sum;
+          }
         }
   });
 }
@@ -261,6 +283,13 @@ inline void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t* a, uint64_t b
   emu_wgmma_rs_tf32<32>(d, a, b, scale_d);
 }
 inline void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t* a, uint64_t b) { emu_wgmma_rs<32>(d, a, b); }
+inline void wgmma_m64n16k16_rs(float (&d)[8], const uint32_t* a, uint64_t b) { emu_wgmma_rs<16>(d, a, b); }
+inline void wgmma_m64n80k8_tf32_rs(float (&d)[40], const uint32_t* a, uint64_t b, int scale_d) {
+  emu_wgmma_rs_tf32<80>(d, a, b, scale_d);
+}
+inline void wgmma_m64n16k8_tf32_rs(float (&d)[8], const uint32_t* a, uint64_t b, int scale_d) {
+  emu_wgmma_rs_tf32<16>(d, a, b, scale_d);
+}
 
 // Element (mn, k) of a K-major int8 operand in the descriptor's swizzle (a 128-byte row holds 128 k).
 inline int emu_operand_s8(uint64_t desc, int mn, int k) {
